@@ -9,31 +9,51 @@ Phases, each fatal on failure (nothing is caught and carried on):
              started together) and prints ptxas' registers, shared
              memory and spills per kernel, then the card's name and
              power limit.
-2. kernels — K1 stacked_reduce over every (dtype, op) pair the kernel
-             takes, replicate and scatter mode, N in {2, 3, 8}, ragged
-             and misaligned lengths, NaN inputs for MAX/MIN; K2
-             stacked_copy for alltoall and allgather.  Each launch is
-             held against the plain PyTorch version on the same card
-             inputs.  Tolerance: exact (max abs error 0, NaN where
-             the plain version has NaN) — both compute the same left
-             fold in the same accumulation type.
+2. kernels — each kernel against its plain PyTorch version on the same
+             card inputs.  K1 stacked_reduce over every (dtype, op)
+             pair the kernel takes, replicate and scatter mode, N in
+             {2, 3, 8}, ragged and misaligned lengths, NaN inputs for
+             MAX/MIN; K2 stacked_copy for alltoall and allgather; K3
+             fused_batch over every pair K1 takes, N in {2, 3, 8},
+             ragged slots, bcast entries, NaN, a group split over
+             several launches and a mixed batch of several groups; K4
+             index_gather and K5 index_scatter over the five element
+             widths with vector, indexed and contiguous index vectors.
+             Tolerance: exact (max abs error 0, NaN where the plain
+             version has NaN) — each pair computes the same left fold
+             in the same accumulation type, or moves the same bytes.
 3. main    — the port's main path through its user entry points:
              run_ranks(8, fn, device_map=cuda:0) -> comm.allreduce_arr
-             (SUM float32, 8 MiB and 128 MiB a rank), reduce_scatter_arr
-             (MAX float64, 8 MiB), alltoall_arr (float32, 8 MiB),
-             allgather_arr / bcast_arr / ppermute_arr (1 MiB).  Every
-             result is checked against a plain computation on the card,
-             the provider of every *_arr driven must be coll/hbm, and
-             the kernels' launch counts (zeroed just before) are read
-             between barriers around each collective: each must launch
-             exactly the kernels it is built on, once.
+             (SUM float32: 1 MiB a rank in one dispatch, below
+             coll_pipeline_min_bytes; 8 MiB and 128 MiB through the plan
+             tier, 2**21+3 elements padded to 9 segments, and 8 MiB
+             with coll_plan_enable=0 through the pipelined segments),
+             reduce_scatter_arr (MAX float64, 8 MiB), alltoall_arr
+             (float32: 1 MiB in one dispatch, 8 MiB in 8 segments),
+             allgather_arr /
+             bcast_arr / ppermute_arr (1 MiB), a fused flush of 32
+             iallreduce_arr of 64 KiB, the interleaved batch of
+             tests/test_coll_fusion.py, and BASELINE config 5:
+             device_pack through a stride-2 vector, reduce_scatter MAX
+             float64, device_unpack into a stride-2 receive layout.
+             Every result is checked against a plain computation on
+             the card, the provider of every call driven must be
+             coll/hbm (coll/nbc for the nonblocking ones), and the
+             kernels' launch counts (zeroed just before) are read
+             between barriers around each case: each must launch
+             exactly the kernels it is built on, as often as its tier
+             says.
 4. timing  — each kernel at the main path's shapes: its device time
              (CUDA events around a replayed CUDA graph of many calls)
              and its time a call (events around eager calls, host
              launch cost included) beside its bound (bytes / 3.35
              TB/s), its plain version and one PyTorch library call of
-             the same function; then the end-to-end time and busbw of
-             comm.allreduce_arr at 8 ranks x 8 MiB float32.
+             the same function.
+5. e2e     — host clock, slowest rank: comm.allreduce_arr at 8 ranks x
+             8 MiB float32 (the headline); a fused batch of 32
+             iallreduce_arr of 64 KiB with one wait against the same
+             32 blocking allreduce_arr calls; config 5's pack,
+             reduce_scatter and unpack.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -47,6 +67,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -55,7 +76,12 @@ MIB = 1 << 20
 NRANKS = 8
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-SOURCE = "ompi_tpu_torch/kernels/csrc/stacked.cu"
+COLD_BYTES = 256 * MIB     # over five times the H100's 50 MB L2
+CSRC = "ompi_tpu_torch/kernels/csrc/"
+FUSED_MIB = 1 / 16      # 64 KiB: coll_device_fusion_threshold
+FUSED_OPS = 32          # coll_device_fusion_max_ops
+RAGGED = (1 << 21) + 3  # elements: 9 plan segments of 1 MiB float32
+CONFIG5_N = 1 << 20     # config 5: packed float64 elements a rank
 
 
 def log(*a) -> None:
@@ -255,8 +281,114 @@ def phase_kernels(dev) -> None:
                     ncases += 1
         log(f"[K2] {kind:<9} max_abs {worst[0]} max_rel {worst[1]}")
     torch.cuda.synchronize()
+    ncases += _kernels_fused(dev, g) + _kernels_index(dev, g)
     log(f"[kernels] {ncases} cases held against the plain versions, "
         "tolerance exact")
+
+
+def _held_slots(outs, refs, what: str):
+    worst = (0.0, 0.0)
+    for o, r in zip(outs, refs):
+        w = _held(o, r, what)
+        worst = (max(worst[0], w[0]), max(worst[1], w[1]))
+    return worst
+
+
+def _kernels_fused(dev, g) -> int:
+    """K3 against its plain version: every pair K1 takes, N = 2, 3, 8,
+    ragged slots (1 to 5000 elements, one misaligned), bcast entries in
+    the SUM groups, NaN for float MAX/MIN (make_shard); a group of 80
+    slots at N = 8, which the wrapper splits over several launches;
+    and one mixed batch of several groups through coll/fusion's
+    grouping (_hbm_slot_outs)."""
+    from ompi_tpu_torch.coll import fusion
+    from ompi_tpu_torch.kernels import fused, stacked
+    ncases = 0
+    for dtype in DTYPES:
+        for opname in OPS:
+            if not stacked.reduce_supported(dtype, opname):
+                continue
+            worst = (0.0, 0.0)
+            for n in (2, 3, 8):
+                slots = []
+                for i, (length, off) in enumerate(
+                        ((1, 0), (7, 0), (1024, 0), (1025, 1), (5000, 0))):
+                    xs = [make_shard(g, length + off, dtype, opname,
+                                     dev)[off:] for _ in range(n)]
+                    slots.append((xs, None))
+                    if opname == "MPI_SUM" and i % 2:
+                        xs = [make_shard(g, length, dtype, opname, dev)
+                              for _ in range(n)]
+                        slots.append((xs, i % n))
+                w = _held_slots(fused.fused_batch(slots, opname),
+                                fused.fused_batch_plain(slots, opname),
+                                f"K3 {dtype} {opname} n={n}")
+                worst = (max(worst[0], w[0]), max(worst[1], w[1]))
+                ncases += 1
+            log(f"[K3] {str(dtype)[6:]:>8} {opname:<9} max_abs {worst[0]} "
+                f"max_rel {worst[1]}")
+    slots = [([make_shard(g, 300 + k, torch.float32, "MPI_MAX", dev)
+               for _ in range(NRANKS)], None) for k in range(80)]
+    c0 = fused.fused_batch.launches.value
+    got = fused.fused_batch(slots, "MPI_MAX")
+    parts = fused.fused_batch.launches.value - c0
+    _held_slots(got, fused.fused_batch_plain(slots, "MPI_MAX"),
+                "K3 80-slot group")
+    if parts != -(-80 // (fused.MAX_PTRS // NRANKS)):
+        raise AssertionError(f"K3 80-slot group took {parts} launches")
+    ncases += 1
+    # a mixed batch: the interleaved signature of test_coll_fusion plus
+    # a second float32 MAX and a bool LOR slot, several groups
+    sig = (("allreduce", (16,), torch.int32, "MPI_SUM"),
+           ("allreduce", (8,), torch.float32, "MPI_MAX"),
+           ("bcast", (5,), torch.int32, 1),
+           ("allreduce", (1,), torch.int32, "MPI_PROD"),
+           ("allreduce", (4099,), torch.float32, "MPI_MAX"),
+           ("allreduce", (33,), torch.bool, "MPI_LOR"))
+    args = [[make_shard(g, shape[0], dt,
+                        "MPI_SUM" if kind == "bcast" else op, dev)
+             for kind, shape, dt, op in sig] for _ in range(NRANKS)]
+    outs = fusion._hbm_slot_outs(NRANKS, sig, args)
+    for i, (kind, _shape, _dt, extra) in enumerate(sig):
+        xs = [args[r][i] for r in range(NRANKS)]
+        ref = [xs[extra].clone()] * NRANKS if kind == "bcast" \
+            else stacked.stacked_reduce_plain(xs, extra)
+        _held([outs[r][i] for r in range(NRANKS)], ref,
+              f"K3 mixed batch slot {i}")
+    ncases += 1
+    torch.cuda.synchronize()
+    return ncases
+
+
+def _kernels_index(dev, g) -> int:
+    """K4 and K5 against their plain versions: element widths 1, 2,
+    4, 8 and 16 bytes; vector (stride 2), indexed (a permutation of a
+    third of the buffer) and contiguous index vectors; aligned and
+    ragged lengths."""
+    import numpy as np
+    from ompi_tpu_torch.kernels import index
+    rng = np.random.default_rng(SEED)
+    ncases = 0
+    for dtype in (torch.int8, torch.float16, torch.float32, torch.float64,
+                  torch.complex128):
+        for nbuf in (7, 4099, 1 << 16):
+            src = make_shard(g, nbuf, dtype, "MPI_SUM", dev)
+            for idx in (np.arange(0, nbuf, 2),
+                        rng.permutation(nbuf)[:max(1, nbuf // 3)],
+                        np.arange(nbuf)):
+                iv = index.IndexVector(idx, dev)
+                got = index.index_gather(src, iv)
+                _held([got], [index.index_gather_plain(src, iv)],
+                      f"K4 {dtype} {nbuf}")
+                a = torch.zeros_like(src)
+                b = torch.zeros_like(src)
+                index.index_scatter(got, iv, a)
+                index.index_scatter_plain(got, iv, b)
+                _held([a], [b], f"K5 {dtype} {nbuf}")
+                ncases += 2
+        log(f"[K4/K5] {str(dtype)[6:]:>10} exact")
+    torch.cuda.synchronize()
+    return ncases
 
 
 # ---------------------------------------------------------------------------
@@ -264,62 +396,147 @@ def phase_kernels(dev) -> None:
 # ---------------------------------------------------------------------------
 
 def rank_input(rank: int, nbytes: int, dtype, dev, salt: int):
+    return rank_elems(rank, nbytes // torch.empty((), dtype=dtype
+                                                  ).element_size(),
+                      dtype, dev, salt)
+
+
+def rank_elems(rank: int, n: int, dtype, dev, salt: int):
     g = torch.Generator(device=dev)
     g.manual_seed(SEED * 1000 + salt * 100 + rank)
-    n = nbytes // torch.empty((), dtype=dtype).element_size()
     return torch.randn(n, generator=g, device=dev, dtype=dtype)
 
 
+def interleaved_inputs(rank: int, dev):
+    """The canonical fused batch of tests/test_coll_fusion.py:33-54:
+    int32 SUM, float32 MAX, int32 bcast (root 1), int32 scalar PROD."""
+    a = torch.arange(16, dtype=torch.int32, device=dev) * (rank + 1)
+    b = torch.ones(8, device=dev) * (rank + 1)
+    b[0] = -rank
+    c = torch.full((5,), rank * 3 + 1, dtype=torch.int32, device=dev)
+    d = torch.tensor(rank + 2, dtype=torch.int32, device=dev)
+    return a, b, c, d
+
+
+def config5_raw(rank: int, dev):
+    """Config 5's strided send buffer: 2 * CONFIG5_N float64, the even
+    elements this rank's data, the odd ones filler (-1)."""
+    raw = torch.full((CONFIG5_N, 2), -1.0, dtype=torch.float64, device=dev)
+    raw[:, 0] = rank_elems(rank, CONFIG5_N, torch.float64, dev, 9)
+    return raw.reshape(-1)
+
+
+def config5(comm, raw, dt):
+    """BASELINE config 5 through the port's entry points: pack the
+    stride-2 vector on the card, reduce_scatter MAX the packed stream,
+    unpack the result into a stride-2 receive layout (in place)."""
+    from ompi_tpu_torch.datatype import device as ddev
+    from ompi_tpu_torch.op.op import MAX
+    vec = dt.vector(CONFIG5_N, 1, 2, dt.DOUBLE).commit()
+    packed = ddev.device_pack(vec, 1, raw)
+    res = comm.reduce_scatter_arr(packed, MAX)
+    m = CONFIG5_N // comm.size
+    rvec = dt.vector(m, 1, 2, dt.DOUBLE).commit()
+    recv = torch.full((2 * m,), -5.0, dtype=torch.float64, device=raw.device)
+    return ddev.device_unpack(rvec, 1, res, recv)
+
+
 def phase_main(dev) -> dict:
-    from ompi_tpu_torch.kernels import stacked
-    from ompi_tpu_torch.kernels.stacked import (stacked_copy_plain,
-                                                stacked_reduce_plain)
-    from ompi_tpu_torch.op.op import MAX, SUM
+    from ompi_tpu_torch.datatype import engine as dt
+    from ompi_tpu_torch.kernels import fused, index, stacked
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.op.op import MAX, PROD, SUM
     from ompi_tpu_torch.testing import run_ranks
 
-    # (result key, the *_arr it drives, kernels it must launch, call)
     f32, f64 = torch.float32, torch.float64
+    nfused = int(FUSED_MIB * MIB) // 4
+
+    def fused32(c):
+        qs = [c.iallreduce_arr(rank_elems(c.rank, nfused, f32, dev,
+                                          50 + k), SUM)
+              for k in range(FUSED_OPS)]
+        qs[0].wait()  # the 32nd enqueue already flushed the batch
+        return [q.result for q in qs]
+
+    def interleaved(c):
+        a, b, cc, d = interleaved_inputs(c.rank, dev)
+        qs = [c.iallreduce_arr(a, SUM), c.iallreduce_arr(b, MAX),
+              c.ibcast_arr(cc, 1), c.iallreduce_arr(d, PROD)]
+        for q in qs:
+            q.wait()
+        return [q.result for q in qs]
+
+    # (result key, the entry point's vtable name, kernels it must
+    # launch, call, knobs set around it)
     plan = [
+        ("ar1", "allreduce_arr", {"stacked_reduce": 1},
+         lambda c: c.allreduce_arr(rank_input(c.rank, MIB, f32, dev, 12),
+                                   SUM), {}),
+        ("a2a1", "alltoall_arr", {"stacked_copy": 1},
+         lambda c: c.alltoall_arr(rank_input(c.rank, MIB, f32, dev, 13)),
+         {}),
         ("ar8", "allreduce_arr", {"stacked_reduce": 1},
          lambda c: c.allreduce_arr(rank_input(c.rank, 8 * MIB, f32, dev, 1),
-                                   SUM)),
+                                   SUM), {}),
         ("ar128", "allreduce_arr", {"stacked_reduce": 1},
          lambda c: c.allreduce_arr(
-             rank_input(c.rank, 128 * MIB, f32, dev, 2), SUM)),
+             rank_input(c.rank, 128 * MIB, f32, dev, 2), SUM), {}),
+        ("ar_ragged", "allreduce_arr", {"stacked_reduce": 1},
+         lambda c: c.allreduce_arr(rank_elems(c.rank, RAGGED, f32, dev, 11),
+                                   SUM), {}),
+        ("ar8_seg", "allreduce_arr", {"stacked_reduce": 8},
+         lambda c: c.allreduce_arr(rank_input(c.rank, 8 * MIB, f32, dev, 1),
+                                   SUM), {"coll_plan_enable": False}),
         ("rs8", "reduce_scatter_block_arr", {"stacked_reduce": 1},
          lambda c: c.reduce_scatter_arr(
-             rank_input(c.rank, 8 * MIB, f64, dev, 3), MAX)),
-        ("a2a8", "alltoall_arr", {"stacked_copy": 1},
-         lambda c: c.alltoall_arr(rank_input(c.rank, 8 * MIB, f32, dev, 4))),
+             rank_input(c.rank, 8 * MIB, f64, dev, 3), MAX), {}),
+        ("a2a8", "alltoall_arr", {"stacked_copy": 8},
+         lambda c: c.alltoall_arr(rank_input(c.rank, 8 * MIB, f32, dev, 4)),
+         {}),
         ("ag1", "allgather_arr", {"stacked_copy": 1},
-         lambda c: c.allgather_arr(rank_input(c.rank, MIB, f32, dev, 5))),
+         lambda c: c.allgather_arr(rank_input(c.rank, MIB, f32, dev, 5)), {}),
         ("bc1", "bcast_arr", {},
          lambda c: c.bcast_arr(rank_input(c.rank, MIB, f32, dev, 6),
-                               root=3)),
+                               root=3), {}),
         ("pp1", "ppermute_arr", {},
          lambda c: c.ppermute_arr(
              rank_input(c.rank, MIB, f32, dev, 7),
-             [(i, (i + 1) % c.size) for i in range(c.size - 1)])),
+             [(i, (i + 1) % c.size) for i in range(c.size - 1)]), {}),
+        ("fused32", "iallreduce_arr", {"fused_batch": 1}, fused32, {}),
+        ("fused_mixed", "ibcast_arr", {"fused_batch": 3}, interleaved, {}),
+        ("config5", "reduce_scatter_block_arr",
+         {"index_gather": NRANKS, "stacked_reduce": 1,
+          "index_scatter": NRANKS},
+         lambda c: config5(c, config5_raw(c.rank, dev), dt), {}),
     ]
     counters = {"stacked_reduce": stacked.stacked_reduce.launches,
-                "stacked_copy": stacked.stacked_copy.launches}
+                "stacked_copy": stacked.stacked_copy.launches,
+                "fused_batch": fused.fused_batch.launches,
+                "index_gather": index.index_gather.launches,
+                "index_scatter": index.index_scatter.launches}
     per_call = {}
 
     def snapshot():
         return {k: c.value for k, c in counters.items()}
 
     def fn(comm):
-        for _, fname, _, _ in plan:
-            if comm.coll.providers[fname] != "hbm":
+        for _, fname, _, _, _ in plan:
+            want = "nbc" if fname.startswith("i") else "hbm"
+            if comm.coll.providers[fname] != want:
                 raise AssertionError(f"{fname} is provided by "
                                      f"{comm.coll.providers[fname]}")
         out = {}
         comm.Barrier()
         prev = snapshot() if comm.rank == 0 else None
         comm.Barrier()
-        for key, _, _, call in plan:
+        for key, _, _, call, knobs in plan:
+            if comm.rank == 0:
+                saved = {k: registry.get(k) for k in knobs}
+                for k, v in knobs.items():
+                    registry.set(k, v)
+            comm.Barrier()
             out[key] = call(comm)
-            # the last arriver counts its launch before any member
+            # the last arriver counts its launches before any member
             # leaves the meeting, so after this barrier the count is
             # final; the next barrier keeps the next call out until
             # rank 0 has read it
@@ -328,6 +545,8 @@ def phase_main(dev) -> dict:
                 cur = snapshot()
                 per_call[key] = {k: cur[k] - prev[k] for k in cur}
                 prev = cur
+                for k, v in saved.items():
+                    registry.set(k, v)
             comm.Barrier()
         torch.cuda.current_stream(dev).synchronize()
         return out
@@ -335,22 +554,36 @@ def phase_main(dev) -> dict:
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
-    res = run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=600)
+    res = run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=900)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = snapshot()
-    log(f"[main] 8 ranks on {dev}: {len(plan)} collectives in {wall:.3f} s, "
+    log(f"[main] 8 ranks on {dev}: {len(plan)} cases in {wall:.3f} s, "
         f"launches {launches}")
-    for key, fname, want, _ in plan:
+    for key, fname, want, _, knobs in plan:
         want = {k: want.get(k, 0) for k in counters}
-        log(f"[main] {key} ({fname}, provider hbm): launches {per_call[key]}")
+        log(f"[main] {key} ({fname}{', ' + str(knobs) if knobs else ''}): "
+            f"launches {per_call[key]}")
         if per_call[key] != want:
             raise AssertionError(f"{key}: launches {per_call[key]}, "
                                  f"expected {want}")
-    total = {k: sum(w.get(k, 0) for _, _, w, _ in plan) for k in counters}
+    total = {k: sum(w.get(k, 0) for _, _, w, _, _ in plan)
+             for k in counters}
     if launches != total:
         raise AssertionError(f"main path launches {launches}, expected "
                              f"{total}")
+    check_main(dev, res)
+    return launches, per_call
+
+
+def check_main(dev, res) -> None:
+    """Every main-path result against a plain computation on the card
+    (exact), and the float SUM against an independent float64 sum."""
+    from ompi_tpu_torch.kernels.index import (IndexVector,
+                                              index_gather_plain)
+    from ompi_tpu_torch.kernels.stacked import (stacked_copy_plain,
+                                                stacked_reduce_plain)
+    import numpy as np
 
     def inputs(nbytes, dtype, salt):
         return [rank_input(r, nbytes, dtype, dev, salt)
@@ -361,16 +594,28 @@ def phase_main(dev) -> dict:
         log(f"[main] {what}: exact against the plain computation "
             f"(max abs {worst[0]})")
 
-    check("ar8", stacked_reduce_plain(inputs(8 * MIB, torch.float32, 1),
-                                      "MPI_SUM"), "allreduce SUM f32 8 MiB")
+    check("ar1", stacked_reduce_plain(inputs(MIB, torch.float32, 12),
+                                      "MPI_SUM"),
+          "allreduce SUM f32 1 MiB (single dispatch)")
+    check("a2a1", stacked_copy_plain(inputs(MIB, torch.float32, 13),
+                                     "alltoall"),
+          "alltoall f32 1 MiB (single dispatch)")
+    ar8 = stacked_reduce_plain(inputs(8 * MIB, torch.float32, 1), "MPI_SUM")
+    check("ar8", ar8, "allreduce SUM f32 8 MiB (plan)")
+    check("ar8_seg", ar8, "allreduce SUM f32 8 MiB (8 pipelined segments)")
     check("ar128", stacked_reduce_plain(inputs(128 * MIB, torch.float32, 2),
                                         "MPI_SUM"),
-          "allreduce SUM f32 128 MiB")
+          "allreduce SUM f32 128 MiB (plan)")
+    check("ar_ragged", stacked_reduce_plain(
+        [rank_elems(r, RAGGED, torch.float32, dev, 11)
+         for r in range(NRANKS)], "MPI_SUM"),
+        f"allreduce SUM f32 {RAGGED} elements (plan, 9 padded segments)")
     check("rs8", stacked_reduce_plain(inputs(8 * MIB, torch.float64, 3),
                                       "MPI_MAX", scatter=True),
           "reduce_scatter MAX f64 8 MiB")
     check("a2a8", stacked_copy_plain(inputs(8 * MIB, torch.float32, 4),
-                                     "alltoall"), "alltoall f32 8 MiB")
+                                     "alltoall"),
+          "alltoall f32 8 MiB (8 segments)")
     check("ag1", stacked_copy_plain(inputs(MIB, torch.float32, 5),
                                     "allgather"), "allgather f32 1 MiB")
     bc = inputs(MIB, torch.float32, 6)[3]
@@ -378,47 +623,93 @@ def phase_main(dev) -> dict:
     pp = inputs(MIB, torch.float32, 7)
     check("pp1", [torch.zeros_like(pp[0])] + pp[:NRANKS - 1],
           "ppermute f32 1 MiB open ring")
+    nfused = int(FUSED_MIB * MIB) // 4
+    worst = 0.0
+    for k in range(FUSED_OPS):
+        xs = [rank_elems(r, nfused, torch.float32, dev, 50 + k)
+              for r in range(NRANKS)]
+        worst = max(worst, _held([res[r]["fused32"][k]
+                                  for r in range(NRANKS)],
+                                 stacked_reduce_plain(xs, "MPI_SUM"),
+                                 f"fused slot {k}")[0])
+    log(f"[main] fused flush of {FUSED_OPS} iallreduce SUM f32 64 KiB: "
+        f"exact against the plain computation (max abs {worst})")
+    ins = [interleaved_inputs(r, dev) for r in range(NRANKS)]
+    refs = [stacked_reduce_plain([i[0] for i in ins], "MPI_SUM"),
+            stacked_reduce_plain([i[1] for i in ins], "MPI_MAX"),
+            [ins[1][2]] * NRANKS,
+            stacked_reduce_plain([i[3] for i in ins], "MPI_PROD")]
+    for j, ref in enumerate(refs):
+        _held([res[r]["fused_mixed"][j] for r in range(NRANKS)], ref,
+              f"interleaved batch slot {j}")
+    log("[main] interleaved fused batch (int32 SUM, f32 MAX, int32 bcast, "
+        "int32 scalar PROD): exact against the plain computation")
+    # config 5, plain: gather the even elements, fold with MAX, stripe,
+    # scatter each stripe into a stride-2 layout
+    even = IndexVector(np.arange(0, 2 * CONFIG5_N, 2), dev)
+    packed = [index_gather_plain(config5_raw(r, dev), even)
+              for r in range(NRANKS)]
+    stripes = stacked_reduce_plain(packed, "MPI_MAX", scatter=True)
+    want = []
+    for s in stripes:
+        recv = torch.full((2 * s.numel(),), -5.0, dtype=torch.float64,
+                          device=dev)
+        recv[0::2] = s
+        want.append(recv)
+    check("config5", want, "config 5: device_pack -> reduce_scatter MAX "
+          "f64 -> device_unpack")
     # the reduced values themselves, against an independent reference:
     # float64 sum of the float32 inputs, within the float32 band
     xs = inputs(8 * MIB, torch.float32, 1)
     exact = torch.stack([x.double() for x in xs]).sum(0)
     absum = torch.stack([x.double().abs() for x in xs]).sum(0)
     band = 4 * NRANKS * 2.0 ** -24
-    bad = ((res[0]["ar8"].double() - exact).abs() > band * absum).sum()
-    if int(bad) or not torch.isfinite(res[0]["ar8"]).all():
-        raise AssertionError(f"allreduce SUM outside the float32 band at "
-                             f"{int(bad)} elements")
+    for key in ("ar8", "ar8_seg"):
+        bad = ((res[0][key].double() - exact).abs() > band * absum).sum()
+        if int(bad) or not torch.isfinite(res[0][key]).all():
+            raise AssertionError(f"{key}: allreduce SUM outside the "
+                                 f"float32 band at {int(bad)} elements")
     log(f"[main] allreduce SUM f32 8 MiB within 4*N*2^-24 of the float64 "
-        f"sum; providers hbm; results finite")
-    return launches, per_call
+        f"sum; providers hbm / nbc; results finite")
 
 
 # ---------------------------------------------------------------------------
 # 4. timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int):
-    """(device ms, call ms) of one call of ``fn`` after a warm-up.
-    call ms: CUDA events around ``iters`` eager back-to-back calls, so
-    the host's launch cost (Python wrapper, checks, allocation) is in
-    it when the device outruns the host.  device ms: the same ``iters``
-    calls captured once in a CUDA graph and replayed between CUDA
-    events, which leaves the device's own time."""
-    for _ in range(3):
-        fn()
+def _flat(x) -> list:
+    """The tensors of a kernel's result (a tensor, or nested lists)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _flat(y)]
+
+
+def time_ms(fn, iters: int, nsets: int = 1):
+    """(device ms, call ms) of one call of ``fn(i)`` after a warm-up;
+    call number i uses input set i % nsets.  call ms: CUDA events
+    around ``iters`` eager back-to-back calls, so the host's launch
+    cost (Python wrapper, checks, allocation from the caching
+    allocator) is in it when the device outruns the host.  device ms:
+    the same ``iters`` calls captured once in a CUDA graph and replayed
+    between CUDA events, which leaves the device's own time; every
+    captured call's outputs stay alive until the replay ends, so no two
+    calls share an output buffer."""
+    for i in range(3):
+        fn(i % nsets)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(i % nsets)
     b.record()
     b.synchronize()
     call = a.elapsed_time(b) / iters
+    keep = []
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            keep.append(fn(i % nsets))
     g.replay()
     torch.cuda.synchronize()
     a.record()
@@ -427,73 +718,137 @@ def time_ms(fn, iters: int):
     b.synchronize()
     dev = a.elapsed_time(b) / iters
     del g
+    keep.clear()
     return dev, call
 
 
 def phase_timing(dev, launches: dict, per_call: dict) -> list:
     """``launches``: each kernel's count over the main path's run;
-    ``per_call``: the counts of each of its collectives."""
-    from ompi_tpu_torch.kernels import stacked
+    ``per_call``: the counts of each of its collectives.
+
+    Every row is timed cold: the calls of one timing rotate through as
+    many input sets as make their footprint (bytes read and written a
+    call, times the sets) at least COLD_BYTES, five times the card's
+    50 MB L2, and each call writes an output of its own, so a call
+    finds neither its inputs nor its outputs in L2, as the main path's
+    launches find most of theirs (each reads a payload written well
+    before it).  The kernel's time on one input set replayed, where L2
+    holds what fits, is printed beside it as ``warm_ms``."""
+    import numpy as np
+    from ompi_tpu_torch.kernels import fused, index, stacked
     rows = []
 
-    def row(name, kernel, call, replaces, bytes_moved, k_fn, p_fn, lib_fn,
-            iters, check_outs, check_refs):
-        a, _, _ = max((_err(o, r) for o, r in zip(check_outs, check_refs)),
-                      key=lambda t: t[0])
-        k_ms, k_call = time_ms(k_fn, iters)
-        p_ms, p_call = time_ms(p_fn, max(3, iters // 4))
-        l_ms, l_call = time_ms(lib_fn, iters)
+    def row(name, kernel, call, replaces, bytes_moved, make, k_fn, p_fn,
+            lib_fn, iters, source="stacked.cu"):
+        # the error, on input sets of their own (K5 writes in place)
+        got = [t.clone() for t in _flat(k_fn(make(0)))]
+        a, _, _ = max((_err(o, r) for o, r in zip(
+            got, _flat(p_fn(make(0))))), key=lambda t: t[0])
+        del got
+        nsets = max(1, -(-COLD_BYTES // bytes_moved))
+        sets = [make(i) for i in range(nsets)]
+        warm, _ = time_ms(lambda i: k_fn(sets[0]), iters)
+        k_ms, k_call = time_ms(lambda i: k_fn(sets[i]),
+                               max(iters, nsets), nsets)
+        p_ms, p_call = time_ms(lambda i: p_fn(sets[i]),
+                               max(3, iters // 4, nsets), nsets)
+        l_ms, l_call = time_ms(lambda i: lib_fn(sets[i]),
+                               max(iters, nsets), nsets)
+        del sets
         bound = bytes_moved / HBM_BYTES_PER_S * 1e3
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches[kernel],
                      "max_abs_err": a, "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": bound, "bound_by": "bytes",
                      "library_ms": l_ms, "call_ms": k_call,
+                     "warm_ms": warm, "input_sets": nsets,
                      "launches_per_call": per_call[call][kernel]})
-        log(f"[time] {name}: kernel {k_ms:.4f} ms device "
-            f"({k_call:.4f} ms a call), bound {bound:.4f} ms "
-            f"({bound / k_ms * 100:.1f}% of bound), plain {p_ms:.4f} ms "
-            f"({p_call:.4f}), library {l_ms:.4f} ms ({l_call:.4f}), "
-            f"{per_call[call][kernel]} launch(es) in the main path's {call}")
+        log(f"[time] {name}: kernel {k_ms:.4f} ms device cold over "
+            f"{nsets} input set(s) ({k_call:.4f} ms a call; warm "
+            f"{warm:.4f}), bound {bound:.4f} ms ({bound / k_ms * 100:.1f}% "
+            f"of bound), plain {p_ms:.4f} ms ({p_call:.4f}), library "
+            f"{l_ms:.4f} ms ({l_call:.4f}), {per_call[call][kernel]} "
+            f"launch(es) in the main path's {call}")
 
     n = NRANKS
+
+    def ranks(nbytes, dtype, salt):
+        return lambda i: [rank_input(r, nbytes, dtype, dev, salt + 100 * i)
+                          for r in range(n)]
+
     for mib, iters in ((8, 50), (128, 8)):
-        xs = [rank_input(r, mib * MIB, torch.float32, dev, 10 + mib)
-              for r in range(n)]
         row(f"stacked_reduce:allreduce_sum_f32_{mib}MiB", "stacked_reduce",
-            f"ar{mib}",
-            "ompi_tpu/coll/device.py:1389", 2 * n * mib * MIB,
-            lambda: stacked.stacked_reduce(xs, "MPI_SUM"),
-            lambda: stacked.stacked_reduce_plain(xs, "MPI_SUM"),
-            lambda: torch.stack(xs).sum(0), iters,
-            stacked.stacked_reduce(xs, "MPI_SUM"),
-            stacked.stacked_reduce_plain(xs, "MPI_SUM"))
-        del xs
-    xs = [rank_input(r, 8 * MIB, torch.float64, dev, 30) for r in range(n)]
+            f"ar{mib}", "ompi_tpu/coll/device.py:1389", 2 * n * mib * MIB,
+            ranks(mib * MIB, torch.float32, 10 + mib),
+            lambda xs: stacked.stacked_reduce(xs, "MPI_SUM"),
+            lambda xs: stacked.stacked_reduce_plain(xs, "MPI_SUM"),
+            lambda xs: torch.stack(xs).sum(0), iters)
     row("stacked_reduce:reduce_scatter_max_f64_8MiB", "stacked_reduce", "rs8",
         "ompi_tpu/coll/device.py:1400", (n + 1) * 8 * MIB,
-        lambda: stacked.stacked_reduce(xs, "MPI_MAX", scatter=True),
-        lambda: stacked.stacked_reduce_plain(xs, "MPI_MAX", scatter=True),
-        lambda: torch.stack(xs).amax(0), 50,
-        stacked.stacked_reduce(xs, "MPI_MAX", scatter=True),
-        stacked.stacked_reduce_plain(xs, "MPI_MAX", scatter=True))
-    xs = [rank_input(r, 8 * MIB, torch.float32, dev, 31) for r in range(n)]
-    m = xs[0].numel() // n
-    row("stacked_copy:alltoall_f32_8MiB", "stacked_copy", "a2a8",
-        "ompi_tpu/coll/device.py:1421", 2 * n * 8 * MIB,
-        lambda: stacked.stacked_copy(xs, "alltoall"),
-        lambda: stacked.stacked_copy_plain(xs, "alltoall"),
-        lambda: torch.stack(xs).view(n, n, m).transpose(0, 1).contiguous(),
-        50, stacked.stacked_copy(xs, "alltoall"),
-        stacked.stacked_copy_plain(xs, "alltoall"))
-    xs = [rank_input(r, MIB, torch.float32, dev, 32) for r in range(n)]
+        ranks(8 * MIB, torch.float64, 30),
+        lambda xs: stacked.stacked_reduce(xs, "MPI_MAX", scatter=True),
+        lambda xs: stacked.stacked_reduce_plain(xs, "MPI_MAX", scatter=True),
+        lambda xs: torch.stack(xs).amax(0), 50)
     row("stacked_copy:allgather_f32_1MiB", "stacked_copy", "ag1",
         "ompi_tpu/coll/device.py:1418", (n + n * n) * MIB,
-        lambda: stacked.stacked_copy(xs, "allgather"),
-        lambda: stacked.stacked_copy_plain(xs, "allgather"),
-        lambda: torch.cat(list(xs) * n), 100,
-        stacked.stacked_copy(xs, "allgather"),
-        stacked.stacked_copy_plain(xs, "allgather"))
+        ranks(MIB, torch.float32, 32),
+        lambda xs: stacked.stacked_copy(xs, "allgather"),
+        lambda xs: stacked.stacked_copy_plain(xs, "allgather"),
+        lambda xs: torch.cat(list(xs) * n), 100)
+    # 1 MiB a rank: the single dispatch below coll_pipeline_min_bytes,
+    # and the segment shape of the pipelined tiers (an 8 MiB alltoall
+    # runs as 8 of them)
+    m = MIB // 4 // n
+    row("stacked_reduce:allreduce_sum_f32_1MiB", "stacked_reduce",
+        "ar8_seg", "ompi_tpu/coll/device.py:1389", 2 * n * MIB,
+        ranks(MIB, torch.float32, 33),
+        lambda xs: stacked.stacked_reduce(xs, "MPI_SUM"),
+        lambda xs: stacked.stacked_reduce_plain(xs, "MPI_SUM"),
+        lambda xs: torch.stack(xs).sum(0), 100)
+    row("stacked_copy:alltoall_f32_1MiB", "stacked_copy", "a2a8",
+        "ompi_tpu/coll/device.py:1421", 2 * n * MIB,
+        ranks(MIB, torch.float32, 34),
+        lambda xs: stacked.stacked_copy(xs, "alltoall"),
+        lambda xs: stacked.stacked_copy_plain(xs, "alltoall"),
+        lambda xs: torch.stack(xs).view(n, n, m).transpose(0, 1).contiguous(),
+        100)
+    # K3 at the fused flush of the main path: 32 slots of 64 KiB
+    nf = int(FUSED_MIB * MIB) // 4
+    row(f"fused_batch:{FUSED_OPS}x64KiB_sum_f32", "fused_batch", "fused32",
+        "ompi_tpu/coll/fusion.py:335", 2 * n * FUSED_OPS * nf * 4,
+        lambda i: [([rank_elems(r, nf, torch.float32, dev, 60 + k + 40 * i)
+                     for r in range(n)], None) for k in range(FUSED_OPS)],
+        lambda slots: fused.fused_batch(slots, "MPI_SUM"),
+        lambda slots: fused.fused_batch_plain(slots, "MPI_SUM"),
+        lambda slots: [torch.stack(xs).sum(0) for xs, _ in slots], 100,
+        source="fused.cu")
+    # K4 and K5 at config 5's shapes: gather the even elements of a
+    # 2 * CONFIG5_N float64 buffer; scatter a CONFIG5_N / N stripe into
+    # a stride-2 receive layout.  Bytes: the index vector, the packed
+    # stream, and the whole span of the strided side.
+    span = 2 * CONFIG5_N * 8
+    row("index_gather:config5_pack_f64_8MiB", "index_gather", "config5",
+        "ompi_tpu/datatype/device.py:67", CONFIG5_N * 8 * 2 + span,
+        lambda i: (config5_raw(i % n, dev), index.IndexVector(
+            np.arange(0, 2 * CONFIG5_N, 2), dev)),
+        lambda s: index.index_gather(*s),
+        lambda s: index.index_gather_plain(*s),
+        lambda s: torch.index_select(s[0], 0, s[1].tensor), 100,
+        source="index.cu")
+    mm = CONFIG5_N // n
+
+    def stripe(i):
+        return (rank_elems(i % n, mm, torch.float64, dev, 61),
+                index.IndexVector(np.arange(0, 2 * mm, 2), dev),
+                torch.zeros(2 * mm, dtype=torch.float64, device=dev))
+
+    row("index_scatter:config5_unpack_f64_1MiB", "index_scatter", "config5",
+        "ompi_tpu/datatype/device.py:86", mm * 8 * 2 + 2 * mm * 8,
+        stripe,
+        lambda s: index.index_scatter(*s),
+        lambda s: index.index_scatter_plain(*s),
+        lambda s: s[2].index_copy_(0, s[1].tensor, s[0]), 100,
+        source="index.cu")
     return rows
 
 
@@ -501,7 +856,11 @@ def phase_e2e(dev, kernel_ms: float) -> None:
     """Host clock around chained comm.allreduce_arr calls (each rank
     feeds its output back in) ending in torch.cuda.synchronize().
     ``kernel_ms`` is the stacked kernel's device time at this shape,
-    for the device's busy share of an op."""
+    for the device's busy share of an op.  The first run is the
+    headline; then the large-message tier off and on in turns (off,
+    off, on), so the plan tier's cost shows against the single
+    dispatch in one process."""
+    from ompi_tpu_torch.mca.params import registry
     from ompi_tpu_torch.op.op import SUM
     from ompi_tpu_torch.testing import run_ranks
     nbytes, iters = 8 * MIB, 20
@@ -523,14 +882,175 @@ def phase_e2e(dev, kernel_ms: float) -> None:
             raise AssertionError("chained allreduce went non-finite")
         return dt
 
-    dts = run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=600)
-    us = max(dts) / iters * 1e6
+    saved = registry.get("coll_pipeline_enable")
+    runs = {True: [], False: []}
+    try:
+        for tier in (True, False, False, True):
+            registry.set("coll_pipeline_enable", tier)
+            dts = run_ranks(NRANKS, fn, device_map=lambda r: dev,
+                            timeout=600)
+            runs[tier].append(max(dts) / iters * 1e6)
+    finally:
+        registry.set("coll_pipeline_enable", saved)
+    us = runs[True][0]
     busbw = 2 * (NRANKS - 1) / NRANKS * nbytes / (us * 1e-6) / 1e9
     log(f"[e2e] osu_allreduce busbw 8 ranks x 8 MiB float32: "
         f"{us:.1f} us/op (slowest rank, {iters} chained ops), "
         f"busbw {busbw:.2f} GB/s; the kernel's device time is "
         f"{kernel_ms * 1e3 / us * 100:.1f}% of an op (device idle "
         f"{100 - kernel_ms * 1e3 / us * 100:.1f}%)")
+    log(f"[e2e] the same, us/op by run: plan tier on "
+        f"{[round(u, 1) for u in runs[True]]}, off (single dispatch) "
+        f"{[round(u, 1) for u in runs[False]]}")
+
+
+class _HostTimer:
+    """Adds the host time of every call of ``mod.name`` (any thread)
+    while active; restores the function on exit.  A wrapped kernel
+    wrapper keeps its launch counter."""
+
+    def __init__(self, mod, name) -> None:
+        self.mod, self.name, self.total, self.calls = mod, name, 0.0, 0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.mod, self.name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                with self._lock:
+                    self.total += time.perf_counter() - t0
+                    self.calls += 1
+        if hasattr(orig, "launches"):
+            timed.launches = orig.launches
+        setattr(self.mod, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def phase_e2e_fused(dev, k3_ms: float) -> None:
+    """A fused batch of FUSED_OPS iallreduce_arr of 64 KiB with one
+    wait against the same FUSED_OPS blocking allreduce_arr calls: host
+    clock around ``iters`` rounds ending in torch.cuda.synchronize(),
+    slowest rank, microseconds per collective."""
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.testing import run_ranks
+    nf, iters = int(FUSED_MIB * MIB) // 4, 20
+
+    def fn(comm):
+        xs = [rank_elems(comm.rank, nf, torch.float32, dev, 70 + k)
+              for k in range(FUSED_OPS)]
+        out = {}
+        for mode in ("fused", "blocking", "fused", "blocking"):
+            comm.Barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                if mode == "fused":
+                    qs = [comm.iallreduce_arr(x, SUM) for x in xs]
+                    qs[-1].wait()
+                    ys = [q.result for q in qs]
+                else:
+                    ys = [comm.allreduce_arr(x, SUM) for x in xs]
+            torch.cuda.synchronize()
+            out[mode] = time.perf_counter() - t0  # the second run counts
+            if not all(torch.isfinite(y).all() for y in ys):
+                raise AssertionError(f"{mode} results not finite")
+        comm.Barrier()
+        return out
+
+    res = run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=600)
+    per = {m: max(r[m] for r in res) / (iters * FUSED_OPS) * 1e6
+           for m in ("fused", "blocking")}
+    batch_us = per["fused"] * FUSED_OPS
+    log(f"[e2e] {FUSED_OPS} x 64 KiB float32 allreduce SUM at 8 ranks: "
+        f"fused {per['fused']:.2f} us a collective ({batch_us:.1f} us a "
+        f"batch, one wait), blocking {per['blocking']:.2f} us a "
+        f"collective: {per['blocking'] / per['fused']:.2f}x (slowest "
+        f"rank, {iters} rounds); K3's device time is "
+        f"{k3_ms * 1e3 / batch_us * 100:.1f}% of a batch")
+
+    # where a fused batch's host time goes: host timers around the
+    # last arriver's body (grouping + K3's wrapper and launch), K3's
+    # wrapper alone, each rank's meeting and each rank's enqueues
+    from ompi_tpu_torch.coll import device, fusion
+    from ompi_tpu_torch.kernels import fused
+
+    def probe(comm):
+        ys = [rank_elems(comm.rank, nf, torch.float32, dev, 70 + k)
+              for k in range(FUSED_OPS)]
+        for _ in range(iters):
+            qs = [comm.iallreduce_arr(x, SUM) for x in ys]
+            qs[-1].wait()
+        torch.cuda.synchronize()
+        return True
+
+    with _HostTimer(fusion, "_hbm_slot_outs") as body, \
+            _HostTimer(fused, "fused_batch") as wrap, \
+            _HostTimer(device, "meet") as meet, \
+            _HostTimer(fusion._FusionEngine, "enqueue") as enq:
+        run_ranks(NRANKS, probe, device_map=lambda r: dev, timeout=600)
+    slots = [([rank_elems(r, nf, torch.float32, dev, 80 + k)
+               for r in range(NRANKS)], None) for k in range(FUSED_OPS)]
+    for _ in range(3):
+        fused.fused_batch(slots, "MPI_SUM")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fused.fused_batch(slots, "MPI_SUM")
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t0) / iters * 1e3
+    log(f"[e2e] a fused batch's host time, ms a batch: last arriver's "
+        f"body {body.total / iters * 1e3:.3f} (K3 wrapper and launch "
+        f"{wrap.total / iters * 1e3:.3f}; alone on an idle host "
+        f"{alone:.3f}), inside meet {meet.total / iters / NRANKS * 1e3:.3f}"
+        f" a rank, in the {FUSED_OPS} enqueues (flush included) "
+        f"{enq.total / iters / NRANKS * 1e3:.3f} a rank")
+
+
+def phase_e2e_config5(dev) -> None:
+    """BASELINE config 5 end to end: device_pack + reduce_scatter MAX
+    float64 + device_unpack at 8 ranks, CONFIG5_N packed elements a
+    rank; host clock around ``iters`` rounds ending in
+    torch.cuda.synchronize(), slowest rank."""
+    from ompi_tpu_torch.datatype import device as ddev
+    from ompi_tpu_torch.datatype import engine as dt
+    from ompi_tpu_torch.op.op import MAX
+    from ompi_tpu_torch.testing import run_ranks
+    iters = 20
+
+    def fn(comm):
+        raw = config5_raw(comm.rank, dev)
+        vec = dt.vector(CONFIG5_N, 1, 2, dt.DOUBLE).commit()
+        m = CONFIG5_N // comm.size
+        rvec = dt.vector(m, 1, 2, dt.DOUBLE).commit()
+        recv = torch.zeros(2 * m, dtype=torch.float64, device=dev)
+        for _ in range(3):
+            ddev.device_unpack(rvec, 1, comm.reduce_scatter_arr(
+                ddev.device_pack(vec, 1, raw), MAX), recv)
+        torch.cuda.synchronize()
+        comm.Barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ddev.device_unpack(rvec, 1, comm.reduce_scatter_arr(
+                ddev.device_pack(vec, 1, raw), MAX), recv)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        comm.Barrier()
+        if not torch.isfinite(recv).all():
+            raise AssertionError("config 5 went non-finite")
+        return dt_s
+
+    dts = run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=600)
+    us = max(dts) / iters * 1e6
+    log(f"[e2e] config 5 (device_pack stride-2 vector -> reduce_scatter "
+        f"MAX float64 -> device_unpack), 8 ranks x {CONFIG5_N} packed "
+        f"elements: {us:.1f} us an op (slowest rank, {iters} ops)")
 
 
 def main() -> int:
@@ -546,6 +1066,9 @@ def main() -> int:
     launches, per_call = phase_main(dev)
     rows = phase_timing(dev, launches, per_call)
     phase_e2e(dev, rows[0]["ms"])
+    phase_e2e_fused(dev, next(r["ms"] for r in rows
+                              if r["name"].startswith("fused_batch")))
+    phase_e2e_config5(dev)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,19 @@ after it; each member's stream waits on that event before the member
 touches its output.  That fence replaces the reference's
 ``_block_ready``.
 
+Large messages (at or above ``coll_pipeline_min_bytes``) take the
+tiers of coll/pipeline and coll/plan: an allreduce runs as one plan
+(one padded stacked kernel, one rendezvous) or, with
+``coll_plan_enable`` off, as segments through the asynchronous
+rendezvous (``meet_begin`` / ``meet_finish``, the computation on the
+process-wide dispatcher thread); an alltoall runs as segments.  Small
+nonblocking calls coalesce in coll/fusion and meet once per batch with
+a (signature, tensors) deposit.
+
 Not ported yet (ROADMAP.md Queue A): the mesh tier (``TpuCollModule``)
 for ranks on distinct cards — a comm of that shape gets a module whose
 *_arr calls raise NotImplementedError instead of host-staging silently
-— the compiled-executable cache (``CompiledLRU``), the segmented
-pipeline and plan tiers, the dispatcher thread, and the tracing,
+— the compiled-executable cache (``CompiledLRU``), and the tracing,
 integrity, monitoring and fault-injection hooks of ``meet``.
 
 Only host buffers ever take the host-staged p2p stack (HostArrModule):
@@ -33,14 +41,16 @@ every member, and HostArrModule refuses such a tensor outright.
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
 from ompi_tpu_torch import convert
+from ompi_tpu_torch.coll import pipeline
 from ompi_tpu_torch.coll.framework import (CollComponent, CollModule,
                                            coll_framework)
 from ompi_tpu_torch.coll.tuned import TunedModule
@@ -64,6 +74,12 @@ _rv_timeout_var = registry.register(
     "coll", "device", "rendezvous_timeout", 300.0, float,
     help="Seconds a device-collective rendezvous may stall before "
          "raising (dead/diverged peer diagnosis)")
+_dispatcher_var = registry.register(
+    "coll", "device", "dispatcher", False, bool,
+    help="Run every device-collective computation on one dedicated "
+         "thread instead of the rendezvous's last arriver (the "
+         "segmented pipeline always hands its segments to that "
+         "thread)")
 _reduce_as_allreduce_var = registry.register(
     "coll", "device", "reduce_as_allreduce", True, bool,
     help="Lower reduce_arr as an on-device allreduce (computes "
@@ -103,6 +119,126 @@ def _member_devices(comm) -> Optional[List[tuple]]:
             return None
         keys.append(_device_key(st.device))
     return keys
+
+
+class _DeviceDispatcher:
+    """One thread per process that runs device-collective computations
+    handed to it: every segment of the pipelined tier (so the rank
+    threads pack the next segment while this thread launches the
+    current one), and every meeting when ``coll_device_dispatcher``
+    is on."""
+
+    def __init__(self) -> None:
+        import queue
+        self.q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.closed = False
+        self._submit_lock = threading.Lock()
+        self.thread = threading.Thread(
+            target=self._loop, daemon=True, name="coll-device-dispatch")
+        self.thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            work = self.q.get()
+            if work is None:
+                return
+            work()  # never raises: work wraps its own error capture
+
+    def submit(self, work: Callable[[], None]) -> None:
+        # the lock orders submit against close(): a submit that wins
+        # the race lands BEFORE the close sentinel and is flushed; one
+        # that loses gets the clear error instead of silently dying
+        # with the daemon thread
+        with self._submit_lock:
+            if self.closed:
+                raise RuntimeError(
+                    "device-collective dispatcher is closed (MPI "
+                    "finalized): late collective work rejected — "
+                    "pending work was flushed at finalize")
+            self.q.put(work)
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Drain at finalize: reject new submits, then run everything
+        already queued and join the worker.  Pending submitted work
+        must complete — rendezvous peers are parked on its results."""
+        with self._submit_lock:
+            if self.closed:
+                return
+            self.closed = True
+            self.q.put(None)
+        self.thread.join(timeout)
+
+
+_dispatcher_singleton: Optional[_DeviceDispatcher] = None
+_dispatcher_lock = threading.Lock()
+
+# rank states that have used the device-collective plane this world;
+# the LAST one to finalize drains the dispatcher (thread-rank worlds
+# share one process-wide dispatcher across all ranks)
+_live_states: Set[Any] = set()
+_live_lock = threading.Lock()
+
+
+def _prune_dead_locked() -> bool:
+    """Drop tracked states that can never finalize — their world
+    aborted, or they already finalized — and report whether any live
+    state remains.  Without the prune a rank killed mid-abort would
+    hold the dispatcher open for the rest of the process.  Caller
+    holds _live_lock."""
+    for s in list(_live_states):
+        w = getattr(s.rte, "world", None)
+        if s.finalized or getattr(w, "aborted", None):
+            _live_states.discard(s)
+    return bool(_live_states)
+
+
+def _dispatcher() -> _DeviceDispatcher:
+    global _dispatcher_singleton
+    d = _dispatcher_singleton
+    if d is not None and not d.closed:
+        return d
+    with _dispatcher_lock:
+        d = _dispatcher_singleton
+        if d is None or d.closed:
+            with _live_lock:
+                live = _prune_dead_locked()
+            if d is not None and d.closed and not live:
+                raise RuntimeError(
+                    "device-collective dispatcher used after MPI "
+                    "finalize (no live ranks): call MPI_Init first")
+            # fresh world in the same process (tests run many): revive
+            d = _dispatcher_singleton = _DeviceDispatcher()
+    return d
+
+
+def track_state(state) -> None:
+    """First device-collective touch by a rank: register its finalize
+    hook so pending fused batches flush and — when the LAST tracked
+    rank finalizes — the dispatcher drains instead of dying with the
+    daemon thread mid-work (finalize racing a last collective)."""
+    if state.extra.get("device_coll_tracked"):
+        return
+    state.extra["device_coll_tracked"] = True
+    with _live_lock:
+        _live_states.add(state)
+    state.progress.register_finalize_hook(
+        functools.partial(_finalize_state, state))
+
+
+def _finalize_state(state) -> None:
+    # flush pending fused batches first: every member rank's hook runs
+    # before its finalize fence, so the flush rendezvous still meets
+    from ompi_tpu_torch.coll import fusion
+    fusion.flush_state(state)
+    with _live_lock:
+        _live_states.discard(state)
+        state.extra["device_coll_tracked"] = False
+        last = not _prune_dead_locked()
+    if last:
+        with _dispatcher_lock:
+            d = _dispatcher_singleton
+        if d is not None:
+            d.close()
 
 
 class Rendezvous:
@@ -177,17 +313,26 @@ class Rendezvous:
                 self.cv.wait(timeout=0.002)
             tick(t0)
 
-    def run(self, rank: int, value: Any,
-            fn: Callable[[List[Any]], List[Any]],
-            abort_check: Optional[Callable[[], None]] = None,
-            progress: Any = None) -> Any:
-        """Deposit ``value``; the last arriver runs fn(slots) ->
-        per-rank outputs (inline, under the meeting lock); block until
-        this rank's output is ready.  Each member collects every
-        generation it deposits in, exactly once — results are
-        refcounted away after the last reader."""
+    def begin(self, rank: int, value: Any,
+              fn: Callable[[List[Any]], List[Any]],
+              abort_check: Optional[Callable[[], None]] = None,
+              progress: Any = None,
+              dispatch_async: Optional[bool] = None) -> int:
+        """Deposit ``value`` for the next generation; the last arriver
+        triggers fn(slots) -> per-rank outputs.  Returns the generation
+        token to collect with ``finish``.
+
+        ``dispatch_async=None`` follows the coll_device_dispatcher knob
+        (off: the last arriver computes inline, under the meeting
+        lock); ``True`` hands fn to the process-wide dispatcher thread
+        so begin() returns while the device computes — the hook the
+        segmented pipeline uses to pack segment k+1 while segment k
+        launches.  Slots recycle as soon as the meeting is full, so
+        generation g+1 deposits may land while g still computes."""
         if progress is not None:
             self._progs[rank] = progress
+        if dispatch_async is None:
+            dispatch_async = _dispatcher_var.value
         with self.cv:
             # wait until my slot from the previous generation is consumed
             self._wait_for(lambda: self.slots[rank] is self._SENTINEL,
@@ -201,16 +346,51 @@ class Rendezvous:
                 self.count = 0
                 self.slots = [self._SENTINEL] * self.size
                 self.gen += 1
-                try:
-                    self.results[gen] = fn(shards)
-                except BaseException as e:  # noqa: BLE001
-                    self.errors[gen] = e
-                    self.results[gen] = [None] * self.size
-                self.readers[gen] = self.size
-                self.cv.notify_all()
-                for r, prog in self._progs.items():
-                    if r != rank:
-                        prog.wakeup()
+                if dispatch_async:
+                    _dispatcher().submit(
+                        functools.partial(self._work, gen, fn, shards))
+                else:
+                    try:
+                        self.results[gen] = fn(shards)
+                    except BaseException as e:  # noqa: BLE001
+                        self.errors[gen] = e
+                        self.results[gen] = [None] * self.size
+                    self.readers[gen] = self.size
+                    self.cv.notify_all()
+                    for r, prog in self._progs.items():
+                        if r != rank:
+                            prog.wakeup()
+        return gen
+
+    def _work(self, gen: int, fn, shards) -> None:
+        """The dispatcher thread's half of an async meeting: compute,
+        publish the generation, wake every member."""
+        try:
+            res = fn(shards)
+            err = None
+        except BaseException as e:  # noqa: BLE001
+            res = [None] * self.size
+            err = e
+        with self.cv:
+            if err is not None:
+                self.errors[gen] = err
+            self.results[gen] = res
+            self.readers[gen] = self.size
+            self.cv.notify_all()
+            progs = list(self._progs.values())
+        # wake members parked on their progress idle selector (outside
+        # the meeting lock)
+        for prog in progs:
+            prog.wakeup()
+
+    def finish(self, rank: int, gen: int,
+               abort_check: Optional[Callable[[], None]] = None,
+               progress: Any = None) -> Any:
+        """Collect this rank's output of generation ``gen`` (a token
+        from ``begin``).  Each member must finish every generation it
+        begins, exactly once — results are refcounted away after the
+        last reader."""
+        with self.cv:
             self._wait_for(lambda: gen in self.results,
                            f"waiting for peers (gen {gen})",
                            abort_check, progress)
@@ -224,6 +404,16 @@ class Rendezvous:
                 raise RuntimeError(
                     f"device collective failed on a peer: {err}") from err
             return out
+
+    def run(self, rank: int, value: Any,
+            fn: Callable[[List[Any]], List[Any]],
+            abort_check: Optional[Callable[[], None]] = None,
+            progress: Any = None) -> Any:
+        """Deposit ``value``; the last arriver runs fn(slots) ->
+        outputs; block until this rank's output is ready (begin +
+        finish)."""
+        gen = self.begin(rank, value, fn, abort_check, progress)
+        return self.finish(rank, gen, abort_check, progress)
 
 
 def _get_rendezvous(comm) -> Rendezvous:
@@ -243,44 +433,99 @@ def _get_rendezvous(comm) -> Rendezvous:
     return rv
 
 
-def meet(comm, x: torch.Tensor, body: Callable[[List[torch.Tensor]],
-                                               List[torch.Tensor]],
-         abort_check) -> torch.Tensor:
-    """The rendezvous entry point for the device collectives: deposit
-    ``x`` (a contiguous tensor on the comm's shared device); the last
-    arriver runs ``body(shards) -> one new tensor per rank`` and every
-    rank gets its own.  On a CUDA device the stream fence described in
-    the module docstring orders the kernel after every deposit and
-    every rank's later work after the kernel."""
-    cuda = x.is_cuda
-    ev = None
-    if cuda:
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(x.device))
+def _tensors(value) -> List[torch.Tensor]:
+    """The tensors of a deposit or an output: one tensor, a list of
+    them, or a fused batch's (signature, tensors) pair."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, tuple) and len(value) == 2 \
+            and isinstance(value[1], list):
+        value = value[1]
+    return [t for t in value if isinstance(t, torch.Tensor)]
 
+
+def _fenced(value):
+    """The deposit as it enters the meeting: (value, event).  On a
+    card the event marks the end of the depositor's work on the
+    value's tensors, on the depositor's current stream."""
+    ts = _tensors(value)
+    if not ts or not ts[0].is_cuda:
+        return value, None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(ts[0].device))
+    return value, ev
+
+
+def _fence(body):
+    """fn for the rendezvous around ``body(values) -> per-rank
+    outputs``: on a card the stream that runs the body — the last
+    arriver's or the dispatcher thread's current stream — waits on
+    every deposit's event first and records one event after, which
+    each member's stream waits on before it touches its output."""
     def fn(slots):
-        shards = [t for t, _ in slots]
-        if not cuda:
-            return [(o, None) for o in body(shards)]
-        stream = torch.cuda.current_stream(shards[0].device)
-        for t, e in slots:
+        values = [v for v, _ in slots]
+        if slots[0][1] is None:
+            return [(o, None) for o in body(values)]
+        stream = torch.cuda.current_stream(_tensors(values[0])[0].device)
+        for v, e in slots:
             stream.wait_event(e)
             # the deposit's memory must outlive this stream's reads
             # even if its owner frees it right after the meeting
-            t.record_stream(stream)
-        outs = body(shards)
+            for t in _tensors(v):
+                t.record_stream(stream)
+        outs = body(values)
         done = torch.cuda.Event()
         done.record(stream)
         return [(o, done) for o in outs]
+    return fn
 
-    out, done = _get_rendezvous(comm).run(
-        comm.rank, (x, ev), fn, abort_check,
-        progress=comm.state.progress)
+
+def _collect(res):
+    out, done = res
     if done is not None:
-        stream = torch.cuda.current_stream(out.device)
-        stream.wait_event(done)
-        out.record_stream(stream)
+        ts = _tensors(out)
+        if ts:
+            stream = torch.cuda.current_stream(ts[0].device)
+            stream.wait_event(done)
+            for t in ts:
+                t.record_stream(stream)
     return out
+
+
+def meet(comm, value, body: Callable[[List[Any]], List[Any]],
+         abort_check) -> Any:
+    """The rendezvous entry point for the device collectives: deposit
+    ``value`` (a contiguous tensor on the comm's shared device, or a
+    fused batch's (signature, tensors) pair); the last arriver runs
+    ``body(values) -> one output per rank`` and every rank gets its
+    own.  On a CUDA device the stream fence of ``_fence`` orders the
+    kernels after every deposit and every rank's later work after the
+    kernels."""
+    track_state(comm.state)
+    return _collect(_get_rendezvous(comm).run(
+        comm.rank, _fenced(value), _fence(body), abort_check,
+        progress=comm.state.progress))
+
+
+def meet_begin(comm, value, body, abort_check):
+    """Asynchronous rendezvous entry: deposit and return a handle
+    without waiting for the result.  The last arriver's computation
+    always runs on the dispatcher thread, so the caller's thread is
+    free to pack the NEXT segment while the card computes this one.
+    Collect with ``meet_finish``; every begun handle MUST be finished
+    (results are refcounted per generation)."""
+    track_state(comm.state)
+    rv = _get_rendezvous(comm)
+    gen = rv.begin(comm.rank, _fenced(value), _fence(body), abort_check,
+                   progress=comm.state.progress, dispatch_async=True)
+    return rv, gen
+
+
+def meet_finish(comm, handle, abort_check) -> Any:
+    """Collect one ``meet_begin`` handle."""
+    rv, gen = handle
+    return _collect(rv.finish(comm.rank, gen, abort_check,
+                              progress=comm.state.progress))
 
 
 def _abort_check(comm):
@@ -297,6 +542,15 @@ def _abort_check(comm):
                 "device collective")
     comm.__dict__["_device_abort_check"] = check
     return check
+
+
+def _deposit(comm, x) -> torch.Tensor:
+    """A deposited value lives on the comm's shared device,
+    contiguous."""
+    dev = comm.state.device
+    if isinstance(x, torch.Tensor):
+        return x.to(dev).contiguous()
+    return convert.to_torch(x, dev)
 
 
 def _norm(x):
@@ -338,19 +592,27 @@ class HbmCollModule(CollModule):
             return False
         return _dtype_of(x) is not None and (op is None or not op.is_user)
 
-    def _deposit(self, comm, x) -> torch.Tensor:
-        """The deposited value lives on the shared device, contiguous."""
-        dev = comm.state.device
-        if isinstance(x, torch.Tensor):
-            return x.to(dev).contiguous()
-        return convert.to_torch(x, dev)
+    _deposit = staticmethod(_deposit)
 
     def _stacked(self, comm, x, body) -> List[torch.Tensor]:
         return meet(comm, self._deposit(comm, x), body, _abort_check(comm))
 
+    @staticmethod
+    def _stacked_fn(kind: str, opname: str):
+        """The meeting body the plan and pipeline tiers run per
+        deposit: K1 for an allreduce, K2 for an alltoall."""
+        if kind == "allreduce":
+            return lambda s: stacked.stacked_reduce(s, opname)
+        if kind == "alltoall":
+            return lambda s: stacked.stacked_copy(s, "alltoall")
+        raise KeyError(kind)
+
     def allreduce_arr(self, comm, x, op: Op):
         if not self._eligible(comm, x, op):
             return self.fallback.allreduce_arr(comm, x, op)
+        out = pipeline.maybe_device_coll(self, comm, "allreduce", x, op=op)
+        if out is not pipeline.UNHANDLED:
+            return out
         x, was_scalar = _norm(x)
         out = self._stacked(
             comm, x, lambda s: stacked.stacked_reduce(s, op.name))
@@ -373,6 +635,11 @@ class HbmCollModule(CollModule):
     def alltoall_arr(self, comm, x):
         if not self._eligible(comm, x):
             return self.fallback.alltoall_arr(comm, x)
+        shp = _shape_of(x)
+        if shp and shp[0] % comm.size == 0:
+            out = pipeline.maybe_device_coll(self, comm, "alltoall", x)
+            if out is not pipeline.UNHANDLED:
+                return out
         return self._stacked(
             comm, x, lambda s: stacked.stacked_copy(s, "alltoall"))
 

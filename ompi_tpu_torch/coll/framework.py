@@ -38,8 +38,7 @@ COLL_FUNCS = (
     # (ring attention / pipeline parallelism)
     "allreduce_arr", "bcast_arr", "reduce_arr", "allgather_arr",
     "alltoall_arr", "reduce_scatter_block_arr", "ppermute_arr",
-    # nonblocking device-array collectives: the fusion surface (not
-    # ported yet)
+    # nonblocking device-array collectives: the fusion surface
     "iallreduce_arr", "ibcast_arr",
 )
 

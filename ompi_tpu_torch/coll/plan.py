@@ -1,0 +1,178 @@
+"""coll/plan: compiled collective plans, hbm half — ONE stacked kernel
+and ONE rendezvous per large-message allreduce on one card.
+
+The pipelined tier (coll/pipeline.py) pays one rendezvous and one
+launch per segment.  A plan moves every decision out of steady state:
+for each (segment geometry, dtype, op) it resolves ONCE a ``Plan``
+holding the meeting body (the stacked reduce, K1) and the pad
+identity.  Executing a plan is pure data motion:
+
+    pack (identity-pad to the plan's fixed shape, composed on the card:
+    ``torch.full`` + ``torch.cat`` on the depositor's stream)
+      -> ONE ``device.meet`` (one rendezvous, one K1 launch over all
+         nsegs * seg elements)
+      -> unpack (trim) + pvar accounting.
+
+A payload that is not a whole number of plan elements (a ragged size)
+pays the pack: one extra on-card copy of its payload.  The reference's
+zero-copy host-alias branch (``runtime/staging``) is not ported; the
+port always takes the copying branch.
+
+Keying: resolved ``Plan`` objects live per comm in
+``comm._coll_plans`` (bounded LRU, ``coll_plan_cache_max``).
+Sub-segment payloads quantize the plan shape to the next power of two
+(a multiple of the comm size), full payloads use the calibrated
+segment — the identity padding keeps every size on a log-bounded key
+set.
+
+Not ported yet (ROADMAP.md): the mesh half (``_compile_mesh``,
+``mesh_reduce``, ``coll_plan_native_reduce``), the integrity spec and
+the tracing spans.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+
+import torch
+
+from ompi_tpu_torch.coll import pipeline as _pl
+from ompi_tpu_torch.mca.params import registry
+
+_enable_var = registry.register(
+    "coll", "plan", "enable", True, bool,
+    help="Resolve one plan per (segment geometry, dtype, op) and run "
+         "each large-message allreduce as ONE rendezvous + ONE launch; "
+         "0 = the per-segment pipelined rendezvous path")
+
+_cache_max_var = registry.register(
+    "coll", "plan", "cache_max", 32, int,
+    help="Per-communicator bound on resolved Plan objects (LRU)")
+
+pv_builds = registry.register_pvar(
+    "coll", "plan", "builds",
+    help="collective plans resolved (per rank): a Plan object built "
+         "and cached on the comm — steady state should be ~0")
+pv_hits = registry.register_pvar(
+    "coll", "plan", "hits",
+    help="collective ops served by an already-resolved plan")
+pv_exec_us = registry.register_pvar(
+    "coll", "plan", "exec_us",
+    help="cumulative wall microseconds inside plan execution "
+         "(pack + rendezvous + unpack)")
+
+
+def enabled() -> bool:
+    return bool(_enable_var.value)
+
+
+def _plan_segments(comm, n: int, seg: int):
+    """(nsegs, seg_elems) for an n-element payload.  Payloads below
+    one calibrated segment quantize to the next pow2 (rounded to a
+    comm-size multiple) so a 64 KiB message is not identity-padded to
+    a 1 MiB plan; at or above, the calibrated segment is the unit.
+    Either way the key set stays log-bounded in payload size."""
+    size = comm.size
+    if n < seg:
+        s = 1
+        while s < n:
+            s <<= 1
+        rem = s % size
+        if rem:
+            s += size - rem
+        return 1, min(s, seg)
+    return -(-n // seg), seg
+
+
+class Plan:
+    """One resolved collective plan: the prebound meeting body, the pad
+    identity and the geometry.  Everything per-op-variable is an
+    ``execute`` argument; everything else was decided at build."""
+
+    __slots__ = ("nsegs", "seg", "total", "pad_val", "fn")
+
+    def __init__(self, nsegs: int, seg: int, pad_val, fn) -> None:
+        self.nsegs = nsegs
+        self.seg = seg
+        self.total = nsegs * seg
+        self.pad_val = pad_val
+        self.fn = fn
+
+    def execute(self, comm, flat: torch.Tensor, n: int) -> torch.Tensor:
+        """The whole steady-state op: pack, one meet, unpack."""
+        from ompi_tpu_torch.coll import device
+        ns0 = time.perf_counter_ns()
+        value = flat
+        if n != self.total:
+            value = _pack(flat, n, self)
+        out = device.meet(comm, value, self.fn, device._abort_check(comm))
+        if n != self.total:
+            out = _unpack(out, n)
+        pv_exec_us.add((time.perf_counter_ns() - ns0) // 1000)
+        return out
+
+
+def _pack(flat: torch.Tensor, n: int, plan: Plan) -> torch.Tensor:
+    """Identity-pad ``flat`` (n,) to the plan's fixed (total,) shape,
+    composed on the card on the depositor's stream: one new tensor, so
+    the caller's buffer is never written."""
+    return torch.cat([flat, torch.full((plan.total - n,), plan.pad_val,
+                                       dtype=flat.dtype,
+                                       device=flat.device)])
+
+
+def _unpack(out: torch.Tensor, n: int) -> torch.Tensor:
+    return out[:n]
+
+
+def _plans_of(comm) -> OrderedDict:
+    plans = comm.__dict__.get("_coll_plans")
+    if plans is None:
+        plans = comm.__dict__["_coll_plans"] = OrderedDict()
+    return plans
+
+
+def _resolve(comm, pkey, builder) -> Plan:
+    """Per-comm Plan LRU: hit moves to the back, build trims to
+    coll_plan_cache_max.  comm objects are rank-local, so this needs
+    no lock."""
+    plans = _plans_of(comm)
+    plan = plans.get(pkey)
+    if plan is not None:
+        plans.move_to_end(pkey)
+        pv_hits.add(1)
+        return plan
+    plan = builder()
+    plans[pkey] = plan
+    cap = max(1, int(_cache_max_var.value))
+    while len(plans) > cap:
+        plans.popitem(last=False)
+    pv_builds.add(1)
+    return plan
+
+
+# -- hbm (intra-card) plans -------------------------------------------------
+
+def _build_hbm_plan(module, nsegs: int, seg: int, dtype,
+                    opname: str) -> Plan:
+    return Plan(nsegs, seg, _pl._pad_value(opname, dtype),
+                module._stacked_fn("allreduce", opname))
+
+
+def hbm_reduce(module, comm, x, op) -> torch.Tensor:
+    """Plan-path intra-card allreduce: the stacked whole-payload
+    kernel, through exactly one rendezvous."""
+    x = module._deposit(comm, x)
+    shape = None if x.dim() == 1 else x.shape
+    flat = x if shape is None else x.reshape(-1)
+    n = int(flat.shape[0])
+    nsegs, seg = _plan_segments(
+        comm, n, _pl.segment_elems(comm, flat.element_size()))
+    pkey = ("hbm", nsegs, seg, flat.dtype, op.name)
+    plan = _resolve(
+        comm, pkey,
+        lambda: _build_hbm_plan(module, nsegs, seg, flat.dtype, op.name))
+    _pl.pv_segments.add(nsegs)
+    out = plan.execute(comm, flat, n)
+    return out if shape is None else out.reshape(shape)

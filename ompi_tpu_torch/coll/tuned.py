@@ -16,6 +16,7 @@ import os
 from typing import Callable, Dict, Optional
 
 from ompi_tpu_torch.coll import base as alg
+from ompi_tpu_torch.coll import calibrate
 from ompi_tpu_torch.coll.basic import P2PCollModule, _is_pow2
 from ompi_tpu_torch.coll.framework import CollComponent, coll_framework
 from ompi_tpu_torch.mca.params import registry
@@ -98,6 +99,43 @@ def _oversubscribed(comm) -> bool:
     return verdict
 
 
+def device_algorithm(comm, kind: str, nbytes: int,
+                     opname: Optional[str] = None) -> Optional[str]:
+    """Large-message device-tier pick, the per-communicator analog of
+    the reference's comm-bound module selection: None keeps the
+    single-dispatch path; "segring"/"segrd"/"sega2a" route to the
+    segmented tier (coll/pipeline; on a one-card comm every reduction
+    pick takes the plan or the pipelined stacked path).
+
+    Comm-consistent by construction — thresholds come from knobs and
+    the process-wide calibration profile, and nbytes is MPI-matched —
+    and cached per comm (a large message should pay one dict hit, not
+    a profile walk, to be routed).
+
+    Not ported yet: the hierarchical pick (it needs the mesh tier) and
+    the coll/autotune window that re-resolves the cache online."""
+    from ompi_tpu_torch.coll import pipeline
+    tbl = comm.__dict__.get("_pipeline_pick")
+    if tbl is None:
+        tbl = comm.__dict__["_pipeline_pick"] = {}
+    seg_min = tbl.get(kind)
+    if seg_min is None:
+        seg_min = tbl[kind] = calibrate.segmented_crossover(
+            kind, comm.size, pipeline._min_bytes_var.value)
+    if kind == "allreduce":
+        if nbytes >= seg_min:
+            if _is_pow2(comm.size) and \
+                    nbytes < pipeline._rd_max_var.value:
+                return "segrd"
+            return "segring"
+        return None
+    if kind == "bcast" and nbytes >= seg_min:
+        return "segbcast"
+    if kind == "alltoall" and nbytes >= seg_min:
+        return "sega2a"
+    return None
+
+
 class TunedModule(P2PCollModule):
     name = "tuned"
 
@@ -134,9 +172,11 @@ class TunedModule(P2PCollModule):
             # reduce+bcast moves the same total bytes as ring
             # (2(N-1)*nbytes) in 2(N-1) messages instead of 2(N-1)*N.
             return alg.allreduce_reduce_bcast
-        # static cutoff (the measured-crossover calibration that can
-        # replace it is not ported yet)
-        if nbytes < _small_var.value and _is_pow2(comm.size):
+        # measured crossover (coll_tuned_use_measured_rules) replaces
+        # the static 10 KB cutoff; falls back to it when rules are off
+        small = calibrate.measured_threshold(
+            "allreduce_small", comm.size, _small_var.value)
+        if nbytes < small and _is_pow2(comm.size):
             return alg.allreduce_recursivedoubling
         if nbytes // max(1, comm.size) > 0:
             if nbytes > _seg_var.value * comm.size:
@@ -151,7 +191,9 @@ class TunedModule(P2PCollModule):
         fn = self._rule("bcast", nbytes)
         if fn is not None:
             return fn
-        if nbytes > 256 * 1024 and comm.size > 2:
+        pipe = calibrate.measured_threshold(
+            "bcast_pipeline", comm.size, 256 * 1024)
+        if nbytes > pipe and comm.size > 2:
             return alg.bcast_pipeline
         return alg.bcast_binomial
 
@@ -169,7 +211,9 @@ class TunedModule(P2PCollModule):
         fn = self._rule("alltoall", nbytes)
         if fn is not None:
             return fn
-        if nbytes <= 1024 and comm.size >= 8:
+        bruck = calibrate.measured_threshold(
+            "alltoall_bruck", comm.size, 1024)
+        if nbytes <= bruck and comm.size >= 8:
             return alg.alltoall_bruck
         return alg.alltoall_pairwise
 

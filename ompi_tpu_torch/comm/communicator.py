@@ -499,6 +499,109 @@ class Communicator:
         rbuf, rcount, rdt = self._spec(rspec)
         self.coll.exscan(self, sbuf, rbuf, rcount, rdt, op)
 
+    # -- nonblocking collectives (coll/nbc schedules) -------------------
+    def Ibarrier(self):
+        return self.coll.ibarrier(self)
+
+    def Ibcast(self, spec, root: int = 0):
+        buf, count, dt = self._spec(spec)
+        return self.coll.ibcast(self, buf, count, dt, root)
+
+    def Ireduce(self, sspec, rspec, op, root: int = 0):
+        sbuf, scount, sdt = self._spec(sspec)
+        if rspec is None:
+            return self.coll.ireduce(self, sbuf, None, scount, sdt, op, root)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.ireduce(self, sbuf, rbuf, rcount or scount,
+                                 rdt or sdt, op, root)
+
+    def Iallreduce(self, sspec, rspec, op):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.iallreduce(self, sbuf, rbuf, rcount, rdt, op)
+
+    def Iallgather(self, sspec, rspec):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.iallgather(self, sbuf, scount, sdt, rbuf,
+                                    rcount // self.size, rdt)
+
+    def Iallgatherv(self, sspec, rspec, rcounts, displs):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        return self.coll.iallgatherv(self, sbuf, scount, sdt, rbuf,
+                                     rcounts, displs, rdt)
+
+    def Igather(self, sspec, rspec, root: int = 0):
+        sbuf, scount, sdt = self._spec(sspec)
+        if self.rank == root:
+            rbuf, rcount, rdt = self._spec(rspec)
+            return self.coll.igather(self, sbuf, scount, sdt, rbuf,
+                                     rcount // self.size, rdt, root)
+        return self.coll.igather(self, sbuf, scount, sdt, None, 0, sdt,
+                                 root)
+
+    def Iscatter(self, sspec, rspec, root: int = 0):
+        rbuf, rcount, rdt = self._spec(rspec)
+        if self.rank == root:
+            sbuf, scount, sdt = self._spec(sspec)
+            return self.coll.iscatter(self, sbuf, scount // self.size, sdt,
+                                      rbuf, rcount, rdt, root)
+        return self.coll.iscatter(self, None, 0, rdt, rbuf, rcount, rdt,
+                                  root)
+
+    def Igatherv(self, sspec, rspec, rcounts, displs, root: int = 0):
+        sbuf, scount, sdt = self._spec(sspec)
+        if self.rank == root:
+            rbuf, _, rdt = self._spec(rspec)
+        else:
+            rbuf, rdt = None, sdt
+        return self.coll.igatherv(self, sbuf, scount, sdt, rbuf,
+                                  rcounts, displs, rdt, root)
+
+    def Iscatterv(self, sspec, scounts, displs, rspec, root: int = 0):
+        rbuf, rcount, rdt = self._spec(rspec)
+        if self.rank == root:
+            sbuf, _, sdt = self._spec(sspec)
+        else:
+            sbuf, sdt = None, rdt
+        return self.coll.iscatterv(self, sbuf, scounts, displs, sdt,
+                                   rbuf, rcount, rdt, root)
+
+    def Ialltoall(self, sspec, rspec):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.ialltoall(self, sbuf, scount // self.size, sdt,
+                                   rbuf, rcount // self.size, rdt)
+
+    def Ialltoallv(self, sspec, scounts, sdispls, rspec, rcounts, rdispls):
+        sbuf, _, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        return self.coll.ialltoallv(self, sbuf, scounts, sdispls, sdt,
+                                    rbuf, rcounts, rdispls, rdt)
+
+    def Ireduce_scatter(self, sspec, rspec, rcounts, op):
+        sbuf, _, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        return self.coll.ireduce_scatter(self, sbuf, rbuf, rcounts, rdt,
+                                         op, sdtype=sdt)
+
+    def Ireduce_scatter_block(self, sspec, rspec, op):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.ireduce_scatter_block(self, sbuf, rbuf, rcount,
+                                               rdt, op)
+
+    def Iscan(self, sspec, rspec, op):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.iscan(self, sbuf, rbuf, rcount, rdt, op)
+
+    def Iexscan(self, sspec, rspec, op):
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        return self.coll.iexscan(self, sbuf, rbuf, rcount, rdt, op)
+
     @property
     def device(self):
         """The torch.device this rank owns (None in host-only worlds)."""
@@ -532,6 +635,24 @@ class Communicator:
     def ppermute_arr(self, x, perm):
         """perm: [(src_rank, dst_rank), ...] — neighbor shift."""
         return self.coll.ppermute_arr(self, x, perm)
+
+    # -- nonblocking device-array collectives (the fusion surface) ------
+    # Small payloads coalesce into one rendezvous and one launch per
+    # (op, dtype) group per batch (coll/fusion); the returned request's
+    # .result holds the output after .wait().
+
+    def iallreduce_arr(self, x, op):
+        return self.coll.iallreduce_arr(self, x, op)
+
+    def ibcast_arr(self, x, root: int = 0):
+        return self.coll.ibcast_arr(self, x, root)
+
+    def flush_arr(self) -> None:
+        """Dispatch this comm's pending fused collectives now
+        (collective: every member must flush — wait()/finalize also
+        flush implicitly)."""
+        from ompi_tpu_torch.coll import fusion
+        fusion.flush_comm(self)
 
     # -- management shorthands -----------------------------------------
     def Get_rank(self) -> int:

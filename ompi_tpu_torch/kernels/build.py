@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/ompi_tpu_torch/`` at the root of the checkout, named by a hash
-of the source and the flags: a changed source builds anew, an
-unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc``
+of the source, the shared headers (``csrc/*.cuh``) and the flags: a
+changed source or header builds anew, an unchanged one is loaded as it
+is.  ``build_all`` starts one ``nvcc``
 for each source, all at once.
 
 The build runs at first use; there is no other build step.
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build",
                          "ompi_tpu_torch")
-SOURCES = {"stacked": "stacked.cu"}
+SOURCES = {"stacked": "stacked.cu", "fused": "fused.cu", "index": "index.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,8 +52,11 @@ def nvcc() -> str:
 
 def _paths(name: str) -> Tuple[str, str, str]:
     src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as fh:
-        h = hashlib.sha256(fh.read())
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     tag = h.hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")

@@ -26,25 +26,14 @@
 // MAX_PTRS each side, 2 KiB, under the 4 KiB parameter limit), so a
 // launch needs no host-to-device copy.
 //
-// Semantics the wrappers in stacked.py and their plain versions share:
-//   * float16 and bfloat16 accumulate in float32 and round once;
-//   * MAX and MIN propagate NaN (fmaxf/fminf would drop it);
-//   * logical ops normalise to 0/1, LXOR is the parity of the nonzero
-//     inputs; integer SUM and PROD wrap in the input type;
-//   * bool is one byte holding 0 or 1 (torch.bool);
-//   * complex SUM is a componentwise add and complex PROD is
-//     (ac - bd, ad + bc), each product and sum rounded on its own (no
-//     fused multiply-add), as the plain version computes it.
+// The op and dtype templates, and the semantics they fix (NaN,
+// wrapping, half-precision accumulation, complex rounding), live in
+// reduce_ops.cuh, which K3 fused_batch (fused.cu) shares.
 //
 // Plain C interface, loaded with ctypes: each entry returns the
 // cudaError_t of its launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <type_traits>
+#include "reduce_ops.cuh"
 
 #define MAX_PTRS 128
 
@@ -65,104 +54,6 @@ struct CopyArgs {
   int n;            // ranks
   int alltoall;     // 1: out[i] block j <- in[j] block i; 0: <- in[j]
 };
-
-enum Dtype { F16 = 0, BF16 = 1, F32 = 2, F64 = 3, I8 = 4, U8 = 5,
-             I32 = 6, I64 = 7, BOOL = 8, I16 = 9, U16 = 10, U32 = 11,
-             U64 = 12, C64 = 13, C128 = 14 };
-enum OpCode { SUM = 0, PROD = 1, MAX = 2, MIN = 3, LAND = 4, BAND = 5,
-              LOR = 6, BOR = 7, LXOR = 8, BXOR = 9 };
-
-struct bool8 {
-  uint8_t v;
-};
-
-template <typename R>
-struct alignas(2 * sizeof(R)) cplx {
-  R re, im;
-};
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-
-template <typename A>
-struct is_cplx : std::false_type {};
-template <typename R>
-struct is_cplx<cplx<R>> : std::true_type {};
-
-template <typename T>
-struct Traits {  // integers: accumulate in the input type
-  using A = T;
-  static __device__ __forceinline__ A load(T x) { return x; }
-  static __device__ __forceinline__ T store(A a) { return a; }
-};
-template <>
-struct Traits<__half> {
-  using A = float;
-  static __device__ __forceinline__ A load(__half x) { return __half2float(x); }
-  static __device__ __forceinline__ __half store(A a) { return __float2half_rn(a); }
-};
-template <>
-struct Traits<__nv_bfloat16> {
-  using A = float;
-  static __device__ __forceinline__ A load(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ __nv_bfloat16 store(A a) { return __float2bfloat16_rn(a); }
-};
-template <>
-struct Traits<bool8> {
-  using A = bool;
-  static __device__ __forceinline__ A load(bool8 x) { return x.v != 0; }
-  static __device__ __forceinline__ bool8 store(A a) { return bool8{(uint8_t)a}; }
-};
-
-// First operand of the fold: logical ops start from the 0/1 form so
-// that every output is normalised whatever N is.
-template <int OP, typename A>
-__device__ __forceinline__ A first(A a) {
-  if constexpr (OP == LAND || OP == LOR || OP == LXOR) {
-    return (A)(a != (A)0);
-  } else {
-    return a;
-  }
-}
-
-template <int OP, typename A>
-__device__ __forceinline__ A apply(A a, A b) {
-  if constexpr (is_cplx<A>::value) {
-    if constexpr (OP == SUM) return A{add_rn(a.re, b.re), add_rn(a.im, b.im)};
-    if constexpr (OP == PROD)
-      return A{sub_rn(mul_rn(a.re, b.re), mul_rn(a.im, b.im)),
-               add_rn(mul_rn(a.re, b.im), mul_rn(a.im, b.re))};
-  } else if constexpr (std::is_same<A, bool>::value) {
-    if constexpr (OP == SUM || OP == MAX || OP == LOR || OP == BOR) return a || b;
-    if constexpr (OP == PROD || OP == MIN || OP == LAND || OP == BAND) return a && b;
-    if constexpr (OP == LXOR || OP == BXOR) return a != b;
-  } else if constexpr (std::is_integral<A>::value) {
-    // wrap in unsigned arithmetic at least as wide as int, so that no
-    // promoted operand overflows a signed int
-    using U = typename std::make_unsigned<A>::type;
-    using W = typename std::conditional<(sizeof(A) < sizeof(int)), unsigned, U>::type;
-    if constexpr (OP == SUM) return (A)(U)((W)(U)a + (W)(U)b);
-    if constexpr (OP == PROD) return (A)(U)((W)(U)a * (W)(U)b);
-    if constexpr (OP == MAX) return a > b ? a : b;
-    if constexpr (OP == MIN) return a < b ? a : b;
-    if constexpr (OP == LAND) return (A)((a != 0) && (b != 0));
-    if constexpr (OP == LOR) return (A)((a != 0) || (b != 0));
-    if constexpr (OP == LXOR) return (A)((a != 0) != (b != 0));
-    if constexpr (OP == BAND) return a & b;
-    if constexpr (OP == BOR) return a | b;
-    if constexpr (OP == BXOR) return a ^ b;
-  } else {  // float, double
-    if constexpr (OP == SUM) return a + b;
-    if constexpr (OP == PROD) return a * b;
-    if constexpr (OP == MAX) return (a > b || a != a) ? a : b;
-    if constexpr (OP == MIN) return (a < b || a != a) ? a : b;
-  }
-  return a;  // unreachable: the host table admits valid pairs only
-}
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Vec {
@@ -227,75 +118,20 @@ __global__ void __launch_bounds__(256) stacked_copy_kernel(const CopyArgs a) {
     dst[k] = src[k];
 }
 
-static int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (cached[dev] == 0) {
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cached[dev] = sms > 0 ? sms : 1;
-  }
-  return cached[dev];
-}
-
-static unsigned grid_for(long long work, long long cap) {
-  long long blocks = (work + 255) / 256;
-  if (blocks < 1) blocks = 1;
-  if (blocks > cap) blocks = cap;
-  return (unsigned)blocks;
-}
-
 template <typename T, int OP>
-static int launch_reduce(const ReduceArgs* a, int vec, cudaStream_t s) {
-  constexpr int V = 16 / sizeof(T);
-  const long long cap = (long long)sm_count() * 8;
-  if (vec) {
-    stacked_reduce_kernel<T, OP, V>
-        <<<grid_for(a->n / V, cap), 256, 0, s>>>(*a);
-  } else {
-    stacked_reduce_kernel<T, OP, 1><<<grid_for(a->n, cap), 256, 0, s>>>(*a);
+struct LaunchReduce {
+  static int run(const ReduceArgs* a, int vec, cudaStream_t s) {
+    constexpr int V = 16 / sizeof(T);
+    const long long cap = (long long)sm_count() * 8;
+    if (vec) {
+      stacked_reduce_kernel<T, OP, V>
+          <<<grid_for(a->n / V, cap), 256, 0, s>>>(*a);
+    } else {
+      stacked_reduce_kernel<T, OP, 1><<<grid_for(a->n, cap), 256, 0, s>>>(*a);
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int reduce_float(const ReduceArgs* a, int op, int vec, cudaStream_t s) {
-  switch (op) {
-    case SUM: return launch_reduce<T, SUM>(a, vec, s);
-    case PROD: return launch_reduce<T, PROD>(a, vec, s);
-    case MAX: return launch_reduce<T, MAX>(a, vec, s);
-    case MIN: return launch_reduce<T, MIN>(a, vec, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-static int reduce_complex(const ReduceArgs* a, int op, int vec, cudaStream_t s) {
-  switch (op) {
-    case SUM: return launch_reduce<T, SUM>(a, vec, s);
-    case PROD: return launch_reduce<T, PROD>(a, vec, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-static int reduce_all_ops(const ReduceArgs* a, int op, int vec, cudaStream_t s) {
-  switch (op) {
-    case SUM: return launch_reduce<T, SUM>(a, vec, s);
-    case PROD: return launch_reduce<T, PROD>(a, vec, s);
-    case MAX: return launch_reduce<T, MAX>(a, vec, s);
-    case MIN: return launch_reduce<T, MIN>(a, vec, s);
-    case LAND: return launch_reduce<T, LAND>(a, vec, s);
-    case BAND: return launch_reduce<T, BAND>(a, vec, s);
-    case LOR: return launch_reduce<T, LOR>(a, vec, s);
-    case BOR: return launch_reduce<T, BOR>(a, vec, s);
-    case LXOR: return launch_reduce<T, LXOR>(a, vec, s);
-    case BXOR: return launch_reduce<T, BXOR>(a, vec, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
+};
 
 extern "C" {
 
@@ -309,25 +145,8 @@ int ompi_stacked_reduce(const ReduceArgs* a, int dtype, int op, int vec,
                         void* stream) {
   if (a->nin < 1 || a->nin > MAX_PTRS || a->nout < 1 || a->nout > MAX_PTRS)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case F16: return reduce_float<__half>(a, op, vec, s);
-    case BF16: return reduce_float<__nv_bfloat16>(a, op, vec, s);
-    case F32: return reduce_float<float>(a, op, vec, s);
-    case F64: return reduce_float<double>(a, op, vec, s);
-    case I8: return reduce_all_ops<int8_t>(a, op, vec, s);
-    case U8: return reduce_all_ops<uint8_t>(a, op, vec, s);
-    case I32: return reduce_all_ops<int32_t>(a, op, vec, s);
-    case I64: return reduce_all_ops<int64_t>(a, op, vec, s);
-    case BOOL: return reduce_all_ops<bool8>(a, op, vec, s);
-    case I16: return reduce_all_ops<int16_t>(a, op, vec, s);
-    case U16: return reduce_all_ops<uint16_t>(a, op, vec, s);
-    case U32: return reduce_all_ops<uint32_t>(a, op, vec, s);
-    case U64: return reduce_all_ops<uint64_t>(a, op, vec, s);
-    case C64: return reduce_complex<cplx<float>>(a, op, vec, s);
-    case C128: return reduce_complex<cplx<double>>(a, op, vec, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch_reduce<LaunchReduce>(dtype, op, a, vec,
+                                       (cudaStream_t)stream);
 }
 
 // width: bytes a thread moves at once (16, 8, 4, 2 or 1); the wrapper

@@ -22,8 +22,18 @@ Two reference behaviours are pinned as known divergences, not copied:
 small-integer promotion (test_divergence_small_int_promotion) and
 NaN propagation (test_nan_propagates_like_reference).
 
+K3 ``fused_batch`` (kernels/fused.py) is held the same way against
+the reference's fused hbm program (``coll/fusion._build_fused_hbm``),
+slot by slot, with the tolerances above; its bcast entries are byte
+for byte.  K4 ``index_gather`` and K5 ``index_scatter``
+(kernels/index.py) are held byte for byte against the bodies of the
+reference's ``device_pack`` (``jnp.take``) and ``device_unpack``
+(``.at[idx].set``) for 1-, 2- and 4-byte elements, and against numpy's
+take and fancy assignment for 8- and 16-byte ones (x64 off, jnp would
+narrow them).
+
 The kernels themselves are held against their plain versions on the
-card by the gpu-marked test at the end (skipped without a card).
+card by the gpu-marked tests at the end (skipped without a card).
 """
 
 import zlib
@@ -35,8 +45,9 @@ import pytest
 import torch
 
 from ompi_tpu.coll.device import HbmCollModule
+from ompi_tpu.coll.fusion import _build_fused_hbm
 from ompi_tpu_torch import convert
-from ompi_tpu_torch.kernels import stacked
+from ompi_tpu_torch.kernels import fused, index, stacked
 from ompi_tpu_torch.op.op import PREDEFINED
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
@@ -324,4 +335,147 @@ def test_kernel_matches_plain_on_card(cuda_device):
                 for g, w in zip(got, want):
                     torch.testing.assert_close(g, w, rtol=0, atol=0,
                                                equal_nan=True)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K3 fused_batch, K4 index_gather, K5 index_scatter: plain versions
+# ---------------------------------------------------------------------------
+
+def _fused_case(rng, n, dt, op):
+    """A batch group of one (dtype, op): ragged fold slots, and for
+    SUM a bcast entry (bcasts join their dtype's SUM group)."""
+    slots = [(_shards(rng, n, m, dt, op), None) for m in (5, 37, 1)]
+    if op == "MPI_SUM":
+        slots.insert(1, (_shards(rng, n, 11, dt, op), n - 1))
+    return slots
+
+
+@pytest.mark.parametrize("dt,op", PAIRS,
+                         ids=[f"{d.name}-{o[4:]}" for d, o in PAIRS])
+def test_fused_batch_matches_reference(dt, op):
+    """K3's plain version against the reference's fused hbm program
+    over the same slots: every fold slot within K1's tolerances,
+    every bcast entry byte for byte; every rank its own output."""
+    rng = np.random.default_rng(zlib.crc32(f"fused{dt.name}{op}".encode()))
+    n = (2, 3, 8)[PAIRS.index((dt, op)) % 3]
+    slots = _fused_case(rng, n, dt, op)
+    sig = tuple(("bcast", s[0].shape, dt.str, root) if root is not None
+                else ("allreduce", s[0].shape, dt.str, op)
+                for s, root in slots)
+    ref = _build_fused_hbm(n, sig)(
+        *[jnp.asarray(s) for shards, _ in slots for s in shards])
+    port = fused.fused_batch(
+        [([convert.to_torch(s, torch.device("cpu")) for s in shards], root)
+         for shards, root in slots], op)
+    assert len(port) == len(slots)
+    for (shards, root), p_outs, r_out in zip(slots, port, ref):
+        p_outs = [convert.to_numpy(o) for o in p_outs]
+        if root is None:
+            check_outputs("allreduce", op, shards, p_outs,
+                          [np.asarray(r_out)])
+        else:
+            for p in p_outs:
+                # x64 off: the reference holds 8- and 16-byte types in
+                # 4 and 8 bytes; the inputs survive that exactly
+                assert p.tobytes() == shards[root].tobytes()
+                assert p.tobytes() == np.asarray(r_out).astype(dt).tobytes()
+    ptrs = [o.data_ptr() for outs in port for o in outs]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+def test_fused_batch_refuses_what_the_kernel_does_not_take():
+    f = torch.zeros(4)
+    with pytest.raises(TypeError):
+        fused.fused_batch([([f, f], None)], "MPI_BAND")
+    with pytest.raises(ValueError):
+        fused.fused_batch([([f, f], None), ([f], None)], "MPI_SUM")
+    with pytest.raises(ValueError):
+        fused.fused_batch([([f, f], 2)], "MPI_SUM")
+    with pytest.raises(ValueError):
+        fused.fused_batch([([f, torch.zeros(4, dtype=torch.int32)], None)],
+                          "MPI_SUM")
+    with pytest.raises(ValueError):
+        fused.fused_batch([([f[::2], f[::2]], None)], "MPI_SUM")
+    before = fused.fused_batch.launches.value
+    fused.fused_batch([([f, f], None)], "MPI_SUM")
+    assert fused.fused_batch.launches.value == before
+
+
+INDEX_DTYPES = [np.dtype(np.int8), np.dtype(np.float16),
+                np.dtype(np.float32), np.dtype(np.float64),
+                np.dtype(np.complex128)]
+
+
+def _index_cases(rng, nbuf):
+    """Vector (stride 2), indexed (a permutation of scattered blocks)
+    and contiguous index vectors over an nbuf-element buffer."""
+    perm = rng.permutation(nbuf)[:nbuf // 3]
+    return [np.arange(0, nbuf, 2), perm, np.arange(nbuf)]
+
+
+@pytest.mark.parametrize("dt", INDEX_DTYPES, ids=lambda d: d.name)
+def test_index_gather_scatter_match_reference(dt):
+    rng = np.random.default_rng(31)
+    nbuf = 301
+    buf = (rng.standard_normal(nbuf) * 100).astype(dt)
+    for idx in _index_cases(rng, nbuf):
+        iv = index.IndexVector(idx, torch.device("cpu"))
+        got = convert.to_numpy(index.index_gather(
+            convert.to_torch(buf, torch.device("cpu")), iv))
+        if dt.itemsize <= 4:
+            want = np.asarray(jnp.take(jnp.asarray(buf), jnp.asarray(idx),
+                                       axis=0))
+        else:
+            want = np.take(buf, idx)
+        assert got.dtype == dt and got.tobytes() == want.tobytes()
+        fill = np.zeros(nbuf, dt)
+        out = convert.to_torch(fill, torch.device("cpu"))
+        res = index.index_scatter(
+            convert.to_torch(want, torch.device("cpu")), iv, out)
+        assert res is out
+        if dt.itemsize <= 4:
+            ref = np.asarray(jnp.asarray(fill).at[jnp.asarray(idx)].set(
+                jnp.asarray(want)))
+        else:
+            ref = fill.copy()
+            ref[idx] = want
+        assert convert.to_numpy(out).tobytes() == ref.tobytes()
+
+
+@pytest.mark.gpu
+def test_fused_kernel_matches_plain_on_card(cuda_device):
+    """K3 over every pair K1 takes, N = 2, 3 and 8, ragged slots and
+    bcast entries, against its plain version on the card: exact."""
+    rng = np.random.default_rng(12)
+    for dt, op in PAIRS:
+        for n in (2, 3, 8):
+            slots = [([convert.to_torch(s, cuda_device) for s in shards],
+                      root) for shards, root in _fused_case(rng, n, dt, op)]
+            got = fused.fused_batch(slots, op)
+            want = fused.fused_batch_plain(slots, op)
+            for gs, ws in zip(got, want):
+                for g, w in zip(gs, ws):
+                    torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                               equal_nan=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_index_kernels_match_plain_on_card(cuda_device):
+    """K4 and K5 over the five element widths and the three index
+    shapes, against their plain versions on the card: exact."""
+    rng = np.random.default_rng(13)
+    for dt in INDEX_DTYPES:
+        buf = convert.to_torch(
+            (rng.standard_normal(4099) * 100).astype(dt), cuda_device)
+        for idx in _index_cases(rng, 4099):
+            iv = index.IndexVector(idx, cuda_device)
+            g = index.index_gather(buf, iv)
+            assert torch.equal(g, index.index_gather_plain(buf, iv))
+            a = torch.zeros_like(buf)
+            b = torch.zeros_like(buf)
+            index.index_scatter(g, iv, a)
+            index.index_scatter_plain(g, iv, b)
+            assert torch.equal(a, b)
     torch.cuda.synchronize()

@@ -100,7 +100,11 @@ def test_port_imports_no_jax_and_no_reference():
     included) loads neither jax nor the reference package."""
     code = ("import sys, ompi_tpu_torch, ompi_tpu_torch.coll.device, "
             "ompi_tpu_torch.testing, ompi_tpu_torch.kernels.stacked, "
-            "ompi_tpu_torch.kernels.build, ompi_tpu_torch.convert\n"
+            "ompi_tpu_torch.kernels.build, ompi_tpu_torch.convert, "
+            "ompi_tpu_torch.coll.fusion, ompi_tpu_torch.coll.plan, "
+            "ompi_tpu_torch.coll.calibrate, ompi_tpu_torch.coll.nbc, "
+            "ompi_tpu_torch.datatype.device, ompi_tpu_torch.kernels.fused, "
+            "ompi_tpu_torch.kernels.index\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "
             "m == 'ompi_tpu' or m.startswith('ompi_tpu.'))\n"
@@ -175,12 +179,27 @@ def test_mca_names_match_the_reference():
     hbm path's parameters keep their names and defaults."""
     from ompi_tpu.mca.params import registry as ref_registry
     import ompi_tpu.coll.device  # noqa: F401  (registers)
+    import ompi_tpu.coll.fusion  # noqa: F401
+    import ompi_tpu.coll.plan  # noqa: F401
     import ompi_tpu_torch.coll.device  # noqa: F401
+    import ompi_tpu_torch.coll.fusion  # noqa: F401
+    import ompi_tpu_torch.coll.plan  # noqa: F401
     for name in ("coll_hbm_priority", "coll_device_rendezvous_timeout",
                  "coll_device_rendezvous_poll",
                  "coll_device_reduce_as_allreduce",
                  "coll_tuned_allreduce_small_msg", "rte_base_fence_timeout"):
         assert port_registry.get(name) == ref_registry.get(name), name
+    # the tier knobs, by default (tests set and restore them)
+    defaults = [{v.full_name: v.default for v in reg.all_vars()}
+                for reg in (port_registry, ref_registry)]
+    for name in ("coll_device_dispatcher", "coll_pipeline_enable",
+                 "coll_pipeline_min_bytes", "coll_seg_size",
+                 "coll_pipeline_depth", "coll_pipeline_rd_max_bytes",
+                 "coll_plan_enable", "coll_plan_cache_max",
+                 "coll_device_fusion", "coll_device_fusion_threshold",
+                 "coll_device_fusion_max_ops",
+                 "coll_tuned_use_measured_rules"):
+        assert defaults[0][name] == defaults[1][name], name
     from ompi_tpu.mca.params import ENV_PREFIX as ref_prefix
     from ompi_tpu_torch.mca.params import ENV_PREFIX
     assert ENV_PREFIX == ref_prefix == "TPUMPI_MCA_"
