@@ -18,10 +18,14 @@ Phases, each fatal on failure (nothing is caught and carried on):
              ragged slots, bcast entries, NaN, a group split over
              several launches and a mixed batch of several groups; K4
              index_gather and K5 index_scatter over the five element
-             widths with vector, indexed and contiguous index vectors.
+             widths with vector, indexed and contiguous index vectors;
+             K6 mesh_fold over every pair K1 takes, N in {2, 3, 8}, in
+             rank order, the segring order and segrd's tree; K2's peer
+             mode (alltoall destination, clipped gather, column
+             segment) and K7 slot_pack (zeroed slots, odd widths).
              Tolerance: exact (max abs error 0, NaN where the plain
-             version has NaN) — each pair computes the same left fold
-             in the same accumulation type, or moves the same bytes.
+             version has NaN) — each pair computes the same fold in the
+             same order and accumulation type, or moves the same bytes.
 3. main    — the port's main path through its user entry points:
              run_ranks(8, fn, device_map=cuda:0) -> comm.allreduce_arr
              (SUM float32: 1 MiB a rank in one dispatch, below
@@ -43,6 +47,20 @@ Phases, each fatal on failure (nothing is caught and carried on):
              between barriers around each case: each must launch
              exactly the kernels it is built on, as often as its tier
              says.
+3b. mesh   — the mesh tier (coll/tpu) through the same entry points:
+             run_ranks(8, fn, device_map=logical_devices(cuda:0)), 8
+             logical devices of card 0 — allreduce SUM f32 1 MiB (single
+             dispatch), 8 MiB and 128 MiB (plan, native), 8 MiB as a
+             segring plan, a segrd plan and 8 pipelined segments, PROD
+             int32 8 MiB, reduce_scatter MAX f64 8 MiB, alltoall 8 MiB
+             (sega2a) and 1 MiB, bcast 8 MiB (segbcast), allgather and
+             ppermute 1 MiB, a fused flush of 32 x 64 KiB, and a 1 MiB
+             allreduce with each rank on a side stream of its own
+             behind a sleeping kernel (the stream fence); launch counts
+             (K6, K2 peer, K7) checked case by case, every result exact
+             against its plain computation, every rank's bytes the
+             same, every provider coll/tpu.  With two or more cards the
+             same cases run again one rank a card.
 4. timing  — each kernel at the main path's shapes: its device time
              (CUDA events around a replayed CUDA graph of many calls)
              and its time a call (events around eager calls, host
@@ -53,7 +71,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
              8 MiB float32 (the headline); a fused batch of 32
              iallreduce_arr of 64 KiB with one wait against the same
              32 blocking allreduce_arr calls; config 5's pack,
-             reduce_scatter and unpack.
+             reduce_scatter and unpack; the mesh allreduce of 8 MiB on
+             8 logical devices (the tier's host cost on one card).
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -281,7 +300,8 @@ def phase_kernels(dev) -> None:
                     ncases += 1
         log(f"[K2] {kind:<9} max_abs {worst[0]} max_rel {worst[1]}")
     torch.cuda.synchronize()
-    ncases += _kernels_fused(dev, g) + _kernels_index(dev, g)
+    ncases += (_kernels_fused(dev, g) + _kernels_index(dev, g)
+               + _kernels_mesh(dev, g))
     log(f"[kernels] {ncases} cases held against the plain versions, "
         "tolerance exact")
 
@@ -441,12 +461,94 @@ def config5(comm, raw, dt):
     return ddev.device_unpack(rvec, 1, res, recv)
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from ompi_tpu_torch.kernels import fused, index, mesh, stacked
+    return {"stacked_reduce": stacked.stacked_reduce.launches,
+            "stacked_copy": stacked.stacked_copy.launches,
+            "fused_batch": fused.fused_batch.launches,
+            "index_gather": index.index_gather.launches,
+            "index_scatter": index.index_scatter.launches,
+            "mesh_fold": mesh.mesh_fold.launches,
+            "peer_copy": stacked.peer_copy.launches,
+            "slot_pack": mesh.slot_pack.launches}
+
+
+def drive(plan, device_map, nranks: int, tier: str, what: str):
+    """Run ``plan``'s cases in order on ``nranks`` rank threads through
+    the port's entry points.  Every entry point driven must be provided
+    by ``tier`` (coll/nbc for the nonblocking ones).  Every counter is
+    zeroed just before the run; each case's launches are read between
+    barriers around it and must be exactly its expected counts (every
+    other kernel: 0).  Returns (results by rank, total launches, the
+    launches of each case)."""
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.testing import run_ranks
+    counters = launch_counters()
+    per_call = {}
+
+    def snapshot():
+        return {k: c.value for k, c in counters.items()}
+
+    def fn(comm):
+        for _, fname, _, _, _ in plan:
+            want = "nbc" if fname.startswith("i") else tier
+            if comm.coll.providers[fname] != want:
+                raise AssertionError(f"{fname} is provided by "
+                                     f"{comm.coll.providers[fname]}")
+        out = {}
+        comm.Barrier()
+        prev = snapshot() if comm.rank == 0 else None
+        comm.Barrier()
+        for key, _, _, call, knobs in plan:
+            if comm.rank == 0:
+                saved = {k: registry.get(k) for k in knobs}
+                for k, v in knobs.items():
+                    registry.set(k, v)
+            comm.Barrier()
+            out[key] = call(comm)
+            # the last arriver counts its launches before any member
+            # leaves the meeting, so after this barrier the count is
+            # final; the next barrier keeps the next call out until
+            # rank 0 has read it
+            comm.Barrier()
+            if comm.rank == 0:
+                cur = snapshot()
+                per_call[key] = {k: cur[k] - prev[k] for k in cur}
+                prev = cur
+                for k, v in saved.items():
+                    registry.set(k, v)
+            comm.Barrier()
+        torch.cuda.synchronize()
+        return out
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = run_ranks(nranks, fn, device_map=device_map, timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = snapshot()
+    log(f"[{tier}] {what}: {len(plan)} cases in {wall:.3f} s, "
+        f"launches {launches}")
+    for key, fname, want, _, knobs in plan:
+        want = {k: want.get(k, 0) for k in counters}
+        log(f"[{tier}] {key} ({fname}{', ' + str(knobs) if knobs else ''}"
+            f"): launches {per_call[key]}")
+        if per_call[key] != want:
+            raise AssertionError(f"{key}: launches {per_call[key]}, "
+                                 f"expected {want}")
+    total = {k: sum(w.get(k, 0) for _, _, w, _, _ in plan)
+             for k in counters}
+    if launches != total:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{total}")
+    return res, launches, per_call
+
+
 def phase_main(dev) -> dict:
     from ompi_tpu_torch.datatype import engine as dt
-    from ompi_tpu_torch.kernels import fused, index, stacked
-    from ompi_tpu_torch.mca.params import registry
     from ompi_tpu_torch.op.op import MAX, PROD, SUM
-    from ompi_tpu_torch.testing import run_ranks
 
     f32, f64 = torch.float32, torch.float64
     nfused = int(FUSED_MIB * MIB) // 4
@@ -509,69 +611,8 @@ def phase_main(dev) -> dict:
           "index_scatter": NRANKS},
          lambda c: config5(c, config5_raw(c.rank, dev), dt), {}),
     ]
-    counters = {"stacked_reduce": stacked.stacked_reduce.launches,
-                "stacked_copy": stacked.stacked_copy.launches,
-                "fused_batch": fused.fused_batch.launches,
-                "index_gather": index.index_gather.launches,
-                "index_scatter": index.index_scatter.launches}
-    per_call = {}
-
-    def snapshot():
-        return {k: c.value for k, c in counters.items()}
-
-    def fn(comm):
-        for _, fname, _, _, _ in plan:
-            want = "nbc" if fname.startswith("i") else "hbm"
-            if comm.coll.providers[fname] != want:
-                raise AssertionError(f"{fname} is provided by "
-                                     f"{comm.coll.providers[fname]}")
-        out = {}
-        comm.Barrier()
-        prev = snapshot() if comm.rank == 0 else None
-        comm.Barrier()
-        for key, _, _, call, knobs in plan:
-            if comm.rank == 0:
-                saved = {k: registry.get(k) for k in knobs}
-                for k, v in knobs.items():
-                    registry.set(k, v)
-            comm.Barrier()
-            out[key] = call(comm)
-            # the last arriver counts its launches before any member
-            # leaves the meeting, so after this barrier the count is
-            # final; the next barrier keeps the next call out until
-            # rank 0 has read it
-            comm.Barrier()
-            if comm.rank == 0:
-                cur = snapshot()
-                per_call[key] = {k: cur[k] - prev[k] for k in cur}
-                prev = cur
-                for k, v in saved.items():
-                    registry.set(k, v)
-            comm.Barrier()
-        torch.cuda.current_stream(dev).synchronize()
-        return out
-
-    for c in counters.values():
-        c.reset()
-    t0 = time.perf_counter()
-    res = run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=900)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = snapshot()
-    log(f"[main] 8 ranks on {dev}: {len(plan)} cases in {wall:.3f} s, "
-        f"launches {launches}")
-    for key, fname, want, _, knobs in plan:
-        want = {k: want.get(k, 0) for k in counters}
-        log(f"[main] {key} ({fname}{', ' + str(knobs) if knobs else ''}): "
-            f"launches {per_call[key]}")
-        if per_call[key] != want:
-            raise AssertionError(f"{key}: launches {per_call[key]}, "
-                                 f"expected {want}")
-    total = {k: sum(w.get(k, 0) for _, _, w, _, _ in plan)
-             for k in counters}
-    if launches != total:
-        raise AssertionError(f"main path launches {launches}, expected "
-                             f"{total}")
+    res, launches, per_call = drive(plan, lambda r: dev, NRANKS, "hbm",
+                                    f"8 ranks on {dev}")
     check_main(dev, res)
     return launches, per_call
 
@@ -671,6 +712,275 @@ def check_main(dev, res) -> None:
                                  f"float32 band at {int(bad)} elements")
     log(f"[main] allreduce SUM f32 8 MiB within 4*N*2^-24 of the float64 "
         f"sum; providers hbm / nbc; results finite")
+
+
+# ---------------------------------------------------------------------------
+# 3b. the mesh tier (coll/tpu)
+# ---------------------------------------------------------------------------
+
+RING_SEG = MIB // 4  # coll_seg_size in float32 / int32 elements
+
+
+def mesh_input(rank: int, nbytes: int, dtype, devs, salt: int):
+    """Rank ``rank``'s input, made on the first mesh device from a seed
+    and placed on the rank's own device."""
+    n = nbytes // torch.empty((), dtype=dtype).element_size()
+    g = torch.Generator(device=devs[0])
+    g.manual_seed(SEED * 1000 + salt * 100 + rank)
+    if dtype == torch.int32:
+        x = torch.randint(-3, 4, (n,), generator=g, device=devs[0],
+                          dtype=torch.int32)
+    else:
+        x = torch.randn(n, generator=g, device=devs[0], dtype=dtype)
+    return x.to(devs[rank])
+
+
+def mesh_cases(devs):
+    """(key, entry point, launches, call, knobs) of the mesh phase at
+    N = len(devs) ranks: each allreduce is one K6 and one K2 peer launch
+    a device (a segment, for the pipelined tier), reduce_scatter one K6
+    a device, alltoall / allgather / segbcast one K2 peer launch a
+    device (a segment), ppermute peer copies, the fused flush one K7 a
+    rank and one allreduce."""
+    from ompi_tpu_torch.op.op import MAX, PROD, SUM
+    n = len(devs)
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    nfused = int(FUSED_MIB * MIB) // 4
+    red = {"mesh_fold": n, "peer_copy": n}
+    segs = 8 * MIB // (RING_SEG * 4)
+
+    def inp(c, nbytes, dtype, salt):
+        return mesh_input(c.rank, nbytes, dtype, devs, salt)
+
+    def fused32(c):
+        qs = [c.iallreduce_arr(mesh_input(c.rank, nfused * 4, f32, devs,
+                                          50 + k), SUM)
+              for k in range(FUSED_OPS)]
+        qs[0].wait()  # the 32nd enqueue already flushed the batch
+        return [q.result for q in qs]
+
+    def side(c):
+        # each rank on a side stream of its own, its deposit held back
+        # by a sleeping kernel and its output read on that stream: a
+        # fence that ordered the launches after the wrong stream, or
+        # the rank's reads before the wrong done event, reads stale
+        # bytes here (one shared stream would hide it)
+        dev = devs[c.rank]
+        if dev.type != "cuda":
+            return c.allreduce_arr(inp(c, MIB, f32, 31) + 1.0, SUM) * 2.0
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            x = inp(c, MIB, f32, 31)
+            torch.cuda._sleep(1 << 22)
+            return c.allreduce_arr(x + 1.0, SUM) * 2.0
+
+    return [
+        ("m_ar1", "allreduce_arr", red,
+         lambda c: c.allreduce_arr(inp(c, MIB, f32, 21), SUM), {}),
+        ("m_ar8", "allreduce_arr", red,
+         lambda c: c.allreduce_arr(inp(c, 8 * MIB, f32, 22), SUM), {}),
+        ("m_ar128", "allreduce_arr", red,
+         lambda c: c.allreduce_arr(inp(c, 128 * MIB, f32, 23), SUM), {}),
+        ("m_ar8_ring", "allreduce_arr", red,
+         lambda c: c.allreduce_arr(inp(c, 8 * MIB, f32, 22), SUM),
+         {"coll_plan_native_reduce": False}),
+        ("m_ar8_rd", "allreduce_arr", red,
+         lambda c: c.allreduce_arr(inp(c, 8 * MIB, f32, 22), SUM),
+         {"coll_plan_native_reduce": False,
+          "coll_pipeline_rd_max_bytes": 16 * MIB}),
+        ("m_ar8_seg", "allreduce_arr",
+         {"mesh_fold": segs * n, "peer_copy": segs * n},
+         lambda c: c.allreduce_arr(inp(c, 8 * MIB, f32, 22), SUM),
+         {"coll_plan_enable": False}),
+        ("m_prod8", "allreduce_arr", red,
+         lambda c: c.allreduce_arr(inp(c, 8 * MIB, i32, 24), PROD), {}),
+        ("m_rs8", "reduce_scatter_block_arr", {"mesh_fold": n},
+         lambda c: c.reduce_scatter_arr(inp(c, 8 * MIB, f64, 25), MAX), {}),
+        ("m_a2a8", "alltoall_arr", {"peer_copy": segs * n},
+         lambda c: c.alltoall_arr(inp(c, 8 * MIB, f32, 26)), {}),
+        ("m_a2a1", "alltoall_arr", {"peer_copy": n},
+         lambda c: c.alltoall_arr(inp(c, MIB, f32, 27)), {}),
+        ("m_bc8", "bcast_arr", {"peer_copy": segs * n},
+         lambda c: c.bcast_arr(inp(c, 8 * MIB, f32, 28),
+                               root=min(3, n - 1)), {}),
+        ("m_ag1", "allgather_arr", {"peer_copy": n},
+         lambda c: c.allgather_arr(inp(c, MIB, f32, 29)), {}),
+        ("m_pp1", "ppermute_arr", {},
+         lambda c: c.ppermute_arr(inp(c, MIB, f32, 30),
+                                  [(i, (i + 1) % n) for i in range(n)]),
+         {}),
+        ("m_fused32", "iallreduce_arr",
+         {"slot_pack": n, "mesh_fold": n, "peer_copy": n}, fused32, {}),
+        ("m_side", "allreduce_arr", red, side, {}),
+    ]
+
+
+def phase_mesh(devs, what: str):
+    """The mesh tier through the port's entry points: N = len(devs)
+    rank threads, rank r on devs[r] (a LogicalDevice of card 0, or card
+    r), every entry point provided by coll/tpu; launch counts checked
+    case by case, every result held against its plain computation and
+    every rank's bytes against rank 0's."""
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    cards = [d.device if isinstance(d, LogicalDevice) else d for d in devs]
+    res, launches, per_call = drive(mesh_cases(cards), lambda r: devs[r],
+                                    len(devs), "tpu", what)
+    check_mesh(cards, res)
+    return launches, per_call
+
+
+def check_mesh(devs, res) -> None:
+    from ompi_tpu_torch.kernels.mesh import mesh_fold_plain
+    from ompi_tpu_torch.kernels.stacked import (stacked_copy_plain,
+                                                stacked_reduce_plain,
+                                                tree_plain)
+    n = len(devs)
+    home = devs[0]
+
+    def inputs(nbytes, dtype, salt):
+        return [mesh_input(r, nbytes, dtype, devs, salt).to(home)
+                for r in range(n)]
+
+    def check(key, refs, what, replicated=True):
+        outs = [res[r][key] for r in range(n)]
+        for r, o in enumerate(outs):
+            if o.is_cuda and o.device != devs[r]:
+                raise AssertionError(f"{key}: rank {r}'s output lies on "
+                                     f"{o.device}, not {devs[r]}")
+        outs = [o.to(home) for o in outs]
+        worst = _held(outs, refs, what)
+        if replicated and not all(torch.equal(o.view(torch.uint8),
+                                              outs[0].view(torch.uint8))
+                                  for o in outs):
+            raise AssertionError(f"{key}: ranks disagree")
+        same = ", every rank the same bytes" if replicated else ""
+        log(f"[tpu] {what}: exact against the plain computation (max abs "
+            f"{worst[0]}){same}")
+
+    x1 = inputs(MIB, torch.float32, 21)
+    check("m_ar1", stacked_reduce_plain(x1, "MPI_SUM"),
+          "allreduce SUM f32 1 MiB (single dispatch, rank order)")
+    x8 = inputs(8 * MIB, torch.float32, 22)
+    check("m_ar8", stacked_reduce_plain(x8, "MPI_SUM"),
+          "allreduce SUM f32 8 MiB (plan, native: rank order)")
+    x128 = inputs(128 * MIB, torch.float32, 23)
+    check("m_ar128", stacked_reduce_plain(x128, "MPI_SUM"),
+          "allreduce SUM f32 128 MiB (plan, native: rank order)")
+    del x128
+    ring = ("ring", RING_SEG, RING_SEG // n)
+    n8 = x8[0].numel()
+    want = mesh_fold_plain(x8, 0, n8, "MPI_SUM", ring)
+    check("m_ar8_ring", [want] * n,
+          "allreduce SUM f32 8 MiB (plan, segring order)")
+    check("m_ar8_seg", [want] * n,
+          "allreduce SUM f32 8 MiB (8 pipelined segring segments)")
+    tree = tree_plain(x8, "MPI_SUM") if n & (n - 1) == 0 else want
+    check("m_ar8_rd", [tree] * n,
+          "allreduce SUM f32 8 MiB (plan, segrd tree)")
+    xp = inputs(8 * MIB, torch.int32, 24)
+    check("m_prod8", [mesh_fold_plain(xp, 0, n8, "MPI_PROD", ring)] * n,
+          "allreduce PROD int32 8 MiB (plan, segring order)")
+    check("m_rs8", stacked_reduce_plain(inputs(8 * MIB, torch.float64, 25),
+                                        "MPI_MAX", scatter=True),
+          "reduce_scatter MAX f64 8 MiB", replicated=False)
+    check("m_a2a8", stacked_copy_plain(inputs(8 * MIB, torch.float32, 26),
+                                       "alltoall"),
+          "alltoall f32 8 MiB (8 sega2a segments)", replicated=False)
+    check("m_a2a1", stacked_copy_plain(inputs(MIB, torch.float32, 27),
+                                       "alltoall"),
+          "alltoall f32 1 MiB (single dispatch)", replicated=False)
+    check("m_bc8", [inputs(8 * MIB, torch.float32, 28)[min(3, n - 1)]] * n,
+          "bcast f32 8 MiB (8 segbcast segments)")
+    check("m_ag1", stacked_copy_plain(inputs(MIB, torch.float32, 29),
+                                      "allgather"), "allgather f32 1 MiB")
+    pp = inputs(MIB, torch.float32, 30)
+    check("m_pp1", [pp[-1]] + pp[:-1], "ppermute f32 1 MiB ring",
+          replicated=False)
+    nf = int(FUSED_MIB * MIB) // 4
+    for k in range(FUSED_OPS):
+        xs = inputs(nf * 4, torch.float32, 50 + k)
+        outs = [res[r]["m_fused32"][k].to(home) for r in range(n)]
+        _held(outs, stacked_reduce_plain(xs, "MPI_SUM"), f"fused slot {k}")
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError(f"fused slot {k}: ranks disagree")
+    log(f"[tpu] fused flush of {FUSED_OPS} iallreduce SUM f32 64 KiB: "
+        "exact against the plain computation, every rank the same bytes")
+    side = stacked_reduce_plain([x + 1.0 for x in inputs(MIB, torch.float32,
+                                                          31)], "MPI_SUM")
+    check("m_side", [2.0 * y for y in side],
+          "allreduce SUM f32 1 MiB, each rank on a side stream behind a "
+          "sleeping kernel")
+    # the reduced values themselves, against an independent reference
+    exact = torch.stack([x.double() for x in x8]).sum(0)
+    absum = torch.stack([x.double().abs() for x in x8]).sum(0)
+    band = 4 * n * 2.0 ** -24
+    for key in ("m_ar8", "m_ar8_ring", "m_ar8_rd", "m_ar8_seg"):
+        got = res[0][key].to(home).double()
+        bad = ((got - exact).abs() > band * absum).sum()
+        if int(bad) or not torch.isfinite(got).all():
+            raise AssertionError(f"{key}: allreduce SUM outside the "
+                                 f"float32 band at {int(bad)} elements")
+    log(f"[tpu] allreduce SUM f32 8 MiB (native, segring, segrd, "
+        f"segments) within 4*N*2^-24 of the float64 sum; results finite")
+
+
+def _kernels_mesh(dev, g) -> int:
+    """K6 against its plain version over every pair K1 takes, N = 2, 3,
+    8, in rank order, the segring order and (N a power of two) segrd's
+    tree, over a whole buffer and a misaligned stripe (NaN for float
+    MAX/MIN from make_shard); K2 peer mode for an alltoall destination,
+    a clipped gather and a column segment; K7 with zeroed slots and
+    odd widths.  Tolerance: exact."""
+    from ompi_tpu_torch.kernels import mesh, stacked
+    ncases = 0
+    for dtype in DTYPES:
+        for opname in OPS:
+            if not stacked.reduce_supported(dtype, opname):
+                continue
+            worst = (0.0, 0.0)
+            for n in (2, 3, 8):
+                seg = 64 * n
+                xs = [make_shard(g, 3 * seg + 5, dtype, opname, dev)
+                      for _ in range(n)]
+                orders = ["rank", ("ring", seg, seg // n)]
+                if n & (n - 1) == 0:
+                    orders.append("tree")
+                for order in orders:
+                    for lo, length in ((0, 3 * seg + 5), (3, 50)):
+                        out = torch.empty(length, dtype=dtype, device=dev)
+                        mesh.mesh_fold(xs, out, lo, opname, order)
+                        w = _held([out], [mesh.mesh_fold_plain(
+                            xs, lo, length, opname, order)],
+                            f"K6 {dtype} {opname} n={n} {order} lo={lo}")
+                        worst = (max(worst[0], w[0]), max(worst[1], w[1]))
+                        ncases += 1
+            log(f"[K6] {str(dtype)[6:]:>8} {opname:<9} max_abs {worst[0]}")
+    torch.cuda.synchronize()
+    for dtype in (torch.float32, torch.float64, torch.int8, torch.bfloat16,
+                  torch.bool):
+        for n in (2, 3, 8):
+            b = 1031
+            xs = [make_shard(g, n * b, dtype, "MPI_SUM", dev)
+                  for _ in range(n)]
+            for kw in ({"block": b, "src_stride": b, "dst": n - 1},
+                       {"block": n * b, "limit": (n - 1) * n * b + 5},
+                       {"block": 7, "src_stride": b, "dst": 1, "src_off": 3,
+                        "out_stride": b, "out_off": 3}):
+                a = torch.zeros(n * n * b, dtype=dtype, device=dev)
+                c = a.clone()
+                stacked.peer_copy(xs, a, **kw)
+                stacked.peer_copy_plain(xs, c, **kw)
+                _held([a], [c], f"K2 peer {dtype} n={n} {kw}")
+                ncases += 1
+            slots = [x[:k] for x, k in zip(xs * 3, (5, 1024, 0, 333, 1))]
+            for zero in ([False] * len(slots), [True, False, True, False,
+                                                True]):
+                _held([mesh.slot_pack(slots, zero)],
+                      [mesh.slot_pack_plain(slots, zero)],
+                      f"K7 {dtype} n={n}")
+                ncases += 1
+        log(f"[K2 peer/K7] {str(dtype)[6:]:>8} exact")
+    torch.cuda.synchronize()
+    return ncases
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +1159,61 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         lambda s: index.index_scatter_plain(*s),
         lambda s: s[2].index_copy_(0, s[1].tensor, s[0]), 100,
         source="index.cu")
+    # the mesh tier on 8 logical devices of the card, at its main-path
+    # shapes: one collective's worth of launches a row (one a device)
+    from ompi_tpu_torch.coll.device import _stripe_elems
+    from ompi_tpu_torch.kernels import mesh
+    n8 = 8 * MIB // 4
+    ms = _stripe_elems(n8, n, 4)
+
+    def folds(order):
+        def k_fn(xs):
+            return [mesh.mesh_fold(xs, torch.empty(min(ms, n8 - d * ms),
+                                                   device=dev),
+                                   d * ms, "MPI_SUM", order)
+                    for d in range(n)]
+
+        def p_fn(xs):
+            return [mesh.mesh_fold_plain(xs, d * ms, min(ms, n8 - d * ms),
+                                         "MPI_SUM", order)
+                    for d in range(n)]
+        return k_fn, p_fn
+
+    for label, call, order, replaces in (
+            ("rank_order", "m_ar8", "rank", "ompi_tpu/coll/device.py:997"),
+            ("segring", "m_ar8_ring", ("ring", RING_SEG, RING_SEG // n),
+             "ompi_tpu/coll/pipeline.py:192")):
+        k_fn, p_fn = folds(order)
+        row(f"mesh_fold:allreduce_sum_f32_8MiB_{label}", "mesh_fold", call,
+            replaces, (n + 1) * 8 * MIB, ranks(8 * MIB, torch.float32, 70),
+            k_fn, p_fn, lambda xs: torch.stack(xs).sum(0), 50,
+            source="mesh.cu")
+    row("peer_copy:allgather_stripes_f32_8MiB", "peer_copy", "m_ar8",
+        "ompi_tpu/coll/device.py:997", (n + 1) * 8 * MIB,
+        lambda i: [rank_elems(r, ms, torch.float32, dev, 71 + 10 * i)
+                   for r in range(n)],
+        lambda st: [stacked.peer_copy(st, torch.empty(n8, device=dev), ms,
+                                      limit=n8) for _ in range(n)],
+        lambda st: [stacked.peer_copy_plain(st, torch.empty(n8, device=dev),
+                                            ms, limit=n8) for _ in range(n)],
+        lambda st: torch.cat(list(st) * n), 50)
+    b1 = MIB // 4 // n
+    row("peer_copy:alltoall_f32_1MiB", "peer_copy", "m_a2a1",
+        "ompi_tpu/coll/device.py:997", 2 * n * MIB,
+        ranks(MIB, torch.float32, 72),
+        lambda xs: [stacked.peer_copy(xs, torch.empty_like(xs[0]), b1, dst=d,
+                                      src_stride=b1) for d in range(n)],
+        lambda xs: [stacked.peer_copy_plain(xs, torch.empty_like(xs[0]), b1,
+                                            dst=d, src_stride=b1)
+                    for d in range(n)],
+        lambda xs: torch.stack(xs).view(n, n, b1).transpose(0, 1).contiguous(),
+        100)
+    row(f"slot_pack:{FUSED_OPS}x64KiB_f32_one_rank", "slot_pack", "m_fused32",
+        "ompi_tpu/coll/fusion.py:231", 2 * FUSED_OPS * nf * 4,
+        lambda i: [rank_elems(0, nf, torch.float32, dev, 73 + k + 40 * i)
+                   for k in range(FUSED_OPS)],
+        lambda xs: mesh.slot_pack(xs), lambda xs: mesh.slot_pack_plain(xs),
+        lambda xs: torch.cat(xs), 100, source="mesh.cu")
     return rows
 
 
@@ -1053,6 +1418,41 @@ def phase_e2e_config5(dev) -> None:
         f"elements: {us:.1f} us an op (slowest rank, {iters} ops)")
 
 
+def phase_e2e_mesh(dev, kernel_ms: float) -> None:
+    """The 8 MiB float32 allreduce on 8 logical devices of the card (the
+    mesh tier's plan path): host clock around chained calls ending in
+    torch.cuda.synchronize(), slowest rank.  On one card this is the
+    tier's host cost, not a multi-card speed.  ``kernel_ms``: the
+    device time of its K6 and K2 peer launches."""
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.testing import logical_devices, run_ranks
+    nbytes, iters = 8 * MIB, 20
+
+    def fn(comm):
+        x = rank_input(comm.rank, nbytes, torch.float32, dev, 40) * 1e-6
+        for _ in range(3):
+            x = comm.allreduce_arr(x, SUM) * 0.125
+        torch.cuda.synchronize()
+        comm.Barrier()
+        t0 = time.perf_counter()
+        y = x
+        for _ in range(iters):
+            y = comm.allreduce_arr(y, SUM)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        comm.Barrier()
+        if not torch.isfinite(y).all():
+            raise AssertionError("chained mesh allreduce went non-finite")
+        return dt
+
+    dts = run_ranks(NRANKS, fn, device_map=logical_devices(dev), timeout=600)
+    us = max(dts) / iters * 1e6
+    log(f"[e2e] mesh allreduce 8 logical devices x 8 MiB float32 on one "
+        f"card: {us:.1f} us/op (slowest rank, {iters} chained ops; host "
+        f"cost, not a multi-card speed); its K6 + K2 peer device time is "
+        f"{kernel_ms * 1e3 / us * 100:.1f}% of an op")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1064,11 +1464,27 @@ def main() -> int:
     phase_build()
     phase_kernels(dev)
     launches, per_call = phase_main(dev)
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    m_launches, m_per_call = phase_mesh(
+        [LogicalDevice(dev, r) for r in range(NRANKS)],
+        f"8 logical devices on {dev}")
+    launches = {k: launches[k] + m_launches[k] for k in launches}
+    per_call.update(m_per_call)
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        # one rank a card: the peer-access path (NVLink); a one-card
+        # host never takes this branch
+        nc = min(NRANKS, ncards)
+        phase_mesh([torch.device("cuda", r) for r in range(nc)],
+                   f"{nc} cards, one rank each")
     rows = phase_timing(dev, launches, per_call)
     phase_e2e(dev, rows[0]["ms"])
     phase_e2e_fused(dev, next(r["ms"] for r in rows
                               if r["name"].startswith("fused_batch")))
     phase_e2e_config5(dev)
+    phase_e2e_mesh(dev, sum(r["ms"] for r in rows if r["name"] in (
+        "mesh_fold:allreduce_sum_f32_8MiB_rank_order",
+        "peer_copy:allgather_stripes_f32_8MiB")))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

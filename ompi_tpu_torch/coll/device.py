@@ -1,7 +1,7 @@
-"""Device collectives: coll/hbm (intra-card stacked collectives).
+"""Device collectives: coll/hbm (intra-card stacked collectives) and
+coll/tpu (the mesh tier, for ranks on distinct devices).
 
-The port of the reference's coll/hbm half of ompi_tpu/coll/device.py,
-the co-located analog of the reference's coll/sm (ref:
+coll/hbm, the co-located analog of the reference's coll/sm (ref:
 ompi/mca/coll/sm/coll_sm_module.c:102,167 — ranks on one node collect
 in a shared segment): ranks sharing ONE card meet at a per-communicator
 **rendezvous**.  Every member thread deposits its shard; the last
@@ -9,34 +9,49 @@ arriver runs one stacked kernel over all shards (kernels/stacked.py:
 K1 stacked_reduce for the reductions, K2 stacked_copy for alltoall and
 allgather) and hands each member its own output tensor.
 
-Ordering across rank threads: PyTorch's current stream is per thread.
-A depositor records an event on its stream; the last arriver's stream
-waits on every deposit's event before the launch and records one event
-after it; each member's stream waits on that event before the member
-touches its output.  That fence replaces the reference's
-``_block_ready``.
+coll/tpu, the port of the reference's ``TpuCollModule``: the members
+own pairwise-distinct devices — cards of one host, or logical devices
+of one card (``testing.logical_devices``).  Each collective is a
+single-controller program: the last arriver (or the dispatcher thread)
+holds every member's tensor, each on its member's device, and launches
+the work for every device, each launch reading the peers' buffers
+through their pointers (peer access across cards).  A reduction is a
+reduce-scatter by pulls — K6 mesh_fold, once per device, folding the
+stripe that device owns in the reference's order — then an allgather
+of the stripes by K2 in peer mode, once per device; alltoall and
+allgather are K2 peer launches; bcast and ppermute are peer copies.
+
+Ordering across rank threads and devices: PyTorch's current stream is
+per thread and per device.  A depositor records an event on its
+stream; the body's stream on EVERY device the deposits lie on waits on
+every deposit's event before the launches and records one done event
+after them; each member's stream waits on the done event of its own
+device before it touches its output.  A launch that reads a buffer
+another device wrote inside the same body (the mesh allreduce's
+stripes) waits on that device's stream first (``_cross_fence``).  That
+fence replaces the reference's ``_block_ready``.
 
 Large messages (at or above ``coll_pipeline_min_bytes``) take the
 tiers of coll/pipeline and coll/plan: an allreduce runs as one plan
-(one padded stacked kernel, one rendezvous) or, with
-``coll_plan_enable`` off, as segments through the asynchronous
-rendezvous (``meet_begin`` / ``meet_finish``, the computation on the
-process-wide dispatcher thread); an alltoall runs as segments.  Small
-nonblocking calls coalesce in coll/fusion and meet once per batch with
-a (signature, tensors) deposit.
+(one rendezvous) or, with ``coll_plan_enable`` off, as segments
+through the asynchronous rendezvous (``meet_begin`` / ``meet_finish``,
+the computation on the process-wide dispatcher thread); an alltoall
+(and on the mesh a bcast) runs as segments.  Small nonblocking calls
+coalesce in coll/fusion and meet once per batch with a (signature,
+tensors) deposit.
 
-Not ported yet (ROADMAP.md Queue A): the mesh tier (``TpuCollModule``)
-for ranks on distinct cards — a comm of that shape gets a module whose
-*_arr calls raise NotImplementedError instead of host-staging silently
-— the compiled-executable cache (``CompiledLRU``), and the tracing,
-integrity, monitoring and fault-injection hooks of ``meet``.
+Not ported yet (ROADMAP.md Queue A): the compiled-executable cache
+(``CompiledLRU``), and the tracing, integrity, monitoring and
+fault-injection hooks of ``meet``.
 
 Only host buffers ever take the host-staged p2p stack (HostArrModule):
 structured pair types, which torch cannot hold, and user-defined ops,
 which no kernel computes.  A tensor on a card is never staged through
 the host: a call the kernels do not take (an invalid op/type pair, a
 leading dimension the communicator size does not divide) raises, on
-every member, and HostArrModule refuses such a tensor outright.
+every member, HostArrModule refuses such a tensor outright, and a
+communicator whose members partly share devices (8 ranks on 4 cards:
+neither one device nor a mesh) is refused by every call.
 """
 
 from __future__ import annotations
@@ -54,15 +69,15 @@ from ompi_tpu_torch.coll import pipeline
 from ompi_tpu_torch.coll.framework import (CollComponent, CollModule,
                                            coll_framework)
 from ompi_tpu_torch.coll.tuned import TunedModule
-from ompi_tpu_torch.kernels import stacked
+from ompi_tpu_torch.kernels import mesh, stacked
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.op.op import Op
-from ompi_tpu_torch.runtime.init import device_index
+from ompi_tpu_torch.runtime.init import device_key
 
 _prio_tpu = registry.register(
     "coll", "tpu", "priority", 80, int,
     help="Selection priority of the mesh-tier component (ranks on "
-         "distinct cards; not ported yet — its *_arr calls raise)")
+         "pairwise-distinct devices: cards, or logical devices)")
 _prio_hbm = registry.register(
     "coll", "hbm", "priority", 70, int,
     help="Selection priority of the intra-card collective component")
@@ -87,6 +102,15 @@ _reduce_as_allreduce_var = registry.register(
          "device-resident).  False routes reduce_arr to the "
          "host-staged true reduce.")
 
+# ops the reference lowers to a native cross-replica reduction
+# (psum/pmax/pmin); K6 folds them in rank order
+_XLA_REDUCERS = {"MPI_SUM", "MPI_MAX", "MPI_MIN"}
+# ops the reference lowers as all_gather + an on-device fold; K6 folds
+# them in rank order too
+_GATHER_FOLD = {"MPI_PROD", "MPI_LAND", "MPI_BAND", "MPI_LOR",
+                "MPI_BOR", "MPI_LXOR", "MPI_BXOR"}
+
+
 def _dtype_of(x) -> Optional[torch.dtype]:
     """The torch dtype of a tensor or numpy-like buffer, None when
     torch has no such dtype (structured pair types)."""
@@ -105,19 +129,16 @@ def _shape_of(x):
     return tuple(sh) if sh is not None else np.asarray(x).shape
 
 
-def _device_key(dev) -> tuple:
-    return (dev.type, device_index(dev))
-
-
 def _member_devices(comm) -> Optional[List[tuple]]:
-    """Device key of every member, or None when some member owns no
-    device (or lives outside this process)."""
+    """Device key of every member (``runtime.init.device_key``: card
+    and logical slot), or None when some member owns no device (or
+    lives outside this process)."""
     keys = []
     for g in comm.group:
         st = comm._peer_state(g)
         if st is None or st.device is None:
             return None
-        keys.append(_device_key(st.device))
+        keys.append(device_key(st))
     return keys
 
 
@@ -458,26 +479,65 @@ def _fenced(value):
 
 def _fence(body):
     """fn for the rendezvous around ``body(values) -> per-rank
-    outputs``: on a card the stream that runs the body — the last
-    arriver's or the dispatcher thread's current stream — waits on
-    every deposit's event first and records one event after, which
-    each member's stream waits on before it touches its output."""
+    outputs``: on the cards, the body thread's current stream on every
+    device a deposit lies on (one for coll/hbm, one per member's card
+    for the mesh) waits on every deposit's event first — any launch
+    may read any deposit — and records one done event after; each
+    member's stream waits on the done event of its output's device
+    before it touches its output."""
     def fn(slots):
         values = [v for v, _ in slots]
         if slots[0][1] is None:
             return [(o, None) for o in body(values)]
-        stream = torch.cuda.current_stream(_tensors(values[0])[0].device)
-        for v, e in slots:
-            stream.wait_event(e)
+        deposits = [t for v in values for t in _tensors(v)]
+        streams = {}
+        for t in deposits:
+            if t.device not in streams:
+                streams[t.device] = torch.cuda.current_stream(t.device)
+        for stream in streams.values():
+            for _, e in slots:
+                stream.wait_event(e)
             # the deposit's memory must outlive this stream's reads
             # even if its owner frees it right after the meeting
-            for t in _tensors(v):
+            for t in deposits:
                 t.record_stream(stream)
         outs = body(values)
-        done = torch.cuda.Event()
-        done.record(stream)
-        return [(o, done) for o in outs]
+        done = {}
+        for dev, stream in streams.items():
+            ev = done[dev] = torch.cuda.Event()
+            ev.record(stream)
+        return [(o, _done_for(o, done)) for o in outs]
     return fn
+
+
+def _done_for(out, done: Dict[Any, Any]):
+    ts = _tensors(out) if out is not None else []
+    return done[ts[0].device] if ts else None
+
+
+def _cross_fence(devices, bufs) -> None:
+    """Inside a mesh body: before launches on one card read what the
+    body's launches on another card wrote (``bufs``), every card's
+    current stream waits on every other card's work so far, and each
+    buffer stays alive until the other cards' reads are done.  Logical
+    devices of one card share one stream: nothing to do."""
+    streams = {}
+    for d in devices:
+        if d.type == "cuda" and d not in streams:
+            streams[d] = torch.cuda.current_stream(d)
+    if len(streams) < 2:
+        return
+    marks = {}
+    for d, s in streams.items():
+        ev = marks[d] = torch.cuda.Event()
+        ev.record(s)
+    for d, s in streams.items():
+        for e, ev in marks.items():
+            if e != d:
+                s.wait_event(ev)
+        for b in bufs:
+            if b.device != d:
+                b.record_stream(s)
 
 
 def _collect(res):
@@ -646,8 +706,7 @@ class HbmCollModule(CollModule):
     def bcast_arr(self, comm, x, root: int):
         if not self._eligible(comm, x):
             return self.fallback.bcast_arr(comm, x, root)
-        return self._stacked(
-            comm, x, lambda s: [s[root].clone() for _ in range(comm.size)])
+        return self._stacked(comm, x, lambda s: _bcast_copies(s, root))
 
     def reduce_arr(self, comm, x, op: Op, root: int):
         if not _reduce_as_allreduce_var.value:
@@ -659,15 +718,7 @@ class HbmCollModule(CollModule):
         if not self._eligible(comm, x):
             return self.fallback.ppermute_arr(comm, x, perm)
         pmap = {int(a): int(b) for a, b in perm}
-
-        def body(shards):
-            outs: List[Optional[torch.Tensor]] = [None] * comm.size
-            for src, dst in pmap.items():
-                outs[dst] = shards[src].clone()
-            return [o if o is not None else torch.zeros_like(shards[0])
-                    for o in outs]
-
-        return self._stacked(comm, x, body)
+        return self._stacked(comm, x, lambda s: _ppermute_copies(s, pmap))
 
 
 class HostArrModule(CollModule):
@@ -768,17 +819,253 @@ class HostArrModule(CollModule):
         return self._back(comm, out)
 
 
-class MeshPendingModule(CollModule):
-    """Holds the mesh tier's place for comms whose members own
-    distinct devices: the port has no mesh tier yet, and staging such
-    a call through the host would hide that."""
+# ---------------------------------------------------------------------------
+# coll/tpu: the mesh tier
+# ---------------------------------------------------------------------------
+
+def _stripe_elems(n: int, size: int, itemsize: int) -> int:
+    """Elements of the stripe each device owns in a mesh reduction:
+    ceil(n / size), rounded up to whole 16-byte vectors."""
+    v = max(1, 16 // itemsize)
+    m = -(-n // size)
+    return -(-m // v) * v
+
+
+def _mesh_allreduce(xs: List[torch.Tensor], opname: str, order="rank",
+                    outs: Optional[List[torch.Tensor]] = None
+                    ) -> List[torch.Tensor]:
+    """Allreduce of one tensor a member (xs[d] on member d's device):
+    device d folds stripe d of every member's tensor (K6, ``order`` as
+    ``kernels.mesh._order`` takes it) into a stripe buffer on d, then
+    gathers every stripe from its owner (K2 peer mode) into its output
+    — ``outs[d]`` when given (written in place), else a new tensor.
+    2 launches a device."""
+    x0 = xs[0]
+    n = x0.numel()
+    if outs is None:
+        outs = [torch.empty(x0.shape, dtype=x0.dtype, device=x.device)
+                for x in xs]
+    if n == 0:
+        return outs
+    flats = [x.reshape(-1) for x in xs]
+    m = _stripe_elems(n, len(xs), x0.element_size())
+    stripes = []
+    for d, x in enumerate(xs):
+        buf = torch.empty(m, dtype=x0.dtype, device=x.device)
+        lo = d * m
+        if lo < n:
+            mesh.mesh_fold(flats, buf[:min(m, n - lo)], lo, opname, order)
+        stripes.append(buf)
+    _cross_fence([x.device for x in xs], stripes)
+    for o in outs:
+        stacked.peer_copy(stripes, o.view(-1), m, limit=n)
+    return outs
+
+
+def _mesh_reduce_scatter(xs: List[torch.Tensor], opname: str
+                         ) -> List[torch.Tensor]:
+    """Member d's output is stripe d of the rank-order fold: one K6
+    launch a device, writing the output directly."""
+    x0 = xs[0]
+    shape = stacked._scatter_shape(x0, len(xs))
+    m = x0.numel() // len(xs)
+    flats = [x.reshape(-1) for x in xs]
+    outs = []
+    for d, x in enumerate(xs):
+        o = torch.empty(shape, dtype=x0.dtype, device=x.device)
+        if m:
+            mesh.mesh_fold(flats, o.view(-1), d * m, opname)
+        outs.append(o)
+    return outs
+
+
+def _mesh_alltoall(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Output d, block j <- input j, block d: one K2 peer launch a
+    device."""
+    x0, size = xs[0], len(xs)
+    if x0.dim() == 0 or x0.shape[0] % size:
+        raise ValueError(f"alltoall: leading dimension of "
+                         f"{tuple(x0.shape)} is not divisible by {size}")
+    b = x0.numel() // size
+    flats = [x.reshape(-1) for x in xs]
+    outs = []
+    for d, x in enumerate(xs):
+        o = torch.empty(x0.shape, dtype=x0.dtype, device=x.device)
+        outs.append(stacked.peer_copy(flats, o.view(-1), b, dst=d,
+                                      src_stride=b).view(x0.shape))
+    return outs
+
+
+def _mesh_allgather(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Output d = every input in rank order: one K2 peer launch a
+    device."""
+    x0, size = xs[0], len(xs)
+    s = tuple(x0.shape) or (1,)
+    shape = (size * s[0],) + s[1:]
+    flats = [x.reshape(-1) for x in xs]
+    outs = []
+    for x in xs:
+        o = torch.empty(shape, dtype=x0.dtype, device=x.device)
+        stacked.peer_copy(flats, o.view(-1), x0.numel())
+        outs.append(o)
+    return outs
+
+
+def _bcast_copies(xs: List[torch.Tensor], root: int
+                  ) -> List[torch.Tensor]:
+    """Every member gets its own copy of the root's tensor on its own
+    device (a clone on one card, a peer copy across cards)."""
+    src = xs[root]
+    return [torch.empty(src.shape, dtype=src.dtype, device=x.device)
+            .copy_(src) for x in xs]
+
+
+def _ppermute_copies(xs: List[torch.Tensor], pmap: Dict[int, int]
+                     ) -> List[torch.Tensor]:
+    """Member dst gets its own copy of member src's tensor for each
+    (src, dst) on dst's device, zeros where no source maps to it."""
+    outs: List[Optional[torch.Tensor]] = [None] * len(xs)
+    for src, dst in pmap.items():
+        outs[dst] = torch.empty(xs[src].shape, dtype=xs[src].dtype,
+                                device=xs[dst].device).copy_(xs[src])
+    return [o if o is not None else torch.zeros(
+        xs[0].shape, dtype=xs[0].dtype, device=x.device)
+        for o, x in zip(outs, xs)]
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(getattr(x, "nbytes", 0) or 0)
+
+
+def _measured_host_wins(comm, kind: str, nbytes: int) -> bool:
+    """Measured-crossover reroute (--mca coll_tuned_use_measured_rules):
+    below the calibrated device-vs-host crossover the host path wins.
+    Comm-consistent: the profile is process-wide and nbytes is
+    MPI-matched across ranks, so every member reroutes (or not)
+    together.  The host path takes host buffers only: with the knob on,
+    a card tensor below the crossover is refused there, not staged."""
+    from ompi_tpu_torch.coll import calibrate
+    if not calibrate.use_measured_rules():
+        return False
+    return 0 < nbytes < calibrate.crossover_bytes(kind, comm.size)
+
+
+class TpuCollModule(CollModule):
+    """The mesh tier: collectives for comms whose ranks own pairwise-
+    distinct devices (cards, or logical devices of one card), as
+    per-device kernel launches from one controller thread."""
+
+    name = "tpu"
+
+    def __init__(self, fallback: "HostArrModule") -> None:
+        self.fallback = fallback
+        self.pvar_offload = registry.register_pvar(
+            "coll", "tpu", "offloaded_collectives",
+            help="Number of collectives executed by the mesh tier")
+
+    def _eligible(self, comm, x) -> bool:
+        """Comm-consistent: depends only on comm properties and the
+        dtype, which MPI requires to match across ranks (stray host
+        buffers are moved to the rank's device at the deposit)."""
+        if comm.size == 1 or comm.mesh() is None:
+            return False
+        return _dtype_of(x) is not None
+
+    @staticmethod
+    def _folds(op: Op) -> bool:
+        return op.name in _XLA_REDUCERS or op.name in _GATHER_FOLD
+
+    _deposit = staticmethod(_deposit)
+
+    def _run(self, comm, x, body):
+        out = meet(comm, self._deposit(comm, x), body, _abort_check(comm))
+        self.pvar_offload.add(1)
+        return out
+
+    def _tier(self, comm, kind, x, **kw):
+        out = pipeline.maybe_device_coll(self, comm, kind, x, **kw)
+        if out is not pipeline.UNHANDLED:
+            self.pvar_offload.add(1)
+        return out
+
+    def allreduce_arr(self, comm, x, op: Op):
+        if not self._eligible(comm, x) or not self._folds(op) \
+                or _measured_host_wins(comm, "allreduce", _nbytes(x)):
+            return self.fallback.allreduce_arr(comm, x, op)
+        out = self._tier(comm, "allreduce", x, op=op)
+        if out is not pipeline.UNHANDLED:
+            return out
+        x, was_scalar = _norm(x)
+        out = self._run(comm, x, lambda s: _mesh_allreduce(s, op.name))
+        return out.reshape(()) if was_scalar else out
+
+    def reduce_scatter_block_arr(self, comm, x, op: Op):
+        shp = _shape_of(x)
+        if not self._eligible(comm, x) or not self._folds(op) \
+                or not shp or shp[0] % comm.size:
+            return self.fallback.reduce_scatter_block_arr(comm, x, op)
+        return self._run(comm, x,
+                         lambda s: _mesh_reduce_scatter(s, op.name))
+
+    def allgather_arr(self, comm, x):
+        if not self._eligible(comm, x):
+            return self.fallback.allgather_arr(comm, x)
+        x, _ = _norm(x)
+        return self._run(comm, x, _mesh_allgather)
+
+    def alltoall_arr(self, comm, x):
+        shp = _shape_of(x)
+        if not self._eligible(comm, x) or not shp or shp[0] % comm.size \
+                or _measured_host_wins(comm, "alltoall", _nbytes(x)):
+            return self.fallback.alltoall_arr(comm, x)
+        out = self._tier(comm, "alltoall", x)
+        if out is not pipeline.UNHANDLED:
+            return out
+        return self._run(comm, x, _mesh_alltoall)
+
+    def bcast_arr(self, comm, x, root: int):
+        if not self._eligible(comm, x) \
+                or _measured_host_wins(comm, "bcast", _nbytes(x)):
+            return self.fallback.bcast_arr(comm, x, root)
+        out = self._tier(comm, "bcast", x, root=root)
+        if out is not pipeline.UNHANDLED:
+            return out
+        x, was_scalar = _norm(x)
+        out = self._run(comm, x, lambda s: _bcast_copies(s, root))
+        return out.reshape(()) if was_scalar else out
+
+    def reduce_arr(self, comm, x, op: Op, root: int):
+        if not _reduce_as_allreduce_var.value:
+            return self.fallback.reduce_arr(comm, x, op, root)
+        out = self.allreduce_arr(comm, x, op)
+        return out if comm.rank == root else None
+
+    def ppermute_arr(self, comm, x, perm):
+        """Neighbour shift — the ring-attention / pipeline primitive."""
+        if not self._eligible(comm, x):
+            return self.fallback.ppermute_arr(comm, x, perm)
+        x, _ = _norm(x)
+        pmap = {int(a): int(b) for a, b in perm}
+        return self._run(comm, x, lambda s: _ppermute_copies(s, pmap))
+
+
+class PartlySharedModule(CollModule):
+    """Members that partly share devices (8 ranks on 4 cards): neither
+    one device (coll/hbm) nor pairwise-distinct devices (the mesh).
+    The reference host-stages such a comm's calls; the port refuses
+    them on every member instead of copying device data through the
+    host."""
 
     name = "tpu"
 
     def _refuse(self, comm, *args, **kwargs):
         raise NotImplementedError(
-            "mesh tier not yet ported: the members of this "
-            "communicator own distinct devices")
+            "the members of this communicator partly share devices: "
+            "neither the mesh tier (pairwise-distinct devices) nor "
+            "coll/hbm (one shared device) takes it, and the port does "
+            "not stage device data through the host")
 
     allreduce_arr = bcast_arr = reduce_arr = allgather_arr = _refuse
     alltoall_arr = reduce_scatter_block_arr = ppermute_arr = _refuse
@@ -795,7 +1082,9 @@ class TpuComponent(CollComponent):
         keys = _member_devices(comm)
         if keys is None or len(set(keys)) < 2:
             return None
-        return (self.priority, MeshPendingModule())
+        if comm.mesh() is None:
+            return (self.priority, PartlySharedModule())
+        return (self.priority, TpuCollModule(_host_arr_fallback()))
 
 
 class HbmComponent(CollComponent):

@@ -1,16 +1,22 @@
-"""Small-message collective fusion/coalescing, hbm half: the device
-fast path for batches of small nonblocking collectives on ranks that
-share one card.
+"""Small-message collective fusion/coalescing: the device fast path
+for batches of small nonblocking collectives, on ranks that share one
+card (hbm mode) and on ranks with distinct devices (mesh mode).
 
 Every device collective pays a size-independent constant (the
 rendezvous of the rank threads, the wrapper, the launch), so at small
 payloads the constant is the whole cost.  The fix is the reference's
 message-coalescing idea: when a rank has several small collectives
 pending (surfaced through the nonblocking coll surface, coll/nbc),
-they meet ONCE per batch and run as ONE kernel launch per (op, dtype)
-group (K3 ``fused_batch``, kernels/fused.py), bcasts joining the SUM
-group of their dtype as copy-from-root entries.  One rendezvous and a
-few launches amortized over N collectives.
+they meet ONCE per batch.  In hbm mode a batch runs as ONE kernel
+launch per (op, dtype) group (K3 ``fused_batch``, kernels/fused.py),
+bcasts joining the SUM group of their dtype as copy-from-root entries.
+In mesh mode each rank first packs its slots of each group into one
+buffer on its own device (K7 ``slot_pack``, one launch a group, before
+the meeting: ``_build_pack``; a non-root bcast slot packs as zeros),
+and the meeting reduces each group's packed buffers as ONE mesh
+allreduce (K6 + K2 peer, two launches a device), sliced back out as
+views — the reference's masked psum per (reducer, dtype) group.  One
+rendezvous and a few launches amortized over N collectives.
 
 Surface: ``comm.iallreduce_arr`` / ``comm.ibcast_arr`` return a
 ``FusedRequest``; pending ops coalesce until an explicit
@@ -28,12 +34,10 @@ ordering).  The batch signature is validated at the meeting point — a
 divergent batch raises a clear error on every rank instead of
 deadlocking.
 
-Not ported yet (ROADMAP.md): mesh mode (``_build_pack`` and the fused
-mesh batch, which need the mesh tier — a comm on distinct cards raises
-NotImplementedError at the flush, as its blocking calls do), the
-cross-session batcher (``_XBatcher``, ``dvm_batch_window_us``: it needs
-the host pool of resident sessions that reports their count), the
-integrity ``ck`` hooks and the tracing spans.
+Not ported yet (ROADMAP.md): the cross-session batcher (``_XBatcher``,
+``_build_fused_mesh_multi``, ``dvm_batch_window_us``: it needs the host
+pool of resident sessions that reports their count), the integrity
+``ck`` hooks and the tracing spans.
 """
 
 from __future__ import annotations
@@ -142,10 +146,11 @@ SigEntry = Tuple[str, tuple, Any, Any]
 def _group_plan(sig: Sequence[SigEntry]):
     """Static fusion plan, a pure function of the batch signature (so
     every rank derives the same plan): slots grouped by (op, dtype) in
-    first-seen order — a bcast joins the SUM group of its dtype as a
-    copy-from-root entry.  K3 folds every op the stacked kernel takes,
-    so unlike the reference's mesh mode there are no gather-fold
-    slots."""
+    first-seen order — a bcast joins the SUM group of its dtype (a
+    copy-from-root entry in hbm mode, a root-masked summand in mesh
+    mode).  K3 and K6 fold every op the stacked kernel takes, so unlike
+    the reference's mesh mode there are no gather-fold slots: one
+    packed buffer a group is the whole mesh deposit."""
     groups: Dict[tuple, List[int]] = {}
     for i, (kind, _shape, dt, extra) in enumerate(sig):
         key = ("MPI_SUM", dt) if kind == "bcast" else (extra, dt)
@@ -175,6 +180,37 @@ def _hbm_slot_outs(size: int, sig: Sequence[SigEntry],
     return outs
 
 
+def _build_pack(rank: int, sig: Sequence[SigEntry],
+                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Mesh mode, on the owning rank's thread before the meeting: one
+    packed buffer a (op, dtype) group on this rank's device (K7, one
+    launch a group), a non-root bcast slot packed as zeros."""
+    from ompi_tpu_torch.datatype.device import pack_segments
+    return [pack_segments([xs[i] for i in slots],
+                          [sig[i][0] == "bcast" and sig[i][3] != rank
+                           for i in slots])
+            for _op, _dt, slots in _group_plan(sig)]
+
+
+def _mesh_slot_outs(size: int, sig: Sequence[SigEntry],
+                    deposits: Sequence[Sequence[torch.Tensor]]):
+    """Run one mesh-mode batch: ``deposits[r]`` is rank r's packed
+    group buffers.  Each group is ONE mesh allreduce with the group's
+    op (rank-order fold), its result sliced back into the slots as
+    views of each rank's own buffer.  Returns outs[r][i]."""
+    from ompi_tpu_torch.coll import device
+    from ompi_tpu_torch.datatype.device import unpack_segments
+    outs = [[None] * len(sig) for _ in range(size)]
+    for gi, (opname, _dt, slots) in enumerate(_group_plan(sig)):
+        red = device._mesh_allreduce([deposits[r][gi] for r in range(size)],
+                                     opname)
+        shapes = [sig[i][1] for i in slots]
+        for r in range(size):
+            for i, o in zip(slots, unpack_segments(red[r], shapes)):
+                outs[r][i] = o
+    return outs
+
+
 class _FusionEngine:
     """Per-comm, per-rank staging area for pending fusible collectives.
     Single-threaded (each rank owns its comm object); flush runs the
@@ -185,6 +221,8 @@ class _FusionEngine:
         self.comm = comm
         prov = getattr(comm.coll, "providers", None) or {}
         m = prov.get("allreduce_arr")
+        if m == "tpu" and comm.mesh() is None:
+            m = None  # partly shared devices: the blocking calls refuse
         self.mode = m if m in ("tpu", "hbm") else None
         self.pending: List[_Pending] = []
         self._abort_check = device._abort_check(comm)
@@ -225,12 +263,9 @@ class _FusionEngine:
     def _run(self, batch: List[_Pending]) -> List[torch.Tensor]:
         from ompi_tpu_torch.coll import device
 
-        if self.mode != "hbm":
-            raise NotImplementedError(
-                "mesh-mode fusion not yet ported: the members of this "
-                "communicator own distinct devices")
         comm = self.comm
         size = comm.size
+        mode = self.mode
         sig = tuple((p.kind, tuple(p.x.shape), p.x.dtype, p.extra)
                     for p in batch)
 
@@ -243,9 +278,14 @@ class _FusionEngine:
                         f"enqueued {s} but rank 0 enqueued {sig0}; "
                         "every member must issue the same nonblocking "
                         "device collectives between flushes")
-            return _hbm_slot_outs(size, sig0, [a for _s, a in shards])
+            arrays = [a for _s, a in shards]
+            if mode == "hbm":
+                return _hbm_slot_outs(size, sig0, arrays)
+            return _mesh_slot_outs(size, sig0, arrays)
 
         arrays = [device._deposit(comm, p.x) for p in batch]
+        if mode != "hbm":
+            arrays = _build_pack(comm.rank, sig, arrays)
         return device.meet(comm, (sig, arrays), body, self._abort_check)
 
 

@@ -1,18 +1,31 @@
 """coll/pipeline: the large-message tier of the device collective
-engine, hbm half (ranks that share one card).
+engine, for ranks that share one card (coll/hbm) and for ranks on
+distinct devices (the mesh, coll/tpu).
 
-The single-dispatch path (one rendezvous, one stacked kernel) owns the
+The single-dispatch path (one rendezvous, one kernel a device) owns the
 small-message regime.  At or above ``coll_pipeline_min_bytes`` a call
 takes this tier instead (ref: coll_tuned_decision_fixed.c:72 segmented
 ring above 1 MiB):
 
-* an **allreduce** goes through the compiled-plan path
-  (``coll/plan.hbm_reduce``: one identity-padded stacked kernel, one
-  rendezvous) when ``coll_plan_enable`` is on, else through per-segment
-  stacked kernels pipelined through the asynchronous rendezvous;
+* an **allreduce** goes through the compiled-plan path (coll/plan:
+  ``hbm_reduce``, one identity-padded stacked kernel, or
+  ``mesh_reduce``, one pull-reduce a device; one rendezvous) when
+  ``coll_plan_enable`` is on, else through per-segment kernels
+  pipelined through the asynchronous rendezvous;
 * an **alltoall** runs fixed-size segments — segment k covers columns
-  [k*m, (k+1)*m) of every destination block — each one stacked
-  block-transpose kernel, pipelined the same way.
+  [k*m, (k+1)*m) of every destination block — pipelined the same way;
+* on the mesh a **bcast** runs segments too (segbcast).
+
+The mesh schedules of the reference (``_build_seg_kernel``: segring,
+segrd, segbcast, sega2a) circulate data hop by hop with ppermute.  The
+port computes what the hops compute with pulls: segring and segrd are
+K6 mesh_fold folds in the ring order (stripe c of a segment folds
+ranks c, c+1, ..., c-1) or the recursive-doubling tree, then a K2 peer
+gather of the stripes; segbcast and sega2a are K2 peer copies.  Every
+element is the same chain of binary ops as the reference's, so the
+results are its bytes.  The mesh segments need no identity pad (the
+kernels take any length and the ring geometry by index) and write
+straight into the caller's output (no concatenation).
 
 **Pipelining**: segments run through ``device.meet_begin`` /
 ``meet_finish``: a rank deposits segment k and immediately packs
@@ -24,9 +37,8 @@ thread launches segment k; depth is bounded by
 to ONE fixed segment shape (op identity elements, trimmed at unpack),
 so every segment of every size takes the same kernel arguments.
 
-Not ported yet (ROADMAP.md): the mesh half (segring / segrd /
-segbcast / sega2a schedules over distinct cards, ``_build_seg_kernel``)
-and the hierarchical tier, which need the mesh tier; the tracing spans.
+Not ported yet (ROADMAP.md): the hierarchical tier (``hier``: it needs
+``topo.slice_groups`` and the health plane) and the tracing spans.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import Any, List, Optional
 
 import torch
 
+from ompi_tpu_torch.kernels import stacked
 from ompi_tpu_torch.mca.params import registry
 
 _seg_size_var = registry.register(
@@ -232,7 +245,87 @@ def _hbm_seg_alltoall(module, comm, x):
 
 
 # ---------------------------------------------------------------------------
-# the entry consulted by coll/device (HbmCollModule)
+# mesh (coll/tpu) schedules
+# ---------------------------------------------------------------------------
+
+def fold_order(alg: str, size: int, seg: int):
+    """The K6 order of a segmented mesh allreduce (see
+    ``kernels.mesh._order``): segring's ring over ``seg``-element
+    segments of ``size`` stripes, or segrd's tree."""
+    return ("ring", seg, seg // size) if alg == "segring" else "tree"
+
+
+def _mesh_seg_reduce(module, comm, x, op, alg: str):
+    """Segmented allreduce over the mesh: the compiled-plan path (one
+    pull-reduce over the whole payload, one rendezvous) when enabled,
+    else one segring / segrd fold a segment, pipelined; each segment's
+    gather writes straight into this rank's output."""
+    from ompi_tpu_torch.coll import device, plan
+    if plan.enabled():
+        return plan.mesh_reduce(module, comm, x, op, alg)
+    x = module._deposit(comm, x)
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    seg = segment_elems(comm, flat.element_size())
+    order = fold_order(alg, comm.size, seg)
+    out = torch.empty(n, dtype=flat.dtype, device=flat.device)
+
+    def fn(slots):
+        return device._mesh_allreduce([p for p, _ in slots], op.name,
+                                      order, outs=[o for _, o in slots])
+
+    _run_pipelined(comm, (((flat[lo:lo + seg], out[lo:lo + seg]), fn)
+                          for lo in range(0, n, seg)))
+    return out.reshape(x.shape)
+
+
+def _mesh_seg_bcast(module, comm, x, root: int):
+    """Segmented bcast over the mesh (segbcast): each segment is one K2
+    peer copy a device from the root's segment into the member's
+    output."""
+    x = module._deposit(comm, x)
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    seg = segment_elems(comm, flat.element_size())
+    out = torch.empty(n, dtype=flat.dtype, device=flat.device)
+
+    def fn(slots):
+        src = slots[root][0]
+        return [stacked.peer_copy([src], o, o.numel()) for _, o in slots]
+
+    _run_pipelined(comm, (((flat[lo:lo + seg], out[lo:lo + seg]), fn)
+                          for lo in range(0, n, seg)))
+    return out.reshape(x.shape)
+
+
+def _mesh_seg_alltoall(module, comm, x):
+    """Segmented pairwise alltoall over the mesh (sega2a): segment k
+    moves columns [k*m, (k+1)*m) of every block, one K2 peer launch a
+    device reading the sources' column segments in place and writing
+    them into the member's output in place."""
+    x = module._deposit(comm, x)
+    size = comm.size
+    flat = x.reshape(-1)
+    cols = flat.numel() // size  # row p = the block for rank p
+    m = max(1, segment_elems(comm, flat.element_size()) // size)
+    out = torch.empty(flat.numel(), dtype=flat.dtype, device=flat.device)
+
+    def jobs():
+        for lo in range(0, cols, m):
+            def fn(slots, lo=lo, w=min(m, cols - lo)):
+                srcs = [s for s, _ in slots]
+                return [stacked.peer_copy(srcs, o, w, dst=d, src_stride=cols,
+                                          src_off=lo, out_stride=cols,
+                                          out_off=lo)
+                        for d, (_, o) in enumerate(slots)]
+            yield (flat, out), fn
+
+    _run_pipelined(comm, jobs())
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# the entry consulted by coll/device (HbmCollModule, TpuCollModule)
 # ---------------------------------------------------------------------------
 
 def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
@@ -240,10 +333,9 @@ def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
     ``UNHANDLED`` (the caller keeps its single-dispatch path).  Must be
     comm-consistent: the pick depends only on knobs, the process-wide
     calibration profile, comm properties and the MPI-matched payload
-    size.  Only the hbm module consults it in the port (the mesh tier
-    still raises), and on one card a bcast is one shared-memory
-    handoff already."""
-    if not _enable_var.value or module.name != "hbm":
+    size.  On one card (hbm) a bcast is one shared-memory handoff
+    already; the mesh segments it."""
+    if not _enable_var.value:
         return UNHANDLED
     nbytes = x.numel() * x.element_size() \
         if isinstance(x, torch.Tensor) else int(getattr(x, "nbytes", 0))
@@ -254,10 +346,19 @@ def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
                                  op.name if op is not None else None)
     if alg is None:
         return UNHANDLED
-    if kind == "allreduce":
-        out = _hbm_seg_reduce(module, comm, x, op)
+    if module.name == "hbm":
+        if kind == "allreduce":
+            out = _hbm_seg_reduce(module, comm, x, op)
+        elif kind == "alltoall":
+            out = _hbm_seg_alltoall(module, comm, x)
+        else:
+            return UNHANDLED
+    elif kind == "allreduce":
+        out = _mesh_seg_reduce(module, comm, x, op, alg)
+    elif kind == "bcast":
+        out = _mesh_seg_bcast(module, comm, x, root)
     elif kind == "alltoall":
-        out = _hbm_seg_alltoall(module, comm, x)
+        out = _mesh_seg_alltoall(module, comm, x)
     else:
         return UNHANDLED
     pv_ops.add(1)

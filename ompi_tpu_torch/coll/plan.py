@@ -1,5 +1,6 @@
-"""coll/plan: compiled collective plans, hbm half — ONE stacked kernel
-and ONE rendezvous per large-message allreduce on one card.
+"""coll/plan: collective plans — ONE rendezvous per large-message
+allreduce, one stacked kernel on one card (hbm) or one pull-reduce a
+device on a mesh.
 
 The pipelined tier (coll/pipeline.py) pays one rendezvous and one
 launch per segment.  A plan moves every decision out of steady state:
@@ -25,9 +26,18 @@ Sub-segment payloads quantize the plan shape to the next power of two
 segment — the identity padding keeps every size on a log-bounded key
 set.
 
-Not ported yet (ROADMAP.md): the mesh half (``_compile_mesh``,
-``mesh_reduce``, ``coll_plan_native_reduce``), the integrity spec and
-the tracing spans.
+Mesh plans (``mesh_reduce``, the port of ``_compile_mesh`` and
+``_build_mesh_plan``): the reference compiles the whole multi-segment
+segring or segrd schedule, or a native psum/pmax/pmin, into one
+program over the identity-padded payload.  The port's body is one K6
+mesh_fold a device in the schedule's order (the ring geometry of the
+plan's segments, segrd's tree, or rank order for the native lowering)
+and one K2 peer gather a device — over the payload as it is: the
+kernels take any length and the ring geometry by index, so a mesh
+plan neither pads nor trims.  With ``coll_plan_native_reduce`` (on by
+default) SUM/MAX/MIN plans take the rank-order fold.
+
+Not ported yet (ROADMAP.md): the integrity spec and the tracing spans.
 """
 
 from __future__ import annotations
@@ -49,6 +59,15 @@ _enable_var = registry.register(
 _cache_max_var = registry.register(
     "coll", "plan", "cache_max", 32, int,
     help="Per-communicator bound on resolved Plan objects (LRU)")
+
+_native_var = registry.register(
+    "coll", "plan", "native_reduce", True, bool,
+    help="Lower mesh plans for SUM/MAX/MIN as the native cross-replica "
+         "reduction (one rank-order fold); 0 keeps the batched ring / "
+         "recursive-doubling schedule for every op")
+
+#: ops with a native cross-replica lowering
+_NATIVE_OPS = frozenset(("MPI_SUM", "MPI_MAX", "MPI_MIN"))
 
 pv_builds = registry.register_pvar(
     "coll", "plan", "builds",
@@ -96,18 +115,17 @@ class Plan:
         self.nsegs = nsegs
         self.seg = seg
         self.total = nsegs * seg
-        self.pad_val = pad_val
+        self.pad_val = pad_val  # None: the plan takes any length
         self.fn = fn
 
     def execute(self, comm, flat: torch.Tensor, n: int) -> torch.Tensor:
         """The whole steady-state op: pack, one meet, unpack."""
         from ompi_tpu_torch.coll import device
         ns0 = time.perf_counter_ns()
-        value = flat
-        if n != self.total:
-            value = _pack(flat, n, self)
+        pad = self.pad_val is not None and n != self.total
+        value = _pack(flat, n, self) if pad else flat
         out = device.meet(comm, value, self.fn, device._abort_check(comm))
-        if n != self.total:
+        if pad:
             out = _unpack(out, n)
         pv_exec_us.add((time.perf_counter_ns() - ns0) // 1000)
         return out
@@ -176,3 +194,31 @@ def hbm_reduce(module, comm, x, op) -> torch.Tensor:
     _pl.pv_segments.add(nsegs)
     out = plan.execute(comm, flat, n)
     return out if shape is None else out.reshape(shape)
+
+
+# -- mesh plans -------------------------------------------------------------
+
+def _build_mesh_plan(comm, alg: str, nsegs: int, seg: int, opname: str,
+                     native: bool) -> Plan:
+    from ompi_tpu_torch.coll import device
+    order = "rank" if native else _pl.fold_order(alg, comm.size, seg)
+    return Plan(nsegs, seg, None,
+                lambda s: device._mesh_allreduce(s, opname, order))
+
+
+def mesh_reduce(module, comm, x, op, alg: str) -> torch.Tensor:
+    """Plan-path allreduce over the mesh: resolve (or reuse) the plan
+    for this payload's geometry, then one rendezvous."""
+    x = module._deposit(comm, x)
+    flat = x.reshape(-1)
+    n = int(flat.shape[0])
+    nsegs, seg = _plan_segments(
+        comm, n, _pl.segment_elems(comm, flat.element_size()))
+    native = bool(_native_var.value) and op.name in _NATIVE_OPS
+    pkey = ("mesh", "native" if native else alg, nsegs, seg, flat.dtype,
+            op.name)
+    plan = _resolve(
+        comm, pkey,
+        lambda: _build_mesh_plan(comm, alg, nsegs, seg, op.name, native))
+    _pl.pv_segments.add(nsegs)
+    return plan.execute(comm, flat, n).reshape(x.shape)

@@ -103,17 +103,20 @@ def device_algorithm(comm, kind: str, nbytes: int,
                      opname: Optional[str] = None) -> Optional[str]:
     """Large-message device-tier pick, the per-communicator analog of
     the reference's comm-bound module selection: None keeps the
-    single-dispatch path; "segring"/"segrd"/"sega2a" route to the
-    segmented tier (coll/pipeline; on a one-card comm every reduction
-    pick takes the plan or the pipelined stacked path).
+    single-dispatch path; "segring"/"segrd"/"segbcast"/"sega2a" route
+    to the segmented tier (coll/pipeline).  On a one-card comm every
+    reduction pick takes the plan or the pipelined stacked path; on a
+    mesh segring and segrd pick the fold order of the K6 pulls, and
+    segbcast and sega2a the segmented K2 peer copies.
 
     Comm-consistent by construction — thresholds come from knobs and
     the process-wide calibration profile, and nbytes is MPI-matched —
     and cached per comm (a large message should pay one dict hit, not
     a profile walk, to be routed).
 
-    Not ported yet: the hierarchical pick (it needs the mesh tier) and
-    the coll/autotune window that re-resolves the cache online."""
+    Not ported yet: the hierarchical pick (the hierarchical tier,
+    ``coll_hier_enable``, is not ported) and the coll/autotune window
+    that re-resolves the cache online."""
     from ompi_tpu_torch.coll import pipeline
     tbl = comm.__dict__.get("_pipeline_pick")
     if tbl is None:

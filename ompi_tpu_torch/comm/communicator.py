@@ -12,8 +12,10 @@ multi-round idea as the reference, built on p2p so it works before
 any collective module exists.
 
 Device mapping: a communicator whose member ranks all share one card
-is served by coll/hbm (coll/device.py).  The mesh tier for members on
-distinct cards is not ported yet; its *_arr calls raise.
+is served by coll/hbm (coll/device.py); one whose members own
+pairwise-distinct devices — cards, or logical devices of one card — by
+the mesh tier, coll/tpu (``Communicator.mesh``).  A communicator whose
+members partly share devices is refused by both.
 """
 
 from __future__ import annotations
@@ -259,6 +261,34 @@ class Communicator:
             with world.shared_lock:
                 world.shared.pop(("coll_rv", self.cid, tuple(self.group)),
                                  None)
+
+    # -- device mesh mapping -------------------------------------------
+    def mesh(self):
+        """The members' devices in rank order (a tuple of
+        torch.device), or None when members do not own pairwise-
+        distinct devices (then coll/tpu is not eligible).  Distinct by
+        ``runtime.init.device_key``: logical devices of one card are
+        distinct.  Both verdicts are cached: device ownership is fixed
+        for a comm's members."""
+        m = self.__dict__.get("_mesh")
+        if m is not None:
+            return m
+        if self.__dict__.get("_mesh_none"):
+            return None
+        from ompi_tpu_torch.runtime.init import device_key
+        devs, keys = [], set()
+        for g in self.group:
+            st = self._peer_state(g)
+            if st is None or st.device is None:
+                self.__dict__["_mesh_none"] = True
+                return None
+            devs.append(st.device)
+            keys.add(device_key(st))
+        if len(keys) != len(devs):
+            self.__dict__["_mesh_none"] = True
+            return None
+        m = self.__dict__["_mesh"] = tuple(devs)
+        return m
 
     def _peer_state(self, global_rank: int):
         world = getattr(self.state.rte, "world", None)
@@ -608,11 +638,13 @@ class Communicator:
         return self.state.device
 
     # -- device-array collectives (tensors in, tensors out) -------------
-    # The coll/hbm surface: collectives on card-resident buffers return
+    # The device surface: collectives on card-resident buffers return
     # a NEW tensor to every rank — one rank writing into its result
     # never changes a peer's.  Served by one stacked kernel launch
-    # when every member shares one card, host-staged for host-only
-    # worlds, refused (NotImplementedError) across distinct cards.
+    # when every member shares one card (coll/hbm), by per-device
+    # launches that read the peers' buffers when members own distinct
+    # devices (coll/tpu), host-staged for host-only worlds, refused
+    # (NotImplementedError) when members partly share devices.
 
     def allreduce_arr(self, x, op):
         return self.coll.allreduce_arr(self, x, op)

@@ -9,6 +9,11 @@ feeding coll buffers, opal/datatype/opal_convertor.h:131-137, which
 walks descriptors element-wise on the host CPU).  Unpack is the
 mirrored scatter, K5 ``index_scatter``.
 
+The fused mesh batch's glue (coll/fusion) lives here too, as in the
+reference: ``segment_offsets`` (the static offset table of a flat
+concatenation), ``pack_segments`` (one rank's slots into one buffer,
+K7 ``slot_pack``) and ``unpack_segments`` (views back out).
+
 Eligibility: every run must use the same primitive dtype as the
 buffer, with displacements/strides that are whole elements — exactly
 the shapes MPI vector/indexed/subarray types of one base type produce.
@@ -29,6 +34,7 @@ import torch
 
 from ompi_tpu_torch import convert
 from ompi_tpu_torch.kernels import index as _k
+from ompi_tpu_torch.kernels import mesh as _mesh
 
 from .engine import Datatype
 
@@ -127,3 +133,38 @@ def device_unpack(datatype: Datatype, count: int, packed: torch.Tensor,
 def is_device_packable(datatype: Datatype, count: int) -> bool:
     return element_indices(datatype, count) is not None
 
+
+
+# ---------------------------------------------------------------------------
+# segment packing for fused collectives (coll/fusion): N small payloads
+# ride one flat buffer; the offset table is static per batch signature
+# ---------------------------------------------------------------------------
+
+def segment_offsets(shapes):
+    """Offset table for a flat concatenation of tensors with the given
+    shapes: (offsets, lengths, total_elements); a 0-d shape counts one
+    element."""
+    offs, lens = [], []
+    total = 0
+    for sh in shapes:
+        n = 1
+        for d in sh:
+            n *= int(d)
+        offs.append(total)
+        lens.append(n)
+        total += n
+    return tuple(offs), tuple(lens), total
+
+
+def pack_segments(tensors, zero=None) -> torch.Tensor:
+    """Flatten and concatenate one device's contiguous tensors into
+    one new buffer in ONE launch (K7 ``slot_pack``); ``zero[i]`` writes
+    tensor i's span as zeros (a non-root bcast slot of a fused batch)."""
+    return _mesh.slot_pack([t.reshape(-1) for t in tensors], zero)
+
+
+def unpack_segments(flat: torch.Tensor, shapes):
+    """Mirror of pack_segments: views of ``flat`` in the original
+    shapes (no copy)."""
+    offs, lens, _ = segment_offsets(shapes)
+    return [flat[o:o + n].view(sh) for o, n, sh in zip(offs, lens, shapes)]

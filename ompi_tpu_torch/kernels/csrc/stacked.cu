@@ -13,6 +13,15 @@
 // K2 stacked_copy replaces the data-movement halves of the same
 // programs: _build_stacked("alltoall") (:1421-1431), a block transpose
 // out[i][j] = in[j][i], and ("allgather") (:1418), out[i] = cat(in).
+// Its peer mode serves the mesh tier (ranks on distinct devices): one
+// launch per destination device writes that device's output and reads
+// the N sources through their pointers, which may lie on other cards
+// (peer access) — the all_gather / all_to_all halves of the
+// reference's _build_mesh_collective (coll/device.py:997) and the
+// segbcast / sega2a schedules of coll/pipeline.py:192.  Strides and a
+// write limit let one launch move a column segment of every block
+// (sega2a) or gather ragged stripes (the allgather half of a mesh
+// allreduce) without staging copies.
 //
 // What bounds them: bytes.  A reduction does N-1 operations per N
 // elements read, far below the card's operations-per-byte balance, so
@@ -47,12 +56,20 @@ struct ReduceArgs {
   int scatter;
 };
 
+// out[il] + j * out_stride <- in[j] + (first_out + il) * in_stride,
+// chunk units a block, clipped so that no unit at or past ``limit``
+// (counted from out[il]) is written.  Stacked alltoall: in_stride =
+// out_stride = chunk; allgather: in_stride = 0.
 struct CopyArgs {
   const void* in[MAX_PTRS];
   void* out[MAX_PTRS];
-  long long chunk;  // units (of the launch's width) in one block
-  int n;            // ranks
-  int alltoall;     // 1: out[i] block j <- in[j] block i; 0: <- in[j]
+  long long chunk;       // units (of the launch's width) in one block
+  long long in_stride;   // units from source block i to block i + 1
+  long long out_stride;  // units from destination block j to j + 1
+  long long limit;       // units of each destination that may be written
+  int n;                 // sources
+  int nout;              // destinations of this launch
+  int first_out;         // rank of out[0]
 };
 
 template <typename T, int V>
@@ -107,14 +124,16 @@ __global__ void __launch_bounds__(256) stacked_reduce_kernel(const ReduceArgs a)
 
 template <typename W>
 __global__ void __launch_bounds__(256) stacked_copy_kernel(const CopyArgs a) {
-  const int i = blockIdx.y / a.n;  // output (rank that receives)
-  const int j = blockIdx.y % a.n;  // block of that output (rank that sent)
-  const W* src = reinterpret_cast<const W*>(a.in[j]) +
-                 (a.alltoall ? (long long)i * a.chunk : 0);
-  W* dst = reinterpret_cast<W*>(a.out[i]) + (long long)j * a.chunk;
+  const int il = blockIdx.y / a.n;  // output of this launch (receiver)
+  const int j = blockIdx.y % a.n;   // block of that output (sender)
+  const long long i = (long long)a.first_out + il;
+  const W* src = reinterpret_cast<const W*>(a.in[j]) + i * a.in_stride;
+  W* dst = reinterpret_cast<W*>(a.out[il]) + (long long)j * a.out_stride;
+  long long cnt = a.limit - (long long)j * a.out_stride;
+  if (cnt > a.chunk) cnt = a.chunk;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       k < a.chunk; k += stride)
+       k < cnt; k += stride)
     dst[k] = src[k];
 }
 
@@ -150,11 +169,13 @@ int ompi_stacked_reduce(const ReduceArgs* a, int dtype, int op, int vec,
 }
 
 // width: bytes a thread moves at once (16, 8, 4, 2 or 1); the wrapper
-// picks the largest that divides the block size and every pointer.
+// picks the largest that divides the block size, the strides, the
+// limit and every pointer.
 int ompi_stacked_copy(const CopyArgs* a, int width, void* stream) {
-  if (a->n < 1 || a->n > MAX_PTRS) return (int)cudaErrorInvalidValue;
+  if (a->n < 1 || a->n > MAX_PTRS || a->nout < 1 || a->nout > MAX_PTRS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long rows = (long long)a->n * a->n;
+  const long long rows = (long long)a->n * a->nout;
   long long cap = ((long long)sm_count() * 16 + rows - 1) / rows;
   dim3 grid(grid_for(a->chunk, cap), (unsigned)rows);
   switch (width) {
@@ -166,6 +187,23 @@ int ompi_stacked_copy(const CopyArgs* a, int width, void* stream) {
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// Let kernels running on card ``dev`` read card ``peer``'s memory (the
+// mesh tier's pulls).  Enabling twice is not an error.
+int ompi_enable_peer(int dev, int peer) {
+  int prev = 0;
+  cudaGetDevice(&prev);
+  cudaError_t e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear the error it left behind
+      e = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return (int)e;
 }
 
 }  // extern "C"

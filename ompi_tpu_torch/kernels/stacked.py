@@ -7,7 +7,10 @@ programs, ``HbmCollModule._build_stacked("allreduce", op)`` and
 fold table ``_fold_fn`` at :136 and op/op.py:153 ``jax_binary``).
 K2 ``stacked_copy`` replaces their data-movement halves,
 ``_build_stacked("alltoall")`` (:1421-1431) and ``("allgather")``
-(:1418).
+(:1418).  K2's peer mode, ``peer_copy``, serves the mesh tier: one
+launch per destination device, reading sources that may lie on other
+cards (the all_gather / all_to_all halves of ``_build_mesh_collective``,
+:997, and the segbcast / sega2a schedules of coll/pipeline.py:192).
 
 Both are bound by bytes (see the note at the top of stacked.cu): one
 read of every input and one write of every output, 16 bytes a thread
@@ -21,6 +24,7 @@ is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import List, Sequence
 
@@ -94,8 +98,11 @@ class _ReduceArgs(ctypes.Structure):
 class _CopyArgs(ctypes.Structure):
     _fields_ = [("inp", ctypes.c_void_p * MAX_PTRS),
                 ("out", ctypes.c_void_p * MAX_PTRS),
-                ("chunk", ctypes.c_longlong), ("n", ctypes.c_int),
-                ("alltoall", ctypes.c_int)]
+                ("chunk", ctypes.c_longlong),
+                ("in_stride", ctypes.c_longlong),
+                ("out_stride", ctypes.c_longlong),
+                ("limit", ctypes.c_longlong), ("n", ctypes.c_int),
+                ("nout", ctypes.c_int), ("first_out", ctypes.c_int)]
 
 
 _lib_lock = threading.Lock()
@@ -118,6 +125,8 @@ def _library() -> ctypes.CDLL:
             lib.ompi_stacked_copy.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.ompi_stacked_copy.restype = ctypes.c_int
+            lib.ompi_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.ompi_enable_peer.restype = ctypes.c_int
             if (lib.ompi_reduce_args_size() != ctypes.sizeof(_ReduceArgs)
                     or lib.ompi_copy_args_size() != ctypes.sizeof(_CopyArgs)
                     or lib.ompi_max_ptrs() != MAX_PTRS):
@@ -150,6 +159,32 @@ def _check(xs: Sequence[torch.Tensor], what: str) -> None:
 def _launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
+
+
+_peer_lock = threading.Lock()
+_peer_ok: set = set()
+
+
+def require_peer(dev: torch.device, src: torch.device) -> None:
+    """Let kernels on card ``dev`` read card ``src``'s memory, or raise
+    when the pair has no peer access: the mesh tier never stages a
+    card's data through the host.  Enabled once per pair."""
+    if dev.type != "cuda" or src.type != "cuda" or dev.index == src.index:
+        return
+    key = (dev.index, src.index)
+    if key in _peer_ok:
+        return
+    with _peer_lock:
+        if key in _peer_ok:
+            return
+        if not torch.cuda.can_device_access_peer(dev.index, src.index):
+            raise RuntimeError(
+                f"cuda:{dev.index} cannot read cuda:{src.index}'s memory "
+                "(no peer access between the two cards): the mesh tier "
+                "does not stage device data through the host")
+        _launch(_library().ompi_enable_peer(dev.index, src.index),
+                "cudaDeviceEnablePeerAccess")
+        _peer_ok.add(key)
 
 
 def _scatter_shape(x: torch.Tensor, n: int):
@@ -214,19 +249,8 @@ def stacked_reduce_plain(xs: Sequence[torch.Tensor], opname: str,
     in rank order, float16/bfloat16 accumulated in float32 and rounded
     once, logical ops normalised to 0/1, complex PROD as (ac - bd,
     ad + bc) with every product and sum rounded on its own."""
-    n, dt = len(xs), xs[0].dtype
-    binop = _cmul if dt.is_complex and opname == "MPI_PROD" \
-        else torch_binary(PREDEFINED[opname])
-    lift, drop = _carrier(dt, opname)
-    mask = _NARROW_UNSIGNED.get(dt)
-    acc = lift(xs[0]).clone()
-    if opname in _LOGICAL:
-        acc = (acc != 0).to(acc.dtype)
-    for x in xs[1:]:
-        acc = binop(acc, lift(x))
-        if mask is not None:
-            acc &= mask
-    res = drop(acc)
+    n = len(xs)
+    res = fold_plain(xs, opname)
     if not scatter:
         return [res] + [res.clone() for _ in range(n - 1)]
     shape = _scatter_shape(xs[0], n)
@@ -234,6 +258,53 @@ def stacked_reduce_plain(xs: Sequence[torch.Tensor], opname: str,
     m = flat.numel() // n
     return [flat[i * m:(i + 1) * m].reshape(shape).clone()
             for i in range(n)]
+
+
+def _fold_parts(dt: torch.dtype, opname: str):
+    """(binop, lift, drop, mask) of the plain folds: the op in the
+    carrier type of ``_carrier``, and the wrap mask of a narrow
+    unsigned type (None for the others)."""
+    binop = _cmul if dt.is_complex and opname == "MPI_PROD" \
+        else torch_binary(PREDEFINED[opname])
+    lift, drop = _carrier(dt, opname)
+    return binop, lift, drop, _NARROW_UNSIGNED.get(dt)
+
+
+def fold_plain(xs: Sequence[torch.Tensor], opname: str) -> torch.Tensor:
+    """The left fold op(...op(op(xs[0], xs[1]), xs[2])..., xs[-1]) with
+    K1's semantics, as one new tensor."""
+    binop, lift, drop, mask = _fold_parts(xs[0].dtype, opname)
+    acc = lift(xs[0]).clone()
+    if opname in _LOGICAL:
+        acc = (acc != 0).to(acc.dtype)
+    for x in xs[1:]:
+        acc = binop(acc, lift(x))
+        if mask is not None:
+            acc &= mask
+    return drop(acc)
+
+
+def tree_plain(xs: Sequence[torch.Tensor], opname: str) -> torch.Tensor:
+    """The balanced tree over xs (a power-of-two count) with K1's
+    semantics: each node op(lower half, upper half), the recursive
+    doubling order of the reference's segrd schedule."""
+    n = len(xs)
+    if n & (n - 1):
+        raise ValueError(f"tree fold over {n} inputs: not a power of two")
+    binop, lift, drop, mask = _fold_parts(xs[0].dtype, opname)
+    stack: List[torch.Tensor] = []
+    for r, x in enumerate(xs):
+        v = lift(x)
+        if opname in _LOGICAL:
+            v = (v != 0).to(v.dtype)
+        c = r
+        while c & 1:
+            v = binop(stack.pop(), v)
+            if mask is not None:
+                v &= mask
+            c >>= 1
+        stack.append(v)
+    return drop(stack[0])
 
 
 def _carrier(dt: torch.dtype, opname: str):
@@ -301,9 +372,11 @@ def stacked_copy(xs: Sequence[torch.Tensor], kind: str
     for i, o in enumerate(outs):
         a.out[i] = o.data_ptr()
     w = _width(chunk, list(a.inp[:n]) + list(a.out[:n]))
-    a.chunk = chunk // w
-    a.n = n
-    a.alltoall = int(kind == "alltoall")
+    a.chunk = a.out_stride = chunk // w
+    a.in_stride = a.chunk if kind == "alltoall" else 0
+    a.limit = n * a.chunk
+    a.n = a.nout = n
+    a.first_out = 0
     lib = _library()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
@@ -329,3 +402,109 @@ def stacked_copy_plain(xs: Sequence[torch.Tensor], kind: str
     blocks = [x.reshape(n, -1) for x in xs]
     return [torch.cat([b[i] for b in blocks]).reshape(xs[0].shape)
             for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# K2 peer mode: one destination device, sources anywhere
+# ---------------------------------------------------------------------------
+
+def _peer_plan(srcs, out, block, dst, src_stride, src_off, out_stride,
+               out_off, limit):
+    """(source element offset, [(j, count)]) of a peer copy, checked
+    against the tensors' sizes."""
+    if not srcs or len(srcs) > MAX_PTRS:
+        raise ValueError(f"peer_copy: {len(srcs)} sources (1 to "
+                         f"{MAX_PTRS})")
+    a = src_off + dst * src_stride
+    moves = []
+    for j, s in enumerate(srcs):
+        if not isinstance(s, torch.Tensor) or s.dtype != out.dtype:
+            raise ValueError("peer_copy: sources must be tensors of the "
+                             "output's dtype")
+        if not s.is_contiguous():
+            raise ValueError("peer_copy: sources must be contiguous")
+        cnt = min(block, limit - j * out_stride)
+        if cnt <= 0:
+            continue
+        if a < 0 or a + cnt > s.numel() \
+                or out_off + j * out_stride + cnt > out.numel():
+            raise ValueError("peer_copy: a block lies outside its tensor")
+        moves.append((j, cnt))
+    return a, moves
+
+
+def peer_copy(srcs: Sequence[torch.Tensor], out: torch.Tensor, block: int,
+              *, dst: int = 0, src_stride: int = 0, src_off: int = 0,
+              out_stride: int = None, out_off: int = 0,
+              limit: int = None) -> torch.Tensor:
+    """K2 in peer mode: ONE launch on ``out``'s device that writes, for
+    every source j and k < block,
+
+        out[out_off + j * out_stride + k]
+            = srcs[j][src_off + dst * src_stride + k]
+
+    (flat element indices), but no element at or past ``out_off +
+    limit``.  The sources may lie on other cards (peer access).  An
+    allgather is src_stride 0; an alltoall's destination ``dst`` takes
+    block ``dst`` of every source.  Writes ``out`` in place and returns
+    it."""
+    out_stride = block if out_stride is None else out_stride
+    limit = len(srcs) * out_stride if limit is None else limit
+    if not out.is_contiguous():
+        raise ValueError("peer_copy: out must be contiguous")
+    a, moves = _peer_plan(srcs, out, block, dst, src_stride, src_off,
+                          out_stride, out_off, limit)
+    if out.device.type == "cpu":
+        if any(s.device.type != "cpu" for s in srcs):
+            raise ValueError("peer_copy: a CPU output takes CPU sources")
+        return peer_copy_plain(srcs, out, block, dst=dst,
+                               src_stride=src_stride, src_off=src_off,
+                               out_stride=out_stride, out_off=out_off,
+                               limit=limit)
+    if out.device.type != "cuda" or any(s.device.type != "cuda"
+                                        for s in srcs):
+        raise ValueError("peer_copy: sources and output must lie on cards")
+    if not moves:
+        return out
+    isz = out.element_size()
+    c = _CopyArgs()
+    for j, s in enumerate(srcs):
+        require_peer(out.device, s.device)
+        c.inp[j] = s.data_ptr() + a * isz
+    c.out[0] = out.data_ptr() + out_off * isz
+    w = _width(math.gcd(block * isz, out_stride * isz, limit * isz),
+               list(c.inp[:len(srcs)]) + [c.out[0]])
+    c.chunk = block * isz // w
+    c.out_stride = out_stride * isz // w
+    c.limit = limit * isz // w
+    c.in_stride = 0
+    c.n = len(srcs)
+    c.nout = 1
+    c.first_out = 0
+    lib = _library()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        _launch(lib.ompi_stacked_copy(ctypes.byref(c), w, stream),
+                "peer_copy")
+        peer_copy.launches.add()
+    return out
+
+
+peer_copy.launches = LaunchCount()
+
+
+def peer_copy_plain(srcs: Sequence[torch.Tensor], out: torch.Tensor,
+                    block: int, *, dst: int = 0, src_stride: int = 0,
+                    src_off: int = 0, out_stride: int = None,
+                    out_off: int = 0, limit: int = None) -> torch.Tensor:
+    """Plain PyTorch version of K2's peer mode, on any device: the same
+    block copies, one ``copy_`` each, in place."""
+    out_stride = block if out_stride is None else out_stride
+    limit = len(srcs) * out_stride if limit is None else limit
+    a, moves = _peer_plan(srcs, out, block, dst, src_stride, src_off,
+                          out_stride, out_off, limit)
+    flat = out.view(-1)
+    for j, cnt in moves:
+        b = out_off + j * out_stride
+        flat[b:b + cnt].copy_(srcs[j].reshape(-1)[a:a + cnt])
+    return out

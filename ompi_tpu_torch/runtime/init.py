@@ -20,13 +20,16 @@ from ompi_tpu_torch.btl import inproc as _btl_inproc  # noqa: F401 (registers)
 from ompi_tpu_torch.btl import self_btl as _btl_self  # noqa: F401
 from ompi_tpu_torch.comm.communicator import Communicator, Group
 from ompi_tpu_torch.pml import ob1 as _pml_ob1
-from .state import ProcState, clear_current, set_current
+from .state import LogicalDevice, ProcState, clear_current, set_current
 
 
 def mpi_init(state: ProcState, device=None) -> ProcState:
     """``device`` is the ``torch.device`` this rank owns (None in a
-    host-only world)."""
+    host-only world), or a ``LogicalDevice``: a torch device and this
+    rank's logical slot on it."""
     set_current(state)
+    if isinstance(device, LogicalDevice):
+        device, state.device_slot = device.device, device.slot
     state.device = device
     # refine the oversubscription hint with the true local-rank count
     # (thread-rank worlds know it exactly; ref: the reference
@@ -73,6 +76,14 @@ def device_index(device) -> int:
     """The card index of a ``torch.device`` (a CPU device, or a CUDA
     device named without an index, counts as 0)."""
     return device.index if device.index is not None else 0
+
+
+def device_key(state: ProcState) -> tuple:
+    """What tells two ranks' devices apart: (type, card index, logical
+    slot).  Ranks with one key share a device (coll/hbm); ranks with
+    pairwise-distinct keys form a mesh (coll/tpu)."""
+    dev = state.device
+    return (dev.type, device_index(dev), state.device_slot)
 
 
 def mpi_finalize(state: ProcState) -> None:

@@ -11,9 +11,21 @@ identity, progress engine, pml, btl endpoints and communicator table
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 from .progress import Progress
+
+
+class LogicalDevice(NamedTuple):
+    """A rank's device as a ``device_map`` may give it: the torch device
+    its tensors live on, and a logical slot that tells ranks sharing
+    that device apart.  Ranks with pairwise-distinct slots on one card
+    form a mesh of logical devices (the mesh tier then runs all its
+    per-device launches on that card) — the harness's analog of the
+    reference's ``--xla_force_host_platform_device_count``."""
+
+    device: Any
+    slot: int
 
 
 class ProcState:
@@ -27,8 +39,10 @@ class ProcState:
         self.comms: Dict[int, Any] = {}  # cid -> Communicator
         self.comm_world: Any = None
         self.comm_self: Any = None
-        # torch.device owned by this rank (None in host-only worlds)
+        # torch.device owned by this rank (None in host-only worlds),
+        # and its logical slot on that device (None: the whole device)
         self.device: Any = None
+        self.device_slot: Optional[int] = None
         self.finalized = False
         self.initialized = False
         self.extra: Dict[str, Any] = {}

@@ -16,7 +16,7 @@ from typing import Any, Callable, List, Optional
 
 from ompi_tpu_torch.runtime.init import mpi_finalize, mpi_init
 from ompi_tpu_torch.runtime.rte import InprocWorld
-from ompi_tpu_torch.runtime.state import ProcState
+from ompi_tpu_torch.runtime.state import LogicalDevice, ProcState
 
 
 class RankError(RuntimeError):
@@ -41,16 +41,30 @@ def _card_map() -> Callable:
     return lambda r: torch.device("cuda", r % ncard)
 
 
+def logical_devices(device) -> Callable:
+    """A ``device_map`` that gives rank r logical slot r on ``device``:
+    n ranks on n distinct logical devices of one torch device, so
+    their communicators take the mesh tier (coll/tpu) — on the CPU
+    with the kernels' plain versions (``"cpu"``), or on one card with
+    the kernels (``"cuda:0"``)."""
+    import torch
+
+    dev = torch.device(device)
+    return lambda r: LogicalDevice(dev, r)
+
+
 def run_ranks(n: int, fn: Callable, devices: bool = False,
               timeout: float = 120.0, device_map=None) -> List[Any]:
     """Run fn(comm_world) on n thread-ranks; returns per-rank results.
 
-    devices=True maps rank i to torch.device("cuda", i % ncards) so
-    coll/hbm becomes eligible (every rank on one card).  device_map
-    overrides: a callable rank -> torch.device (e.g. lambda r:
-    torch.device("cuda", 0) to co-locate every rank on one card, or
-    lambda r: torch.device("cpu") to run the device path on the CPU
-    with the kernels' plain versions)."""
+    devices=True maps rank i to torch.device("cuda", i % ncards): with
+    n <= ncards every rank owns its own card (the mesh tier, coll/tpu),
+    with one card every rank shares it (coll/hbm).  device_map
+    overrides: a callable rank -> torch.device or LogicalDevice (e.g.
+    lambda r: torch.device("cuda", 0) to co-locate every rank on one
+    card, lambda r: torch.device("cpu") to run the device path on the
+    CPU with the kernels' plain versions, or logical_devices("cpu") /
+    logical_devices("cuda:0") for a mesh of logical devices)."""
     world = InprocWorld(n)
     results: List[Any] = [None] * n
     errors: List[Optional[RankError]] = [None] * n

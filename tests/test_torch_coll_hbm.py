@@ -347,17 +347,20 @@ def test_hbm_peer_abort_unblocks_rendezvous():
 
 
 def test_distinct_devices_raise_not_implemented():
-    """Members on distinct devices need the mesh tier, which is not
-    ported: the *_arr surface says so instead of host-staging."""
+    """Members on distinct devices that are not pairwise distinct (4
+    ranks on 2 devices) fit neither coll/hbm nor the mesh tier: the
+    *_arr surface says so instead of host-staging.  (Pairwise-distinct
+    devices take the mesh tier: tests/test_torch_mesh.py.)"""
     def fn(comm):
         assert comm.coll.providers["allreduce_arr"] == "tpu"
         return comm.allreduce_arr(torch.ones(4), port_op.SUM)
 
     with pytest.raises(RankError) as ei:
-        port_run_ranks(2, fn, device_map=lambda r: torch.device("cpu", r),
+        port_run_ranks(4, fn,
+                       device_map=lambda r: torch.device("cpu", r % 2),
                        timeout=30)
     assert isinstance(ei.value.exc, NotImplementedError)
-    assert "mesh tier not yet ported" in str(ei.value.exc)
+    assert "partly share devices" in str(ei.value.exc)
 
 
 def test_host_worlds_stage_through_the_host():

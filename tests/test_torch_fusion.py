@@ -306,17 +306,19 @@ def test_fused_outputs_are_each_ranks_own():
 
 
 def test_mesh_mode_fusion_raises_not_implemented():
-    """A comm whose members own distinct devices has no mesh tier in
-    the port: the fused flush raises, as its blocking calls do."""
+    """A comm whose members partly share devices (4 ranks on 2) has no
+    fusion mode: its nonblocking calls run the blocking path, which
+    refuses the comm, naming the mesh tier.  (Pairwise-distinct
+    devices fuse in mesh mode: tests/test_torch_mesh.py.)"""
     def fn(comm):
         assert comm.coll.providers["allreduce_arr"] == "tpu"
-        q = comm.iallreduce_arr(torch.ones(2), port_op.SUM)
         with pytest.raises(NotImplementedError, match="mesh"):
-            q.wait()
+            comm.iallreduce_arr(torch.ones(2), port_op.SUM).wait()
         return True
 
     assert port_run_ranks(
-        2, fn, device_map=lambda r: torch.device("cpu", r)) == [True] * 2
+        4, fn, device_map=lambda r: torch.device("cpu", r % 2)) \
+        == [True] * 4
 
 
 def test_fused_group_plan_matches_reference_groups():

@@ -32,8 +32,19 @@ reference's ``device_pack`` (``jnp.take``) and ``device_unpack``
 take and fancy assignment for 8- and 16-byte ones (x64 off, jnp would
 narrow them).
 
+The mesh tier's kernels: K6 ``mesh_fold``'s plain version is held byte
+for byte against the reference's own segring and segrd segment
+programs (``coll/pipeline._build_seg_kernel`` on virtual devices),
+float SUM and PROD included, since it folds each element in the same
+order — but for float16, where the reference rounds every hop and K6
+once (a pinned divergence, within 4 * N * 2**-11 * sum(|x_i|)); in
+rank order it is K1's fold, byte for byte.  K2's peer mode
+(``peer_copy``) and K7 ``slot_pack`` move bytes: exact (K7 against the
+reference's ``_build_pack``).
+
 The kernels themselves are held against their plain versions on the
-card by the gpu-marked tests at the end (skipped without a card).
+card by the gpu-marked tests at the end (skipped without a card),
+exact.
 """
 
 import zlib
@@ -47,7 +58,7 @@ import torch
 from ompi_tpu.coll.device import HbmCollModule
 from ompi_tpu.coll.fusion import _build_fused_hbm
 from ompi_tpu_torch import convert
-from ompi_tpu_torch.kernels import fused, index, stacked
+from ompi_tpu_torch.kernels import fused, index, mesh, stacked
 from ompi_tpu_torch.op.op import PREDEFINED
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
@@ -478,4 +489,187 @@ def test_index_kernels_match_plain_on_card(cuda_device):
             index.index_scatter(g, iv, a)
             index.index_scatter_plain(g, iv, b)
             assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K6 mesh_fold, K2 peer mode, K7 slot_pack (the mesh tier)
+# ---------------------------------------------------------------------------
+
+# the reference runs its mesh schedules with x64 off: stay in the
+# 32-bit types; (dtype, op) pairs cover floats, ints and logical ops
+MESH_PAIRS = [(np.dtype(np.float32), "MPI_SUM"),
+              (np.dtype(np.float32), "MPI_PROD"),
+              (np.dtype(np.float32), "MPI_MAX"),
+              (np.dtype(np.int32), "MPI_SUM"),
+              (np.dtype(np.int32), "MPI_BAND"),
+              (np.dtype(np.int32), "MPI_LXOR"),
+              (np.dtype(np.uint8), "MPI_MIN")]
+
+
+def _ref_schedule(kind, shards, seg, opname):
+    """The reference's own segment program (coll/pipeline.py
+    _build_seg_kernel) over one segment a rank, on as many virtual
+    devices as shards; the replicated result as numpy."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from ompi_tpu.coll.pipeline import _build_seg_kernel
+    n = len(shards)
+    mesh = Mesh(np.array(jax.devices()[:n]), ("r",))
+    g = jax.device_put(np.concatenate(shards),
+                       NamedSharding(mesh, P("r")))
+    fn = _build_seg_kernel(kind, mesh, seg, shards[0].dtype, opname)
+    return np.asarray(fn(g))[:seg]
+
+
+@pytest.mark.parametrize("dt,op", MESH_PAIRS,
+                         ids=[f"{d.name}-{o[4:]}" for d, o in MESH_PAIRS])
+@pytest.mark.parametrize("kind", ["segring", "segrd"])
+def test_mesh_fold_matches_reference_schedules(kind, dt, op):
+    """K6's plain version in the segring order (the rotation over a
+    segment's stripes) and in segrd's tree, against the reference's
+    segment programs on the same shards: byte for byte, float SUM and
+    PROD included — each element is the same chain of IEEE ops."""
+    n, seg = 4, 4 * 37
+    rng = np.random.default_rng(zlib.crc32(f"{kind}{dt.name}{op}".encode()))
+    shards = _shards(rng, n, seg, dt, op)
+    want = _ref_schedule(kind, shards, seg, op)
+    order = ("ring", seg, seg // n) if kind == "segring" else "tree"
+    xs = [convert.to_torch(s, torch.device("cpu")) for s in shards]
+    for lo, length in ((0, seg), (5, 41)):  # a whole segment, a stripe
+        got = mesh.mesh_fold_plain(xs, lo, length, op, order)
+        assert convert.to_numpy(got).tobytes() == \
+            want[lo:lo + length].tobytes()
+
+
+def test_mesh_fold_rank_order_matches_stacked():
+    """K6 in rank order over a stripe is K1's fold over the same
+    elements, for every pair K1 takes."""
+    rng = np.random.default_rng(23)
+    for dt, op in PAIRS:
+        shards = _shards(rng, 3, 40, dt, op)
+        xs = [convert.to_torch(s, torch.device("cpu")) for s in shards]
+        out = torch.empty(17, dtype=xs[0].dtype)
+        mesh.mesh_fold(xs, out, 9, op)
+        want = stacked.stacked_reduce_plain([x[9:26] for x in xs], op)[0]
+        assert torch.equal(out.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_divergence_half_accumulation_in_schedules():
+    """float16 SUM through segring: the reference rounds to float16 at
+    every hop; K6 (like K1) accumulates in float32 and rounds once.
+    The port's result is the float32 fold rounded once, and the two
+    agree within the float16 SUM band, 4 * N * 2**-11 * sum(|x_i|)."""
+    n, seg = 4, 4 * 64
+    rng = np.random.default_rng(29)
+    shards = [rng.standard_normal(seg).astype(np.float16) for _ in range(n)]
+    ref = _ref_schedule("segring", shards, seg, "MPI_SUM")
+    xs = [convert.to_torch(s, torch.device("cpu")) for s in shards]
+    got = convert.to_numpy(mesh.mesh_fold_plain(
+        xs, 0, seg, "MPI_SUM", ("ring", seg, seg // n)))
+    m = seg // n
+    f32 = np.empty(seg, np.float32)
+    for c in range(n):
+        acc = np.zeros(m, np.float32)
+        for k in range(n):
+            acc = acc + shards[(c + k) % n][c * m:(c + 1) * m]
+        f32[c * m:(c + 1) * m] = acc
+    assert got.tobytes() == f32.astype(np.float16).tobytes()
+    absum = np.sum([np.abs(s.astype(np.float64)) for s in shards], 0)
+    tol = 4 * n * 2.0 ** -11 * absum
+    assert (np.abs(got.astype(np.float64) - ref) <= tol).all()
+    assert got.tobytes() != ref.tobytes()  # the divergence shows
+
+
+def test_peer_copy_plain_cases():
+    """K2 peer mode's plain version: an alltoall destination equals
+    stacked_copy's, a clipped gather of ragged stripes, and a column
+    segment of every block written in place."""
+    n = 4
+    xs = [torch.arange(24, dtype=torch.int32) + 100 * r for r in range(n)]
+    want = stacked.stacked_copy_plain(xs, "alltoall")
+    for d in range(n):
+        out = torch.empty(24, dtype=torch.int32)
+        stacked.peer_copy(xs, out, 6, dst=d, src_stride=6)
+        assert torch.equal(out, want[d])
+    stripes = [torch.full((3,), r, dtype=torch.int32) for r in range(n)]
+    out = torch.full((10,), -1, dtype=torch.int32)
+    stacked.peer_copy(stripes, out, 3, limit=10)
+    assert out.tolist() == [0, 0, 0, 1, 1, 1, 2, 2, 2, 3]
+    out = torch.zeros(24, dtype=torch.int32)
+    stacked.peer_copy(xs, out, 2, dst=1, src_stride=6, src_off=3,
+                      out_stride=6, out_off=3)
+    for j in range(n):
+        assert out[6 * j + 3:6 * j + 5].tolist() == \
+            xs[j][9:11].tolist()
+        assert out[6 * j:6 * j + 3].tolist() == [0, 0, 0]
+    with pytest.raises(ValueError, match="outside"):
+        stacked.peer_copy(xs, torch.empty(5, dtype=torch.int32), 6)
+
+
+def test_slot_pack_matches_reference():
+    """K7's plain version against the reference's _build_pack body on
+    the same slots: non-root bcast slots zeroed, the rest concatenated,
+    byte for byte."""
+    import jax
+    from ompi_tpu.coll.fusion import _build_pack
+    rng = np.random.default_rng(37)
+    slots = [rng.integers(-9, 9, s).astype(np.int32)
+             for s in ((3,), (2, 2), (1,), (5,))]
+    roots = (None, False, True, None)
+    fn = _build_pack(jax.devices()[0], None, list(range(4)), roots)
+    want = np.asarray(fn(*[jnp.asarray(s) for s in slots]))
+    got = mesh.slot_pack([convert.to_torch(s, torch.device("cpu"))
+                          for s in slots], [r is False for r in roots])
+    assert convert.to_numpy(got).tobytes() == want.tobytes()
+    before = mesh.slot_pack.launches.value
+    mesh.slot_pack([torch.ones(2)])
+    assert mesh.slot_pack.launches.value == before
+
+
+def _mesh_orders(n, seg):
+    orders = ["rank", ("ring", seg, seg // n)]
+    return orders + (["tree"] if n & (n - 1) == 0 else [])
+
+
+@pytest.mark.gpu
+def test_mesh_kernels_match_plain_on_card(cuda_device):
+    """K6 over every pair K1 takes, in rank order, the segring order
+    and (N a power of two) segrd's tree, N = 2, 3, 4, 8, aligned and
+    misaligned stripes; K2 peer mode for alltoall, clipped gathers and
+    column segments; K7 with zeroed slots and odd widths — each against
+    its plain version on the card: exact, NaN included."""
+    rng = np.random.default_rng(14)
+    for dt, op in PAIRS:
+        for n in (2, 3, 4, 8):
+            seg = 64 * n
+            shards = _shards(rng, n, 3 * seg + 5, dt, op)
+            xs = [convert.to_torch(s, cuda_device) for s in shards]
+            for order in _mesh_orders(n, seg):
+                for lo, length in ((0, 3 * seg + 5), (seg, 77), (3, 50)):
+                    out = torch.empty(length, dtype=xs[0].dtype,
+                                      device=cuda_device)
+                    mesh.mesh_fold(xs, out, lo, op, order)
+                    want = mesh.mesh_fold_plain(xs, lo, length, op, order)
+                    torch.testing.assert_close(out, want, rtol=0, atol=0,
+                                               equal_nan=True)
+    for dt in (np.dtype(np.float32), np.dtype(np.int8),
+               np.dtype(np.float64)):
+        n = 4
+        xs = [convert.to_torch(s, cuda_device)
+              for s in _shards(rng, n, 8 * 1031, dt, "MPI_SUM")]
+        for kw in ({"block": 2062, "src_stride": 2062, "dst": 2},
+                   {"block": 1031 * 8, "limit": 3 * 1031 * 8 + 5},
+                   {"block": 7, "src_stride": 2062, "dst": 1,
+                    "src_off": 3, "out_stride": 2062, "out_off": 3}):
+            a = torch.zeros(n * 8 * 1031, dtype=xs[0].dtype,
+                            device=cuda_device)
+            b = a.clone()
+            stacked.peer_copy(xs, a, **kw)
+            stacked.peer_copy_plain(xs, b, **kw)
+            assert torch.equal(a, b)
+        slots = [x[:k] for x, k in zip(xs, (5, 1024, 0, 333))]
+        for zero in ([False] * 4, [True, False, True, False]):
+            assert torch.equal(mesh.slot_pack(slots, zero),
+                               mesh.slot_pack_plain(slots, zero))
     torch.cuda.synchronize()
