@@ -22,7 +22,12 @@ Phases, each fatal on failure (nothing is caught and carried on):
              K6 mesh_fold over every pair K1 takes, N in {2, 3, 8}, in
              rank order, the segring order and segrd's tree; K2's peer
              mode (alltoall destination, clipped gather, column
-             segment) and K7 slot_pack (zeroed slots, odd widths).
+             segment) and K7 slot_pack (zeroed slots, odd widths); K8
+             rma_copy at unaligned heads and tails, K9 rma_acc over
+             every window wire dtype and every op it takes (REPLACE and
+             NO_OP included), plain and fetch, aligned and misaligned,
+             and K10 rma_cas's value cases (signed zeros, NaN, complex
+             parts, bool bytes), each byte for byte.
              Tolerance: exact (max abs error 0, NaN where the plain
              version has NaN) — each pair computes the same fold in the
              same order and accumulation type, or moves the same bytes.
@@ -61,6 +66,14 @@ Phases, each fatal on failure (nothing is caught and carried on):
              against its plain computation, every rank's bytes the
              same, every provider coll/tpu.  With two or more cards the
              same cases run again one rank a card.
+3c. rma    — one-sided RMA (osc) on the same 8 logical devices:
+             the rma_counter and halo_stencil workloads under the device
+             window (numpy and card-tensor origins, osc_device_dma 1 and
+             0) and under --mca osc pt2pt with host numpy buffers, byte-
+             identical; a side-stream case (each origin written behind a
+             sleeping kernel on a stream of its own); launch counts exact
+             a run (K8 a put or get with dma 0 only, K9 an accumulate,
+             K10 a CAS).  With two or more cards, again one rank a card.
 4. timing  — each kernel at the main path's shapes: its device time
              (CUDA events around a replayed CUDA graph of many calls)
              and its time a call (events around eager calls, host
@@ -72,15 +85,22 @@ Phases, each fatal on failure (nothing is caught and carried on):
              iallreduce_arr of 64 KiB with one wait against the same
              32 blocking allreduce_arr calls; config 5's pack,
              reduce_scatter and unpack; the mesh allreduce of 8 MiB on
-             8 logical devices (the tier's host cost on one card).
+             8 logical devices (the tier's host cost on one card); the
+             RMA ladder of benchmarks/probe_rma.py on 4 logical devices
+             with card-tensor origins (put and get at 64 KiB, 1 MiB and
+             4 MiB, the accumulate rate, fetch_and_op latency), both
+             lowerings.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
-result when no CUDA card is present.
+result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
+on a host with two or more cards builds the kernels and runs only the
+one-rank-a-card branch (the mesh and RMA phases over peer access).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -301,7 +321,7 @@ def phase_kernels(dev) -> None:
         log(f"[K2] {kind:<9} max_abs {worst[0]} max_rel {worst[1]}")
     torch.cuda.synchronize()
     ncases += (_kernels_fused(dev, g) + _kernels_index(dev, g)
-               + _kernels_mesh(dev, g))
+               + _kernels_mesh(dev, g) + _kernels_rma(dev, g))
     log(f"[kernels] {ncases} cases held against the plain versions, "
         "tolerance exact")
 
@@ -463,7 +483,7 @@ def config5(comm, raw, dt):
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    from ompi_tpu_torch.kernels import fused, index, mesh, stacked
+    from ompi_tpu_torch.kernels import fused, index, mesh, rma, stacked
     return {"stacked_reduce": stacked.stacked_reduce.launches,
             "stacked_copy": stacked.stacked_copy.launches,
             "fused_batch": fused.fused_batch.launches,
@@ -471,7 +491,10 @@ def launch_counters() -> dict:
             "index_scatter": index.index_scatter.launches,
             "mesh_fold": mesh.mesh_fold.launches,
             "peer_copy": stacked.peer_copy.launches,
-            "slot_pack": mesh.slot_pack.launches}
+            "slot_pack": mesh.slot_pack.launches,
+            "rma_copy": rma.rma_copy.launches,
+            "rma_acc": rma.rma_acc.launches,
+            "rma_cas": rma.rma_cas.launches}
 
 
 def drive(plan, device_map, nranks: int, tier: str, what: str):
@@ -983,6 +1006,274 @@ def _kernels_mesh(dev, g) -> int:
     return ncases
 
 
+RMA_DTYPES = [torch.uint8, torch.int8, torch.int16, torch.uint16,
+              torch.int32, torch.uint32, torch.int64, torch.uint64,
+              torch.float32, torch.float64, torch.complex64,
+              torch.complex128, torch.bool]
+RMA_OPS = OPS + ["MPI_REPLACE", "MPI_NO_OP"]
+
+
+def rma_values(g: torch.Generator, n: int, dtype, dev) -> torch.Tensor:
+    """n elements of a window wire dtype, made on the card from ``g``:
+    real floats with NaN, signed zeros and infinities sprinkled in, bool
+    as raw bytes 0, 1 and 2 (a 2 must read as true)."""
+    if dtype == torch.bool:
+        return torch.randint(0, 3, (n,), generator=g, device=dev,
+                             dtype=torch.uint8).view(torch.bool)
+    if dtype.is_floating_point:
+        x = torch.randn(n, generator=g, device=dev, dtype=dtype)
+        if n > 8:
+            idx = torch.randint(0, n, (max(4, n // 50),), generator=g,
+                                device=dev)
+            special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                                    -float("inf")], dtype=dtype, device=dev)
+            x[idx] = special[torch.randint(0, 5, idx.shape, generator=g,
+                                           device=dev)]
+        return x
+    if dtype.is_complex:
+        return torch.randn(n, generator=g, device=dev, dtype=dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(max(info.min, -2 ** 62), min(info.max, 2 ** 62),
+                         (n,), generator=g, device=dev,
+                         dtype=torch.int64).to(dtype)
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if not torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8)):
+        raise AssertionError(f"{what}: kernel bytes differ from the plain "
+                             "version's")
+
+
+def _cas_cases(dtype):
+    """(window value, compare, new, swaps) of K10's value cases."""
+    nan, inf = float("nan"), float("inf")
+    if dtype.is_complex:
+        return [(1 + 2j, 1 + 2j, 3 - 1j, True), (1 + 2j, 1 - 2j, 5j, False),
+                (complex(-0.0, 0.0), complex(0.0, -0.0), 7 + 0j, True),
+                (complex(nan, 0.0), complex(nan, 0.0), 1 + 0j, False)]
+    if dtype.is_floating_point:
+        return [(-0.0, 0.0, 5.0, True), (nan, nan, 5.0, False),
+                (1.5, 1.5, -inf, True), (1.5, 2.5, 7.0, False)]
+    if dtype == torch.bool:
+        return [(2, True, False, True), (0, False, True, True),
+                (1, False, False, False)]
+    top = min(torch.iinfo(dtype).max, 2 ** 62)
+    return [(5, 5, top, True), (5, 6, 1, False), (top, top, 0, True)]
+
+
+def _kernels_rma(dev, g) -> int:
+    """K8 at unaligned heads and tails; K9 over every wire dtype and
+    every op it takes (REPLACE and NO_OP included), plain and fetch, at
+    aligned and misaligned byte offsets; K10's value cases (signed
+    zeros, NaN, complex parts, bool bytes) at aligned and misaligned
+    offsets.  Tolerance: exact, byte for byte; K10 also against the
+    expected swap."""
+    from ompi_tpu_torch.kernels import rma
+    ncases = 0
+    for n in (1, 15, 16, 17, 1000, 65536 + 13):
+        src = torch.randint(0, 256, (n + 16,), generator=g, device=dev,
+                            dtype=torch.uint8)
+        for d_off in (0, 1, 7, 16):
+            for s_off in (0, 3, 16):
+                base = torch.randint(0, 256, (n + 32,), generator=g,
+                                     device=dev, dtype=torch.uint8)
+                a, b = base.clone(), base.clone()
+                rma.rma_copy(a, d_off, src, s_off, n)
+                rma.rma_copy_plain(b, d_off, src, s_off, n)
+                _same_bytes(a, b, f"K8 n={n} dst+{d_off} src+{s_off}")
+                ncases += 1
+    log("[K8] rma_copy exact (unaligned heads and tails, "
+        f"{ncases} cases)")
+    for dtype in RMA_DTYPES:
+        isz = torch.empty((), dtype=dtype).element_size()
+        ops = [o for o in RMA_OPS if rma.acc_supported(dtype, o)]
+        for opname in ops:
+            for count, start in ((1, 0), (1, 3), (1029, 0),
+                                 (1029, isz + 1), (4096 * 8 + 5, 16)):
+                nb = count * isz
+                w0 = torch.randint(0, 256, (start + nb + 5,), generator=g,
+                                   device=dev, dtype=torch.uint8)
+                w0[start:start + nb] = rma_values(g, count, dtype,
+                                                  dev).view(torch.uint8)
+                s = rma_values(g, count, dtype, dev)
+                for fetch in (False, True):
+                    wk, wp = w0.clone(), w0.clone()
+                    ok = torch.empty(count, dtype=dtype, device=dev) \
+                        if fetch else None
+                    op_ = torch.empty(count, dtype=dtype, device=dev) \
+                        if fetch else None
+                    rma.rma_acc(wk, start, s, opname, ok)
+                    rma.rma_acc_plain(wp, start, s, opname, op_)
+                    what = (f"K9 {dtype} {opname} count={count} "
+                            f"start={start} fetch={fetch}")
+                    _same_bytes(wk, wp, what)
+                    if fetch:
+                        _same_bytes(ok, op_, what + " (old)")
+                        _same_bytes(ok, w0[start:start + nb], what + " old")
+                    ncases += 1
+        log(f"[K9] {str(dtype)[6:]:>10} {len(ops)} ops exact, plain and "
+            "fetch, aligned and misaligned")
+    torch.cuda.synchronize()
+    for dtype in RMA_DTYPES:
+        isz = torch.empty((), dtype=dtype).element_size()
+        for wv, cv, nv, swaps in _cas_cases(dtype):
+            for start in (0, 1):
+                w0 = torch.randint(0, 256, (start + isz + 3,), generator=g,
+                                   device=dev, dtype=torch.uint8)
+                if dtype == torch.bool:
+                    elem = torch.tensor([wv], dtype=torch.uint8, device=dev)
+                else:
+                    elem = torch.tensor([wv], dtype=dtype,
+                                        device=dev).view(torch.uint8)
+                w0[start:start + isz] = elem.view(torch.uint8)
+                c = torch.tensor([cv], dtype=dtype, device=dev)
+                nw = torch.tensor([nv], dtype=dtype, device=dev)
+                wk, wp = w0.clone(), w0.clone()
+                ok = torch.empty(1, dtype=dtype, device=dev)
+                op_ = torch.empty(1, dtype=dtype, device=dev)
+                rma.rma_cas(wk, start, c, nw, ok)
+                rma.rma_cas_plain(wp, start, c, nw, op_)
+                what = f"K10 {dtype} {wv!r} vs {cv!r} start={start}"
+                _same_bytes(wk, wp, what)
+                _same_bytes(ok, op_, what + " (old)")
+                _same_bytes(ok, w0[start:start + isz], what + " old")
+                want = nw.view(torch.uint8) if swaps else elem
+                _same_bytes(wk[start:start + isz], want, what + " swap")
+                ncases += 1
+    log("[K10] rma_cas exact, every wire dtype, value cases (signed zeros, "
+        "NaN, complex parts, bool bytes) aligned and misaligned")
+    torch.cuda.synchronize()
+    return ncases
+
+
+def rma_side(comm):
+    """Each rank writes its origin on a side stream of its own behind a
+    sleeping kernel, puts it to its right neighbour and, after a fence,
+    get_accumulates it there into a card-tensor result: the window's
+    stream must wait for the write, and the result must be read after
+    the op (one shared stream would hide a missing wait)."""
+    from ompi_tpu_torch import osc
+    from ompi_tpu_torch.op.op import SUM
+    n, dev = 1 << 20, comm.device
+    right = (comm.rank + 1) % comm.size
+    win = osc.allocate(comm, 4 * n, disp_unit=4, name="side")
+    win.fence()
+    side = torch.cuda.stream(torch.cuda.Stream(dev)) \
+        if dev.type == "cuda" else contextlib.nullcontext()
+    with side:
+        x = torch.zeros(n, dtype=torch.float32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda._sleep(1 << 22)
+        x += comm.rank + 1
+        win.put(x, right)
+        win.fence()
+        got = win.memory.view(torch.float32)
+        comm.Barrier()  # every rank has read before any writes again
+        res = torch.empty(n, dtype=torch.float32, device=dev)
+        win.get_accumulate(x, res, right, op=SUM)
+        win.fence()
+        after = win.memory.view(torch.float32)
+        left = (comm.rank - 1) % comm.size + 1
+        ok = (bool((got == left).all()), bool((res == comm.rank + 1).all()),
+              bool((after == 2 * left).all()))
+    win.free()
+    return {"component": type(win).__name__, "ok": ok}
+
+
+def phase_rma(devs, what: str):
+    """One-sided RMA through the port's entry points (osc.allocate,
+    put/get/accumulate/fetch_and_op/compare_and_swap, fence, lock,
+    flush): N = len(devs) rank threads, rank r on devs[r].  The
+    rma_counter and halo_stencil workloads under the device window
+    with numpy and with card-tensor origins, in both lowerings
+    (osc_device_dma 1 and 0), and under --mca osc pt2pt with host
+    numpy buffers; then the side-stream case in both lowerings.  Every
+    counter is zeroed just before each run and read just after; each
+    run must launch exactly: a put or get, one K8 with dma 0 and none
+    with dma 1; an accumulate, get_accumulate or fetch_and_op, one K9;
+    a CAS, one K10.  Every workload's bytes must be the pt2pt run's
+    (and, for the halo, the expected halo)."""
+    from ompi_tpu_torch import osc
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.op import op as ops
+    # registers osc_device_dma
+    from ompi_tpu_torch.osc import device as _  # noqa: F401
+    from ompi_tpu_torch.testing import run_ranks
+    from ompi_tpu_torch.testing.rma import (Buffers, counter_workload,
+                                            expected_halo, halo_workload)
+    n = len(devs)
+    counters = launch_counters()
+    per_call, total = {}, {k: 0 for k in counters}
+
+    def run(key, fn, dma, pt2pt, want, kind):
+        saved = (registry.get("osc_device_dma"), registry.get("osc"))
+        registry.set("osc_device_dma", saved[0] if dma is None else dma)
+        registry.set("osc", "pt2pt" if pt2pt else "")
+        try:
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            res = run_ranks(n, fn, device_map=lambda r: devs[r], timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: c.value for k, c in counters.items()}
+        finally:
+            registry.set("osc_device_dma", saved[0])
+            registry.set("osc", saved[1])
+        want = {k: want.get(k, 0) for k in counters}
+        log(f"[rma] {what}: {key} in {wall:.3f} s, launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, expected {want}")
+        if any(r["component"] != kind for r in res):
+            raise AssertionError(f"{key}: windows "
+                                 f"{[r['component'] for r in res]}, not "
+                                 f"{kind}")
+        per_call[key] = got
+        for k in total:
+            total[k] += got[k]
+        return res
+
+    for wl in ("rma_counter", "halo_stencil"):
+        def make(bufs, _wl=wl):
+            return counter_workload(osc, ops, bufs) \
+                if _wl == "rma_counter" else halo_workload(osc, bufs)
+        ref = run(f"{wl}_pt2pt", make(Buffers(False)), None, True, {},
+                  "Window")
+        for tensors in (False, True):
+            for dma in (1, 0):
+                # a rank: counter 1 put + 2 gets, 5 fetch_and_op, 1 CAS;
+                # halo 2 puts
+                want = ({"rma_copy": 3 * n * (1 - dma), "rma_acc": 5 * n,
+                         "rma_cas": n} if wl == "rma_counter"
+                        else {"rma_copy": 2 * n * (1 - dma)})
+                key = f"{wl}_{'tensor' if tensors else 'numpy'}_dma{dma}"
+                res = run(key, make(Buffers(tensors)), dma, False, want,
+                          "DeviceWindow")
+                for r in range(n):
+                    a = {k: v for k, v in res[r].items() if k != "component"}
+                    b = {k: v for k, v in ref[r].items() if k != "component"}
+                    if a != b:
+                        raise AssertionError(f"{key}: rank {r}'s bytes "
+                                             "differ from the pt2pt run's")
+        if wl == "halo_stencil":
+            for r in range(n):
+                if ref[r]["halo"] != expected_halo(r, n):
+                    raise AssertionError(f"halo of rank {r} is wrong")
+        log(f"[rma] {what}: {wl} byte-identical across pt2pt (numpy) and "
+            "the device window (numpy and card-tensor origins, dma 1 and 0)")
+    for dma in (1, 0):
+        res = run(f"side_stream_dma{dma}", rma_side, dma, False,
+                  {"rma_copy": n * (1 - dma), "rma_acc": n}, "DeviceWindow")
+        if not all(all(r["ok"]) for r in res):
+            raise AssertionError(f"side-stream case, dma {dma}: "
+                                 f"{[r['ok'] for r in res]}")
+    log(f"[rma] {what}: side-stream origins arrive whole, results read "
+        "after the op (dma 1 and 0)")
+    return total, per_call
+
+
 # ---------------------------------------------------------------------------
 # 4. timing
 # ---------------------------------------------------------------------------
@@ -1049,21 +1340,24 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
     rows = []
 
     def row(name, kernel, call, replaces, bytes_moved, make, k_fn, p_fn,
-            lib_fn, iters, source="stacked.cu"):
+            lib_fn, iters, source="stacked.cu", nsets=None):
         # the error, on input sets of their own (K5 writes in place)
         got = [t.clone() for t in _flat(k_fn(make(0)))]
         a, _, _ = max((_err(o, r) for o, r in zip(
             got, _flat(p_fn(make(0))))), key=lambda t: t[0])
         del got
-        nsets = max(1, -(-COLD_BYTES // bytes_moved))
+        if nsets is None:
+            nsets = max(1, -(-COLD_BYTES // bytes_moved))
         sets = [make(i) for i in range(nsets)]
         warm, _ = time_ms(lambda i: k_fn(sets[0]), iters)
         k_ms, k_call = time_ms(lambda i: k_fn(sets[i]),
                                max(iters, nsets), nsets)
         p_ms, p_call = time_ms(lambda i: p_fn(sets[i]),
                                max(3, iters // 4, nsets), nsets)
-        l_ms, l_call = time_ms(lambda i: lib_fn(sets[i]),
-                               max(iters, nsets), nsets)
+        l_ms = l_call = None  # no one PyTorch call computes it
+        if lib_fn is not None:
+            l_ms, l_call = time_ms(lambda i: lib_fn(sets[i]),
+                                   max(iters, nsets), nsets)
         del sets
         bound = bytes_moved / HBM_BYTES_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
@@ -1073,12 +1367,13 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
                      "library_ms": l_ms, "call_ms": k_call,
                      "warm_ms": warm, "input_sets": nsets,
                      "launches_per_call": per_call[call][kernel]})
+        lib = "none" if l_ms is None else f"{l_ms:.4f} ms ({l_call:.4f})"
         log(f"[time] {name}: kernel {k_ms:.4f} ms device cold over "
             f"{nsets} input set(s) ({k_call:.4f} ms a call; warm "
-            f"{warm:.4f}), bound {bound:.4f} ms ({bound / k_ms * 100:.1f}% "
+            f"{warm:.4f}), bound {bound:.6f} ms ({bound / k_ms * 100:.1f}% "
             f"of bound), plain {p_ms:.4f} ms ({p_call:.4f}), library "
-            f"{l_ms:.4f} ms ({l_call:.4f}), {per_call[call][kernel]} "
-            f"launch(es) in the main path's {call}")
+            f"{lib}, {per_call[call][kernel]} launch(es) in the main "
+            f"path's {call}")
 
     n = NRANKS
 
@@ -1214,6 +1509,60 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
                    for k in range(FUSED_OPS)],
         lambda xs: mesh.slot_pack(xs), lambda xs: mesh.slot_pack_plain(xs),
         lambda xs: torch.cat(xs), 100, source="mesh.cu")
+    # the RMA kernels: a 64 MiB put into a shard (K8), a 64 MiB float32
+    # accumulate, plain and fetch (K9), and one int64 compare-and-swap
+    # (K10: one thread, bound by its launch; one input set)
+    from ompi_tpu_torch.kernels import rma
+    nb = 64 * MIB
+    nf = nb // 4
+
+    def bytes_in(i, salt):
+        return rank_input(i % n, nb, torch.float32, dev,
+                          salt).view(torch.uint8)
+
+    row("rma_copy:put_64MiB", "rma_copy", "halo_stencil_tensor_dma0",
+        "ompi_tpu/osc/device.py:181", 2 * nb,
+        lambda i: (torch.empty(nb, dtype=torch.uint8, device=dev),
+                   bytes_in(i, 80)),
+        lambda st: rma.rma_copy(st[0], 0, st[1], 0, nb),
+        lambda st: rma.rma_copy_plain(st[0], 0, st[1], 0, nb),
+        lambda st: st[0].copy_(st[1]), 50, source="rma.cu")
+    row("rma_acc:sum_f32_64MiB", "rma_acc", "rma_counter_tensor_dma1",
+        "ompi_tpu/osc/device.py:220", 3 * nb,
+        lambda i: (bytes_in(i, 81).clone(), rank_input(i % n, nb,
+                                                       torch.float32, dev,
+                                                       82)),
+        lambda st: rma.rma_acc(st[0], 0, st[1], "MPI_SUM")
+        or st[0].view(torch.float32),
+        lambda st: rma.rma_acc_plain(st[0], 0, st[1], "MPI_SUM")
+        or st[0].view(torch.float32),
+        lambda st: torch.add(st[1], st[0].view(torch.float32),
+                             out=st[0].view(torch.float32)), 50,
+        source="rma.cu")
+    row("rma_acc:fetch_sum_f32_64MiB", "rma_acc", "rma_counter_tensor_dma1",
+        "ompi_tpu/osc/device.py:220", 4 * nb,
+        lambda i: (bytes_in(i, 83).clone(), rank_input(i % n, nb,
+                                                       torch.float32, dev,
+                                                       84),
+                   torch.empty(nf, dtype=torch.float32, device=dev)),
+        lambda st: rma.rma_acc(st[0], 0, st[1], "MPI_SUM", st[2])
+        or [st[0].view(torch.float32), st[2]],
+        lambda st: rma.rma_acc_plain(st[0], 0, st[1], "MPI_SUM", st[2])
+        or [st[0].view(torch.float32), st[2]],
+        None, 50, source="rma.cu")
+
+    def cas_set(i):
+        w = torch.zeros(2, dtype=torch.int64, device=dev)
+        return (w.view(torch.uint8), torch.zeros(1, dtype=torch.int64,
+                                                 device=dev),
+                torch.full((1,), 7, dtype=torch.int64, device=dev),
+                torch.empty(1, dtype=torch.int64, device=dev))
+
+    row("rma_cas:int64", "rma_cas", "rma_counter_tensor_dma1",
+        "ompi_tpu/osc/device.py:259", 5 * 8, cas_set,
+        lambda st: rma.rma_cas(st[0], 0, *st[1:]) or [st[0], st[3]],
+        lambda st: rma.rma_cas_plain(st[0], 0, *st[1:]) or [st[0], st[3]],
+        None, 200, source="rma.cu", nsets=1)
     return rows
 
 
@@ -1453,7 +1802,126 @@ def phase_e2e_mesh(dev, kernel_ms: float) -> None:
         f"{kernel_ms * 1e3 / us * 100:.1f}% of an op")
 
 
-def main() -> int:
+def phase_e2e_rma(dev) -> None:
+    """benchmarks/probe_rma.py's ladder on the device window, with
+    card-tensor origins, 4 ranks on 4 logical devices of the card: rank
+    0 puts to and gets from rank 1 under a shared lock, windows of 32
+    ops closed by flush, the median of 3 (µs an op, GB/s, and the
+    share of a put spent before the flush, enqueueing); the accumulate
+    rate (8 x int32 SUM, 200 ops and a flush); fetch_and_op latency
+    (int64 SUM into a numpy result, the median of 64).  Both lowerings,
+    then dma 1 again with 2 ranks.  Host clock; on one card these are
+    host costs, not NVLink numbers."""
+    from ompi_tpu_torch import osc
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.osc import device as _  # noqa: F401
+    from ompi_tpu_torch.testing import logical_devices, run_ranks
+    import numpy as np
+    sizes, reps = (64 << 10, MIB, 4 * MIB), 32
+
+    def fn(comm):
+        out = {}
+        for nb in sizes:
+            win = osc.allocate(comm, nb, name="probe")
+            if comm.rank == 0:
+                blob = rank_input(0, nb, torch.float32, comm.device,
+                                  90).view(torch.uint8)
+                back = torch.empty_like(blob)
+                win.lock(1, osc.LOCK_SHARED)
+                for _ in range(2):
+                    win.put(blob, 1)
+                    win.flush(1)
+                ps, gs, enq = [], [], []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        win.put(blob, 1)
+                    enq.append((time.perf_counter() - t0) / reps)
+                    win.flush(1)
+                    ps.append((time.perf_counter() - t0) / reps)
+                win.get(back, 1)
+                win.flush(1)
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        win.get(back, 1)
+                    win.flush(1)
+                    gs.append((time.perf_counter() - t0) / reps)
+                win.unlock(1)
+                if not torch.equal(back, blob):
+                    raise AssertionError(f"{nb} B round trip corrupt")
+                out[nb] = (float(np.median(ps)) * 1e6,
+                           float(np.median(gs)) * 1e6,
+                           float(np.median(enq)) * 1e6)
+            comm.Barrier()
+            win.free()
+        win = osc.allocate(comm, 64, disp_unit=8, name="acc")
+        if comm.rank == 0:
+            one = torch.ones(8, dtype=torch.int32, device=comm.device)
+            res = np.empty(1, dtype=np.int64)
+            win.lock(1, osc.LOCK_SHARED)
+            for _ in range(4):
+                win.accumulate(one, 1, disp=0, op=SUM)
+            win.flush(1)
+            t0 = time.perf_counter()
+            for _ in range(200):
+                win.accumulate(one, 1, disp=0, op=SUM)
+            win.flush(1)
+            out["acc_kops"] = 0.2 / (time.perf_counter() - t0)
+            for _ in range(4):
+                win.fetch_and_op(1, res, 1, disp=4, op=SUM)
+            fs = []
+            for _ in range(64):
+                t0 = time.perf_counter()
+                win.fetch_and_op(1, res, 1, disp=4, op=SUM)
+                fs.append(time.perf_counter() - t0)
+            out["fao_us"] = float(np.median(fs)) * 1e6
+            if int(res[0]) != 67:
+                raise AssertionError(f"fetch_and_op ticket {res[0]} != 67")
+            win.unlock(1)
+        comm.Barrier()
+        win.free()
+        return out
+
+    card = card_line()
+    saved = registry.get("osc_device_dma")
+    try:
+        # the last run: 2 ranks, so two rank threads idle in the
+        # progress loop fewer than with 4 (what they cost the origin)
+        for dma, nranks in ((1, 4), (0, 4), (1, 2)):
+            registry.set("osc_device_dma", dma)
+            r = run_ranks(nranks, fn, device_map=logical_devices(dev),
+                          timeout=600)[0]
+            for nb in sizes:
+                pu, gu, eu = r[nb]
+                log(f"[e2e] rma dma {dma}, {nranks} ranks, {nb >> 10} KiB "
+                    f"(card-tensor origin, logical devices of one card; "
+                    f"host cost, not NVLink): put {pu:.1f} us an op "
+                    f"({nb / (pu * 1e-6) / 1e9:.3f} GB/s; enqueue "
+                    f"{eu:.1f} us of it), get {gu:.1f} us an op "
+                    f"({nb / (gu * 1e-6) / 1e9:.3f} GB/s) [{card}]")
+            log(f"[e2e] rma dma {dma}, {nranks} ranks: accumulate 8 x "
+                f"int32 SUM {r['acc_kops']:.2f} kops/s (200 ops and a "
+                f"flush); fetch_and_op int64 SUM {r['fao_us']:.1f} us "
+                f"(median of 64, numpy result) [{card}]")
+    finally:
+        registry.set("osc_device_dma", saved)
+
+
+def phase_cards() -> None:
+    """One rank a card, on a host with two or more: the mesh and RMA
+    phases again, where every cross-device read or write goes over
+    peer access (NVLink); a one-card host never takes this branch."""
+    nc = min(NRANKS, torch.cuda.device_count())
+    cards = [torch.device("cuda", r) for r in range(nc)]
+    phase_mesh(cards, f"{nc} cards, one rank each")
+    phase_rma(cards, f"{nc} cards, one rank each")
+
+
+def main(argv) -> int:
+    """``--cards``: build, then the one-rank-a-card branch alone (for a
+    host with two or more cards); no argument: every phase."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
@@ -1462,6 +1930,20 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
     phase_build()
+    if argv == ["--cards"]:
+        if torch.cuda.device_count() < 2:
+            print("chip_smoke: --cards needs two or more cards",
+                  file=sys.stderr)
+            return 2
+        phase_cards()
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     phase_kernels(dev)
     launches, per_call = phase_main(dev)
     from ompi_tpu_torch.runtime.state import LogicalDevice
@@ -1470,13 +1952,13 @@ def main() -> int:
         f"8 logical devices on {dev}")
     launches = {k: launches[k] + m_launches[k] for k in launches}
     per_call.update(m_per_call)
-    ncards = torch.cuda.device_count()
-    if ncards >= 2:
-        # one rank a card: the peer-access path (NVLink); a one-card
-        # host never takes this branch
-        nc = min(NRANKS, ncards)
-        phase_mesh([torch.device("cuda", r) for r in range(nc)],
-                   f"{nc} cards, one rank each")
+    r_launches, r_per_call = phase_rma(
+        [LogicalDevice(dev, r) for r in range(NRANKS)],
+        f"8 logical devices on {dev}")
+    launches = {k: launches[k] + r_launches[k] for k in launches}
+    per_call.update(r_per_call)
+    if torch.cuda.device_count() >= 2:
+        phase_cards()
     rows = phase_timing(dev, launches, per_call)
     phase_e2e(dev, rows[0]["ms"])
     phase_e2e_fused(dev, next(r["ms"] for r in rows
@@ -1485,6 +1967,7 @@ def main() -> int:
     phase_e2e_mesh(dev, sum(r["ms"] for r in rows if r["name"] in (
         "mesh_fold:allreduce_sum_f32_8MiB_rank_order",
         "peer_copy:allgather_stripes_f32_8MiB")))
+    phase_e2e_rma(dev)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -1494,4 +1977,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

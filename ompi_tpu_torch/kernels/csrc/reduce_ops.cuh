@@ -1,6 +1,7 @@
 // Op and dtype templates shared by the reduction kernels: K1
-// stacked_reduce (stacked.cu) and K3 fused_batch (fused.cu).  Both
-// include this one header, so the two cannot drift apart.
+// stacked_reduce (stacked.cu), K3 fused_batch (fused.cu), K6 mesh_fold
+// (mesh.cu) and K9 rma_acc (rma.cu).  They all include this one
+// header, so they cannot drift apart.
 //
 // They replace the reference package's op tables: op/op.py:153
 // jax_binary, coll/device.py:136 _fold_fn and coll/pipeline.py:147
@@ -12,11 +13,15 @@
 //   * bool is one byte holding 0 or 1 (torch.bool);
 //   * complex SUM is a componentwise add and complex PROD is
 //     (ac - bd, ad + bc), each product and sum rounded on its own (no
-//     fused multiply-add), as the plain version computes it.
+//     fused multiply-add), as the plain version computes it;
+//   * REPLACE (the result is the first operand) and NO_OP (the second)
+//     are the data-movement ops of MPI_Accumulate; only K9 takes them,
+//     and it moves their bytes as they are, without Traits.
 //
 // dispatch_reduce<L>(dtype, op, args...) calls L<T, OP>::run(args...)
 // for every (dtype, op) pair the kernels take and returns
-// cudaErrorInvalidValue for any other pair.
+// cudaErrorInvalidValue for any other pair; dispatch_reduce<L, true>
+// takes REPLACE and NO_OP on every dtype as well.
 
 #pragma once
 
@@ -31,7 +36,8 @@ enum Dtype { F16 = 0, BF16 = 1, F32 = 2, F64 = 3, I8 = 4, U8 = 5,
              I32 = 6, I64 = 7, BOOL = 8, I16 = 9, U16 = 10, U32 = 11,
              U64 = 12, C64 = 13, C128 = 14 };
 enum OpCode { SUM = 0, PROD = 1, MAX = 2, MIN = 3, LAND = 4, BAND = 5,
-              LOR = 6, BOR = 7, LXOR = 8, BXOR = 9 };
+              LOR = 6, BOR = 7, LXOR = 8, BXOR = 9, REPLACE = 10,
+              NO_OP = 11 };
 
 struct bool8 {
   uint8_t v;
@@ -127,7 +133,18 @@ __device__ __forceinline__ A apply(A a, A b) {
 
 // --- host-side dispatch over the (dtype, op) table ----------------------
 
-template <template <typename, int> class L, typename T, typename... Args>
+template <bool MOVE, template <typename, int> class L, typename T,
+          typename... Args>
+static int ops_move(int op, Args... args) {
+  if constexpr (MOVE) {
+    if (op == REPLACE) return L<T, REPLACE>::run(args...);
+    if (op == NO_OP) return L<T, NO_OP>::run(args...);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool MOVE, template <typename, int> class L, typename T,
+          typename... Args>
 static int ops_float(int op, Args... args) {
   switch (op) {
     case SUM: return L<T, SUM>::run(args...);
@@ -135,19 +152,21 @@ static int ops_float(int op, Args... args) {
     case MAX: return L<T, MAX>::run(args...);
     case MIN: return L<T, MIN>::run(args...);
   }
-  return (int)cudaErrorInvalidValue;
+  return ops_move<MOVE, L, T>(op, args...);
 }
 
-template <template <typename, int> class L, typename T, typename... Args>
+template <bool MOVE, template <typename, int> class L, typename T,
+          typename... Args>
 static int ops_complex(int op, Args... args) {
   switch (op) {
     case SUM: return L<T, SUM>::run(args...);
     case PROD: return L<T, PROD>::run(args...);
   }
-  return (int)cudaErrorInvalidValue;
+  return ops_move<MOVE, L, T>(op, args...);
 }
 
-template <template <typename, int> class L, typename T, typename... Args>
+template <bool MOVE, template <typename, int> class L, typename T,
+          typename... Args>
 static int ops_all(int op, Args... args) {
   switch (op) {
     case SUM: return L<T, SUM>::run(args...);
@@ -161,27 +180,28 @@ static int ops_all(int op, Args... args) {
     case LXOR: return L<T, LXOR>::run(args...);
     case BXOR: return L<T, BXOR>::run(args...);
   }
-  return (int)cudaErrorInvalidValue;
+  return ops_move<MOVE, L, T>(op, args...);
 }
 
-template <template <typename, int> class L, typename... Args>
+template <template <typename, int> class L, bool MOVE = false,
+          typename... Args>
 static int dispatch_reduce(int dtype, int op, Args... args) {
   switch (dtype) {
-    case F16: return ops_float<L, __half>(op, args...);
-    case BF16: return ops_float<L, __nv_bfloat16>(op, args...);
-    case F32: return ops_float<L, float>(op, args...);
-    case F64: return ops_float<L, double>(op, args...);
-    case I8: return ops_all<L, int8_t>(op, args...);
-    case U8: return ops_all<L, uint8_t>(op, args...);
-    case I32: return ops_all<L, int32_t>(op, args...);
-    case I64: return ops_all<L, int64_t>(op, args...);
-    case BOOL: return ops_all<L, bool8>(op, args...);
-    case I16: return ops_all<L, int16_t>(op, args...);
-    case U16: return ops_all<L, uint16_t>(op, args...);
-    case U32: return ops_all<L, uint32_t>(op, args...);
-    case U64: return ops_all<L, uint64_t>(op, args...);
-    case C64: return ops_complex<L, cplx<float>>(op, args...);
-    case C128: return ops_complex<L, cplx<double>>(op, args...);
+    case F16: return ops_float<MOVE, L, __half>(op, args...);
+    case BF16: return ops_float<MOVE, L, __nv_bfloat16>(op, args...);
+    case F32: return ops_float<MOVE, L, float>(op, args...);
+    case F64: return ops_float<MOVE, L, double>(op, args...);
+    case I8: return ops_all<MOVE, L, int8_t>(op, args...);
+    case U8: return ops_all<MOVE, L, uint8_t>(op, args...);
+    case I32: return ops_all<MOVE, L, int32_t>(op, args...);
+    case I64: return ops_all<MOVE, L, int64_t>(op, args...);
+    case BOOL: return ops_all<MOVE, L, bool8>(op, args...);
+    case I16: return ops_all<MOVE, L, int16_t>(op, args...);
+    case U16: return ops_all<MOVE, L, uint16_t>(op, args...);
+    case U32: return ops_all<MOVE, L, uint32_t>(op, args...);
+    case U64: return ops_all<MOVE, L, uint64_t>(op, args...);
+    case C64: return ops_complex<MOVE, L, cplx<float>>(op, args...);
+    case C128: return ops_complex<MOVE, L, cplx<double>>(op, args...);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -673,3 +673,203 @@ def test_mesh_kernels_match_plain_on_card(cuda_device):
             assert torch.equal(mesh.slot_pack(slots, zero),
                                mesh.slot_pack_plain(slots, zero))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K8 rma_copy, K9 rma_acc, K10 rma_cas (kernels/rma.py): their plain
+# versions against numpy — the reference's window applies accumulate
+# and compare-and-swap with numpy on the host (ompi_tpu/osc/window.py
+# _apply: Op.reduce, old[0] == cmp[0]) — byte for byte; complex PROD
+# against (ac - bd, ad + bc) rounded part by part (the numpy here may
+# fuse a product into the sum: a divergence pinned in
+# test_torch_osc_device.py).
+# ---------------------------------------------------------------------------
+
+from ompi_tpu.op import op as ref_op  # noqa: E402
+from ompi_tpu_torch.kernels import rma  # noqa: E402
+
+WIRE = [np.dtype(t) for t in (
+    np.uint8, np.int8, np.int16, np.uint16, np.int32, np.uint32,
+    np.int64, np.uint64, np.float32, np.float64, np.complex64,
+    np.complex128, np.bool_)]
+RMA_OPS = OPS + ["MPI_REPLACE", "MPI_NO_OP"]
+
+
+def _wire_values(rng, n, dt):
+    """n values of a wire dtype: floats with NaN, signed zeros and
+    infinities sprinkled in, bool as 0/1."""
+    if dt == np.bool_:
+        return rng.integers(0, 2, n).astype(np.bool_)
+    if dt.kind == "f":
+        x = rng.standard_normal(n).astype(dt)
+        k = max(2, n // 8)
+        x[rng.integers(0, n, k)] = rng.choice(
+            np.array([np.nan, 0.0, -0.0, np.inf, -np.inf], dtype=dt), k)
+        return x
+    if dt.kind == "c":
+        return (rng.standard_normal(n)
+                + 1j * rng.standard_normal(n)).astype(dt)
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+
+
+def _numpy_acc(s, w, opname):
+    if opname == "MPI_PROD" and s.dtype.kind == "c":
+        out = np.empty_like(w)
+        out.real = s.real * w.real - s.imag * w.imag
+        out.imag = s.real * w.imag + s.imag * w.real
+        return out
+    return ref_op.PREDEFINED[opname].reduce(s, w.copy())
+
+
+def test_rma_copy_plain_matches_numpy():
+    rng = np.random.default_rng(21)
+    for n, d_off, s_off in ((1, 0, 0), (17, 1, 3), (1000, 7, 16),
+                            (4099, 16, 5)):
+        src = rng.integers(0, 256, n + 16, dtype=np.uint8)
+        dst = rng.integers(0, 256, n + 32, dtype=np.uint8)
+        want = dst.copy()
+        want[d_off:d_off + n] = src[s_off:s_off + n]
+        t = torch.from_numpy(dst.copy())
+        rma.rma_copy(t, d_off, torch.from_numpy(src), s_off, n)
+        assert t.numpy().tobytes() == want.tobytes()
+    with pytest.raises(ValueError):
+        rma.rma_copy(torch.zeros(4, dtype=torch.uint8), 2,
+                     torch.zeros(4, dtype=torch.uint8), 0, 3)
+
+
+@pytest.mark.parametrize("dt", WIRE, ids=str)
+def test_rma_acc_plain_matches_numpy(dt):
+    """Every op the kernel takes on this dtype (exactly the pairs
+    Op.valid_for admits, REPLACE and NO_OP included), plain and fetch,
+    aligned and misaligned: numpy's bytes."""
+    rng = np.random.default_rng(22 + WIRE.index(dt))
+    tdt = torch.from_numpy(np.empty(0, dt)).dtype
+    ops = [o for o in RMA_OPS if ref_op.PREDEFINED[o].valid_for(dt)]
+    assert [o for o in RMA_OPS if rma.acc_supported(tdt, o)] == ops
+    n = 67
+    for opname in ops:
+        for start in (0, dt.itemsize + 1):
+            w = _wire_values(rng, n, dt)
+            s = _wire_values(rng, n, dt)
+            buf = np.zeros(start + w.nbytes + 5, np.uint8)
+            buf[start:start + w.nbytes] = w.view(np.uint8)
+            want = buf.copy()
+            want[start:start + w.nbytes] = _numpy_acc(s, w, opname).view(
+                np.uint8)
+            for fetch in (False, True):
+                t = torch.from_numpy(buf.copy())
+                old = torch.empty(n, dtype=tdt) if fetch else None
+                rma.rma_acc(t, start, torch.from_numpy(s), opname, old)
+                assert t.numpy().tobytes() == want.tobytes(), \
+                    (opname, start, fetch)
+                if fetch:
+                    assert old.numpy().tobytes() == w.tobytes()
+
+
+def test_rma_acc_refuses_what_it_does_not_take():
+    w = torch.zeros(64, dtype=torch.uint8)
+    for s, opname in ((torch.ones(2), "MPI_LAND"),
+                      (torch.ones(2, dtype=torch.complex64), "MPI_MAX"),
+                      (torch.ones(2, dtype=torch.float16), "MPI_SUM"),
+                      (torch.ones(2, dtype=torch.int32), "MPI_MAXLOC")):
+        with pytest.raises(TypeError):
+            rma.rma_acc(w, 0, s, opname)
+    with pytest.raises(ValueError):
+        rma.rma_acc(w, 60, torch.ones(2), "MPI_SUM")
+
+
+def test_rma_cas_plain_matches_numpy():
+    """Compare by value as numpy's old[0] == cmp[0]: -0.0 equals 0.0,
+    NaN equals nothing, complex compares both parts, bool its 0/1
+    value; the old bytes come back whatever the outcome."""
+    nan = np.nan
+    cases = [(np.float32, -0.0, 0.0, 5.0), (np.float32, nan, nan, 5.0),
+             (np.float64, 1.5, 1.5, -2.0), (np.float64, 1.5, 2.5, 7.0),
+             (np.complex64, 1 + 2j, 1 + 2j, 3j), (np.complex64, 1 + 2j,
+                                                   1 - 2j, 5j),
+             (np.complex128, complex(nan, 0), complex(nan, 0), 1j),
+             (np.bool_, True, True, False), (np.bool_, False, True, True),
+             (np.uint64, 2 ** 64 - 1, 2 ** 64 - 1, 3),
+             (np.int8, -5, -5, 7), (np.uint16, 5, 6, 1)]
+    for dt, wv, cv, nv in cases:
+        for start in (0, 3):
+            w = np.array([wv], dtype=dt)
+            c, n = np.array([cv], dtype=dt), np.array([nv], dtype=dt)
+            buf = np.zeros(start + w.nbytes + 2, np.uint8)
+            buf[start:start + w.nbytes] = w.view(np.uint8)
+            want = buf.copy()
+            if w[0] == c[0]:
+                want[start:start + w.nbytes] = n.view(np.uint8)
+            t = torch.from_numpy(buf.copy())
+            old = torch.empty(1, dtype=torch.from_numpy(w).dtype)
+            rma.rma_cas(t, start, torch.from_numpy(c), torch.from_numpy(n),
+                        old)
+            assert t.numpy().tobytes() == want.tobytes(), (dt, wv, cv)
+            assert old.numpy().tobytes() == w.tobytes()
+
+
+def test_rma_plain_calls_are_not_counted():
+    before = [f.launches.value for f in (rma.rma_copy, rma.rma_acc,
+                                         rma.rma_cas)]
+    w = torch.zeros(16, dtype=torch.uint8)
+    rma.rma_copy(w, 0, torch.ones(4, dtype=torch.uint8), 0, 4)
+    rma.rma_acc(w, 0, torch.ones(2, dtype=torch.int32), "MPI_SUM")
+    rma.rma_cas(w, 8, torch.zeros(1, dtype=torch.int64),
+                torch.ones(1, dtype=torch.int64),
+                torch.empty(1, dtype=torch.int64))
+    assert [f.launches.value for f in (rma.rma_copy, rma.rma_acc,
+                                       rma.rma_cas)] == before
+
+
+@pytest.mark.gpu
+def test_rma_kernels_match_plain_on_card(cuda_device):
+    """K8 at unaligned heads and tails, K9 over every wire dtype and op
+    it takes, plain and fetch, aligned and misaligned, and K10's value
+    cases, each against its plain version on the card: byte for
+    byte."""
+    rng = np.random.default_rng(23)
+    for n, d_off, s_off in ((1, 0, 0), (17, 1, 3), (65549, 7, 16),
+                            (4099, 16, 5)):
+        src = torch.from_numpy(rng.integers(0, 256, n + 16,
+                                            dtype=np.uint8)).to(cuda_device)
+        dst = torch.from_numpy(rng.integers(0, 256, n + 32,
+                                            dtype=np.uint8)).to(cuda_device)
+        a, b = dst.clone(), dst.clone()
+        rma.rma_copy(a, d_off, src, s_off, n)
+        rma.rma_copy_plain(b, d_off, src, s_off, n)
+        assert torch.equal(a, b)
+    for dt in WIRE:
+        tdt = torch.from_numpy(np.empty(0, dt)).dtype
+        for opname in [o for o in RMA_OPS if rma.acc_supported(tdt, o)]:
+            for start in (0, dt.itemsize + 1):
+                w = _wire_values(rng, 4099, dt)
+                s = torch.from_numpy(_wire_values(rng, 4099, dt)).to(
+                    cuda_device)
+                buf = np.zeros(start + w.nbytes + 5, np.uint8)
+                buf[start:start + w.nbytes] = w.view(np.uint8)
+                a = torch.from_numpy(buf).to(cuda_device)
+                b = a.clone()
+                oa = torch.empty(4099, dtype=tdt, device=cuda_device)
+                ob = torch.empty_like(oa)
+                rma.rma_acc(a, start, s, opname, oa)
+                rma.rma_acc_plain(b, start, s, opname, ob)
+                assert torch.equal(a, b), (dt, opname, start)
+                assert torch.equal(oa.view(torch.uint8),
+                                   ob.view(torch.uint8))
+    for dt in WIRE:
+        tdt = torch.from_numpy(np.empty(0, dt)).dtype
+        w = torch.from_numpy(_wire_values(rng, 2, dt)).to(cuda_device)
+        buf = torch.zeros(3 + 2 * dt.itemsize, dtype=torch.uint8,
+                          device=cuda_device)
+        buf[3:3 + 2 * dt.itemsize] = w.view(torch.uint8)
+        for cmp_elem in (w[0:1], w[1:2]):
+            a, b = buf.clone(), buf.clone()
+            nv = w[1:2].clone()
+            oa = torch.empty(1, dtype=tdt, device=cuda_device)
+            ob = torch.empty_like(oa)
+            rma.rma_cas(a, 3, cmp_elem.clone(), nv, oa)
+            rma.rma_cas_plain(b, 3, cmp_elem.clone(), nv, ob)
+            assert torch.equal(a, b) and torch.equal(
+                oa.view(torch.uint8), ob.view(torch.uint8)), dt
+    torch.cuda.synchronize()
