@@ -31,6 +31,13 @@ Phases, each fatal on failure (nothing is caught and carried on):
              Tolerance: exact (max abs error 0, NaN where the plain
              version has NaN) — each pair computes the same fold in the
              same order and accumulation type, or moves the same bytes.
+             K11 digest over every int and uint width and float16/32/64
+             under every fold it takes, at 0, 1, 2**17+3 elements and
+             8 MiB, a mixed table of 32 operands in one launch, and the
+             value cases (uint8 wrap, -1 as unsigned, NaN, +-inf, -0.0):
+             INTSUM, MAX and MIN exact, FSUM within 1e-12 relative of
+             the plain version (which sums in another order) and
+             bit-identical across two launches.
 3. main    — the port's main path through its user entry points:
              run_ranks(8, fn, device_map=cuda:0) -> comm.allreduce_arr
              (SUM float32: 1 MiB a rank in one dispatch, below
@@ -74,6 +81,21 @@ Phases, each fatal on failure (nothing is caught and carried on):
              sleeping kernel on a stream of its own); launch counts exact
              a run (K8 a put or get with dma 0 only, K9 an accumulate,
              K10 a CAS).  With two or more cards, again one rank a card.
+3d. integrity — the SDC plane armed at 1-in-1 on both tiers (8 ranks
+             on card 0, then 8 logical devices of it): injected
+             (device_sdc:1, victim rank 1, sdc_period 1) allreduce SUM
+             f32 1 MiB, 8 MiB plan and 8 MiB pipelined, MAX int32, bcast
+             from the victim, reduce_scatter SUM, allgather int32,
+             alltoall int32 1 MiB and 8 MiB (segments) and the fused
+             batch of tests/test_integrity.py — every result its
+             analytic value byte for byte, convictions exactly rank 1,
+             mismatches = retries = the checked meetings; clean (the
+             same mix plus float16 SUM and an unchecked bfloat16 SUM) —
+             no mismatch.  Launch counts exact case by case: a checked
+             meeting is N K11 gate launches, one verify launch a
+             device that holds outputs to check and, injected, one
+             bisect launch a device and the body twice.  With two or
+             more cards the same cases run again one rank a card.
 4. timing  — each kernel at the main path's shapes: its device time
              (CUDA events around a replayed CUDA graph of many calls)
              and its time a call (events around eager calls, host
@@ -89,13 +111,15 @@ Phases, each fatal on failure (nothing is caught and carried on):
              RMA ladder of benchmarks/probe_rma.py on 4 logical devices
              with card-tensor origins (put and get at 64 KiB, 1 MiB and
              4 MiB, the accumulate rate, fetch_and_op latency), both
-             lowerings.
+             lowerings; the headline with the integrity plane armed at
+             1-in-1 against unarmed, in turns.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
 on a host with two or more cards builds the kernels and runs only the
-one-rank-a-card branch (the mesh and RMA phases over peer access).
+one-rank-a-card branch (the mesh, RMA and integrity phases over peer
+access).
 """
 
 from __future__ import annotations
@@ -108,6 +132,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import torch
 
@@ -324,6 +349,103 @@ def phase_kernels(dev) -> None:
                + _kernels_mesh(dev, g) + _kernels_rma(dev, g))
     log(f"[kernels] {ncases} cases held against the plain versions, "
         "tolerance exact")
+    ncases = _kernels_digest(dev, g)
+    log(f"[kernels] K11: {ncases} cases held against the plain version: "
+        "INTSUM, MAX and MIN exact, FSUM within 1e-12 relative and "
+        "bit-identical across two launches")
+
+
+DIGEST_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.uint16,
+                 torch.int32, torch.uint32, torch.int64, torch.uint64,
+                 torch.float16, torch.float32, torch.float64]
+
+
+def _digest_held(xs, codes, what: str) -> None:
+    """K11 on one table against its plain version: INTSUM, MAX and MIN
+    exact, FSUM within 1e-12 relative (both sum in float64, in other
+    orders), and the kernel bit-identical across two launches."""
+    from ompi_tpu_torch.kernels import digest as k11
+    got = k11.digest(xs, codes)
+    again = k11.digest(xs, codes)
+    want = k11.digest_plain(xs, codes)
+    if not torch.equal(got, again):
+        raise AssertionError(f"K11 {what}: two launches differ")
+    for x, c, a, b in zip(xs, codes, got.tolist(), want.tolist()):
+        av, bv = k11.decode(a, c, x.dtype), k11.decode(b, c, x.dtype)
+        if av != av and bv != bv:
+            continue
+        if c == k11.F_FSUM and abs(bv) != float("inf"):
+            ok = abs(av - bv) <= 1e-12 * max(abs(av), abs(bv))
+        else:
+            ok = av == bv
+        if not ok:
+            raise AssertionError(f"K11 {what}: {x.dtype} n={x.numel()} "
+                                 f"fold {c}: kernel {av}, plain {bv}")
+
+
+def _kernels_digest(dev, g) -> int:
+    """K11 against its plain version: every int and uint width and
+    float16/32/64 under every fold it takes, at 0, 1, 2**17 + 3
+    elements and 8 MiB (make_shard's values: the full integer range,
+    NaN in the float operands at and above 2**17); a mixed-length table
+    of 32 operands in one launch; the value cases (uint8 200 + 100,
+    -1 as unsigned, NaN, +-inf, -0.0)."""
+    from ompi_tpu_torch.kernels import digest as k11
+    ncases = 0
+    for dtype in DIGEST_DTYPES:
+        fl = dtype.is_floating_point
+        codes = ((k11.F_FSUM, k11.F_MAX, k11.F_MIN) if fl
+                 else (k11.F_INTSUM, k11.F_MAX, k11.F_MIN))
+        isz = torch.empty((), dtype=dtype).element_size()
+        for n in (0, 1, (1 << 17) + 3, 8 * MIB // isz):
+            x = make_shard(g, n, dtype, "MPI_MAX", dev)
+            for c in codes:
+                _digest_held([x], [c], f"{dtype} n={n} fold {c}")
+                ncases += 1
+            if fl and n > 3:  # the same without NaN: a finite FSUM
+                y = torch.nan_to_num(x, nan=1.5)
+                _digest_held([y], [k11.F_FSUM], f"{dtype} n={n} finite")
+                ncases += 1
+        log(f"[K11] {str(dtype)[6:]:>8} exact (FSUM within 1e-12)")
+    xs, cs = [], []
+    for i in range(32):
+        dtype = DIGEST_DTYPES[i % len(DIGEST_DTYPES)]
+        fl = dtype.is_floating_point
+        n = [0, 1, 7, 1000, 4099, 65536 + 5, 300001][i % 7]
+        xs.append(make_shard(g, n, dtype, "MPI_SUM", dev))
+        cs.append([k11.F_FSUM if fl else k11.F_INTSUM, k11.F_MAX,
+                   k11.F_MIN][i % 3])
+    from ompi_tpu_torch.kernels.digest import digest as k11_launch
+    before = k11_launch.launches.value
+    _digest_held(xs, cs, "a mixed table of 32")
+    if k11_launch.launches.value - before != 2:  # two launches, one each
+        raise AssertionError("K11: a 32-operand table is not one launch")
+    ncases += 1
+    t = torch.tensor
+    vals = [
+        (t([200], dtype=torch.uint8, device=dev), k11.F_INTSUM, 200),
+        (t([200, 100], dtype=torch.uint8, device=dev), k11.F_INTSUM, 300),
+        (t([-1], dtype=torch.int32, device=dev), k11.F_INTSUM, 0xFFFFFFFF),
+        (t([-1, -1], dtype=torch.int64, device=dev), k11.F_INTSUM,
+         (1 << 64) - 2),
+        (t([-1, 5], dtype=torch.int8, device=dev), k11.F_MIN, -1),
+        (t([250, 3], dtype=torch.uint8, device=dev), k11.F_MAX, 250),
+        (t([1.0, float("nan"), 2.0], device=dev), k11.F_MAX, float("nan")),
+        (t([1.0, float("-inf")], device=dev), k11.F_MIN, float("-inf")),
+        (t([float("inf"), 1.0], dtype=torch.float16, device=dev),
+         k11.F_FSUM, float("inf")),
+        (t([-0.0, -0.0], device=dev), k11.F_FSUM, 0.0),
+        (t([-0.0], dtype=torch.float64, device=dev), k11.F_MAX, 0.0),
+    ]
+    for x, c, v in vals:
+        _digest_held([x], [c], f"value case {x.tolist()} fold {c}")
+        got = k11.decode(k11.digest([x], [c]).tolist()[0], c, x.dtype)
+        if not (got == v or (got != got and v != v)):
+            raise AssertionError(f"K11 value case {x.tolist()} fold {c}: "
+                                 f"{got}, expected {v}")
+        ncases += 1
+    torch.cuda.synchronize()
+    return ncases
 
 
 def _held_slots(outs, refs, what: str):
@@ -483,8 +605,10 @@ def config5(comm, raw, dt):
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    from ompi_tpu_torch.kernels import fused, index, mesh, rma, stacked
-    return {"stacked_reduce": stacked.stacked_reduce.launches,
+    from ompi_tpu_torch.kernels import digest, fused, index, mesh, rma, \
+        stacked
+    return {"digest": digest.digest.launches,
+            "stacked_reduce": stacked.stacked_reduce.launches,
             "stacked_copy": stacked.stacked_copy.launches,
             "fused_batch": fused.fused_batch.launches,
             "index_gather": index.index_gather.launches,
@@ -1275,6 +1399,215 @@ def phase_rma(devs, what: str):
 
 
 # ---------------------------------------------------------------------------
+# 3d. the integrity (SDC) plane on both tiers
+# ---------------------------------------------------------------------------
+
+IG_ARM = {"integrity_enable": 1, "integrity_sample": 1,
+          "integrity_sample_auto": 0}
+IG_INJECT = {"ft_inject_plan": "device_sdc:1", "ft_inject_victim_rank": "1",
+             "ft_inject_sdc_period": 1}
+IG_PVARS = ("integrity_checks", "integrity_mismatches",
+            "integrity_convictions", "integrity_retry_ops")
+
+
+def _mesh_folds(n: int, size: int, itemsize: int) -> int:
+    """K6 launches of one mesh allreduce of n elements: one a device
+    whose stripe is not empty."""
+    from ompi_tpu_torch.coll.device import _stripe_elems
+    m = _stripe_elems(n, size, itemsize)
+    return sum(1 for d in range(size) if d * m < n)
+
+
+def integrity_cases(devs, tier: str, injected: bool):
+    """The integrity phase at N = len(devs) ranks (``devs``: each rank's
+    torch device): the cases, as (key, entry point, launches, call,
+    knobs, analytic result of rank r), and the number of checked
+    meetings.  Every value is exact, so each result is analytic; the
+    victim's (rank 1's) values are chosen so that its flip (bit 6 of
+    the middle element's top byte) moves every digest out of its band:
+    float32 (r+1)/16 becomes ~1e37, int32 gains 2**30, 17.0 drops to
+    ~1e-38.
+
+    Launches: a checked meeting is N K11 gate launches, one verify
+    launch a device that holds outputs to check (rank 0's output, or
+    for reduce_scatter and alltoall every rank's) and, injected, one
+    bisect launch a device that holds deposits; injected, each body
+    runs twice (the retry).  Segments are meetings of their own."""
+    from ompi_tpu_torch.op.op import MAX, SUM
+    n = len(devs)
+    ndev = len(set(devs))
+    f32, f16, i32 = torch.float32, torch.float16, torch.int32
+    mesh = tier == "tpu"
+    body = 2 if injected else 1
+    segs = 8
+    meetings = [0]
+    e1, e8 = MIB // 4, 8 * MIB // 4  # float32 / int32 elements
+
+    def full(c, n_el, v, dtype):
+        return torch.full((n_el,), v, dtype=dtype, device=devs[c.rank])
+
+    def want_full(n_el, v, dtype):
+        return lambda r: torch.full((n_el,), v, dtype=dtype, device=devs[r])
+
+    def red(k=1):
+        if mesh:
+            return {"mesh_fold": body * k * n, "peer_copy": body * k * n}
+        return {"stacked_reduce": body * k}
+
+    def with_digest(d, k=1, every_out=False):
+        meetings[0] += k
+        per = n + (ndev if every_out else 1) + (ndev if injected else 0)
+        return dict(d, digest=per * k)
+
+    tot = n * (n + 1) // 2  # sum of r + 1
+    cases = [
+        ("ar1", "allreduce_arr", with_digest(red()),
+         lambda c: c.allreduce_arr(full(c, e1, (c.rank + 1) / 16, f32), SUM),
+         {}, want_full(e1, tot / 16, f32)),
+        ("ar8", "allreduce_arr", with_digest(red()),
+         lambda c: c.allreduce_arr(full(c, e8, (c.rank + 1) / 16, f32), SUM),
+         {}, want_full(e8, tot / 16, f32)),
+        ("ar8_seg", "allreduce_arr", with_digest(red(segs), segs),
+         lambda c: c.allreduce_arr(full(c, e8, (c.rank + 1) / 16, f32), SUM),
+         {"coll_plan_enable": False}, want_full(e8, tot / 16, f32)),
+        ("max", "allreduce_arr", with_digest(red()),
+         lambda c: c.allreduce_arr(full(c, e1, (c.rank + 1) * 100, i32), MAX),
+         {}, want_full(e1, n * 100, i32)),
+        ("bc", "bcast_arr", with_digest({}),
+         lambda c: c.bcast_arr(full(c, e1, c.rank * 10 + 7, f32), root=1),
+         {}, want_full(e1, 17.0, f32)),
+        ("rs", "reduce_scatter_block_arr", with_digest(
+            {"mesh_fold": body * n} if mesh else {"stacked_reduce": body},
+            every_out=True),
+         lambda c: c.reduce_scatter_arr(
+             full(c, e1, (c.rank + 1) / 16, f32), SUM),
+         {}, want_full(e1 // n, tot / 16, f32)),
+        ("ag", "allgather_arr", with_digest(
+            {"peer_copy": body * n} if mesh else {"stacked_copy": body}),
+         lambda c: c.allgather_arr(full(c, e1, c.rank + 1, i32)), {},
+         lambda r: torch.arange(1, n + 1, dtype=i32, device=devs[r])
+         .repeat_interleave(e1)),
+        ("a2a1", "alltoall_arr", with_digest(
+            {"peer_copy": body * n} if mesh else {"stacked_copy": body},
+            every_out=True),
+         lambda c: c.alltoall_arr(full(c, e1, c.rank + 1, i32)), {},
+         lambda r: torch.arange(1, n + 1, dtype=i32, device=devs[r])
+         .repeat_interleave(e1 // n)),
+        ("a2a8", "alltoall_arr", with_digest(
+            {"peer_copy": body * segs * n} if mesh
+            else {"stacked_copy": body * segs}, segs, every_out=True),
+         lambda c: c.alltoall_arr(full(c, e8, c.rank + 1, i32)), {},
+         lambda r: torch.arange(1, n + 1, dtype=i32, device=devs[r])
+         .repeat_interleave(e8 // n)),
+    ]
+
+    def fused(c):
+        r = c.rank
+        qs = [c.iallreduce_arr(full(c, 16, r + 1, f32), SUM),
+              c.iallreduce_arr(full(c, 4, (r + 1) * 10, i32), MAX),
+              c.ibcast_arr(full(c, 8, r * 2 + 3, i32), 1)]
+        for q in qs:
+            q.wait()
+        return [q.result for q in qs]
+
+    # groups (SUM f32 16), (MAX i32 4), (SUM i32 8: the bcast)
+    if mesh:
+        folds = sum(_mesh_folds(k, n, 4) for k in (16, 4, 8))
+        fl = {"slot_pack": 3 * n, "mesh_fold": body * folds,
+              "peer_copy": body * 3 * n}
+    else:
+        fl = {"fused_batch": body * 3}
+    cases.append(("fused", "ibcast_arr", with_digest(fl), fused, {},
+                  lambda r: [torch.full((16,), float(tot), device=devs[r]),
+                             torch.full((4,), n * 10, dtype=i32,
+                                        device=devs[r]),
+                             torch.full((8,), 5, dtype=i32, device=devs[r])]))
+    if not injected:
+        cases.append((
+            "f16", "allreduce_arr", with_digest(red()),
+            lambda c: c.allreduce_arr(full(c, e1 * 2, (c.rank + 1) / 16, f16),
+                                      SUM),
+            {}, want_full(e1 * 2, tot / 16, f16)))
+        # bfloat16 is unchecked (the reference never checks it): no K11
+        cases.append((
+            "bf16", "allreduce_arr", red(),
+            lambda c: c.allreduce_arr(full(c, e1 * 2, (c.rank + 1) / 16,
+                                           torch.bfloat16), SUM),
+            {}, want_full(e1 * 2, tot / 16, torch.bfloat16)))
+    return cases, meetings[0]
+
+
+def phase_integrity(devs, tier: str, what: str):
+    """The integrity plane through the port's entry points, armed at
+    1-in-1 (integrity_sample 1, integrity_sample_auto 0), on N =
+    len(devs) rank threads of ``tier``.  Injected (ft_inject_plan
+    device_sdc:1, victim rank 1, sdc_period 1: rank 1 flips its operand
+    at every meeting): every result must be its analytic value byte for
+    byte, the convictions exactly rank 1, mismatches = retries =
+    convictions = the checked meetings.  Clean (no plan; the same mix
+    plus a float16 SUM and an unchecked bfloat16 SUM): zero mismatches,
+    checks > 0.  Launch counts (K11 included) exact, case by case."""
+    from ompi_tpu_torch import ft_inject  # noqa: F401  (registers knobs)
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.obs import integrity as ig
+    n = len(devs)
+    launches, per_call = {}, {}
+    for injected in (True, False):
+        knobs = dict(IG_ARM, **(IG_INJECT if injected else
+                                {"ft_inject_plan": ""}))
+        saved = {k: registry.get(k) for k in knobs}
+        for k, v in knobs.items():
+            registry.set(k, v)
+        ig.reset()
+        base = {k: registry._pvars[k].read() for k in IG_PVARS}
+        label = "injected" if injected else "clean"
+        plan, meetings = integrity_cases(
+            [d.device if hasattr(d, "slot") else d for d in devs], tier,
+            injected)
+        try:
+            res, got, calls = drive([c[:5] for c in plan], lambda r: devs[r],
+                                    n, tier, f"integrity {label}, {what}")
+        finally:
+            for k, v in saved.items():
+                registry.set(k, v)
+            ig.refresh()
+        pv = {k: registry._pvars[k].read() - base[k] for k in IG_PVARS}
+        convicted = sorted({r["rank"] for r in ig.convicted_snapshot()})
+        ig.reset()
+        for key, _, _, _, _, want in plan:
+            for r in range(n):
+                outs, wants = res[r][key], want(r)
+                if isinstance(outs, torch.Tensor):
+                    outs, wants = [outs], [wants]
+                for o, w in zip(outs, wants):
+                    if o.dtype != w.dtype or o.shape != w.shape or \
+                            not torch.equal(o.view(torch.uint8),
+                                            w.view(torch.uint8)):
+                        raise AssertionError(
+                            f"integrity {label} {tier} {key}: rank {r}'s "
+                            "result is not its analytic value")
+        if injected:
+            if convicted != [1] or not (
+                    pv["integrity_mismatches"] == pv["integrity_retry_ops"]
+                    == pv["integrity_convictions"] == meetings):
+                raise AssertionError(f"integrity injected {tier}: convicted "
+                                     f"{convicted}, pvars {pv}, {meetings} "
+                                     "checked meetings")
+        elif pv["integrity_mismatches"] or convicted \
+                or pv["integrity_checks"] != n * meetings:
+            raise AssertionError(f"integrity clean {tier}: pvars {pv}, "
+                                 f"convicted {convicted}")
+        log(f"[integrity] {what}, {label}: {len(plan)} cases, every result "
+            f"its analytic value, convicted {convicted}, pvars {pv}, K11 "
+            f"launches {got['digest']}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        per_call.update({f"ig_{tier}_{label}_{k}": v
+                         for k, v in calls.items()})
+    return launches, per_call
+
+
+# ---------------------------------------------------------------------------
 # 4. timing
 # ---------------------------------------------------------------------------
 
@@ -1360,20 +1693,22 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
                                    max(iters, nsets), nsets)
         del sets
         bound = bytes_moved / HBM_BYTES_PER_S * 1e3
+        per = per_call[call][kernel] if call else None
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches[kernel],
                      "max_abs_err": a, "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": bound, "bound_by": "bytes",
                      "library_ms": l_ms, "call_ms": k_call,
                      "warm_ms": warm, "input_sets": nsets,
-                     "launches_per_call": per_call[call][kernel]})
+                     "launches_per_call": per})
         lib = "none" if l_ms is None else f"{l_ms:.4f} ms ({l_call:.4f})"
+        where = f"{per} launch(es) in the main path's {call}" if call \
+            else "not a main-path shape"
         log(f"[time] {name}: kernel {k_ms:.4f} ms device cold over "
             f"{nsets} input set(s) ({k_call:.4f} ms a call; warm "
             f"{warm:.4f}), bound {bound:.6f} ms ({bound / k_ms * 100:.1f}% "
             f"of bound), plain {p_ms:.4f} ms ({p_call:.4f}), library "
-            f"{lib}, {per_call[call][kernel]} launch(es) in the main "
-            f"path's {call}")
+            f"{lib}, {where}")
 
     n = NRANKS
 
@@ -1563,21 +1898,59 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         lambda st: rma.rma_cas(st[0], 0, *st[1:]) or [st[0], st[3]],
         lambda st: rma.rma_cas_plain(st[0], 0, *st[1:]) or [st[0], st[3]],
         None, 200, source="rma.cu", nsets=1)
+    # K11: a gate's claim over one 8 MiB (and one 128 MiB) operand, and
+    # a verify's table of 8 outputs of 1 MiB.  Float results are
+    # compared as float64 (their 8 bytes viewed so), integer ones as
+    # int64.  The bound is the operand bytes (and 8 a result).
+    from ompi_tpu_torch.kernels import digest as k11
+
+    def dig(code, as_float):
+        def run(f, xs):
+            r = f(xs, [code] * len(xs))
+            return r.view(torch.float64) if as_float else r
+        return (lambda xs: run(k11.digest, xs),
+                lambda xs: run(k11.digest_plain, xs))
+
+    def ints(i, nbytes, salt):
+        gi = torch.Generator(device=dev)
+        gi.manual_seed(SEED * 1000 + salt * 100 + i)
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (nbytes // 4,),
+                             generator=gi, device=dev, dtype=torch.int32)
+
+    for label, call, code, as_float, mib, make, lib_fn, iters in (
+            ("gate_fsum_f32_8MiB", "ig_hbm_injected_ar8", k11.F_FSUM, True, 8,
+             lambda i: [rank_input(i % n, 8 * MIB, torch.float32, dev,
+                                   91 + 10 * i)],
+             lambda xs: torch.sum(xs[0], dtype=torch.float64), 50),
+            ("gate_fsum_f32_128MiB", None, k11.F_FSUM, True, 128,
+             lambda i: [rank_input(i % n, 128 * MIB, torch.float32, dev,
+                                   92 + 10 * i)],
+             lambda xs: torch.sum(xs[0], dtype=torch.float64), 8),
+            ("verify_intsum_i32_8MiB", "ig_hbm_injected_ag", k11.F_INTSUM,
+             False, 8, lambda i: [ints(i, 8 * MIB, 93)],
+             lambda xs: torch.sum(xs[0], dtype=torch.int64), 50),
+            ("gate_max_f32_8MiB", None, k11.F_MAX, True, 8,
+             lambda i: [rank_input(i % n, 8 * MIB, torch.float32, dev,
+                                   94 + 10 * i)],
+             lambda xs: torch.amax(xs[0]), 50),
+            ("verify_table_8x1MiB_intsum_i32", "ig_hbm_injected_a2a1",
+             k11.F_INTSUM, False, 8,
+             lambda i: [ints(8 * i + r, MIB, 95) for r in range(n)],
+             None, 50)):
+        k_fn, p_fn = dig(code, as_float)
+        nops = len(make(0))
+        row(f"digest:{label}", "digest", call, "ompi_tpu/obs/integrity.py:234",
+            mib * MIB + 8 * nops, make, k_fn, p_fn, lib_fn, iters,
+            source="digest.cu")
     return rows
 
 
-def phase_e2e(dev, kernel_ms: float) -> None:
-    """Host clock around chained comm.allreduce_arr calls (each rank
-    feeds its output back in) ending in torch.cuda.synchronize().
-    ``kernel_ms`` is the stacked kernel's device time at this shape,
-    for the device's busy share of an op.  The first run is the
-    headline; then the large-message tier off and on in turns (off,
-    off, on), so the plan tier's cost shows against the single
-    dispatch in one process."""
-    from ompi_tpu_torch.mca.params import registry
+def chained_allreduce(dev, nbytes: int, iters: int):
+    """A rank program: ``iters`` chained comm.allreduce_arr SUM calls
+    of ``nbytes`` float32 (each rank feeds its output back in) after a
+    warm-up, host clock from a barrier to torch.cuda.synchronize();
+    returns the seconds."""
     from ompi_tpu_torch.op.op import SUM
-    from ompi_tpu_torch.testing import run_ranks
-    nbytes, iters = 8 * MIB, 20
 
     def fn(comm):
         x = rank_input(comm.rank, nbytes, torch.float32, dev, 40) * 1e-6
@@ -1595,7 +1968,20 @@ def phase_e2e(dev, kernel_ms: float) -> None:
         if not torch.isfinite(y).all():
             raise AssertionError("chained allreduce went non-finite")
         return dt
+    return fn
 
+
+def phase_e2e(dev, kernel_ms: float) -> None:
+    """Host clock around chained comm.allreduce_arr calls ending in
+    torch.cuda.synchronize().  ``kernel_ms`` is the stacked kernel's
+    device time at this shape, for the device's busy share of an op.
+    The first run is the headline; then the large-message tier off and
+    on in turns (off, off, on), so the plan tier's cost shows against
+    the single dispatch in one process."""
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.testing import run_ranks
+    nbytes, iters = 8 * MIB, 20
+    fn = chained_allreduce(dev, nbytes, iters)
     saved = registry.get("coll_pipeline_enable")
     runs = {True: [], False: []}
     try:
@@ -1773,33 +2159,87 @@ def phase_e2e_mesh(dev, kernel_ms: float) -> None:
     torch.cuda.synchronize(), slowest rank.  On one card this is the
     tier's host cost, not a multi-card speed.  ``kernel_ms``: the
     device time of its K6 and K2 peer launches."""
-    from ompi_tpu_torch.op.op import SUM
     from ompi_tpu_torch.testing import logical_devices, run_ranks
     nbytes, iters = 8 * MIB, 20
-
-    def fn(comm):
-        x = rank_input(comm.rank, nbytes, torch.float32, dev, 40) * 1e-6
-        for _ in range(3):
-            x = comm.allreduce_arr(x, SUM) * 0.125
-        torch.cuda.synchronize()
-        comm.Barrier()
-        t0 = time.perf_counter()
-        y = x
-        for _ in range(iters):
-            y = comm.allreduce_arr(y, SUM)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        comm.Barrier()
-        if not torch.isfinite(y).all():
-            raise AssertionError("chained mesh allreduce went non-finite")
-        return dt
-
-    dts = run_ranks(NRANKS, fn, device_map=logical_devices(dev), timeout=600)
+    dts = run_ranks(NRANKS, chained_allreduce(dev, nbytes, iters),
+                    device_map=logical_devices(dev), timeout=600)
     us = max(dts) / iters * 1e6
     log(f"[e2e] mesh allreduce 8 logical devices x 8 MiB float32 on one "
         f"card: {us:.1f} us/op (slowest rank, {iters} chained ops; host "
         f"cost, not a multi-card speed); its K6 + K2 peer device time is "
         f"{kernel_ms * 1e3 / us * 100:.1f}% of an op")
+
+
+def phase_e2e_integrity(dev, gate_ms: float) -> None:
+    """The headline (8 ranks x 8 MiB float32 allreduce_arr on coll/hbm,
+    the plan tier) with the integrity plane armed at 1-in-1
+    (integrity_sample 1, integrity_sample_auto 0) against unarmed, in
+    turns (unarmed, armed, armed, unarmed) in this one process: host
+    clock, slowest rank, us an op.  ``gate_ms``: K11's device time for
+    one 8 MiB claim; an armed op adds 8 of them, one verify launch of
+    the same size and the host's share of the check."""
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.obs import integrity as ig
+    from ompi_tpu_torch.testing import run_ranks
+    nbytes, iters = 8 * MIB, 20
+    fn = chained_allreduce(dev, nbytes, iters)
+    knobs = dict(IG_ARM, ft_inject_plan="")
+    saved = {k: registry.get(k) for k in knobs}
+    runs = {True: [], False: []}
+    checks = registry._pvars["integrity_checks"]
+    try:
+        for k, v in knobs.items():
+            registry.set(k, v)
+        for arm in (False, True, True, False):
+            registry.set("integrity_enable", int(arm))
+            c0 = checks.read()
+            dts = run_ranks(NRANKS, fn, device_map=lambda r: dev,
+                            timeout=600)
+            runs[arm].append(max(dts) / iters * 1e6)
+            if arm and checks.read() - c0 != NRANKS * (iters + 3):
+                raise AssertionError("armed run: not every op checked")
+        # where an armed op's host time goes: host timers around every
+        # rank's gate (the clone and the claim's K11 launch) and the
+        # executing rank's check (the body, the verify's K11 launch and
+        # its D2H, the comparison)
+        registry.set("integrity_enable", 1)
+        with _HostTimer(ig, "gate") as gate, \
+                _HostTimer(ig, "_run_checked") as check, \
+                _HostTimer(ig, "_digests") as reads:
+            run_ranks(NRANKS, fn, device_map=lambda r: dev, timeout=600)
+        # one gate alone on this thread, no rank threads about: its own
+        # host cost (the clone and the claim's K11 launch)
+        x = rank_input(0, nbytes, torch.float32, dev, 41)
+        ck = ig.spec_static("allreduce", "MPI_SUM", x)
+        probe = types.SimpleNamespace(rank=0)
+        for _ in range(3):
+            ig.gate(probe, x, None, ck)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ig.gate(probe, x, None, ck)
+        alone = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            registry.set(k, v)
+        ig.refresh()
+    ops = iters + 3
+    off = sorted(runs[False])
+    on = sorted(runs[True])
+    log(f"[e2e] an armed op's host time, us an op: the {NRANKS} gates "
+        f"{gate.total / ops * 1e6:.1f} (summed over the rank threads; one "
+        f"gate alone on an idle host {alone:.1f}), "
+        f"the executing rank's check {check.total / ops * 1e6:.1f} (of "
+        f"which the verify's K11 launch and its D2H "
+        f"{reads.total / ops * 1e6:.1f}; the body the rest)")
+    log(f"[e2e] headline allreduce 8 ranks x 8 MiB float32, integrity "
+        f"armed at 1-in-1 against unarmed (unarmed, armed, armed, "
+        f"unarmed): unarmed {[round(u, 1) for u in runs[False]]} us/op, "
+        f"armed {[round(u, 1) for u in runs[True]]} us/op (slowest rank, "
+        f"{iters} chained ops); armed over unarmed, best of each "
+        f"{(on[0] / off[0] - 1) * 100:.1f}%; K11 an armed op 9 launches, "
+        f"~{9 * gate_ms * 1e3:.1f} us of device time [{card_line()}]")
 
 
 def phase_e2e_rma(dev) -> None:
@@ -1910,13 +2350,15 @@ def phase_e2e_rma(dev) -> None:
 
 
 def phase_cards() -> None:
-    """One rank a card, on a host with two or more: the mesh and RMA
-    phases again, where every cross-device read or write goes over
-    peer access (NVLink); a one-card host never takes this branch."""
+    """One rank a card, on a host with two or more: the mesh, RMA and
+    integrity phases again, where every cross-device read or write goes
+    over peer access (NVLink) and a verify digests each card's outputs
+    on that card; a one-card host never takes this branch."""
     nc = min(NRANKS, torch.cuda.device_count())
     cards = [torch.device("cuda", r) for r in range(nc)]
     phase_mesh(cards, f"{nc} cards, one rank each")
     phase_rma(cards, f"{nc} cards, one rank each")
+    phase_integrity(cards, "tpu", f"{nc} cards, one rank each")
 
 
 def main(argv) -> int:
@@ -1957,6 +2399,13 @@ def main(argv) -> int:
         f"8 logical devices on {dev}")
     launches = {k: launches[k] + r_launches[k] for k in launches}
     per_call.update(r_per_call)
+    for tier, devs, what in (
+            ("hbm", [dev] * NRANKS, f"8 ranks on {dev}"),
+            ("tpu", [LogicalDevice(dev, r) for r in range(NRANKS)],
+             f"8 logical devices on {dev}")):
+        i_launches, i_per_call = phase_integrity(devs, tier, what)
+        launches = {k: launches[k] + i_launches[k] for k in launches}
+        per_call.update(i_per_call)
     if torch.cuda.device_count() >= 2:
         phase_cards()
     rows = phase_timing(dev, launches, per_call)
@@ -1968,6 +2417,8 @@ def main(argv) -> int:
         "mesh_fold:allreduce_sum_f32_8MiB_rank_order",
         "peer_copy:allgather_stripes_f32_8MiB")))
     phase_e2e_rma(dev)
+    phase_e2e_integrity(dev, next(r["ms"] for r in rows
+                                  if r["name"] == "digest:gate_fsum_f32_8MiB"))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

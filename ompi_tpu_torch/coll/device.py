@@ -40,9 +40,14 @@ the computation on the process-wide dispatcher thread); an alltoall
 coalesce in coll/fusion and meet once per batch with a (signature,
 tensors) deposit.
 
-Not ported yet (ROADMAP.md Queue A): the compiled-executable cache
-(``CompiledLRU``), and the tracing, integrity, monitoring and
-fault-injection hooks of ``meet``.
+Before a deposit enters the rendezvous (``meet``, ``meet_begin``) it
+passes, in the reference's order, the ft_inject ``delay`` straggler,
+the integrity gate (obs/integrity: a sampled op's deposit becomes a
+``_Checked`` carrier, its body a checked body that verifies, bisects
+and retries) and the ft_inject ``device_sdc`` flip.  Not ported yet
+(ROADMAP.md Queue A): the compiled-executable cache (``CompiledLRU``),
+the tracing and monitoring hooks of ``meet``, and the other injectors
+(``rdv_sever``, ``host_slow``).
 
 Only host buffers ever take the host-staged p2p stack (HostArrModule):
 structured pair types, which torch cannot hold, and user-defined ops,
@@ -64,13 +69,14 @@ from typing import Any, Callable, Dict, List, Optional, Set
 import numpy as np
 import torch
 
-from ompi_tpu_torch import convert
+from ompi_tpu_torch import convert, ft_inject
 from ompi_tpu_torch.coll import pipeline
 from ompi_tpu_torch.coll.framework import (CollComponent, CollModule,
                                            coll_framework)
 from ompi_tpu_torch.coll.tuned import TunedModule
 from ompi_tpu_torch.kernels import mesh, stacked
 from ompi_tpu_torch.mca.params import registry
+from ompi_tpu_torch.obs import integrity as _ig
 from ompi_tpu_torch.op.op import Op
 from ompi_tpu_torch.runtime.init import device_key
 
@@ -109,6 +115,18 @@ _XLA_REDUCERS = {"MPI_SUM", "MPI_MAX", "MPI_MIN"}
 # them in rank order too
 _GATHER_FOLD = {"MPI_PROD", "MPI_LAND", "MPI_BAND", "MPI_LOR",
                 "MPI_BOR", "MPI_LXOR", "MPI_BXOR"}
+
+# dispatch kind -> integrity-plane spec kind
+_CK_KINDS = {"allreduce": "allreduce", "reduce_scatter": "redscat",
+             "allgather": "gather", "alltoall": "alltoall"}
+
+
+def _ck(kind: str, opname: str, x, root: int = 0):
+    """The integrity check spec of one collective: None when the plane
+    is off or the op is not checkable (ppermute, another reduce op, an
+    unchecked dtype)."""
+    return _ig.spec(_CK_KINDS.get(kind, kind), opname, x, root) \
+        if _ig.on else None
 
 
 def _dtype_of(x) -> Optional[torch.dtype]:
@@ -456,9 +474,13 @@ def _get_rendezvous(comm) -> Rendezvous:
 
 def _tensors(value) -> List[torch.Tensor]:
     """The tensors of a deposit or an output: one tensor, a list of
-    them, or a fused batch's (signature, tensors) pair."""
+    them, a fused batch's (signature, tensors) pair, a mesh segment's
+    (operand, output) pair, or an integrity carrier (its datapath
+    deposit, its pristine source and its claim)."""
     if isinstance(value, torch.Tensor):
         return [value]
+    if isinstance(value, _ig._Checked):
+        return _tensors(value.v) + _tensors(value.src) + [value.d]
     if isinstance(value, tuple) and len(value) == 2 \
             and isinstance(value[1], list):
         value = value[1]
@@ -552,29 +574,77 @@ def _collect(res):
     return out
 
 
+def _coll_delay_injector(state):
+    """ft_inject 'delay' faults at the rendezvous: seed-driven stalls
+    before a rank deposits, so chaos runs exercise straggler arrival
+    orders (cached per rank state; False = disarmed)."""
+    inj = state.extra.get("coll_delay_inj")
+    if inj is None:
+        inj = state.extra["coll_delay_inj"] = \
+            ft_inject.coll_injector(state.rank) or False
+    return inj
+
+
+def _coll_sdc_injector(state):
+    """ft_inject 'device_sdc' (the silent failure): the victim rank's
+    operand bit-flips at the armed op count — after the integrity gate
+    digested it, exactly the divergence the bisection round
+    attributes.  On an unsampled op the flip lands on the raw operand
+    and propagates silently: the honest semantics of 1-in-N detection
+    (cached per rank state; False = disarmed or not the victim)."""
+    inj = state.extra.get("coll_sdc_inj")
+    if inj is None:
+        inj = state.extra["coll_sdc_inj"] = ft_inject.sdc_injector(
+            state.rank, getattr(state, "size", None)) or False
+    return inj
+
+
+def _enter(comm, value, body, ck):
+    """What a deposit passes before the rendezvous, in the reference's
+    order: the 'delay' straggler, the integrity gate (``ck``, the check
+    spec, is non-None only when the plane is armed and the op
+    checkable; every rank passes the same one) and the 'device_sdc'
+    flip.  Returns the (value, body) that meet."""
+    inj = _coll_delay_injector(comm.state)
+    if inj:
+        d = inj.maybe_delay()
+        if d:
+            time.sleep(d)
+    if ck is not None:
+        value, body = _ig.gate(comm, value, body, ck)
+    sj = _coll_sdc_injector(comm.state)
+    if sj and sj.should_flip():
+        value = _ig.flip_value(value)
+    return value, body
+
+
 def meet(comm, value, body: Callable[[List[Any]], List[Any]],
-         abort_check) -> Any:
+         abort_check, ck=None) -> Any:
     """The rendezvous entry point for the device collectives: deposit
-    ``value`` (a contiguous tensor on the comm's shared device, or a
-    fused batch's (signature, tensors) pair); the last arriver runs
-    ``body(values) -> one output per rank`` and every rank gets its
-    own.  On a CUDA device the stream fence of ``_fence`` orders the
-    kernels after every deposit and every rank's later work after the
-    kernels."""
+    ``value`` (a contiguous tensor on the comm's shared device, a fused
+    batch's (signature, tensors) pair, or a mesh segment's (operand,
+    output) pair); the last arriver runs ``body(values) -> one output
+    per rank`` and every rank gets its own.  On a CUDA device the
+    stream fence of ``_fence`` orders the kernels after every deposit
+    (the integrity gate's work included) and every rank's later work
+    after the kernels.  ``ck``: the integrity check spec (``_enter``)."""
     track_state(comm.state)
+    value, body = _enter(comm, value, body, ck)
     return _collect(_get_rendezvous(comm).run(
         comm.rank, _fenced(value), _fence(body), abort_check,
         progress=comm.state.progress))
 
 
-def meet_begin(comm, value, body, abort_check):
+def meet_begin(comm, value, body, abort_check, ck=None):
     """Asynchronous rendezvous entry: deposit and return a handle
     without waiting for the result.  The last arriver's computation
     always runs on the dispatcher thread, so the caller's thread is
     free to pack the NEXT segment while the card computes this one.
     Collect with ``meet_finish``; every begun handle MUST be finished
-    (results are refcounted per generation)."""
+    (results are refcounted per generation).  ``ck`` as in ``meet``:
+    each segment takes its own sampling decision."""
     track_state(comm.state)
+    value, body = _enter(comm, value, body, ck)
     rv = _get_rendezvous(comm)
     gen = rv.begin(comm.rank, _fenced(value), _fence(body), abort_check,
                    progress=comm.state.progress, dispatch_async=True)
@@ -654,8 +724,9 @@ class HbmCollModule(CollModule):
 
     _deposit = staticmethod(_deposit)
 
-    def _stacked(self, comm, x, body) -> List[torch.Tensor]:
-        return meet(comm, self._deposit(comm, x), body, _abort_check(comm))
+    def _stacked(self, comm, x, body, ck=None) -> List[torch.Tensor]:
+        return meet(comm, self._deposit(comm, x), body, _abort_check(comm),
+                    ck)
 
     @staticmethod
     def _stacked_fn(kind: str, opname: str):
@@ -675,7 +746,8 @@ class HbmCollModule(CollModule):
             return out
         x, was_scalar = _norm(x)
         out = self._stacked(
-            comm, x, lambda s: stacked.stacked_reduce(s, op.name))
+            comm, x, lambda s: stacked.stacked_reduce(s, op.name),
+            _ck("allreduce", op.name, x))
         return out.reshape(()) if was_scalar else out
 
     def reduce_scatter_block_arr(self, comm, x, op: Op):
@@ -683,14 +755,16 @@ class HbmCollModule(CollModule):
             return self.fallback.reduce_scatter_block_arr(comm, x, op)
         return self._stacked(
             comm, x,
-            lambda s: stacked.stacked_reduce(s, op.name, scatter=True))
+            lambda s: stacked.stacked_reduce(s, op.name, scatter=True),
+            _ck("reduce_scatter", op.name, x))
 
     def allgather_arr(self, comm, x):
         if not self._eligible(comm, x):
             return self.fallback.allgather_arr(comm, x)
         x, _ = _norm(x)
         return self._stacked(
-            comm, x, lambda s: stacked.stacked_copy(s, "allgather"))
+            comm, x, lambda s: stacked.stacked_copy(s, "allgather"),
+            _ck("allgather", "", x))
 
     def alltoall_arr(self, comm, x):
         if not self._eligible(comm, x):
@@ -701,12 +775,14 @@ class HbmCollModule(CollModule):
             if out is not pipeline.UNHANDLED:
                 return out
         return self._stacked(
-            comm, x, lambda s: stacked.stacked_copy(s, "alltoall"))
+            comm, x, lambda s: stacked.stacked_copy(s, "alltoall"),
+            _ck("alltoall", "", x))
 
     def bcast_arr(self, comm, x, root: int):
         if not self._eligible(comm, x):
             return self.fallback.bcast_arr(comm, x, root)
-        return self._stacked(comm, x, lambda s: _bcast_copies(s, root))
+        return self._stacked(comm, x, lambda s: _bcast_copies(s, root),
+                             _ck("bcast", "", x, root))
 
     def reduce_arr(self, comm, x, op: Op, root: int):
         if not _reduce_as_allreduce_var.value:
@@ -979,8 +1055,9 @@ class TpuCollModule(CollModule):
 
     _deposit = staticmethod(_deposit)
 
-    def _run(self, comm, x, body):
-        out = meet(comm, self._deposit(comm, x), body, _abort_check(comm))
+    def _run(self, comm, x, body, ck=None):
+        out = meet(comm, self._deposit(comm, x), body, _abort_check(comm),
+                   ck)
         self.pvar_offload.add(1)
         return out
 
@@ -998,7 +1075,8 @@ class TpuCollModule(CollModule):
         if out is not pipeline.UNHANDLED:
             return out
         x, was_scalar = _norm(x)
-        out = self._run(comm, x, lambda s: _mesh_allreduce(s, op.name))
+        out = self._run(comm, x, lambda s: _mesh_allreduce(s, op.name),
+                        _ck("allreduce", op.name, x))
         return out.reshape(()) if was_scalar else out
 
     def reduce_scatter_block_arr(self, comm, x, op: Op):
@@ -1007,13 +1085,14 @@ class TpuCollModule(CollModule):
                 or not shp or shp[0] % comm.size:
             return self.fallback.reduce_scatter_block_arr(comm, x, op)
         return self._run(comm, x,
-                         lambda s: _mesh_reduce_scatter(s, op.name))
+                         lambda s: _mesh_reduce_scatter(s, op.name),
+                         _ck("reduce_scatter", op.name, x))
 
     def allgather_arr(self, comm, x):
         if not self._eligible(comm, x):
             return self.fallback.allgather_arr(comm, x)
         x, _ = _norm(x)
-        return self._run(comm, x, _mesh_allgather)
+        return self._run(comm, x, _mesh_allgather, _ck("allgather", "", x))
 
     def alltoall_arr(self, comm, x):
         shp = _shape_of(x)
@@ -1023,7 +1102,7 @@ class TpuCollModule(CollModule):
         out = self._tier(comm, "alltoall", x)
         if out is not pipeline.UNHANDLED:
             return out
-        return self._run(comm, x, _mesh_alltoall)
+        return self._run(comm, x, _mesh_alltoall, _ck("alltoall", "", x))
 
     def bcast_arr(self, comm, x, root: int):
         if not self._eligible(comm, x) \
@@ -1033,7 +1112,8 @@ class TpuCollModule(CollModule):
         if out is not pipeline.UNHANDLED:
             return out
         x, was_scalar = _norm(x)
-        out = self._run(comm, x, lambda s: _bcast_copies(s, root))
+        out = self._run(comm, x, lambda s: _bcast_copies(s, root),
+                        _ck("bcast", "", x, root))
         return out.reshape(()) if was_scalar else out
 
     def reduce_arr(self, comm, x, op: Op, root: int):

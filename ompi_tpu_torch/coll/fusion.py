@@ -34,10 +34,13 @@ ordering).  The batch signature is validated at the meeting point — a
 divergent batch raises a clear error on every rank instead of
 deadlocking.
 
+A batch is checked by the integrity plane as one op (``_fused_ck``):
+one claim a slot (hbm) or a group buffer (mesh), or none at all.
+
 Not ported yet (ROADMAP.md): the cross-session batcher (``_XBatcher``,
 ``_build_fused_mesh_multi``, ``dvm_batch_window_us``: it needs the host
-pool of resident sessions that reports their count), the integrity
-``ck`` hooks and the tracing spans.
+pool of resident sessions that reports their count) and the tracing
+spans.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 from ompi_tpu_torch import convert
 from ompi_tpu_torch.kernels import fused
 from ompi_tpu_torch.mca.params import registry
+from ompi_tpu_torch.obs import integrity as _ig
 from ompi_tpu_torch.op.op import Op
 from ompi_tpu_torch.pml.request import Request
 
@@ -211,6 +215,38 @@ def _mesh_slot_outs(size: int, sig: Sequence[SigEntry],
     return outs
 
 
+def _fused_ck(mode, sig):
+    """Integrity spec for one fused batch: one claim per deposit
+    buffer — hbm mode digests each slot tensor (claim index = slot),
+    mesh mode each packed group buffer (claim index = group).  Returns
+    None when any slot falls outside the checkable algebra (another
+    reduce op, an unchecked dtype): a partly checked batch could not
+    attribute a mismatch to one rank, so the whole batch runs
+    unchecked instead."""
+    ents = []
+    if mode == "hbm":
+        for i, (kind, _shape, dt, extra) in enumerate(sig):
+            if kind == "bcast":
+                s = _ig.spec_static("bcast", "", dt, extra)
+                if s is None:
+                    return None
+                ents.append(("b", s[1], i, int(extra), s[2]))
+            else:
+                s = _ig.spec_static("allreduce", extra, dt)
+                if s is None:
+                    return None
+                ents.append(("g", s[1], i, (i,), s[2]))
+    else:
+        for gi, (opname, dt, slots) in enumerate(_group_plan(sig)):
+            # bcast slots ride SUM groups root-masked to zero, so the
+            # group conservation sum covers them exactly
+            s = _ig.spec_static("allreduce", opname, dt)
+            if s is None:
+                return None
+            ents.append(("g", s[1], gi, slots, s[2]))
+    return ("fused", tuple(ents))
+
+
 class _FusionEngine:
     """Per-comm, per-rank staging area for pending fusible collectives.
     Single-threaded (each rank owns its comm object); flush runs the
@@ -286,7 +322,8 @@ class _FusionEngine:
         arrays = [device._deposit(comm, p.x) for p in batch]
         if mode != "hbm":
             arrays = _build_pack(comm.rank, sig, arrays)
-        return device.meet(comm, (sig, arrays), body, self._abort_check)
+        ck = _fused_ck(mode, sig) if _ig.on else None
+        return device.meet(comm, (sig, arrays), body, self._abort_check, ck)
 
 
 def _engine(comm) -> _FusionEngine:

@@ -37,6 +37,9 @@ thread launches segment k; depth is bounded by
 to ONE fixed segment shape (op identity elements, trimmed at unpack),
 so every segment of every size takes the same kernel arguments.
 
+Every segment of an op carries the op's integrity check spec to its
+meeting, where it takes its own sampling decision.
+
 Not ported yet (ROADMAP.md): the hierarchical tier (``hier``: it needs
 ``topo.slice_groups`` and the health plane) and the tracing spans.
 """
@@ -50,6 +53,7 @@ import torch
 
 from ompi_tpu_torch.kernels import stacked
 from ompi_tpu_torch.mca.params import registry
+from ompi_tpu_torch.obs import integrity as _ig
 
 _seg_size_var = registry.register(
     "coll", "seg", "size", 1 << 20, int,
@@ -135,10 +139,12 @@ def segment_elems(comm, itemsize: int) -> int:
     return elems + (comm.size - rem) if rem else elems
 
 
-def _run_pipelined(comm, jobs) -> List[Any]:
+def _run_pipelined(comm, jobs, ck=None) -> List[Any]:
     """Drive (value, fn) segment jobs through the async rendezvous
     with bounded depth.  Every begun handle is finished even on error
-    — peers park on the generation's refcounted results."""
+    — peers park on the generation's refcounted results.  ``ck`` is
+    the integrity-plane spec shared by every segment (each segment
+    takes its own sampling decision at the meet gate)."""
     from ompi_tpu_torch.coll import device
     depth = max(1, _depth_var.value)
     check = device._abort_check(comm)
@@ -151,7 +157,7 @@ def _run_pipelined(comm, jobs) -> List[Any]:
             if job is None:
                 break
             value, fn = job
-            handles.append(device.meet_begin(comm, value, fn, check))
+            handles.append(device.meet_begin(comm, value, fn, check, ck))
             pv_segments.add(1)
             if len(handles) > depth:
                 outs.append(device.meet_finish(comm, handles.popleft(),
@@ -211,8 +217,9 @@ def _hbm_seg_reduce(module, comm, x, op):
     seg = segment_elems(comm, flat.element_size())
     fn = module._stacked_fn("allreduce", op.name)
     pad = _pad_value(op.name, flat.dtype)
+    ck = _ig.spec("allreduce", op.name, flat) if _ig.on else None
     outs = _run_pipelined(comm, ((p, fn) for p in _flat_segments(
-        flat, n, seg, pad)))
+        flat, n, seg, pad)), ck)
     return _concat_trim(outs, n, seg).reshape(shape)
 
 
@@ -235,7 +242,8 @@ def _hbm_seg_alltoall(module, comm, x):
                     device=sub.device)], dim=1)
             yield sub.reshape(-1), fn
 
-    outs = _run_pipelined(comm, jobs())
+    ck = _ig.spec("alltoall", "", rows) if _ig.on else None
+    outs = _run_pipelined(comm, jobs(), ck)
     pieces = [o.reshape(size, m) for o in outs]
     tail = cols - (len(pieces) - 1) * m
     if tail != m:
@@ -274,8 +282,9 @@ def _mesh_seg_reduce(module, comm, x, op, alg: str):
         return device._mesh_allreduce([p for p, _ in slots], op.name,
                                       order, outs=[o for _, o in slots])
 
+    ck = _ig.spec("allreduce", op.name, flat) if _ig.on else None
     _run_pipelined(comm, (((flat[lo:lo + seg], out[lo:lo + seg]), fn)
-                          for lo in range(0, n, seg)))
+                          for lo in range(0, n, seg)), ck)
     return out.reshape(x.shape)
 
 
@@ -293,34 +302,43 @@ def _mesh_seg_bcast(module, comm, x, root: int):
         src = slots[root][0]
         return [stacked.peer_copy([src], o, o.numel()) for _, o in slots]
 
+    ck = _ig.spec("bcast", "", flat, root) if _ig.on else None
     _run_pipelined(comm, (((flat[lo:lo + seg], out[lo:lo + seg]), fn)
-                          for lo in range(0, n, seg)))
+                          for lo in range(0, n, seg)), ck)
     return out.reshape(x.shape)
 
 
 def _mesh_seg_alltoall(module, comm, x):
     """Segmented pairwise alltoall over the mesh (sega2a): segment k
-    moves columns [k*m, (k+1)*m) of every block, one K2 peer launch a
-    device reading the sources' column segments in place and writing
-    them into the member's output in place."""
+    moves columns [k*m, (k+1)*m) of every block.  A rank deposits its
+    segment as one contiguous (P, w) operand (the reference's segment
+    shape: what the integrity gate digests and a retry re-reads), and
+    one K2 peer launch a device writes block d of every source's
+    segment into the member's output in place.  Each member's output
+    of a segment is its column slice of that output."""
     x = module._deposit(comm, x)
     size = comm.size
-    flat = x.reshape(-1)
-    cols = flat.numel() // size  # row p = the block for rank p
-    m = max(1, segment_elems(comm, flat.element_size()) // size)
-    out = torch.empty(flat.numel(), dtype=flat.dtype, device=flat.device)
+    rows = x.reshape(size, -1)  # row p = the block for rank p
+    cols = rows.shape[1]
+    m = max(1, segment_elems(comm, rows.element_size()) // size)
+    out = torch.empty(x.numel(), dtype=x.dtype, device=x.device)
 
     def jobs():
         for lo in range(0, cols, m):
-            def fn(slots, lo=lo, w=min(m, cols - lo)):
-                srcs = [s for s, _ in slots]
-                return [stacked.peer_copy(srcs, o, w, dst=d, src_stride=cols,
-                                          src_off=lo, out_stride=cols,
-                                          out_off=lo)
-                        for d, (_, o) in enumerate(slots)]
-            yield (flat, out), fn
+            w = min(m, cols - lo)
 
-    _run_pipelined(comm, jobs())
+            def fn(slots, lo=lo, w=w):
+                srcs = [s for s, _ in slots]
+                outs = []
+                for d, (_, o) in enumerate(slots):
+                    stacked.peer_copy(srcs, o, w, dst=d, src_stride=w,
+                                      out_stride=cols, out_off=lo)
+                    outs.append(o.view(size, cols)[:, lo:lo + w])
+                return outs
+            yield (rows[:, lo:lo + w].reshape(-1), out), fn
+
+    ck = _ig.spec("alltoall", "", rows) if _ig.on else None
+    _run_pipelined(comm, jobs(), ck)
     return out.reshape(x.shape)
 
 

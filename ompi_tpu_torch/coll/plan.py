@@ -37,7 +37,11 @@ kernels take any length and the ring geometry by index, so a mesh
 plan neither pads nor trims.  With ``coll_plan_native_reduce`` (on by
 default) SUM/MAX/MIN plans take the rank-order fold.
 
-Not ported yet (ROADMAP.md): the integrity spec and the tracing spans.
+A plan carries the integrity check spec of its op (``Plan.ck``), built
+once with ``spec_static`` (plans outlive arm and disarm); ``execute``
+passes it to the meeting only while the plane is armed.
+
+Not ported yet (ROADMAP.md): the tracing spans.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import torch
 
 from ompi_tpu_torch.coll import pipeline as _pl
 from ompi_tpu_torch.mca.params import registry
+from ompi_tpu_torch.obs import integrity as _ig
 
 _enable_var = registry.register(
     "coll", "plan", "enable", True, bool,
@@ -109,14 +114,17 @@ class Plan:
     identity and the geometry.  Everything per-op-variable is an
     ``execute`` argument; everything else was decided at build."""
 
-    __slots__ = ("nsegs", "seg", "total", "pad_val", "fn")
+    __slots__ = ("nsegs", "seg", "total", "pad_val", "fn", "ck")
 
-    def __init__(self, nsegs: int, seg: int, pad_val, fn) -> None:
+    def __init__(self, nsegs: int, seg: int, pad_val, fn, ck=None) -> None:
         self.nsegs = nsegs
         self.seg = seg
         self.total = nsegs * seg
         self.pad_val = pad_val  # None: the plan takes any length
         self.fn = fn
+        # integrity spec, built unconditionally (plans outlive
+        # arm/disarm); execute() re-gates on the live arm flag
+        self.ck = ck
 
     def execute(self, comm, flat: torch.Tensor, n: int) -> torch.Tensor:
         """The whole steady-state op: pack, one meet, unpack."""
@@ -124,7 +132,8 @@ class Plan:
         ns0 = time.perf_counter_ns()
         pad = self.pad_val is not None and n != self.total
         value = _pack(flat, n, self) if pad else flat
-        out = device.meet(comm, value, self.fn, device._abort_check(comm))
+        out = device.meet(comm, value, self.fn, device._abort_check(comm),
+                          self.ck if _ig.on else None)
         if pad:
             out = _unpack(out, n)
         pv_exec_us.add((time.perf_counter_ns() - ns0) // 1000)
@@ -175,7 +184,8 @@ def _resolve(comm, pkey, builder) -> Plan:
 def _build_hbm_plan(module, nsegs: int, seg: int, dtype,
                     opname: str) -> Plan:
     return Plan(nsegs, seg, _pl._pad_value(opname, dtype),
-                module._stacked_fn("allreduce", opname))
+                module._stacked_fn("allreduce", opname),
+                _ig.spec_static("allreduce", opname, dtype))
 
 
 def hbm_reduce(module, comm, x, op) -> torch.Tensor:
@@ -198,12 +208,13 @@ def hbm_reduce(module, comm, x, op) -> torch.Tensor:
 
 # -- mesh plans -------------------------------------------------------------
 
-def _build_mesh_plan(comm, alg: str, nsegs: int, seg: int, opname: str,
-                     native: bool) -> Plan:
+def _build_mesh_plan(comm, alg: str, nsegs: int, seg: int, dtype,
+                     opname: str, native: bool) -> Plan:
     from ompi_tpu_torch.coll import device
     order = "rank" if native else _pl.fold_order(alg, comm.size, seg)
     return Plan(nsegs, seg, None,
-                lambda s: device._mesh_allreduce(s, opname, order))
+                lambda s: device._mesh_allreduce(s, opname, order),
+                _ig.spec_static("allreduce", opname, dtype))
 
 
 def mesh_reduce(module, comm, x, op, alg: str) -> torch.Tensor:
@@ -219,6 +230,7 @@ def mesh_reduce(module, comm, x, op, alg: str) -> torch.Tensor:
             op.name)
     plan = _resolve(
         comm, pkey,
-        lambda: _build_mesh_plan(comm, alg, nsegs, seg, op.name, native))
+        lambda: _build_mesh_plan(comm, alg, nsegs, seg, flat.dtype, op.name,
+                                 native))
     _pl.pv_segments.add(nsegs)
     return plan.execute(comm, flat, n).reshape(x.shape)

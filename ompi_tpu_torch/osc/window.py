@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import errhandler as _eh
+from ompi_tpu_torch import ft_inject
 from ompi_tpu_torch.datatype import engine as dtmod
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.op import op as opmod
@@ -181,6 +182,7 @@ class Window:
         self._start_group: Optional[List[int]] = None
         self._freed = False
         self._progress = base.state.progress
+        self._inj = ft_inject.rma_injector(base.rank)
         self._post_hdr_recv()
         self._progress.register(self._am_progress)
         base.Barrier()  # window exists everywhere before any op
@@ -284,6 +286,10 @@ class Window:
 
     def _apply(self, hdr: np.ndarray, src: int,
                payload: Optional[np.ndarray]) -> None:
+        if self._inj is not None:
+            d = self._inj.maybe_delay()
+            if d:
+                time.sleep(d)  # ft_inject rma_delay: slow AM apply
         mtype = int(hdr[0])
         origin, disp, count = int(hdr[1]), int(hdr[2]), int(hdr[3])
         dtnum, opcode = int(hdr[4]), int(hdr[5])

@@ -6,9 +6,11 @@ comm_world/self → coll select → final fence) and ompi_mpi_finalize.c's
 reverse teardown.
 
 The port carries the in-process transports only (btl/inproc and
-btl/self) and none of the reference's optional planes yet: tracing,
-telemetry, online autotune, pstat, binding, ULFM, vprotocol, live
-recovery and fault injection are listed in ROADMAP.md as still to port.
+btl/self).  Of the reference's optional planes it has the integrity
+plane (its knobs are read at init, as the reference's obs.attach
+does) and the fault injectors of the rendezvous and the RMA AM apply;
+tracing, telemetry, online autotune, pstat, binding, ULFM, vprotocol
+and live recovery are listed in ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ompi_tpu_torch.btl import base as btl_base
 from ompi_tpu_torch.btl import inproc as _btl_inproc  # noqa: F401 (registers)
 from ompi_tpu_torch.btl import self_btl as _btl_self  # noqa: F401
 from ompi_tpu_torch.comm.communicator import Communicator, Group
+from ompi_tpu_torch.obs import integrity
 from ompi_tpu_torch.pml import ob1 as _pml_ob1
 from .state import LogicalDevice, ProcState, clear_current, set_current
 
@@ -28,6 +31,7 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     host-only world), or a ``LogicalDevice``: a torch device and this
     rank's logical slot on it."""
     set_current(state)
+    integrity.refresh()
     if isinstance(device, LogicalDevice):
         device, state.device_slot = device.device, device.slot
     state.device = device

@@ -873,3 +873,83 @@ def test_rma_kernels_match_plain_on_card(cuda_device):
             assert torch.equal(a, b) and torch.equal(
                 oa.view(torch.uint8), ob.view(torch.uint8)), dt
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K11 digest (the integrity plane's checksum; its plain version is held
+# against the reference's digest in tests/test_torch_integrity.py)
+# ---------------------------------------------------------------------------
+
+from ompi_tpu_torch.kernels import digest as k11  # noqa: E402
+
+DIGEST_DTYPES = [np.int8, np.uint8, np.int16, np.uint16, np.int32,
+                 np.uint32, np.int64, np.uint64, np.float16, np.float32,
+                 np.float64]
+
+
+def test_digest_refuses_what_the_kernel_does_not_take():
+    """bool, bfloat16 and complex, FSUM on ints, INTSUM on floats, an
+    unknown code, a strided operand and a table across devices are
+    refused on the CPU as on a card; plain calls are not launches."""
+    before = k11.digest.launches.value
+    for dt, code in ((torch.bool, 1), (torch.bfloat16, 2),
+                     (torch.complex64, 2), (torch.int32, 2),
+                     (torch.float32, 1), (torch.float32, 9)):
+        with pytest.raises(TypeError):
+            k11.digest([torch.zeros(4, dtype=dt)], [code])
+    with pytest.raises(ValueError):
+        k11.digest([torch.zeros(4, 2)[:, 0]], [2])
+    with pytest.raises(ValueError):
+        k11.digest([torch.zeros(4)], [2, 2])
+    with pytest.raises(ValueError):
+        k11.digest([torch.zeros(4), torch.zeros(4, device="meta")], [2, 2])
+    k11.digest([torch.ones(4)], [2])
+    assert k11.digest.launches.value == before
+
+
+@pytest.mark.gpu
+def test_digest_kernel_matches_plain_on_card(cuda_device):
+    """K11 against its plain version on the card: every dtype under
+    every fold it takes, empty to 2**17 + 3 elements, one table of 32
+    mixed operands in one launch, and a table beyond MAX_OPS (two
+    launches).  INTSUM, MAX and MIN exact; FSUM within 1e-12 relative
+    and bit-identical across two launches."""
+    rng = np.random.default_rng(17)
+    xs, codes = [], []
+    for dt in DIGEST_DTYPES:
+        fl = np.dtype(dt).kind == "f"
+        for n in (0, 1, 2, 1000, (1 << 17) + 3):
+            if fl:
+                a = (rng.standard_normal(n) * 100).astype(dt)
+                if n > 8:
+                    a[3] = np.nan if n % 2 else -0.0
+            else:
+                info = np.iinfo(dt)
+                a = rng.integers(info.min, info.max, size=n, dtype=dt,
+                                 endpoint=True)
+            for code in ((2, 3, 4) if fl else (1, 3, 4)):
+                xs.append(convert.to_torch(a, cuda_device))
+                codes.append(code)
+    for lo in range(0, len(xs), 32):
+        part = slice(lo, lo + 32)
+        launches = k11.digest.launches.value
+        got = k11.digest(xs[part], codes[part])
+        assert k11.digest.launches.value == launches + 1
+        again = k11.digest(xs[part], codes[part])
+        want = k11.digest_plain(xs[part], codes[part])
+        assert torch.equal(got, again)
+        for t, c, g, w in zip(xs[part], codes[part], got.tolist(),
+                              want.tolist()):
+            gv, wv = (k11.decode(g, c, t.dtype), k11.decode(w, c, t.dtype))
+            if c == 2 and wv == wv and abs(wv) != float("inf"):
+                assert abs(gv - wv) <= 1e-12 * max(abs(gv), abs(wv))
+            else:
+                assert gv == wv or (gv != gv and wv != wv), (t.dtype, c)
+    launches = k11.digest.launches.value
+    big = k11.digest(xs[:k11.MAX_OPS + 5], codes[:k11.MAX_OPS + 5])
+    assert k11.digest.launches.value == launches + 2
+    assert torch.equal(big, torch.cat([
+        k11.digest(xs[:k11.MAX_OPS], codes[:k11.MAX_OPS]),
+        k11.digest(xs[k11.MAX_OPS:k11.MAX_OPS + 5],
+                   codes[k11.MAX_OPS:k11.MAX_OPS + 5])]))
+    torch.cuda.synchronize()
