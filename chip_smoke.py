@@ -37,7 +37,12 @@ Phases, each fatal on failure (nothing is caught and carried on):
              value cases (uint8 wrap, -1 as unsigned, NaN, +-inf, -0.0):
              INTSUM, MAX and MIN exact, FSUM within 1e-12 relative of
              the plain version (which sums in another order) and
-             bit-identical across two launches.
+             bit-identical across two launches.  K12 driver_step
+             against driver_step_plain for float32, float64, int32,
+             float16 and bfloat16, R in {2, 8}, N in {8, 1024, 2**21,
+             37 R}, one launch a call, and its refusal of N % R != 0;
+             K2 peer with null sources (a 2*3-slot table with PROC_NULL
+             at either end): exact, zeros in the null blocks.
 3. main    — the port's main path through its user entry points:
              run_ranks(8, fn, device_map=cuda:0) -> comm.allreduce_arr
              (SUM float32: 1 MiB a rank in one dispatch, below
@@ -96,6 +101,29 @@ Phases, each fatal on failure (nothing is caught and carried on):
              device that holds outputs to check and, injected, one
              bisect launch a device and the body twice.  With two or
              more cards the same cases run again one rank a card.
+3e. halo   — the halo path on 8 logical devices of card 0 (the mesh
+             tier), then on 8 ranks co-located on it (coll/hbm): the
+             sendrecv_arr ring at 8 MiB f32, a sender that overwrites
+             its tensor right after send_arr, a sender on a side stream
+             behind a sleeping kernel, byte and object messages
+             interleaved; on Create_cart([2, 4], periods=[True, True])
+             shift_arr along both dims both ways and
+             neighbor_allgather_arr at 8 MiB f32; on Create_cart([2, 2,
+             2]) without periods neighbor_allgather_arr at 1 MiB int32
+             (PROC_NULL blocks zero); Neighbor_allgather and
+             Neighbor_alltoall on host numpy.  Every result exact
+             against a plain computation; 8 K2 peer launches a
+             neighbor_allgather_arr call, nothing else launches.  With
+             two or more cards, again one rank a card (send_arr's peer
+             copy over NVLink).
+3f. entry  — entry()'s fn at (8, 1024) and (8, 2**21) float32, exact
+             against driver_step_plain, one K12 launch a call;
+             dryrun_multichip(8)'s step at the reference's shapes and
+             at 8 MiB shards (cols 2**19) on 8 logical devices of the
+             card, then the MPI part: every rank's value exact at the
+             reference's shapes and within the float SUM band of a
+             float64 computation at full width; K6 and K2 peer launch
+             counts exactly as PERF.md predicts.
 4. timing  — each kernel at the main path's shapes: its device time
              (CUDA events around a replayed CUDA graph of many calls)
              and its time a call (events around eager calls, host
@@ -112,14 +140,15 @@ Phases, each fatal on failure (nothing is caught and carried on):
              with card-tensor origins (put and get at 64 KiB, 1 MiB and
              4 MiB, the accumulate rate, fetch_and_op latency), both
              lowerings; the headline with the integrity plane armed at
-             1-in-1 against unarmed, in turns.
+             1-in-1 against unarmed, in turns; the 8 MiB sendrecv_arr
+             ring and neighbor_allgather_arr on both tiers.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
 on a host with two or more cards builds the kernels and runs only the
-one-rank-a-card branch (the mesh, RMA and integrity phases over peer
-access).
+one-rank-a-card branch (the mesh, RMA, integrity and halo phases over
+peer access).
 """
 
 from __future__ import annotations
@@ -353,6 +382,9 @@ def phase_kernels(dev) -> None:
     log(f"[kernels] K11: {ncases} cases held against the plain version: "
         "INTSUM, MAX and MIN exact, FSUM within 1e-12 relative and "
         "bit-identical across two launches")
+    ncases = _kernels_entry(dev, g)
+    log(f"[kernels] K12 and K2 peer with null sources: {ncases} cases "
+        "held against the plain versions, tolerance exact")
 
 
 DIGEST_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.uint16,
@@ -605,9 +637,10 @@ def config5(comm, raw, dt):
 
 def launch_counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    from ompi_tpu_torch.kernels import digest, fused, index, mesh, rma, \
-        stacked
+    from ompi_tpu_torch.kernels import digest, entry, fused, index, mesh, \
+        rma, stacked
     return {"digest": digest.digest.launches,
+            "driver_step": entry.driver_step.launches,
             "stacked_reduce": stacked.stacked_reduce.launches,
             "stacked_copy": stacked.stacked_copy.launches,
             "fused_batch": fused.fused_batch.launches,
@@ -623,8 +656,9 @@ def launch_counters() -> dict:
 
 def drive(plan, device_map, nranks: int, tier: str, what: str):
     """Run ``plan``'s cases in order on ``nranks`` rank threads through
-    the port's entry points.  Every entry point driven must be provided
-    by ``tier`` (coll/nbc for the nonblocking ones).  Every counter is
+    the port's entry points.  Every collective entry point driven must
+    be provided by ``tier`` (coll/nbc for the nonblocking ones; a case
+    whose entry point is None is point-to-point).  Every counter is
     zeroed just before the run; each case's launches are read between
     barriers around it and must be exactly its expected counts (every
     other kernel: 0).  Returns (results by rank, total launches, the
@@ -639,6 +673,8 @@ def drive(plan, device_map, nranks: int, tier: str, what: str):
 
     def fn(comm):
         for _, fname, _, _, _ in plan:
+            if fname is None:  # point-to-point: no collective provider
+                continue
             want = "nbc" if fname.startswith("i") else tier
             if comm.coll.providers[fname] != want:
                 raise AssertionError(f"{fname} is provided by "
@@ -680,7 +716,8 @@ def drive(plan, device_map, nranks: int, tier: str, what: str):
         f"launches {launches}")
     for key, fname, want, _, knobs in plan:
         want = {k: want.get(k, 0) for k in counters}
-        log(f"[{tier}] {key} ({fname}{', ' + str(knobs) if knobs else ''}"
+        log(f"[{tier}] {key} ({fname or 'p2p'}"
+            f"{', ' + str(knobs) if knobs else ''}"
             f"): launches {per_call[key]}")
         if per_call[key] != want:
             raise AssertionError(f"{key}: launches {per_call[key]}, "
@@ -1126,6 +1163,63 @@ def _kernels_mesh(dev, g) -> int:
                       f"K7 {dtype} n={n}")
                 ncases += 1
         log(f"[K2 peer/K7] {str(dtype)[6:]:>8} exact")
+    torch.cuda.synchronize()
+    return ncases
+
+
+def _kernels_entry(dev, g) -> int:
+    """K12 driver_step against driver_step_plain for float32, float64,
+    int32, float16 and bfloat16, R in {2, 8}, N in {8, 1024, 2**21 and
+    an odd multiple of R} (one launch a call); its refusal of N % R !=
+    0 on the card; and K2 peer with null sources: a 2*3-slot table with
+    PROC_NULL at either end, zeros in the null blocks.  Exact."""
+    from ompi_tpu_torch.kernels import entry, stacked
+    ncases = 0
+    for dtype in (torch.float32, torch.float64, torch.int32,
+                  torch.float16, torch.bfloat16):
+        worst = 0.0
+        for r in (2, 8):
+            for n in (8, 1024, 1 << 21, 37 * r):
+                if dtype == torch.int32:
+                    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (r, n),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32)
+                else:
+                    x = torch.randn(r, n, generator=g, device=dev
+                                    ).to(dtype)
+                before = entry.driver_step.launches.value
+                got = entry.driver_step(x)
+                if entry.driver_step.launches.value != before + 1:
+                    raise AssertionError("K12: not one launch a call")
+                w = _held(list(got), list(entry.driver_step_plain(x)),
+                          f"K12 {dtype} R={r} N={n}")
+                worst = max(worst, w[0])
+                ncases += 1
+        log(f"[K12] {str(dtype)[6:]:>8} max_abs {worst}")
+    try:
+        entry.driver_step(torch.ones(8, 1020, device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K12 took N % R != 0")
+    torch.cuda.synchronize()
+    for dtype in (torch.float32, torch.int32, torch.int8, torch.float64):
+        for b in (1 << 18, 1031):
+            xs = [make_shard(g, b, dtype, "MPI_SUM", dev) for _ in range(4)]
+            srcs = [None, xs[0], xs[1], xs[2], xs[3], None]
+            a = torch.full((6 * b,), 3, dtype=dtype, device=dev)
+            c = a.clone()
+            before = stacked.peer_copy.launches.value
+            stacked.peer_copy(srcs, a, b)
+            if stacked.peer_copy.launches.value != before + 1:
+                raise AssertionError("K2 peer: not one launch a table")
+            stacked.peer_copy_plain(srcs, c, b)
+            _held([a], [c], f"K2 peer null sources {dtype} block {b}")
+            if a[:b].any() or a[-b:].any():
+                raise AssertionError("K2 peer: a null block is not zero")
+            ncases += 1
+    log("[K2 peer] null sources (PROC_NULL at either end of a 2*3-slot "
+        "table) exact, zeros in the null blocks")
     torch.cuda.synchronize()
     return ncases
 
@@ -1608,6 +1702,313 @@ def phase_integrity(devs, tier: str, what: str):
 
 
 # ---------------------------------------------------------------------------
+# 3e. the halo path: device p2p, cartesian topologies, neighbour gathers
+# ---------------------------------------------------------------------------
+
+def halo_grids(n: int):
+    """(periodic 2-D grid, open grid) of the halo phase at n ranks:
+    [2, n // 2] periodic and dims_create(n, 3) without periods
+    ([2, 4] and [2, 2, 2] at 8 ranks)."""
+    from ompi_tpu_torch.topo import dims_create
+    return [2, n // 2], dims_create(n, 3)
+
+
+def halo_cases(devs):
+    """(key, entry point, launches, call, knobs) of the halo phase at
+    N = len(devs) ranks, rank r on devs[r]: the sendrecv_arr ring at 8
+    MiB f32, the reuse and side-stream cases, byte and object messages
+    interleaved, shift_arr along both dims of the periodic grid both
+    ways and neighbor_allgather_arr on it at 8 MiB f32 (one K2 peer
+    launch a member), neighbor_allgather_arr on the open grid at 1 MiB
+    int32 (PROC_NULL blocks zero), and the host neighbour
+    collectives (None: no collective provider to check)."""
+    import numpy as np
+    n = len(devs)
+    f32, i32 = torch.float32, torch.int32
+    grid, open_grid = halo_grids(n)
+
+    def inp(c, nbytes, dtype, salt):
+        return mesh_input(c.rank, nbytes, dtype, devs, salt)
+
+    def ring(c):
+        return c.sendrecv_arr(inp(c, 8 * MIB, f32, 41), (c.rank + 1) % n,
+                              (c.rank - 1) % n, tag=41)
+
+    def reuse(c):
+        # the sender overwrites its tensor right after send_arr: what
+        # arrives is the bytes of the send
+        x = inp(c, MIB, f32, 42)
+        c.send_arr(x, (c.rank + 1) % n, tag=42)
+        x.fill_(-1.0)
+        return c.recv_arr((c.rank - 1) % n, tag=42), x
+
+    def side(c):
+        # the sender writes x on a side stream of its own behind a
+        # sleeping kernel, then sends from that stream; the receiver
+        # reads on its own current stream: only the payload's event
+        # orders the read after the copy
+        dev = devs[c.rank]
+        if dev.type == "cuda":
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                torch.cuda._sleep(1 << 22)
+                x = inp(c, MIB, f32, 43) * 3.0
+                c.send_arr(x, (c.rank + 1) % n, tag=43)
+        else:
+            c.send_arr(inp(c, MIB, f32, 43) * 3.0, (c.rank + 1) % n, tag=43)
+        return c.recv_arr((c.rank - 1) % n, tag=43) + 1.0
+
+    def mixed(c):
+        peer = c.rank ^ 1
+        if c.rank % 2 == 0:
+            c.Send(np.array([7 + c.rank], np.int64), peer, tag=44)
+            c.send_arr(inp(c, MIB, f32, 44), peer, tag=44)
+            c.Send(np.array([8 + c.rank], np.int64), peer, tag=44)
+            return None
+        y = np.empty(1, np.int64)
+        c.Recv(y, peer, tag=44)
+        a = int(y[0])
+        arr = c.recv_arr(peer, tag=44)
+        c.Recv(y, peer, tag=44)
+        return a, arr, int(y[0])
+
+    def shifts(c):
+        cart = c.Create_cart(grid, periods=[True, True])
+        x = inp(c, 8 * MIB, f32, 45)
+        return [cart.shift_arr(x, d, s) for d in (0, 1) for s in (1, -1)]
+
+    def nbr(c):
+        cart = c.Create_cart(grid, periods=[True, True])
+        return cart.neighbor_allgather_arr(inp(c, 8 * MIB, f32, 46))
+
+    def nbr_open(c):
+        cart = c.Create_cart(open_grid)
+        return cart.neighbor_allgather_arr(inp(c, MIB, i32, 47))
+
+    def host(c):
+        cart = c.Create_cart(grid, periods=[True, True])
+        s = np.arange(3, dtype=np.int64) + 10 * c.rank
+        r = np.zeros(12, dtype=np.int64)
+        cart.Neighbor_allgather(s, r)
+        s2 = np.arange(4, dtype=np.int64) + 100 * c.rank
+        r2 = np.zeros(4, dtype=np.int64)
+        cart.Neighbor_alltoall(s2, r2)
+        return r, r2
+
+    return [
+        ("h_ring8", None, {}, ring, {}),
+        ("h_reuse", None, {}, reuse, {}),
+        ("h_side", None, {}, side, {}),
+        ("h_mixed", None, {}, mixed, {}),
+        ("h_shift8", "ppermute_arr", {}, shifts, {}),
+        ("h_nbr8", "neighbor_allgather_arr", {"peer_copy": n}, nbr, {}),
+        ("h_nbr_open", "neighbor_allgather_arr", {"peer_copy": n},
+         nbr_open, {}),
+        ("h_host", None, {}, host, {}),
+    ]
+
+
+def phase_halo(devs, tier: str, what: str):
+    """The halo path through the port's entry points: N = len(devs)
+    rank threads, rank r on devs[r] (a LogicalDevice of card 0: the
+    mesh tier; card 0 itself: coll/hbm; or card r); launch counts
+    checked case by case, every result exact against a plain
+    computation."""
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    cards = [d.device if isinstance(d, LogicalDevice) else d for d in devs]
+    res, launches, per_call = drive(halo_cases(cards), lambda r: devs[r],
+                                    len(devs),
+                                    tier, what)
+    check_halo(cards, res, tier)
+    return launches, {f"{k}_{tier}": v for k, v in per_call.items()}
+
+
+def check_halo(devs, res, tier: str) -> None:
+    import numpy as np
+    from ompi_tpu_torch.pml.request import PROC_NULL
+    from ompi_tpu_torch.topo import CartTopo
+    n = len(devs)
+    home = devs[0]
+    grid, open_grid = halo_grids(n)
+
+    def inputs(nbytes, dtype, salt):
+        return [mesh_input(r, nbytes, dtype, devs, salt).to(home)
+                for r in range(n)]
+
+    def same(key, got, want, r):
+        if got.is_cuda and got.device != devs[r]:
+            raise AssertionError(f"{key}: rank {r}'s result lies on "
+                                 f"{got.device}, not {devs[r]}")
+        _held([got.to(home)], [want], f"{key} rank {r}")
+
+    x8 = inputs(8 * MIB, torch.float32, 41)
+    for r in range(n):
+        same("h_ring8", res[r]["h_ring8"], x8[(r - 1) % n], r)
+    x1 = inputs(MIB, torch.float32, 42)
+    for r in range(n):
+        got, mine = res[r]["h_reuse"]
+        same("h_reuse", got, x1[(r - 1) % n], r)
+        if not bool((mine == -1.0).all()):
+            raise AssertionError("h_reuse: the sender's overwrite missed")
+    xs = inputs(MIB, torch.float32, 43)
+    for r in range(n):
+        same("h_side", res[r]["h_side"], xs[(r - 1) % n] * 3.0 + 1.0, r)
+    xm = inputs(MIB, torch.float32, 44)
+    for r in range(1, n, 2):
+        a, arr, b = res[r]["h_mixed"]
+        if (a, b) != (7 + r - 1, 8 + r - 1):
+            raise AssertionError(f"h_mixed: rank {r} got bytes {a}, {b}")
+        same("h_mixed", arr, xm[r - 1], r)
+    t = CartTopo(grid, [True, True], 0)
+    x8 = inputs(8 * MIB, torch.float32, 45)
+    for r in range(n):
+        k = 0
+        for d in (0, 1):
+            for s in (1, -1):
+                src = t.shift(d, s, r)[0]
+                same(f"h_shift8 dim {d} disp {s}", res[r]["h_shift8"][k],
+                     x8[src], r)
+                k += 1
+    for key, g, periods, nbytes, dtype, salt in (
+            ("h_nbr8", grid, [True, True], 8 * MIB, torch.float32, 46),
+            ("h_nbr_open", open_grid, [False] * 3, MIB, torch.int32, 47)):
+        t = CartTopo(g, periods, 0)
+        xg = inputs(nbytes, dtype, salt)
+        for r in range(n):
+            want = torch.stack([torch.zeros_like(xg[0]) if s == PROC_NULL
+                                else xg[s] for s in t.neighbors(r)])
+            same(key, res[r][key], want, r)
+    t = CartTopo(grid, [True, True], 0)
+    for r in range(n):
+        r1, r2 = res[r]["h_host"]
+        want1 = np.concatenate([np.arange(3) + 10 * s
+                                for s in t.neighbors(r)])
+        nb = t.neighbors(r)
+        # neighbour j sends me its block for the mirrored direction,
+        # j ^ 1; a neighbour listed twice (a periodic dim of 2) pairs
+        # its blocks with mine in order (MPI-3 pairing by order)
+        want2 = np.array([100 * s + (j ^ 1 if nb[j] != nb[j ^ 1] else j)
+                          for j, s in enumerate(nb)])
+        if not (np.array_equal(r1, want1) and np.array_equal(r2, want2)):
+            raise AssertionError(f"h_host: rank {r} got {r1}, {r2}")
+    log(f"[halo {tier}] sendrecv_arr ring 8 MiB f32, reuse after send, "
+        "side-stream sender, bytes and objects interleaved, shift_arr "
+        f"on {grid} both dims both ways, neighbor_allgather_arr on "
+        f"{grid} (8 MiB f32) and {open_grid} open (1 MiB int32, PROC_NULL "
+        "blocks zero), Neighbor_allgather / Neighbor_alltoall on host "
+        "numpy: every result exact against its plain computation")
+
+
+# ---------------------------------------------------------------------------
+# 3f. the driver's entry points
+# ---------------------------------------------------------------------------
+
+ENTRY_N = 1 << 21       # K12's full width: an (8, 2**21) float32 stack
+DRYRUN_COLS = 1 << 19   # the dry run's full width: 8 MiB (4, 2**19) shards
+
+
+def _dryrun_want(n: int, cols: int, dev):
+    """Each rank's (step value, the sum of its magnitudes) in float64
+    on the card, from a plain statement of the reference's ``step``
+    (__graft_entry__.py:106-119), and each rank's MPI value
+    (:141-156)."""
+    dp, sp = (n // 2, 2) if n % 2 == 0 and n > 2 else (n, 1)
+    gx = torch.arange(dp * sp * dp * cols, dtype=torch.float64,
+                      device=dev).reshape(dp, sp, dp, cols)  # [i, j] shard
+    g = gx.sum(0)                               # (sp, dp, cols)
+    rs = dp * g                                 # rs[j, i]: rank (i, j)
+    steps, mpis = [], []
+    for r in range(n):
+        i, j = divmod(r, sp)
+        a2a = gx[:, j, i]                       # (dp, cols)
+        ag = rs[(j - 1) % sp]                   # (dp, cols)
+        terms = (a2a.sum(), ag.sum(), rs[j, i].sum())
+        steps.append((float(sum(terms)),
+                      float(a2a.abs().sum() + ag.abs().sum()
+                            + rs[j, i].abs().sum())))
+        sr = sum(q + 1 for q in range(n) if q % 2 == r % 2)
+        mpis.append(float(sr + n * (n + 1) // 2 + 1 + (r - 1) % n + 1))
+    return steps, mpis
+
+
+def phase_entry(dev):
+    """entry()'s fn at (8, 1024) and (8, 2**21) float32, exact against
+    driver_step_plain, one K12 launch a call; dryrun_multichip(8) at the
+    reference's shapes and the same step at DRYRUN_COLS on 8 logical
+    devices of the card.  Every counter is zeroed just before each run
+    and read just after; every rank's value is exact against a float64
+    statement at the reference's shapes and within the float SUM band
+    at full width.  Returns (launches, per-case launches)."""
+    import math
+    from ompi_tpu_torch import entry
+    from ompi_tpu_torch.kernels.entry import driver_step_plain
+    counters = launch_counters()
+
+    def snap():
+        return {k: c.value for k, c in counters.items()}
+
+    per_call = {}
+    fn, (x,) = entry.entry()
+    if x.device != dev or x.shape != (8, 1024):
+        raise AssertionError(f"entry(): example on {x.device}, {x.shape}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    big = torch.randn(8, ENTRY_N, generator=g, device=dev)
+    for key, arg in (("f_entry", x * torch.arange(1024, device=dev)),
+                     ("f_entry_big", big)):
+        for c in counters.values():
+            c.reset()
+        got = fn(arg)
+        torch.cuda.synchronize()
+        per_call[key] = snap()
+        want = {k: int(k == "driver_step") for k in counters}
+        if per_call[key] != want:
+            raise AssertionError(f"{key}: launches {per_call[key]}")
+        _held(list(got), list(driver_step_plain(arg)),
+              f"{key} {tuple(arg.shape)}")
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"{key}: non-finite output")
+        log(f"[entry] entry() fn at {tuple(arg.shape)} f32: one K12 launch, "
+            "exact against driver_step_plain, finite")
+    expect = {8: {"mesh_fold": 36, "peer_copy": 48},
+              DRYRUN_COLS: {"mesh_fold": 36, "peer_copy": 104}}
+    for cols in (8, DRYRUN_COLS):
+        key = "f_dryrun" if cols == 8 else "f_dryrun_big"
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        res = entry._dryrun_body(NRANKS, cols=cols, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_call[key] = snap()
+        want = {k: expect[cols].get(k, 0) for k in counters}
+        if per_call[key] != want:
+            raise AssertionError(f"{key}: launches {per_call[key]}, "
+                                 f"expected {want}")
+        steps, mpis = _dryrun_want(NRANKS, cols, dev)
+        dp = NRANKS // 2
+        band = 4 * (dp + math.ceil(math.log2(2 * dp * cols)) + 2) * 2.0 ** -24
+        worst = 0.0
+        for r, ((step, mpi), (w, mag)) in enumerate(zip(res, steps)):
+            if mpi != mpis[r]:
+                raise AssertionError(f"{key}: rank {r} MPI value {mpi}, "
+                                     f"expected {mpis[r]}")
+            err = abs(step - w)
+            if (cols == 8 and err) or err > band * mag:
+                raise AssertionError(f"{key}: rank {r} step {step}, "
+                                     f"expected {w} (band {band * mag})")
+            worst = max(worst, err / mag if mag else 0.0)
+        log(f"[entry] dryrun step on 8 logical devices at cols={cols}: "
+            f"{wall:.3f} s, launches K6 {per_call[key]['mesh_fold']} K2 peer "
+            f"{per_call[key]['peer_copy']} as predicted; every rank's step "
+            + ("exact" if cols == 8 else
+               f"within the float SUM band (worst {worst:.3g} of the "
+               f"magnitudes, band {band:.3g})")
+            + " against float64, MPI part exact")
+    launches = {k: sum(pc[k] for pc in per_call.values()) for k in counters}
+    return launches, per_call
+
+
+# ---------------------------------------------------------------------------
 # 4. timing
 # ---------------------------------------------------------------------------
 
@@ -1673,7 +2074,9 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
     rows = []
 
     def row(name, kernel, call, replaces, bytes_moved, make, k_fn, p_fn,
-            lib_fn, iters, source="stacked.cu", nsets=None):
+            lib_fn, iters, source="stacked.cu", nsets=None, comp_fn=None):
+        # comp_fn: a composition of several PyTorch calls computing the
+        # same function where no one call does; timed as composition_ms
         # the error, on input sets of their own (K5 writes in place)
         got = [t.clone() for t in _flat(k_fn(make(0)))]
         a, _, _ = max((_err(o, r) for o, r in zip(
@@ -1691,6 +2094,10 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         if lib_fn is not None:
             l_ms, l_call = time_ms(lambda i: lib_fn(sets[i]),
                                    max(iters, nsets), nsets)
+        c_ms = None
+        if comp_fn is not None:
+            c_ms, _ = time_ms(lambda i: comp_fn(sets[i]),
+                              max(iters, nsets), nsets)
         del sets
         bound = bytes_moved / HBM_BYTES_PER_S * 1e3
         per = per_call[call][kernel] if call else None
@@ -1701,6 +2108,8 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
                      "library_ms": l_ms, "call_ms": k_call,
                      "warm_ms": warm, "input_sets": nsets,
                      "launches_per_call": per})
+        if c_ms is not None:
+            rows[-1]["composition_ms"] = c_ms
         lib = "none" if l_ms is None else f"{l_ms:.4f} ms ({l_call:.4f})"
         where = f"{per} launch(es) in the main path's {call}" if call \
             else "not a main-path shape"
@@ -1708,7 +2117,8 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
             f"{nsets} input set(s) ({k_call:.4f} ms a call; warm "
             f"{warm:.4f}), bound {bound:.6f} ms ({bound / k_ms * 100:.1f}% "
             f"of bound), plain {p_ms:.4f} ms ({p_call:.4f}), library "
-            f"{lib}, {where}")
+            f"{lib}{'' if c_ms is None else f', composition {c_ms:.4f} ms'}"
+            f", {where}")
 
     n = NRANKS
 
@@ -1796,15 +2206,17 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
     n8 = 8 * MIB // 4
     ms = _stripe_elems(n8, n, 4)
 
-    def folds(order):
+    def folds(order, nel=n8):
+        st = _stripe_elems(nel, n, 4)
+
         def k_fn(xs):
-            return [mesh.mesh_fold(xs, torch.empty(min(ms, n8 - d * ms),
+            return [mesh.mesh_fold(xs, torch.empty(min(st, nel - d * st),
                                                    device=dev),
-                                   d * ms, "MPI_SUM", order)
+                                   d * st, "MPI_SUM", order)
                     for d in range(n)]
 
         def p_fn(xs):
-            return [mesh.mesh_fold_plain(xs, d * ms, min(ms, n8 - d * ms),
+            return [mesh.mesh_fold_plain(xs, d * st, min(st, nel - d * st),
                                          "MPI_SUM", order)
                     for d in range(n)]
         return k_fn, p_fn
@@ -1817,6 +2229,20 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         row(f"mesh_fold:allreduce_sum_f32_8MiB_{label}", "mesh_fold", call,
             replaces, (n + 1) * 8 * MIB, ranks(8 * MIB, torch.float32, 70),
             k_fn, p_fn, lambda xs: torch.stack(xs).sum(0), 50,
+            source="mesh.cu")
+    # B9's own row: the native mesh plan's K6 launches at 128 MiB; B10's:
+    # the fused mesh batch's K6 launches over the 32 x 64 KiB slots K7
+    # packed (2 MiB a rank)
+    for label, call, replaces, mib, iters in (
+            ("plan_allreduce_sum_f32_128MiB_rank_order", "m_ar128",
+             "ompi_tpu/coll/plan.py:257", 128, 8),
+            (f"fused_{FUSED_OPS}x64KiB_sum_f32_rank_order", "m_fused32",
+             "ompi_tpu/coll/fusion.py:257", FUSED_OPS * FUSED_MIB, 100)):
+        nbytes = int(mib * MIB)
+        k_fn, p_fn = folds("rank", nbytes // 4)
+        row(f"mesh_fold:{label}", "mesh_fold", call, replaces,
+            (n + 1) * nbytes, ranks(nbytes, torch.float32, 74),
+            k_fn, p_fn, lambda xs: torch.stack(xs).sum(0), iters,
             source="mesh.cu")
     row("peer_copy:allgather_stripes_f32_8MiB", "peer_copy", "m_ar8",
         "ompi_tpu/coll/device.py:997", (n + 1) * 8 * MIB,
@@ -1942,6 +2368,46 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         row(f"digest:{label}", "digest", call, "ompi_tpu/obs/integrity.py:234",
             mib * MIB + 8 * nops, make, k_fn, p_fn, lib_fn, iters,
             source="digest.cu")
+    # K12 at the driver's full width: an (8, 2**21) float32 stack; it
+    # reads x and writes out and rs.  No one PyTorch call computes the
+    # step: the composition of the reference's ops is timed beside it.
+    from ompi_tpu_torch.kernels import entry as k12
+    ne = ENTRY_N // n
+
+    def stack_set(i):
+        gi = torch.Generator(device=dev)
+        gi.manual_seed(SEED * 1000 + 97 * 100 + i)
+        return torch.randn(n, ENTRY_N, generator=gi, device=dev)
+
+    def composition(x):
+        s = x.sum(0)
+        return s, s + x.view(n, n, ne).transpose(0, 1).reshape(n, -1)
+
+    row("driver_step:f32_8x2097152", "driver_step", "f_entry_big",
+        "__graft_entry__.py:17", (2 * n * ENTRY_N + ENTRY_N) * 4, stack_set,
+        k12.driver_step, k12.driver_step_plain, None, 50, source="entry.cu",
+        comp_fn=composition)
+    # one member's K2 peer launch of the neighbour gather on the 2x4
+    # periodic grid at 8 MiB float32: member 0's sources 4, 4, 3, 1 (a
+    # periodic dim of 2 lists one neighbour twice: three inputs, each
+    # read once, and four output blocks)
+    from ompi_tpu_torch.topo import CartTopo
+    nbrs = CartTopo(halo_grids(n)[0], [True, True], 0).neighbors(0)
+
+    def gather(xs):
+        return stacked.peer_copy([xs[s] for s in nbrs],
+                                 torch.empty(len(nbrs) * n8, device=dev), n8)
+
+    def gather_plain(xs):
+        return stacked.peer_copy_plain(
+            [xs[s] for s in nbrs], torch.empty(len(nbrs) * n8, device=dev),
+            n8)
+
+    row("peer_copy:neighbor_gather_2x4_f32_8MiB_one_member", "peer_copy",
+        "h_nbr8_tpu", "ompi_tpu/topo/neighbor.py:160",
+        (len(set(nbrs)) + len(nbrs)) * 8 * MIB,
+        ranks(8 * MIB, torch.float32, 98), gather,
+        gather_plain, lambda xs: torch.stack([xs[s] for s in nbrs]), 50)
     return rows
 
 
@@ -2349,16 +2815,65 @@ def phase_e2e_rma(dev) -> None:
         registry.set("osc_device_dma", saved)
 
 
+def phase_e2e_halo(dev) -> None:
+    """The halo path's host cost on one card, both tiers (8 logical
+    devices: the mesh tier; 8 ranks co-located: coll/hbm): the 8 MiB
+    float32 sendrecv_arr ring and neighbor_allgather_arr on the 2x4
+    periodic grid at 8 MiB, host clock around ``iters`` chained ops
+    ending in torch.cuda.synchronize(), slowest rank, microseconds an
+    op.  Not targets: they record the host's share."""
+    from ompi_tpu_torch.testing import logical_devices, run_ranks
+    iters, n = 20, NRANKS
+    grid = halo_grids(n)[0]
+
+    def fn(comm):
+        cart = comm.Create_cart(grid, periods=[True, True])
+        x = rank_input(comm.rank, 8 * MIB, torch.float32, dev, 48)
+        out = {}
+        for what in ("ring", "nbr"):
+            def op(y):
+                if what == "ring":
+                    return cart.sendrecv_arr(y, (cart.rank + 1) % n,
+                                             (cart.rank - 1) % n, tag=48)
+                return cart.neighbor_allgather_arr(y)[0]
+            for _ in range(3):
+                op(x)
+            torch.cuda.synchronize()
+            cart.Barrier()
+            t0 = time.perf_counter()
+            y = x
+            for _ in range(iters):
+                y = op(y)
+            torch.cuda.synchronize()
+            out[what] = time.perf_counter() - t0
+            cart.Barrier()
+        return out
+
+    card = card_line()
+    for tier, dm in (("mesh, 8 logical devices", logical_devices(dev)),
+                     ("hbm, 8 ranks co-located", lambda r: dev)):
+        dts = run_ranks(n, fn, device_map=dm, timeout=600)
+        ring = max(d["ring"] for d in dts) / iters * 1e6
+        nbr = max(d["nbr"] for d in dts) / iters * 1e6
+        log(f"[e2e] halo ({tier}, one card): sendrecv_arr ring 8 MiB "
+            f"f32 {ring:.1f} us an op; neighbor_allgather_arr {grid} "
+            f"periodic 8 MiB f32 {nbr:.1f} us an op (slowest rank, {iters} "
+            f"chained ops; host clock: the host's share, not a target) "
+            f"[{card}]")
+
+
 def phase_cards() -> None:
-    """One rank a card, on a host with two or more: the mesh, RMA and
-    integrity phases again, where every cross-device read or write goes
-    over peer access (NVLink) and a verify digests each card's outputs
-    on that card; a one-card host never takes this branch."""
+    """One rank a card, on a host with two or more: the mesh, RMA,
+    integrity and halo phases again, where every cross-device read or
+    write goes over peer access (NVLink) — send_arr's copy too — and a
+    verify digests each card's outputs on that card; a one-card host
+    never takes this branch."""
     nc = min(NRANKS, torch.cuda.device_count())
     cards = [torch.device("cuda", r) for r in range(nc)]
     phase_mesh(cards, f"{nc} cards, one rank each")
     phase_rma(cards, f"{nc} cards, one rank each")
     phase_integrity(cards, "tpu", f"{nc} cards, one rank each")
+    phase_halo(cards, "tpu", f"{nc} cards, one rank each")
 
 
 def main(argv) -> int:
@@ -2406,6 +2921,16 @@ def main(argv) -> int:
         i_launches, i_per_call = phase_integrity(devs, tier, what)
         launches = {k: launches[k] + i_launches[k] for k in launches}
         per_call.update(i_per_call)
+    for tier, devs, what in (
+            ("tpu", [LogicalDevice(dev, r) for r in range(NRANKS)],
+             f"8 logical devices on {dev}"),
+            ("hbm", [dev] * NRANKS, f"8 ranks on {dev}")):
+        h_launches, h_per_call = phase_halo(devs, tier, what)
+        launches = {k: launches[k] + h_launches[k] for k in launches}
+        per_call.update(h_per_call)
+    e_launches, e_per_call = phase_entry(dev)
+    launches = {k: launches[k] + e_launches[k] for k in launches}
+    per_call.update(e_per_call)
     if torch.cuda.device_count() >= 2:
         phase_cards()
     rows = phase_timing(dev, launches, per_call)
@@ -2419,6 +2944,7 @@ def main(argv) -> int:
     phase_e2e_rma(dev)
     phase_e2e_integrity(dev, next(r["ms"] for r in rows
                                   if r["name"] == "digest:gate_fsum_f32_8MiB"))
+    phase_e2e_halo(dev)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,8 @@ reduce-scatter by pulls — K6 mesh_fold, once per device, folding the
 stripe that device owns in the reference's order — then an allgather
 of the stripes by K2 in peer mode, once per device; alltoall and
 allgather are K2 peer launches; bcast and ppermute are peer copies.
+On both tiers the cartesian neighbour gather (``neighbor_allgather_arr``)
+is one K2 peer launch a member, zero-filling PROC_NULL blocks.
 
 Ordering across rank threads and devices: PyTorch's current stream is
 per thread and per device.  A depositor records an event on its
@@ -101,6 +103,9 @@ _dispatcher_var = registry.register(
          "thread instead of the rendezvous's last arriver (the "
          "segmented pipeline always hands its segments to that "
          "thread)")
+# the host fallback of neighbor_allgather_arr
+T_NEIGHBOR_ARR = -122
+
 _reduce_as_allreduce_var = registry.register(
     "coll", "device", "reduce_as_allreduce", True, bool,
     help="Lower reduce_arr as an on-device allreduce (computes "
@@ -796,6 +801,13 @@ class HbmCollModule(CollModule):
         pmap = {int(a): int(b) for a, b in perm}
         return self._stacked(comm, x, lambda s: _ppermute_copies(s, pmap))
 
+    def neighbor_allgather_arr(self, comm, x, srcs):
+        """``srcs[m]``: member m's sources in MPI neighbour order
+        (``topo.neighbor.source_table``)."""
+        if not self._eligible(comm, x):
+            return self.fallback.neighbor_allgather_arr(comm, x, srcs)
+        return self._stacked(comm, x, lambda s: _neighbor_gather(s, srcs))
+
 
 class HostArrModule(CollModule):
     """The *_arr surface over the host p2p collective stack, for host
@@ -892,6 +904,27 @@ class HostArrModule(CollModule):
                 reqs.append(_isend(comm, a.reshape(-1), int(dst), -115))
         for q in reqs:
             q.wait()
+        return self._back(comm, out)
+
+    def neighbor_allgather_arr(self, comm, x, srcs):
+        """Host p2p: one message from each distinct source to each
+        member that lists it (every block from one source holds the
+        same bytes), zeros for a PROC_NULL source."""
+        from ompi_tpu_torch.coll.base import _irecv_into, _isend
+        from ompi_tpu_torch.pml.request import PROC_NULL
+        a = np.ascontiguousarray(self._np(x))
+        mine = srcs[comm.rank]
+        out = np.zeros((len(mine),) + a.shape, dtype=a.dtype)
+        got = {s: np.empty_like(a) for s in mine if s != PROC_NULL}
+        reqs = [_irecv_into(comm, buf.reshape(-1), s, T_NEIGHBOR_ARR)
+                for s, buf in got.items()]
+        reqs += [_isend(comm, a.reshape(-1), m, T_NEIGHBOR_ARR)
+                 for m in range(comm.size) if comm.rank in srcs[m]]
+        for q in reqs:
+            q.wait()
+        for i, s in enumerate(mine):
+            if s != PROC_NULL:
+                out[i] = got[s]
         return self._back(comm, out)
 
 
@@ -1007,6 +1040,28 @@ def _ppermute_copies(xs: List[torch.Tensor], pmap: Dict[int, int]
     return [o if o is not None else torch.zeros(
         xs[0].shape, dtype=xs[0].dtype, device=x.device)
         for o, x in zip(outs, xs)]
+
+
+def _neighbor_gather(xs: List[torch.Tensor], srcs: List[List[int]]
+                     ) -> List[torch.Tensor]:
+    """Member m's output stacks the deposits of its sources ``srcs[m]``
+    (MPI neighbour order; a duplicate neighbour appears twice) along a
+    new leading axis, a zero block for PROC_NULL: ONE K2 peer launch a
+    member, writing its blocks straight from the neighbours' deposits
+    (no stack is materialised; the reference holds one ppermute
+    meeting a (dim, direction) and stacks the results)."""
+    from ompi_tpu_torch.pml.request import PROC_NULL
+    x0 = xs[0]
+    flats = [x.reshape(-1) for x in xs]
+    outs = []
+    for m, x in enumerate(xs):
+        o = torch.empty((len(srcs[m]),) + tuple(x0.shape), dtype=x0.dtype,
+                        device=x.device)
+        if o.numel():
+            stacked.peer_copy([None if s == PROC_NULL else flats[s]
+                               for s in srcs[m]], o.view(-1), x0.numel())
+        outs.append(o)
+    return outs
 
 
 def _nbytes(x) -> int:
@@ -1130,6 +1185,12 @@ class TpuCollModule(CollModule):
         pmap = {int(a): int(b) for a, b in perm}
         return self._run(comm, x, lambda s: _ppermute_copies(s, pmap))
 
+    def neighbor_allgather_arr(self, comm, x, srcs):
+        """``srcs[m]``: member m's sources in MPI neighbour order."""
+        if not self._eligible(comm, x):
+            return self.fallback.neighbor_allgather_arr(comm, x, srcs)
+        return self._run(comm, x, lambda s: _neighbor_gather(s, srcs))
+
 
 class PartlySharedModule(CollModule):
     """Members that partly share devices (8 ranks on 4 cards): neither
@@ -1149,6 +1210,7 @@ class PartlySharedModule(CollModule):
 
     allreduce_arr = bcast_arr = reduce_arr = allgather_arr = _refuse
     alltoall_arr = reduce_scatter_block_arr = ppermute_arr = _refuse
+    neighbor_allgather_arr = _refuse
 
 
 class TpuComponent(CollComponent):

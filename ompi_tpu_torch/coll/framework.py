@@ -38,6 +38,8 @@ COLL_FUNCS = (
     # (ring attention / pipeline parallelism)
     "allreduce_arr", "bcast_arr", "reduce_arr", "allgather_arr",
     "alltoall_arr", "reduce_scatter_block_arr", "ppermute_arr",
+    # the cartesian halo gather (topo.neighbor.neighbor_allgather_arr)
+    "neighbor_allgather_arr",
     # nonblocking device-array collectives: the fusion surface
     "iallreduce_arr", "ibcast_arr",
 )

@@ -86,6 +86,7 @@ class Communicator:
         self.rank = group.rank_of(state.rank)
         self.size = group.size
         self.coll: Any = None       # collective module stack (coll framework)
+        self.topo = None            # process topology (ompi_tpu_torch.topo)
         state.comms[cid] = self
         # stack collective modules (coll_base_comm_select analog);
         # local-only, so safe even mid-split on a subset of ranks
@@ -146,8 +147,10 @@ class Communicator:
     # -- management operations ------------------------------------------
     def dup(self, name: str = "") -> "Communicator":
         cid = self.next_cid()
-        return Communicator(self.state, cid, Group(self.group),
-                            name or f"{self.name}-dup")
+        new = Communicator(self.state, cid, Group(self.group),
+                           name or f"{self.name}-dup")
+        new.topo = self.topo  # MPI_Comm_dup carries the topology over
+        return new
 
     def create_group(self, group: Group, tag: int = 0
                      ) -> Optional["Communicator"]:
@@ -685,6 +688,173 @@ class Communicator:
         flush implicitly)."""
         from ompi_tpu_torch.coll import fusion
         fusion.flush_comm(self)
+
+    # -- device point-to-point (btl/tpu; see ompi_tpu_torch/btl/tpu) ----
+    def send_arr(self, x, dst, tag: int = 0) -> None:
+        from ompi_tpu_torch.btl import tpu as _tpu
+        _tpu.send_arr(self, x, dst, tag)
+
+    def recv_arr(self, src, tag: int = 0):
+        from ompi_tpu_torch.btl import tpu as _tpu
+        return _tpu.recv_arr(self, src, tag)
+
+    def sendrecv_arr(self, x, dst, src, tag: int = 0):
+        from ompi_tpu_torch.btl import tpu as _tpu
+        return _tpu.sendrecv_arr(self, x, dst, src, tag)
+
+    # -- topologies (ompi/mca/topo analog; ompi_tpu_torch.topo) ---------
+    def Create_cart(self, dims, periods=None, reorder: bool = False):
+        from ompi_tpu_torch.topo import cart_create
+        return cart_create(self, dims, periods, reorder)
+
+    def Create_graph(self, index, edges, reorder: bool = False):
+        from ompi_tpu_torch.topo import graph_create
+        return graph_create(self, index, edges, reorder)
+
+    def Create_dist_graph_adjacent(self, sources, destinations,
+                                   sourceweights=None, destweights=None,
+                                   reorder: bool = False):
+        from ompi_tpu_torch.topo import dist_graph_create_adjacent
+        return dist_graph_create_adjacent(self, sources, destinations,
+                                          sourceweights, destweights,
+                                          reorder)
+
+    def Topo_test(self) -> int:
+        from ompi_tpu_torch.topo import UNDEFINED_TOPO
+        return self.topo.kind if self.topo is not None else UNDEFINED_TOPO
+
+    def _require_topo(self, kind: Optional[int] = None):
+        """MPI_ERR_TOPOLOGY guard (cart-only accessors pass kind=CART)."""
+        t = self.topo
+        if t is None or (kind is not None and t.kind != kind):
+            raise ValueError(
+                f"{self.name} has no {'cartesian ' if kind == 1 else ''}"
+                f"topology (MPI_ERR_TOPOLOGY)")
+        return t
+
+    def Get_coords(self, rank: Optional[int] = None):
+        return self._require_topo(1).rank_to_coords(
+            self.rank if rank is None else rank)
+
+    def Get_cart_rank(self, coords) -> int:
+        return self._require_topo(1).coords_to_rank(coords)
+
+    def Shift(self, dim: int, disp: int = 1):
+        """MPI_Cart_shift → (rank_source, rank_dest)."""
+        return self._require_topo(1).shift(dim, disp, self.rank)
+
+    def Sub(self, remain_dims):
+        from ompi_tpu_torch.topo import cart_sub
+        return cart_sub(self, remain_dims)
+
+    def Get_topo(self):
+        t = self.topo
+        if t is None:
+            return None
+        if t.kind == 1:   # CART
+            return (t.dims, t.periods, t.coords)
+        if t.kind == 2:   # GRAPH
+            return (t.index, t.edges)
+        return (t.sources, t.destinations)
+
+    # -- neighbor collectives (MPI-3 §7.6) ------------------------------
+    @staticmethod
+    def _nbr_block(total: int, nbrs: int, what: str) -> int:
+        """Per-neighbor block count; a buffer that doesn't divide
+        evenly is a count mismatch, not a silent truncation."""
+        if nbrs == 0:
+            return 0
+        if total % nbrs:
+            raise ValueError(
+                f"{what} buffer of {total} elements not divisible by "
+                f"{nbrs} neighbors (MPI_ERR_COUNT)")
+        return total // nbrs
+
+    def Neighbor_allgather(self, sspec, rspec) -> None:
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        topo = self._require_topo()
+        nin = len(topo.in_neighbors(self.rank))
+        nb.neighbor_allgather(self, sbuf, scount, sdt, rbuf,
+                              self._nbr_block(rcount, nin, "recv"), rdt)
+
+    def Neighbor_allgatherv(self, sspec, rspec, rcounts, displs) -> None:
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        nb.neighbor_allgatherv(self, sbuf, scount, sdt, rbuf, rcounts,
+                               displs, rdt)
+
+    def Neighbor_alltoall(self, sspec, rspec) -> None:
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        topo = self._require_topo()
+        nout = len(topo.out_neighbors(self.rank))
+        nin = len(topo.in_neighbors(self.rank))
+        nb.neighbor_alltoall(self, sbuf,
+                             self._nbr_block(scount, nout, "send"), sdt,
+                             rbuf, self._nbr_block(rcount, nin, "recv"),
+                             rdt)
+
+    def Neighbor_alltoallv(self, sspec, scounts, sdispls, rspec, rcounts,
+                           rdispls) -> None:
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, _, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        nb.neighbor_alltoallv(self, sbuf, scounts, sdispls, sdt, rbuf,
+                              rcounts, rdispls, rdt)
+
+    def Ineighbor_allgather(self, sspec, rspec):
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        nin = len(self._require_topo().in_neighbors(self.rank))
+        return nb.ineighbor_allgather(
+            self, sbuf, scount, sdt, rbuf,
+            self._nbr_block(rcount, nin, "recv"), rdt)
+
+    def Ineighbor_allgatherv(self, sspec, rspec, rcounts, displs):
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        self._require_topo()
+        return nb.ineighbor_allgatherv(self, sbuf, scount, sdt, rbuf,
+                                       rcounts, displs, rdt)
+
+    def Ineighbor_alltoall(self, sspec, rspec):
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, scount, sdt = self._spec(sspec)
+        rbuf, rcount, rdt = self._spec(rspec)
+        topo = self._require_topo()
+        nout = len(topo.out_neighbors(self.rank))
+        nin = len(topo.in_neighbors(self.rank))
+        return nb.ineighbor_alltoall(
+            self, sbuf, self._nbr_block(scount, nout, "send"), sdt,
+            rbuf, self._nbr_block(rcount, nin, "recv"), rdt)
+
+    def Ineighbor_alltoallv(self, sspec, scounts, sdispls, rspec, rcounts,
+                            rdispls):
+        from ompi_tpu_torch.topo import neighbor as nb
+        sbuf, _, sdt = self._spec(sspec)
+        rbuf, _, rdt = self._spec(rspec)
+        return nb.ineighbor_alltoallv(self, sbuf, scounts, sdispls, sdt,
+                                      rbuf, rcounts, rdispls, rdt)
+
+    def shift_arr(self, x, dim: int, disp: int = 1):
+        """Cartesian whole-grid shift of a device tensor along `dim` —
+        the comm's ppermute_arr (the device halo-exchange path).
+        Ranks with no source neighbor (non-periodic edge) get zeros."""
+        return self.coll.ppermute_arr(
+            self, x, self._require_topo(1).shift_perm(dim, disp, self.size))
+
+    def neighbor_allgather_arr(self, x):
+        """Device-tier halo gather: every neighbour's block in MPI
+        neighbor order, one meeting (see
+        topo.neighbor.neighbor_allgather_arr)."""
+        from ompi_tpu_torch.topo import neighbor as nb
+        return nb.neighbor_allgather_arr(self, x)
 
     # -- management shorthands -----------------------------------------
     def Get_rank(self) -> int:

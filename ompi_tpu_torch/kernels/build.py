@@ -27,7 +27,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build",
                          "ompi_tpu_torch")
 SOURCES = {"stacked": "stacked.cu", "fused": "fused.cu", "index": "index.cu",
-           "mesh": "mesh.cu", "rma": "rma.cu", "digest": "digest.cu"}
+           "mesh": "mesh.cu", "rma": "rma.cu", "digest": "digest.cu",
+           "entry": "entry.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

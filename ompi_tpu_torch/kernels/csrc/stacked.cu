@@ -21,7 +21,10 @@
 // segbcast / sega2a schedules of coll/pipeline.py:192.  Strides and a
 // write limit let one launch move a column segment of every block
 // (sega2a) or gather ragged stripes (the allgather half of a mesh
-// allreduce) without staging copies.
+// allreduce) without staging copies.  A null source pointer writes
+// zeros into its block in the same launch: the PROC_NULL neighbours
+// of the cartesian halo gather, topo/neighbor.py:160-186, whose
+// member outputs are one peer launch each.
 //
 // What bounds them: bytes.  A reduction does N-1 operations per N
 // elements read, far below the card's operations-per-byte balance, so
@@ -58,8 +61,9 @@ struct ReduceArgs {
 
 // out[il] + j * out_stride <- in[j] + (first_out + il) * in_stride,
 // chunk units a block, clipped so that no unit at or past ``limit``
-// (counted from out[il]) is written.  Stacked alltoall: in_stride =
-// out_stride = chunk; allgather: in_stride = 0.
+// (counted from out[il]) is written; zeros where in[j] is null.
+// Stacked alltoall: in_stride = out_stride = chunk; allgather:
+// in_stride = 0.
 struct CopyArgs {
   const void* in[MAX_PTRS];
   void* out[MAX_PTRS];
@@ -127,14 +131,18 @@ __global__ void __launch_bounds__(256) stacked_copy_kernel(const CopyArgs a) {
   const int il = blockIdx.y / a.n;  // output of this launch (receiver)
   const int j = blockIdx.y % a.n;   // block of that output (sender)
   const long long i = (long long)a.first_out + il;
-  const W* src = reinterpret_cast<const W*>(a.in[j]) + i * a.in_stride;
   W* dst = reinterpret_cast<W*>(a.out[il]) + (long long)j * a.out_stride;
   long long cnt = a.limit - (long long)j * a.out_stride;
   if (cnt > a.chunk) cnt = a.chunk;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       k < cnt; k += stride)
-    dst[k] = src[k];
+  const long long k0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (a.in[j] == nullptr) {  // null source: uniform across the block
+    const W zero{};
+    for (long long k = k0; k < cnt; k += stride) dst[k] = zero;
+    return;
+  }
+  const W* src = reinterpret_cast<const W*>(a.in[j]) + i * a.in_stride;
+  for (long long k = k0; k < cnt; k += stride) dst[k] = src[k];
 }
 
 template <typename T, int OP>

@@ -411,22 +411,24 @@ def stacked_copy_plain(xs: Sequence[torch.Tensor], kind: str
 def _peer_plan(srcs, out, block, dst, src_stride, src_off, out_stride,
                out_off, limit):
     """(source element offset, [(j, count)]) of a peer copy, checked
-    against the tensors' sizes."""
+    against the tensors' sizes.  A None source is a null source: its
+    block is zero-filled, and it has no size to check."""
     if not srcs or len(srcs) > MAX_PTRS:
         raise ValueError(f"peer_copy: {len(srcs)} sources (1 to "
                          f"{MAX_PTRS})")
     a = src_off + dst * src_stride
     moves = []
     for j, s in enumerate(srcs):
-        if not isinstance(s, torch.Tensor) or s.dtype != out.dtype:
-            raise ValueError("peer_copy: sources must be tensors of the "
-                             "output's dtype")
-        if not s.is_contiguous():
-            raise ValueError("peer_copy: sources must be contiguous")
+        if s is not None:
+            if not isinstance(s, torch.Tensor) or s.dtype != out.dtype:
+                raise ValueError("peer_copy: sources must be tensors of "
+                                 "the output's dtype")
+            if not s.is_contiguous():
+                raise ValueError("peer_copy: sources must be contiguous")
         cnt = min(block, limit - j * out_stride)
         if cnt <= 0:
             continue
-        if a < 0 or a + cnt > s.numel() \
+        if (s is not None and (a < 0 or a + cnt > s.numel())) \
                 or out_off + j * out_stride + cnt > out.numel():
             raise ValueError("peer_copy: a block lies outside its tensor")
         moves.append((j, cnt))
@@ -446,34 +448,39 @@ def peer_copy(srcs: Sequence[torch.Tensor], out: torch.Tensor, block: int,
     (flat element indices), but no element at or past ``out_off +
     limit``.  The sources may lie on other cards (peer access).  An
     allgather is src_stride 0; an alltoall's destination ``dst`` takes
-    block ``dst`` of every source.  Writes ``out`` in place and returns
-    it."""
+    block ``dst`` of every source.  A source given as None is a null
+    source (a PROC_NULL neighbour): the same launch writes zeros into
+    its block.  Writes ``out`` in place and returns it."""
     out_stride = block if out_stride is None else out_stride
     limit = len(srcs) * out_stride if limit is None else limit
     if not out.is_contiguous():
         raise ValueError("peer_copy: out must be contiguous")
     a, moves = _peer_plan(srcs, out, block, dst, src_stride, src_off,
                           out_stride, out_off, limit)
+    real = [s for s in srcs if s is not None]
     if out.device.type == "cpu":
-        if any(s.device.type != "cpu" for s in srcs):
+        if any(s.device.type != "cpu" for s in real):
             raise ValueError("peer_copy: a CPU output takes CPU sources")
         return peer_copy_plain(srcs, out, block, dst=dst,
                                src_stride=src_stride, src_off=src_off,
                                out_stride=out_stride, out_off=out_off,
                                limit=limit)
     if out.device.type != "cuda" or any(s.device.type != "cuda"
-                                        for s in srcs):
+                                        for s in real):
         raise ValueError("peer_copy: sources and output must lie on cards")
     if not moves:
         return out
     isz = out.element_size()
     c = _CopyArgs()
     for j, s in enumerate(srcs):
+        if s is None:
+            c.inp[j] = None  # the kernel zero-fills a null source's block
+            continue
         require_peer(out.device, s.device)
         c.inp[j] = s.data_ptr() + a * isz
     c.out[0] = out.data_ptr() + out_off * isz
     w = _width(math.gcd(block * isz, out_stride * isz, limit * isz),
-               list(c.inp[:len(srcs)]) + [c.out[0]])
+               [p or 0 for p in c.inp[:len(srcs)]] + [c.out[0]])
     c.chunk = block * isz // w
     c.out_stride = out_stride * isz // w
     c.limit = limit * isz // w
@@ -498,7 +505,8 @@ def peer_copy_plain(srcs: Sequence[torch.Tensor], out: torch.Tensor,
                     src_off: int = 0, out_stride: int = None,
                     out_off: int = 0, limit: int = None) -> torch.Tensor:
     """Plain PyTorch version of K2's peer mode, on any device: the same
-    block copies, one ``copy_`` each, in place."""
+    block copies, one ``copy_`` each (a ``zero_`` for a null source),
+    in place."""
     out_stride = block if out_stride is None else out_stride
     limit = len(srcs) * out_stride if limit is None else limit
     a, moves = _peer_plan(srcs, out, block, dst, src_stride, src_off,
@@ -506,5 +514,8 @@ def peer_copy_plain(srcs: Sequence[torch.Tensor], out: torch.Tensor,
     flat = out.view(-1)
     for j, cnt in moves:
         b = out_off + j * out_stride
-        flat[b:b + cnt].copy_(srcs[j].reshape(-1)[a:a + cnt])
+        if srcs[j] is None:
+            flat[b:b + cnt].zero_()
+        else:
+            flat[b:b + cnt].copy_(srcs[j].reshape(-1)[a:a + cnt])
     return out

@@ -53,6 +53,7 @@ MODE_BUFFERED = 3
 
 # Frag kinds (tuple tag at index 0)
 MATCH = "M"
+MATCH_OBJ = "MO"   # opaque-object payload (device tensors, btl/tpu)
 MATCH_SYNC = "MS"
 RNDV = "R"
 ACK = "A"
@@ -202,6 +203,45 @@ class PmlOb1:
         return self.isend(buf, count, datatype, dst, tag, comm, mode,
                           offset).wait()
 
+    # -- opaque-object channel (device payloads; btl/tpu) ---------------
+    def isend_obj(self, obj, dst, tag, comm) -> None:
+        """Eager send of an opaque payload object: same envelope and
+        sequencing as byte messages, but a DISTINCT kind (MATCH_OBJ)
+        so object messages can never bind a posted byte receive (and
+        byte probes never steal them).  The object rides by reference
+        through inproc."""
+        if dst == PROC_NULL:
+            return
+        gdst, ep, seq = self._envelope(dst, tag, comm)
+        ep.send((MATCH_OBJ, comm.cid, comm.rank, tag, seq,
+                 self.state.rank, obj))
+
+    def poll_obj_any(self, tag):
+        """Non-blocking: pop one buffered object message with ``tag``
+        from ANY communicator's unexpected queue (no progress call —
+        this may run inside a progress sweep)."""
+        for lst in self._unexpected.values():
+            for m in lst:
+                if m.kind == MATCH_OBJ and m.tag == tag:
+                    lst.remove(m)
+                    return m
+        return None
+
+    def recv_obj(self, src, tag, comm):
+        """Blocking matched receive of an object message (kind
+        MATCH_OBJ only) returning the UnexpectedMsg with its payload
+        uninterpreted (no convertor)."""
+        if src == PROC_NULL:
+            return None
+        while True:
+            self.state.progress.progress()
+            best = self._find_unexpected(comm.cid, src, tag,
+                                         want_obj=True)
+            if best is not None:
+                self._unexpected[comm.cid].remove(best)
+                return best
+            self.state.progress.idle_tick()
+
     # -- recv ------------------------------------------------------------
     def irecv(self, buf, count, datatype, src, tag, comm,
               offset: int = 0) -> RecvRequest:
@@ -273,14 +313,18 @@ class PmlOb1:
     def _matchable(self, cid: int, src: int, seq: int) -> bool:
         return self._next_seq.get((cid, src), 0) == seq
 
-    def _find_unexpected(self, cid, src, tag) -> Optional[UnexpectedMsg]:
+    def _find_unexpected(self, cid, src, tag,
+                         want_obj: bool = False) -> Optional[UnexpectedMsg]:
         # messages here already consumed their sequence number at
         # arrival dispatch; FIFO per source is preserved by arrival
-        # order, so match the earliest arrival only.
+        # order, so match the earliest arrival only.  ``want_obj``
+        # selects the object channel (MATCH_OBJ) vs byte messages —
+        # the two never match each other's receives.
         best = None
         for m in self._unexpected.get(cid, []):
             # ANY_TAG never matches reserved internal (negative) tags
-            if (src == ANY_SOURCE or m.src == src) and \
+            if (m.kind == MATCH_OBJ) == want_obj and \
+               (src == ANY_SOURCE or m.src == src) and \
                (m.tag == tag or (tag == ANY_TAG and m.tag >= 0)):
                 if best is None or m.arrival < best.arrival:
                     best = m
@@ -364,8 +408,8 @@ class PmlOb1:
 
     def _handle(self, frag: tuple) -> None:
         kind = frag[0]
-        if kind in (MATCH, MATCH_SYNC, RNDV):
-            if kind == MATCH:
+        if kind in (MATCH, MATCH_OBJ, MATCH_SYNC, RNDV):
+            if kind in (MATCH, MATCH_OBJ):
                 _, cid, src, tag, seq, gsrc, payload = frag
                 msg = UnexpectedMsg(kind, cid, src, tag, seq,
                                     len(payload), None, payload)
@@ -409,6 +453,11 @@ class PmlOb1:
         self._match_or_buffer(msg)
 
     def _match_or_buffer(self, msg: UnexpectedMsg) -> None:
+        if msg.kind == MATCH_OBJ:
+            # object messages wait for recv_obj; a posted byte recv
+            # must never bind one (its payload is not a buffer)
+            self._unexpected.setdefault(msg.cid, []).append(msg)
+            return
         req = self._match_posted(msg.cid, msg.src, msg.tag)
         if req is not None:
             self._bind(req, msg)

@@ -953,3 +953,140 @@ def test_digest_kernel_matches_plain_on_card(cuda_device):
         k11.digest(xs[k11.MAX_OPS:k11.MAX_OPS + 5],
                    codes[k11.MAX_OPS:k11.MAX_OPS + 5])]))
     torch.cuda.synchronize()
+
+
+# -- K2 peer null sources and K12 driver_step --------------------------------
+
+def test_peer_copy_plain_null_sources_zero_fill():
+    """A None source is a PROC_NULL neighbour: its block is zeros (a
+    2*3-slot table with PROC_NULL at either end), the other blocks are
+    copies; no size check applies to a null source."""
+    xs = [torch.arange(6, dtype=torch.int32) + 10 * j for j in range(4)]
+    srcs = [None, xs[1], xs[2], xs[3], xs[0], None]
+    out = torch.full((36,), -7, dtype=torch.int32)
+    got = stacked.peer_copy(srcs, out, 6)
+    assert got is out
+    want = torch.cat([torch.zeros(6, dtype=torch.int32)] + xs[1:] + [
+        xs[0], torch.zeros(6, dtype=torch.int32)])
+    assert torch.equal(out, want)
+    plain = stacked.peer_copy_plain(srcs, torch.full((36,), -7,
+                                                     dtype=torch.int32), 6)
+    assert torch.equal(plain, want)
+    # all-null, clipped by the limit: only what the limit admits is zeroed
+    out = torch.full((12,), 5.0)
+    stacked.peer_copy([None, None], out, 6, limit=9)
+    assert out.tolist() == [0.0] * 9 + [5.0] * 3
+    # a real source is still checked; a null one never is
+    with pytest.raises(ValueError):
+        stacked.peer_copy([None, torch.ones(2)], torch.empty(12), 6)
+
+
+def test_peer_copy_null_sources_do_not_count_on_the_cpu():
+    before = stacked.peer_copy.launches.value
+    stacked.peer_copy([None, torch.ones(4)], torch.empty(8), 4)
+    assert stacked.peer_copy.launches.value == before
+
+
+def _k12_input(rng, r, n, dt):
+    if dt == np.bool_:
+        return rng.integers(0, 2, (r, n)).astype(np.bool_)
+    if dt.kind == "c":
+        return (rng.standard_normal((r, n))
+                + 1j * rng.standard_normal((r, n))).astype(dt)
+    if _is_float(dt):
+        return rng.standard_normal((r, n)).astype(np.float32).astype(dt)
+    info = np.iinfo(dt)
+    return rng.integers(max(info.min, -2 ** 62), min(info.max, 2 ** 62),
+                        (r, n)).astype(dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_driver_step_plain_against_numpy(dt):
+    """K12's plain version on the CPU: rs is K1's SUM fold of the rows
+    (stacked_reduce_plain, the same bytes), out adds the alltoall's
+    block transpose to it — against numpy for the exact types."""
+    from ompi_tpu_torch.kernels import entry as k12
+    rng = np.random.default_rng(12)
+    for r, n in ((2, 8), (8, 1024), (8, 8 * 37), (3, 9)):
+        a = _k12_input(rng, r, n, dt)
+        x = convert.to_torch(a, "cpu")
+        out, rs = k12.driver_step(x)
+        assert out.shape == (r, n) and rs.shape == (r, n // r)
+        assert out.dtype == x.dtype and rs.dtype == x.dtype
+        red = stacked.stacked_reduce_plain(list(x.unbind(0)), "MPI_SUM")[0]
+        assert torch.equal(rs.reshape(-1).view(torch.uint8),
+                           red.view(torch.uint8))
+        if dt.kind in "iu" and dt.itemsize >= 4 or dt == np.bool_:
+            m = n // r
+            with np.errstate(over="ignore"):
+                s = a.sum(0, dtype=dt) if dt != np.bool_ else a.any(0)
+                a2a = a.reshape(r, r, m).transpose(1, 0, 2).reshape(r, n)
+                want = (s[None, :] + a2a) if dt != np.bool_ \
+                    else (s[None, :] | a2a)
+            assert convert.to_numpy(out).tobytes() == \
+                want.astype(dt).tobytes()
+
+
+def test_driver_step_refusals():
+    """N % R != 0, R over K1's cap, a non-contiguous or non-2-D x and a
+    dtype without SUM are refused on the CPU as on the card."""
+    from ompi_tpu_torch.kernels import entry as k12
+    before = k12.driver_step.launches.value
+    for bad in (torch.ones(8, 1020), torch.ones(129, 129),
+                torch.ones(16, 8).t(), torch.ones(8), torch.ones(2, 2, 2)):
+        with pytest.raises(ValueError):
+            k12.driver_step(bad)
+        with pytest.raises(ValueError):
+            k12.driver_step_plain(bad)
+    with pytest.raises(ValueError):
+        k12.driver_step(torch.ones(8, 8, device="meta"))
+    out, rs = k12.driver_step(torch.ones(128, 128))
+    assert out.shape == (128, 128) and rs.shape == (128, 1)
+    assert float(rs[0, 0]) == 128.0 and float(out[0, 0]) == 129.0
+    assert k12.driver_step.launches.value == before
+
+
+@pytest.mark.gpu
+def test_driver_step_kernel_matches_plain_on_card(cuda_device):
+    """K12 against its plain version on the card, every dtype K1's SUM
+    takes, R in {2, 8}, vector and scalar widths: exact (the same fold
+    in the same order and accumulation type, one rounded add)."""
+    from ompi_tpu_torch.kernels import entry as k12
+    rng = np.random.default_rng(13)
+    for dt in DTYPES:
+        for r, n in ((2, 8), (8, 1024), (8, 8 * 37), (8, 1 << 16)):
+            x = convert.to_torch(_k12_input(rng, r, n, dt), cuda_device)
+            launches = k12.driver_step.launches.value
+            got = k12.driver_step(x)
+            assert k12.driver_step.launches.value == launches + 1
+            want = k12.driver_step_plain(x)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                if dt.kind == "f" or dt == BF16 or dt.kind == "c":
+                    assert torch.equal(g, w), (dt, r, n)
+                else:
+                    assert torch.equal(g.view(torch.uint8),
+                                       w.view(torch.uint8)), (dt, r, n)
+    with pytest.raises(ValueError):
+        k12.driver_step(torch.ones(8, 1020, device=cuda_device))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_peer_copy_null_sources_match_plain_on_card(cuda_device):
+    """K2 peer with None sources on the card: zeros in the null blocks
+    in the same launch, exact against the plain version."""
+    rng = np.random.default_rng(14)
+    for dt in (np.float32, np.int8, np.float64):
+        xs = [convert.to_torch(rng.standard_normal(1031).astype(dt),
+                               cuda_device) for _ in range(4)]
+        srcs = [None, xs[0], xs[1], xs[2], xs[3], None]
+        a = torch.full((6 * 1031,), 3, dtype=xs[0].dtype, device=cuda_device)
+        b = a.clone()
+        launches = stacked.peer_copy.launches.value
+        stacked.peer_copy(srcs, a, 1031)
+        assert stacked.peer_copy.launches.value == launches + 1
+        stacked.peer_copy_plain(srcs, b, 1031)
+        assert torch.equal(a, b)
+        assert not a[:1031].any() and not a[-1031:].any()
+    torch.cuda.synchronize()
