@@ -42,7 +42,18 @@ Phases, each fatal on failure (nothing is caught and carried on):
              float16 and bfloat16, R in {2, 8}, N in {8, 1024, 2**21,
              37 R}, one launch a call, and its refusal of N % R != 0;
              K2 peer with null sources (a 2*3-slot table with PROC_NULL
-             at either end): exact, zeros in the null blocks.
+             at either end): exact, zeros in the null blocks.  K6 and
+             K2 peer over destination tables (one launch a card): K6
+             over every pair K1 takes, N in {2, 3, 8}, rank order,
+             segring and segrd's tree, tables of 1 and 8 jobs and of
+             70 (two launches) for one pair a dtype, job lengths that
+             are not whole tiles, outputs congruent with their inputs
+             and one element off; K2 peer gathers into 1, 8 and 70
+             destinations (full and clipped), PROC_NULL sources,
+             sources and outputs aligned and one element off, an
+             alltoall table, a column segment, 130 destinations (two
+             launches): each exact and bit-identical across two
+             launches, each table's launch count checked.
 3. main    — the port's main path through its user entry points:
              run_ranks(8, fn, device_map=cuda:0) -> comm.allreduce_arr
              (SUM float32: 1 MiB a rank in one dispatch, below
@@ -74,7 +85,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
              ppermute 1 MiB, a fused flush of 32 x 64 KiB, and a 1 MiB
              allreduce with each rank on a side stream of its own
              behind a sleeping kernel (the stream fence); launch counts
-             (K6, K2 peer, K7) checked case by case, every result exact
+             (K6, K2 peer: one a card a body; K7 one a rank) checked
+             case by case, every result exact
              against its plain computation, every rank's bytes the
              same, every provider coll/tpu.  With two or more cards the
              same cases run again one rank a card.
@@ -99,7 +111,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
              no mismatch.  Launch counts exact case by case: a checked
              meeting is N K11 gate launches, one verify launch a
              device that holds outputs to check and, injected, one
-             bisect launch a device and the body twice.  With two or
+             bisect launch a device and the body twice (a mesh body:
+             one K6 / K2 peer launch a card).  With two or
              more cards the same cases run again one rank a card.
 3e. halo   — the halo path on 8 logical devices of card 0 (the mesh
              tier), then on 8 ranks co-located on it (coll/hbm): the
@@ -123,13 +136,17 @@ Phases, each fatal on failure (nothing is caught and carried on):
              card, then the MPI part: every rank's value exact at the
              reference's shapes and within the float SUM band of a
              float64 computation at full width; K6 and K2 peer launch
-             counts exactly as PERF.md predicts.
+             counts exactly as PERF.md predicts (8 + 10 and 8 + 24).
 4. timing  — each kernel at the main path's shapes: its device time
              (CUDA events around a replayed CUDA graph of many calls)
              and its time a call (events around eager calls, host
              launch cost included) beside its bound (bytes / 3.35
              TB/s), its plain version and one PyTorch library call of
-             the same function.
+             the same function.  A mesh row is one collective's grouped
+             launch (one a card); two rows time the body alone (one
+             1 MiB stripe of 8 inputs, 8 stripes of 1 MiB into one
+             output), and two B16's step at cols 2**19 (its K6 and its
+             K2 peer launches).
 5. e2e     — host clock, slowest rank: comm.allreduce_arr at 8 ranks x
              8 MiB float32 (the headline); a fused batch of 32
              iallreduce_arr of 64 KiB with one wait against the same
@@ -375,7 +392,8 @@ def phase_kernels(dev) -> None:
         log(f"[K2] {kind:<9} max_abs {worst[0]} max_rel {worst[1]}")
     torch.cuda.synchronize()
     ncases += (_kernels_fused(dev, g) + _kernels_index(dev, g)
-               + _kernels_mesh(dev, g) + _kernels_rma(dev, g))
+               + _kernels_mesh(dev, g) + _kernels_tables(dev, g)
+               + _kernels_rma(dev, g))
     log(f"[kernels] {ncases} cases held against the plain versions, "
         "tolerance exact")
     ncases = _kernels_digest(dev, g)
@@ -921,16 +939,16 @@ def mesh_input(rank: int, nbytes: int, dtype, devs, salt: int):
 
 def mesh_cases(devs):
     """(key, entry point, launches, call, knobs) of the mesh phase at
-    N = len(devs) ranks: each allreduce is one K6 and one K2 peer launch
-    a device (a segment, for the pipelined tier), reduce_scatter one K6
-    a device, alltoall / allgather / segbcast one K2 peer launch a
-    device (a segment), ppermute peer copies, the fused flush one K7 a
-    rank and one allreduce."""
+    N = len(devs) ranks on C = len(set(devs)) cards: each allreduce is
+    one K6 and one K2 peer launch a card (a segment, for the pipelined
+    tier), reduce_scatter one K6 a card, alltoall / allgather /
+    segbcast one K2 peer launch a card (a segment), ppermute peer
+    copies, the fused flush one K7 a rank and one allreduce."""
     from ompi_tpu_torch.op.op import MAX, PROD, SUM
-    n = len(devs)
+    n, nc = len(devs), len(set(devs))
     f32, f64, i32 = torch.float32, torch.float64, torch.int32
     nfused = int(FUSED_MIB * MIB) // 4
-    red = {"mesh_fold": n, "peer_copy": n}
+    red = {"mesh_fold": nc, "peer_copy": nc}
     segs = 8 * MIB // (RING_SEG * 4)
 
     def inp(c, nbytes, dtype, salt):
@@ -972,28 +990,28 @@ def mesh_cases(devs):
          {"coll_plan_native_reduce": False,
           "coll_pipeline_rd_max_bytes": 16 * MIB}),
         ("m_ar8_seg", "allreduce_arr",
-         {"mesh_fold": segs * n, "peer_copy": segs * n},
+         {"mesh_fold": segs * nc, "peer_copy": segs * nc},
          lambda c: c.allreduce_arr(inp(c, 8 * MIB, f32, 22), SUM),
          {"coll_plan_enable": False}),
         ("m_prod8", "allreduce_arr", red,
          lambda c: c.allreduce_arr(inp(c, 8 * MIB, i32, 24), PROD), {}),
-        ("m_rs8", "reduce_scatter_block_arr", {"mesh_fold": n},
+        ("m_rs8", "reduce_scatter_block_arr", {"mesh_fold": nc},
          lambda c: c.reduce_scatter_arr(inp(c, 8 * MIB, f64, 25), MAX), {}),
-        ("m_a2a8", "alltoall_arr", {"peer_copy": segs * n},
+        ("m_a2a8", "alltoall_arr", {"peer_copy": segs * nc},
          lambda c: c.alltoall_arr(inp(c, 8 * MIB, f32, 26)), {}),
-        ("m_a2a1", "alltoall_arr", {"peer_copy": n},
+        ("m_a2a1", "alltoall_arr", {"peer_copy": nc},
          lambda c: c.alltoall_arr(inp(c, MIB, f32, 27)), {}),
-        ("m_bc8", "bcast_arr", {"peer_copy": segs * n},
+        ("m_bc8", "bcast_arr", {"peer_copy": segs * nc},
          lambda c: c.bcast_arr(inp(c, 8 * MIB, f32, 28),
                                root=min(3, n - 1)), {}),
-        ("m_ag1", "allgather_arr", {"peer_copy": n},
+        ("m_ag1", "allgather_arr", {"peer_copy": nc},
          lambda c: c.allgather_arr(inp(c, MIB, f32, 29)), {}),
         ("m_pp1", "ppermute_arr", {},
          lambda c: c.ppermute_arr(inp(c, MIB, f32, 30),
                                   [(i, (i + 1) % n) for i in range(n)]),
          {}),
         ("m_fused32", "iallreduce_arr",
-         {"slot_pack": n, "mesh_fold": n, "peer_copy": n}, fused32, {}),
+         {"slot_pack": n, "mesh_fold": nc, "peer_copy": nc}, fused32, {}),
         ("m_side", "allreduce_arr", red, side, {}),
     ]
 
@@ -1163,6 +1181,143 @@ def _kernels_mesh(dev, g) -> int:
                       f"K7 {dtype} n={n}")
                 ncases += 1
         log(f"[K2 peer/K7] {str(dtype)[6:]:>8} exact")
+    torch.cuda.synchronize()
+    return ncases
+
+
+def _same_launches(run, start: torch.Tensor, what: str) -> torch.Tensor:
+    """``run(buf)`` writes a grouped launch's outputs into ``buf``; two
+    runs into two copies of one starting buffer must leave the same
+    bytes (bit-identical across two launches).  Returns the first."""
+    a, b = start.clone(), start.clone()
+    run(a)
+    run(b)
+    if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+        raise AssertionError(f"{what}: two launches wrote different bytes")
+    return a
+
+
+def _kernels_tables(dev, g) -> int:
+    """K6 and K2 peer over destination tables, each against its plain
+    version (exact) and bit-identical across two launches.  K6: every
+    pair K1 takes, N in {2, 3, 8}, rank order, the segring order and
+    (N a power of two) segrd's tree, tables of 1 and 8 jobs, and of 70
+    (two launches: 64 + 6) for one pair of each dtype; job lengths that
+    are not whole tiles (a 3-tile-and-5 job, 1, 17, a tile less one,
+    ...), outputs congruent with their inputs (bulk body with head and
+    tail) and one element off (the edge path).  K2 peer: gathers into
+    1, 8 and 70 destinations, full and clipped, with PROC_NULL sources
+    at either end, sources and outputs aligned and one element off
+    (congruent with a head, and not), an alltoall table and a column
+    segment; 130 destinations split over two launches."""
+    from ompi_tpu_torch.kernels import mesh, stacked
+    ncases = 0
+    folds = mesh.mesh_fold.launches
+    copies = stacked.peer_copy.launches
+
+    def fold_case(xs, k, shift, opname, order, full, what):
+        nonlocal ncases
+        isz = xs[0].element_size()
+        v, te = 16 // isz, mesh.FOLD_TILE // isz
+        total = xs[0].numel()
+        lens = [3 * te + 5, 1, te, 2 * v + 3, 17, te - 1, 5 * v]
+        spec, off = [], 0
+        for q in range(k):
+            ln = lens[q % len(lens)]
+            lo = (q * 131) % (total - ln + 1)
+            off += (lo + shift - off) % v  # out congruent (or one off)
+            spec.append((lo, ln, off))
+            off += ln
+        start = torch.zeros(off + v, dtype=xs[0].dtype, device=dev)
+
+        def run(buf):
+            before = folds.value
+            mesh.mesh_fold_many(xs, [(buf[o:o + ln], lo)
+                                     for lo, ln, o in spec], opname, order)
+            if folds.value - before != -(-k // mesh.MAX_JOBS):
+                raise AssertionError(f"{what}: {folds.value - before} "
+                                     "launches")
+        got = _same_launches(run, start, what)
+        want = start.clone()
+        for lo, ln, o in spec:
+            want[o:o + ln] = full[lo:lo + ln]
+        _held([got], [want], what)
+        ncases += 1
+
+    for dtype in DTYPES:
+        isz = torch.empty((), dtype=dtype).element_size()
+        total = 4 * (mesh.FOLD_TILE // isz) + 9
+        first_pair = True
+        for opname in OPS:
+            if not stacked.reduce_supported(dtype, opname):
+                continue
+            for n in (2, 3, 8):
+                xs = [make_shard(g, total, dtype, opname, dev)
+                      for _ in range(n)]
+                orders = ["rank", ("ring", 64 * n, 64)]
+                if n & (n - 1) == 0:
+                    orders.append("tree")
+                for order in orders:
+                    full = mesh.mesh_fold_plain(xs, 0, total, opname, order)
+                    for k in (1, 8) + ((70,) if first_pair else ()):
+                        for shift in (0, 1):
+                            fold_case(xs, k, shift, opname, order, full,
+                                      f"K6 table {dtype} {opname} n={n} "
+                                      f"{order} jobs={k} shift={shift}")
+            first_pair = False
+        log(f"[K6 tables] {str(dtype)[6:]:>8} exact, two launches the same "
+            "bytes")
+    torch.cuda.synchronize()
+
+    def copy_case(srcs, dt, nd, kw, shift, what, span):
+        nonlocal ncases
+        start = torch.full((nd * (span + 16) + 16,), 3, dtype=dt,
+                           device=dev)
+        offs = [q * (span + 16) + shift for q in range(nd)]
+
+        def run(buf):
+            before = copies.value
+            stacked.peer_copy_many(srcs, [buf[o:o + span] for o in offs],
+                                   **kw)
+            if copies.value - before != -(-nd // stacked.MAX_PTRS):
+                raise AssertionError(f"{what}: {copies.value - before} "
+                                     "launches")
+        got = _same_launches(run, start, what)
+        want = start.clone()
+        stacked.peer_copy_many_plain(srcs, [want[o:o + span] for o in offs],
+                                     **kw)
+        _held([got], [want], what)
+        ncases += 1
+
+    for dtype in (torch.float32, torch.float64, torch.int8, torch.bfloat16,
+                  torch.bool, torch.complex128):
+        isz = torch.empty((), dtype=dtype).element_size()
+        b = 2 * (stacked.COPY_TILE // isz) + 7  # two tiles and 7
+        for n in (2, 3, 8):
+            for ss in (0, 1):
+                xs = [make_shard(g, n * b + 8 + ss, dtype, "MPI_SUM",
+                                 dev)[ss:] for _ in range(n)]
+                nulls = [None] + xs[1:-1] + [None]
+                for so in (0, 1):
+                    tag = f"K2 peer {dtype} n={n} src+{ss} out+{so}"
+                    for srcs, label in ((xs, "gather"), (nulls, "nulls")):
+                        for nd in (1, 8, 70):
+                            for kw in ({"block": b},
+                                       {"block": b, "limit": (n - 1) * b + 5}):
+                                copy_case(srcs, dtype, nd, kw, so,
+                                          f"{tag} {label} "
+                                          f"dsts={nd} {kw}", n * b)
+                    copy_case(xs, dtype, n, {"block": b, "src_stride": b},
+                              so, f"{tag} alltoall", n * b)
+                    copy_case(xs, dtype, n, {"block": 7, "src_stride": b,
+                                      "src_off": 3, "out_stride": b,
+                                      "out_off": 3}, so,
+                              f"{tag} column segment", n * b)
+        log(f"[K2 peer tables] {str(dtype)[6:]:>8} exact, two launches the "
+            "same bytes")
+    xs = [make_shard(g, 1000, torch.int32, "MPI_SUM", dev) for _ in range(3)]
+    copy_case(xs, torch.int32, 130, {"block": 333}, 0,
+              "K2 peer 130 destinations", 999)
     torch.cuda.synchronize()
     return ncases
 
@@ -1504,12 +1659,13 @@ IG_PVARS = ("integrity_checks", "integrity_mismatches",
             "integrity_convictions", "integrity_retry_ops")
 
 
-def _mesh_folds(n: int, size: int, itemsize: int) -> int:
-    """K6 launches of one mesh allreduce of n elements: one a device
-    whose stripe is not empty."""
+def _mesh_folds(n: int, devs, itemsize: int) -> int:
+    """K6 launches of one mesh allreduce of n elements over members on
+    ``devs``: one a card that holds a member whose stripe is not
+    empty."""
     from ompi_tpu_torch.coll.device import _stripe_elems
-    m = _stripe_elems(n, size, itemsize)
-    return sum(1 for d in range(size) if d * m < n)
+    m = _stripe_elems(n, len(devs), itemsize)
+    return len({devs[d] for d in range(len(devs)) if d * m < n})
 
 
 def integrity_cases(devs, tier: str, injected: bool):
@@ -1526,7 +1682,8 @@ def integrity_cases(devs, tier: str, injected: bool):
     launch a device that holds outputs to check (rank 0's output, or
     for reduce_scatter and alltoall every rank's) and, injected, one
     bisect launch a device that holds deposits; injected, each body
-    runs twice (the retry).  Segments are meetings of their own."""
+    runs twice (the retry).  Segments are meetings of their own.  A
+    mesh body is one K6 / K2 peer launch a card."""
     from ompi_tpu_torch.op.op import MAX, SUM
     n = len(devs)
     ndev = len(set(devs))
@@ -1545,7 +1702,8 @@ def integrity_cases(devs, tier: str, injected: bool):
 
     def red(k=1):
         if mesh:
-            return {"mesh_fold": body * k * n, "peer_copy": body * k * n}
+            return {"mesh_fold": body * k * ndev,
+                    "peer_copy": body * k * ndev}
         return {"stacked_reduce": body * k}
 
     def with_digest(d, k=1, every_out=False):
@@ -1571,24 +1729,24 @@ def integrity_cases(devs, tier: str, injected: bool):
          lambda c: c.bcast_arr(full(c, e1, c.rank * 10 + 7, f32), root=1),
          {}, want_full(e1, 17.0, f32)),
         ("rs", "reduce_scatter_block_arr", with_digest(
-            {"mesh_fold": body * n} if mesh else {"stacked_reduce": body},
+            {"mesh_fold": body * ndev} if mesh else {"stacked_reduce": body},
             every_out=True),
          lambda c: c.reduce_scatter_arr(
              full(c, e1, (c.rank + 1) / 16, f32), SUM),
          {}, want_full(e1 // n, tot / 16, f32)),
         ("ag", "allgather_arr", with_digest(
-            {"peer_copy": body * n} if mesh else {"stacked_copy": body}),
+            {"peer_copy": body * ndev} if mesh else {"stacked_copy": body}),
          lambda c: c.allgather_arr(full(c, e1, c.rank + 1, i32)), {},
          lambda r: torch.arange(1, n + 1, dtype=i32, device=devs[r])
          .repeat_interleave(e1)),
         ("a2a1", "alltoall_arr", with_digest(
-            {"peer_copy": body * n} if mesh else {"stacked_copy": body},
+            {"peer_copy": body * ndev} if mesh else {"stacked_copy": body},
             every_out=True),
          lambda c: c.alltoall_arr(full(c, e1, c.rank + 1, i32)), {},
          lambda r: torch.arange(1, n + 1, dtype=i32, device=devs[r])
          .repeat_interleave(e1 // n)),
         ("a2a8", "alltoall_arr", with_digest(
-            {"peer_copy": body * segs * n} if mesh
+            {"peer_copy": body * segs * ndev} if mesh
             else {"stacked_copy": body * segs}, segs, every_out=True),
          lambda c: c.alltoall_arr(full(c, e8, c.rank + 1, i32)), {},
          lambda r: torch.arange(1, n + 1, dtype=i32, device=devs[r])
@@ -1606,9 +1764,9 @@ def integrity_cases(devs, tier: str, injected: bool):
 
     # groups (SUM f32 16), (MAX i32 4), (SUM i32 8: the bcast)
     if mesh:
-        folds = sum(_mesh_folds(k, n, 4) for k in (16, 4, 8))
+        folds = sum(_mesh_folds(k, devs, 4) for k in (16, 4, 8))
         fl = {"slot_pack": 3 * n, "mesh_fold": body * folds,
-              "peer_copy": body * 3 * n}
+              "peer_copy": body * 3 * ndev}
     else:
         fl = {"fused_batch": body * 3}
     cases.append(("fused", "ibcast_arr", with_digest(fl), fused, {},
@@ -1969,8 +2127,12 @@ def phase_entry(dev):
             raise AssertionError(f"{key}: non-finite output")
         log(f"[entry] entry() fn at {tuple(arg.shape)} f32: one K12 launch, "
             "exact against driver_step_plain, finite")
-    expect = {8: {"mesh_fold": 36, "peer_copy": 48},
-              DRYRUN_COLS: {"mesh_fold": 36, "peer_copy": 104}}
+    # one K6 / K2 peer launch a card a body: each dp comm's allreduce 1
+    # + 1, reduce_scatter 1, alltoall 1 (8 sega2a segments at full
+    # width), allgather 1; the MPI part's allreduce 1 + 1,
+    # reduce_scatter 1, alltoall 1 and the two half-world allreduces
+    expect = {8: {"mesh_fold": 8, "peer_copy": 10},
+              DRYRUN_COLS: {"mesh_fold": 8, "peer_copy": 24}}
     for cols in (8, DRYRUN_COLS):
         key = "f_dryrun" if cols == 8 else "f_dryrun_big"
         for c in counters.values():
@@ -2200,7 +2362,8 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         lambda s: s[2].index_copy_(0, s[1].tensor, s[0]), 100,
         source="index.cu")
     # the mesh tier on 8 logical devices of the card, at its main-path
-    # shapes: one collective's worth of launches a row (one a device)
+    # shapes: one collective's launch a row (one a card, over a table of
+    # every member's destination)
     from ompi_tpu_torch.coll.device import _stripe_elems
     from ompi_tpu_torch.kernels import mesh
     n8 = 8 * MIB // 4
@@ -2209,17 +2372,12 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
     def folds(order, nel=n8):
         st = _stripe_elems(nel, n, 4)
 
-        def k_fn(xs):
-            return [mesh.mesh_fold(xs, torch.empty(min(st, nel - d * st),
-                                                   device=dev),
-                                   d * st, "MPI_SUM", order)
-                    for d in range(n)]
-
-        def p_fn(xs):
-            return [mesh.mesh_fold_plain(xs, d * st, min(st, nel - d * st),
-                                         "MPI_SUM", order)
-                    for d in range(n)]
-        return k_fn, p_fn
+        def jobs():
+            return [(torch.empty(min(st, nel - d * st), device=dev), d * st)
+                    for d in range(n) if d * st < nel]
+        return (lambda xs: mesh.mesh_fold_many(xs, jobs(), "MPI_SUM", order),
+                lambda xs: mesh.mesh_fold_many_plain(xs, jobs(), "MPI_SUM",
+                                                     order))
 
     for label, call, order, replaces in (
             ("rank_order", "m_ar8", "rank", "ompi_tpu/coll/device.py:997"),
@@ -2230,8 +2388,8 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
             replaces, (n + 1) * 8 * MIB, ranks(8 * MIB, torch.float32, 70),
             k_fn, p_fn, lambda xs: torch.stack(xs).sum(0), 50,
             source="mesh.cu")
-    # B9's own row: the native mesh plan's K6 launches at 128 MiB; B10's:
-    # the fused mesh batch's K6 launches over the 32 x 64 KiB slots K7
+    # B9's own row: the native mesh plan's K6 launch at 128 MiB; B10's:
+    # the fused mesh batch's K6 launch over the 32 x 64 KiB slots K7
     # packed (2 MiB a rank)
     for label, call, replaces, mib, iters in (
             ("plan_allreduce_sum_f32_128MiB_rank_order", "m_ar128",
@@ -2244,26 +2402,111 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
             (n + 1) * nbytes, ranks(nbytes, torch.float32, 74),
             k_fn, p_fn, lambda xs: torch.stack(xs).sum(0), iters,
             source="mesh.cu")
+    # the body without the grouping: the one launch a card of one rank a
+    # card, folding one 1 MiB stripe of 8 inputs
+    n1 = MIB // 4
+    row("mesh_fold:one_stripe_1MiB_8_inputs_f32", "mesh_fold", None,
+        "ompi_tpu/coll/device.py:997", (n + 1) * MIB,
+        ranks(MIB, torch.float32, 75),
+        lambda xs: mesh.mesh_fold(xs, torch.empty(n1, device=dev), 0,
+                                  "MPI_SUM"),
+        lambda xs: mesh.mesh_fold_plain(xs, 0, n1, "MPI_SUM"),
+        lambda xs: torch.stack(xs).sum(0), 100, source="mesh.cu")
+
+    def gathers(f, nel, block, count):
+        return lambda st: f(st, [torch.empty(nel, device=dev)
+                                 for _ in range(count)], block, limit=nel)
+
     row("peer_copy:allgather_stripes_f32_8MiB", "peer_copy", "m_ar8",
         "ompi_tpu/coll/device.py:997", (n + 1) * 8 * MIB,
         lambda i: [rank_elems(r, ms, torch.float32, dev, 71 + 10 * i)
                    for r in range(n)],
-        lambda st: [stacked.peer_copy(st, torch.empty(n8, device=dev), ms,
-                                      limit=n8) for _ in range(n)],
-        lambda st: [stacked.peer_copy_plain(st, torch.empty(n8, device=dev),
-                                            ms, limit=n8) for _ in range(n)],
+        gathers(stacked.peer_copy_many, n8, ms, n),
+        gathers(stacked.peer_copy_many_plain, n8, ms, n),
         lambda st: torch.cat(list(st) * n), 50)
+    row("peer_copy:gather_8_stripes_1MiB_one_output_f32", "peer_copy", None,
+        "ompi_tpu/coll/device.py:997", 2 * n * MIB,
+        lambda i: [rank_elems(r, n1, torch.float32, dev, 76 + 10 * i)
+                   for r in range(n)],
+        gathers(stacked.peer_copy_many, n * n1, n1, 1),
+        gathers(stacked.peer_copy_many_plain, n * n1, n1, 1),
+        lambda st: torch.cat(list(st)), 100)
     b1 = MIB // 4 // n
     row("peer_copy:alltoall_f32_1MiB", "peer_copy", "m_a2a1",
         "ompi_tpu/coll/device.py:997", 2 * n * MIB,
         ranks(MIB, torch.float32, 72),
-        lambda xs: [stacked.peer_copy(xs, torch.empty_like(xs[0]), b1, dst=d,
-                                      src_stride=b1) for d in range(n)],
-        lambda xs: [stacked.peer_copy_plain(xs, torch.empty_like(xs[0]), b1,
-                                            dst=d, src_stride=b1)
-                    for d in range(n)],
+        lambda xs: stacked.peer_copy_many(
+            xs, [torch.empty_like(xs[0]) for _ in range(n)], b1,
+            src_stride=b1),
+        lambda xs: stacked.peer_copy_many_plain(
+            xs, [torch.empty_like(xs[0]) for _ in range(n)], b1,
+            src_stride=b1),
         lambda xs: torch.stack(xs).view(n, n, b1).transpose(0, 1).contiguous(),
         100)
+    # B16 at its own shapes: the K6 and the K2 peer launches of one
+    # dryrun_multichip(8) step at cols 2**19 (two dp communicators of 4
+    # members, 8 MiB (4, cols) shards): each dp comm's allreduce (a K6
+    # fold and a K2 peer gather), reduce_scatter (K6), alltoall (8
+    # sega2a segments, K2 peer) and allgather (K2 peer), as the mesh
+    # bodies issue them; the sp ring's shift is a copy and is left out
+    dp, cols = NRANKS // 2, DRYRUN_COLS
+    ne = dp * cols
+    md = _stripe_elems(ne, dp, 4)
+    w = max(1, (MIB // 4) // dp)  # sega2a columns a segment
+
+    def dry_set(i):
+        out = []
+        for c in range(2):
+            xs = [rank_elems(4 * c + r, ne, torch.float32, dev, 77 + 10 * i)
+                  for r in range(dp)]
+            segs = [[x.view(dp, cols)[:, lo:lo + w].contiguous().view(-1)
+                     for x in xs] for lo in range(0, cols, w)]
+            stripes = [rank_elems(4 * c + r, md, torch.float32, dev,
+                                  78 + 10 * i) for r in range(dp)]
+            rs = [rank_elems(4 * c + r, ne // dp, torch.float32, dev,
+                             79 + 10 * i) for r in range(dp)]
+            out.append((xs, segs, stripes, rs))
+        return out
+
+    def dry_folds(fold):
+        def run(st):
+            got = []
+            for xs, _, _, _ in st:
+                jobs = [(torch.empty(min(md, ne - d * md), device=dev), d * md)
+                        for d in range(dp) if d * md < ne]
+                got += fold(xs, jobs, "MPI_SUM")
+                got += fold(xs, [(torch.empty(ne // dp, device=dev),
+                                  d * (ne // dp)) for d in range(dp)],
+                            "MPI_SUM")
+            return got
+        return run
+
+    def dry_copies(copy):
+        def run(st):
+            got = []
+            for _, segs, stripes, rs in st:
+                got += copy(stripes, [torch.empty(ne, device=dev)
+                                      for _ in range(dp)], md, limit=ne)
+                a2a = [torch.empty(ne, device=dev) for _ in range(dp)]
+                for k, lo in enumerate(range(0, cols, w)):
+                    copy(segs[k], a2a, w, src_stride=w, out_stride=cols,
+                         out_off=lo)
+                got += a2a
+                got += copy(rs[1:] + rs[:1], [torch.empty(ne, device=dev)
+                                              for _ in range(dp)], ne // dp)
+            return got
+        return run
+
+    mb = ne * 4  # bytes a shard
+    row("mesh_fold:dryrun_step_cols2^19", "mesh_fold", "f_dryrun_big",
+        "__graft_entry__.py:106", 2 * 2 * (dp * mb + mb), dry_set,
+        dry_folds(mesh.mesh_fold_many), dry_folds(mesh.mesh_fold_many_plain),
+        None, 20, source="mesh.cu")
+    row("peer_copy:dryrun_step_cols2^19", "peer_copy", "f_dryrun_big",
+        "__graft_entry__.py:106", 2 * ((mb + dp * mb) + 2 * dp * mb
+                                       + (mb + dp * mb)), dry_set,
+        dry_copies(stacked.peer_copy_many),
+        dry_copies(stacked.peer_copy_many_plain), None, 20)
     row(f"slot_pack:{FUSED_OPS}x64KiB_f32_one_rank", "slot_pack", "m_fused32",
         "ompi_tpu/coll/fusion.py:231", 2 * FUSED_OPS * nf * 4,
         lambda i: [rank_elems(0, nf, torch.float32, dev, 73 + k + 40 * i)

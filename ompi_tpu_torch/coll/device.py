@@ -16,10 +16,12 @@ single-controller program: the last arriver (or the dispatcher thread)
 holds every member's tensor, each on its member's device, and launches
 the work for every device, each launch reading the peers' buffers
 through their pointers (peer access across cards).  A reduction is a
-reduce-scatter by pulls — K6 mesh_fold, once per device, folding the
-stripe that device owns in the reference's order — then an allgather
-of the stripes by K2 in peer mode, once per device; alltoall and
-allgather are K2 peer launches; bcast and ppermute are peer copies.
+reduce-scatter by pulls — K6 mesh_fold folding the stripe each device
+owns in the reference's order — then an allgather of the stripes by
+K2 in peer mode; alltoall and allgather are K2 peer launches; bcast
+and ppermute are peer copies.  Each kernel takes a destination table,
+so a body is ONE launch of each of its kernels a card, for every
+member on that card (logical devices of one card share its stream).
 On both tiers the cartesian neighbour gather (``neighbor_allgather_arr``)
 is one K2 peer launch a member, zero-filling PROC_NULL blocks.
 
@@ -948,7 +950,8 @@ def _mesh_allreduce(xs: List[torch.Tensor], opname: str, order="rank",
     ``kernels.mesh._order`` takes it) into a stripe buffer on d, then
     gathers every stripe from its owner (K2 peer mode) into its output
     — ``outs[d]`` when given (written in place), else a new tensor.
-    2 launches a device."""
+    One K6 and one K2 peer launch a card (each over a destination
+    table of every member on that card)."""
     x0 = xs[0]
     n = x0.numel()
     if outs is None:
@@ -958,65 +961,55 @@ def _mesh_allreduce(xs: List[torch.Tensor], opname: str, order="rank",
         return outs
     flats = [x.reshape(-1) for x in xs]
     m = _stripe_elems(n, len(xs), x0.element_size())
-    stripes = []
-    for d, x in enumerate(xs):
-        buf = torch.empty(m, dtype=x0.dtype, device=x.device)
-        lo = d * m
-        if lo < n:
-            mesh.mesh_fold(flats, buf[:min(m, n - lo)], lo, opname, order)
-        stripes.append(buf)
+    stripes = [torch.empty(m, dtype=x0.dtype, device=x.device) for x in xs]
+    mesh.mesh_fold_many(flats, [(buf[:min(m, n - d * m)], d * m)
+                                for d, buf in enumerate(stripes)
+                                if d * m < n], opname, order)
     _cross_fence([x.device for x in xs], stripes)
-    for o in outs:
-        stacked.peer_copy(stripes, o.view(-1), m, limit=n)
+    stacked.peer_copy_many(stripes, [o.view(-1) for o in outs], m, limit=n)
     return outs
 
 
 def _mesh_reduce_scatter(xs: List[torch.Tensor], opname: str
                          ) -> List[torch.Tensor]:
     """Member d's output is stripe d of the rank-order fold: one K6
-    launch a device, writing the output directly."""
+    launch a card, writing the outputs directly."""
     x0 = xs[0]
     shape = stacked._scatter_shape(x0, len(xs))
     m = x0.numel() // len(xs)
     flats = [x.reshape(-1) for x in xs]
-    outs = []
-    for d, x in enumerate(xs):
-        o = torch.empty(shape, dtype=x0.dtype, device=x.device)
-        if m:
-            mesh.mesh_fold(flats, o.view(-1), d * m, opname)
-        outs.append(o)
+    outs = [torch.empty(shape, dtype=x0.dtype, device=x.device) for x in xs]
+    if m:
+        mesh.mesh_fold_many(flats, [(o.view(-1), d * m)
+                                    for d, o in enumerate(outs)], opname)
     return outs
 
 
 def _mesh_alltoall(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Output d, block j <- input j, block d: one K2 peer launch a
-    device."""
+    card."""
     x0, size = xs[0], len(xs)
     if x0.dim() == 0 or x0.shape[0] % size:
         raise ValueError(f"alltoall: leading dimension of "
                          f"{tuple(x0.shape)} is not divisible by {size}")
     b = x0.numel() // size
     flats = [x.reshape(-1) for x in xs]
-    outs = []
-    for d, x in enumerate(xs):
-        o = torch.empty(x0.shape, dtype=x0.dtype, device=x.device)
-        outs.append(stacked.peer_copy(flats, o.view(-1), b, dst=d,
-                                      src_stride=b).view(x0.shape))
+    outs = [torch.empty(x0.shape, dtype=x0.dtype, device=x.device)
+            for x in xs]
+    stacked.peer_copy_many(flats, [o.view(-1) for o in outs], b,
+                           src_stride=b)
     return outs
 
 
 def _mesh_allgather(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Output d = every input in rank order: one K2 peer launch a
-    device."""
+    card."""
     x0, size = xs[0], len(xs)
     s = tuple(x0.shape) or (1,)
     shape = (size * s[0],) + s[1:]
     flats = [x.reshape(-1) for x in xs]
-    outs = []
-    for x in xs:
-        o = torch.empty(shape, dtype=x0.dtype, device=x.device)
-        stacked.peer_copy(flats, o.view(-1), x0.numel())
-        outs.append(o)
+    outs = [torch.empty(shape, dtype=x0.dtype, device=x.device) for x in xs]
+    stacked.peer_copy_many(flats, [o.view(-1) for o in outs], x0.numel())
     return outs
 
 

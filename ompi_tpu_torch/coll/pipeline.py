@@ -290,8 +290,8 @@ def _mesh_seg_reduce(module, comm, x, op, alg: str):
 
 def _mesh_seg_bcast(module, comm, x, root: int):
     """Segmented bcast over the mesh (segbcast): each segment is one K2
-    peer copy a device from the root's segment into the member's
-    output."""
+    peer launch a card from the root's segment into the members'
+    outputs."""
     x = module._deposit(comm, x)
     flat = x.reshape(-1)
     n = flat.shape[0]
@@ -299,8 +299,9 @@ def _mesh_seg_bcast(module, comm, x, root: int):
     out = torch.empty(n, dtype=flat.dtype, device=flat.device)
 
     def fn(slots):
-        src = slots[root][0]
-        return [stacked.peer_copy([src], o, o.numel()) for _, o in slots]
+        outs = [o for _, o in slots]
+        return stacked.peer_copy_many([slots[root][0]], outs,
+                                      outs[0].numel())
 
     ck = _ig.spec("bcast", "", flat, root) if _ig.on else None
     _run_pipelined(comm, (((flat[lo:lo + seg], out[lo:lo + seg]), fn)
@@ -313,8 +314,8 @@ def _mesh_seg_alltoall(module, comm, x):
     moves columns [k*m, (k+1)*m) of every block.  A rank deposits its
     segment as one contiguous (P, w) operand (the reference's segment
     shape: what the integrity gate digests and a retry re-reads), and
-    one K2 peer launch a device writes block d of every source's
-    segment into the member's output in place.  Each member's output
+    one K2 peer launch a card writes block d of every source's segment
+    into each member d's output in place.  Each member's output
     of a segment is its column slice of that output."""
     x = module._deposit(comm, x)
     size = comm.size
@@ -328,13 +329,11 @@ def _mesh_seg_alltoall(module, comm, x):
             w = min(m, cols - lo)
 
             def fn(slots, lo=lo, w=w):
-                srcs = [s for s, _ in slots]
-                outs = []
-                for d, (_, o) in enumerate(slots):
-                    stacked.peer_copy(srcs, o, w, dst=d, src_stride=w,
-                                      out_stride=cols, out_off=lo)
-                    outs.append(o.view(size, cols)[:, lo:lo + w])
-                return outs
+                stacked.peer_copy_many([s for s, _ in slots],
+                                       [o for _, o in slots], w,
+                                       src_stride=w, out_stride=cols,
+                                       out_off=lo)
+                return [o.view(size, cols)[:, lo:lo + w] for _, o in slots]
             yield (rows[:, lo:lo + w].reshape(-1), out), fn
 
     ck = _ig.spec("alltoall", "", rows) if _ig.on else None

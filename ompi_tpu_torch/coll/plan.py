@@ -30,9 +30,9 @@ Mesh plans (``mesh_reduce``, the port of ``_compile_mesh`` and
 ``_build_mesh_plan``): the reference compiles the whole multi-segment
 segring or segrd schedule, or a native psum/pmax/pmin, into one
 program over the identity-padded payload.  The port's body is one K6
-mesh_fold a device in the schedule's order (the ring geometry of the
+mesh_fold a card in the schedule's order (the ring geometry of the
 plan's segments, segrd's tree, or rank order for the native lowering)
-and one K2 peer gather a device — over the payload as it is: the
+and one K2 peer gather a card — over the payload as it is: the
 kernels take any length and the ring geometry by index, so a mesh
 plan neither pads nor trims.  With ``coll_plan_native_reduce`` (on by
 default) SUM/MAX/MIN plans take the rank-order fold.

@@ -5,17 +5,23 @@ K6 ``mesh_fold`` replaces the reductions of the reference's mesh
 programs: ``_build_mesh_collective`` (ompi_tpu/coll/device.py:997),
 the segring / segrd schedules of ``_build_seg_kernel``
 (coll/pipeline.py:192), ``_compile_mesh`` (coll/plan.py:257) and the
-group reductions of the fused mesh batch (coll/fusion.py:257).  One
-launch on a destination device folds the N members' inputs, read
-through their pointers, over the stripe that device owns, in the
+group reductions of the fused mesh batch (coll/fusion.py:257).
+``mesh_fold_many`` takes a destination table, jobs (out, lo): ONE
+launch a card folds the N members' inputs, read through their
+pointers, over each job's stripe [lo, lo + out.numel()), in the
 reference's order: rank order, the segring rotation (stripe c of a
 segment folds ranks c, c+1, ..., c-1), or segrd's balanced tree.
+``mesh_fold`` is a table of one.
 
 K7 ``slot_pack`` replaces ``_build_pack`` (coll/fusion.py:231): one
 launch packs one rank's slots of a fused group into one buffer,
 writing zeros for the non-root bcast slots.
 
-Both are bound by bytes (see the note at the top of mesh.cu).
+Both are bound by bytes (see the note at the top of mesh.cu).  K6 is
+a persistent grid over a flat tile list of every job of the launch,
+fed by bulk copies through a ring of shared-memory stages;
+``_fold_job``, ``_fold_job_tiles`` and ``_fold_span`` are the Python
+statement of its tiling, which the CPU tests hold.
 
 A wrapper takes the plain version only for tensors that lie on the
 CPU.  A CUDA tensor launches the kernel, or the wrapper raises: there
@@ -27,27 +33,40 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import build
 from .stacked import (_DTYPES, _OPS, LaunchCount, _launch, _width,
-                      fold_plain, reduce_supported, require_peer,
+                      fold_plain, groups, reduce_supported, require_peer,
                       tree_plain)
 
 MAX_PTRS = 128
+MAX_JOBS = 64     # destinations in one K6 table (FOLD_MAX_JOBS)
+MAX_STAGES = 8    # FOLD_MAX_STAGES
+FOLD_TILE = 2048  # bytes of one member a K6 tile, at most
+FOLD_STAGES = 2   # K6's ring
+FOLD_SMEM = 192 * 1024  # bytes a K6 ring may take
 MAX_SLOTS = 64
 UNITS = 1024  # units one K7 block covers (PACK_UNITS in mesh.cu)
 
 
+class _FoldJob(ctypes.Structure):
+    _fields_ = [("out", ctypes.c_void_p), ("lo", ctypes.c_longlong),
+                ("len", ctypes.c_longlong), ("first_tile", ctypes.c_int),
+                ("head", ctypes.c_int)]
+
+
 class _FoldArgs(ctypes.Structure):
     _fields_ = [("inp", ctypes.c_void_p * MAX_PTRS),
-                ("out", ctypes.c_void_p),
-                ("lo", ctypes.c_longlong), ("len", ctypes.c_longlong),
+                ("job", _FoldJob * MAX_JOBS),
                 ("ring_seg", ctypes.c_longlong),
                 ("ring_m", ctypes.c_longlong),
+                ("tile", ctypes.c_longlong),
                 ("nin", ctypes.c_int), ("tree", ctypes.c_int),
+                ("njobs", ctypes.c_int), ("ntiles", ctypes.c_int),
+                ("stages", ctypes.c_int),
                 ("order", ctypes.c_ubyte * MAX_PTRS)]
 
 
@@ -74,8 +93,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = build.load("mesh")
             lib.ompi_mesh_fold.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.ompi_mesh_fold.restype = ctypes.c_int
             lib.ompi_slot_pack.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -83,6 +101,8 @@ def _library() -> ctypes.CDLL:
             if (lib.ompi_fold_args_size() != ctypes.sizeof(_FoldArgs)
                     or lib.ompi_pack_args_size() != ctypes.sizeof(_PackArgs)
                     or lib.ompi_mesh_max_ptrs() != MAX_PTRS
+                    or lib.ompi_fold_max_jobs() != MAX_JOBS
+                    or lib.ompi_fold_max_stages() != MAX_STAGES
                     or lib.ompi_pack_max_slots() != MAX_SLOTS
                     or lib.ompi_pack_units() != UNITS):
                 raise RuntimeError("mesh.cu argument layout does not "
@@ -111,7 +131,7 @@ def _order(order, n: int) -> Tuple[int, int, int]:
     raise ValueError(f"mesh_fold: unknown order {order!r}")
 
 
-def _check_fold(xs, out, lo: int, opname: str) -> None:
+def _check_inputs(xs, opname: str) -> None:
     if not xs or len(xs) > MAX_PTRS:
         raise ValueError(f"mesh_fold: {len(xs)} inputs (1 to {MAX_PTRS})")
     x0 = xs[0]
@@ -122,58 +142,144 @@ def _check_fold(xs, out, lo: int, opname: str) -> None:
             raise ValueError("mesh_fold: inputs must share dtype and size")
         if not x.is_contiguous():
             raise ValueError("mesh_fold: inputs must be contiguous")
+    if not reduce_supported(x0.dtype, opname):
+        raise TypeError(f"mesh_fold: {opname} on {x0.dtype} is not a pair "
+                        "the kernel takes")
+
+
+def _check_job(x0, out, lo: int) -> None:
     if out.dtype != x0.dtype or not out.is_contiguous():
         raise ValueError("mesh_fold: out must be contiguous, of the "
                          "inputs' dtype")
     if lo < 0 or lo + out.numel() > x0.numel():
         raise ValueError(f"mesh_fold: elements [{lo}, "
                          f"{lo + out.numel()}) outside {x0.numel()}")
-    if not reduce_supported(x0.dtype, opname):
-        raise TypeError(f"mesh_fold: {opname} on {x0.dtype} is not a pair "
-                        "the kernel takes")
+
+
+def _fold_tile(nin: int, isz: int) -> int:
+    """Elements of one member a K6 tile: FOLD_TILE bytes, less where N
+    members' slices over FOLD_STAGES stages would pass FOLD_SMEM, in
+    whole 16-byte vectors."""
+    b = min(FOLD_TILE, FOLD_SMEM // (FOLD_STAGES * nin) // 16 * 16)
+    return max(16, b) // isz
+
+
+def _fold_job(in_addrs: Sequence[int], out_addr: int, lo: int, length: int,
+              isz: int, seg: int = 0, m: int = 0) -> int:
+    """The head of a K6 job: the elements ahead of its first whole
+    16-byte vector, when every input's element ``lo`` and the output
+    share one residue modulo 16 (and, segring, no vector straddles a
+    ring_m stripe), so that the job's body moves by bulk copies; -1
+    otherwise (the whole job on the kernel's edge path)."""
+    v = 16 // isz
+    r = out_addr % 16
+    if r % isz or any((p + lo * isz) % 16 != r for p in in_addrs):
+        return -1
+    h = min(length, (16 - r) % 16 // isz)
+    if m and (m % v or seg % v or (lo + h) % v):
+        return -1
+    return h
+
+
+def _fold_job_tiles(length: int, head: int, tile: int, v: int) -> int:
+    """Tiles of a K6 job (mesh.cu fold_span): ceil(length / tile) on
+    the edge path; else its bulk tiles and, if the head or the tail
+    misses a whole vector, one edge tile."""
+    if head < 0:
+        return -(-length // tile)
+    body = (length - head) // v * v
+    return -(-body // tile) + (1 if length > body else 0)
+
+
+def _fold_span(length: int, head: int, tile: int, v: int, k: int):
+    """(kind, e0, e1) of tile k of a K6 job, as mesh.cu's fold_span:
+    kind 1 bulk elements [e0, e1); 0 edge-path elements [e0, e1); 2 the
+    edge tile of elements [0, e0) and [e1, length)."""
+    if head < 0:
+        return 0, k * tile, min((k + 1) * tile, length)
+    body = (length - head) // v * v
+    if k < -(-body // tile):
+        return 1, head + k * tile, head + min((k + 1) * tile, body)
+    return 2, head, head + body
+
+
+def mesh_fold_many(xs: Sequence[torch.Tensor],
+                   jobs: Sequence[Tuple[torch.Tensor, int]], opname: str,
+                   order="rank") -> List[torch.Tensor]:
+    """K6 over a destination table: for each job (out, lo) and k <
+    out.numel(), out[k] = the fold of the N inputs at flat element lo +
+    k, in ``order`` (see ``_order``).  The jobs are grouped by
+    ``out.device``: ONE launch a card (MAX_JOBS a table; a longer
+    table splits), each counted on ``mesh_fold.launches``.  The inputs
+    may lie on other cards (peer access).  Writes the outputs in place
+    and returns them.  Stream order: each launch runs on its card's
+    current stream; logical devices of one card share that stream (and
+    coll/device's fence), so a grouped launch needs no event of its
+    own."""
+    _check_inputs(xs, opname)
+    x0 = xs[0]
+    for out, lo in jobs:
+        _check_job(x0, out, lo)
+    tree, seg, m = _order(order, len(xs))
+    outs = [out for out, _ in jobs]
+    if all(o.device.type == "cpu" for o in outs):
+        if any(x.device.type != "cpu" for x in xs):
+            raise ValueError("mesh_fold: a CPU output takes CPU inputs")
+        return mesh_fold_many_plain(xs, jobs, opname, order)
+    if any(o.device.type != "cuda" for o in outs) or \
+            any(x.device.type != "cuda" for x in xs):
+        raise ValueError("mesh_fold: inputs and outputs must lie on cards")
+    ptrs = [x.data_ptr() for x in xs]
+    tables = _fold_tables(ptrs, [(o.device, o.data_ptr(), lo, o.numel())
+                                 for o, lo in jobs if o.numel()],
+                          x0.element_size(), tree, seg, m)
+    lib = _library()
+    for dev, a in tables:
+        for x in xs:
+            require_peer(dev, x.device)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _launch(lib.ompi_mesh_fold(ctypes.byref(a), _DTYPES[x0.dtype],
+                                       _OPS[opname], stream), "mesh_fold")
+            mesh_fold.launches.add()
+    return outs
+
+
+def _fold_tables(ptrs: Sequence[int], jobs, isz: int, tree: int = 0,
+                 seg: int = 0, m: int = 0) -> List[Tuple[object, _FoldArgs]]:
+    """K6's launches over the input addresses ``ptrs`` and the
+    non-empty jobs (device, out address, lo, len): one (device, table)
+    a card (``groups``: MAX_JOBS jobs a table), each job's head and
+    first tile filled in, the tile and the stages set."""
+    n = len(ptrs)
+    v = 16 // isz
+    tile = _fold_tile(n, isz)
+    out = []
+    for grp in groups([j[0] for j in jobs], MAX_JOBS):
+        a = _FoldArgs()
+        for i, p in enumerate(ptrs):
+            a.inp[i] = p
+            a.order[i] = i
+        t = 0
+        for q, i in enumerate(grp):
+            _, addr, lo, length = jobs[i]
+            rec = a.job[q]
+            rec.out, rec.lo, rec.len = addr, lo, length
+            rec.head = _fold_job(ptrs, addr, lo, length, isz, seg, m)
+            rec.first_tile = t
+            t += _fold_job_tiles(length, rec.head, tile, v)
+        a.ring_seg, a.ring_m, a.tile = seg, m, tile
+        a.nin, a.tree, a.njobs, a.ntiles = n, tree, len(grp), t
+        a.stages = FOLD_STAGES
+        out.append((jobs[grp[0]][0], a))
+    return out
 
 
 def mesh_fold(xs: Sequence[torch.Tensor], out: torch.Tensor, lo: int,
               opname: str, order="rank") -> torch.Tensor:
-    """K6: ONE launch on ``out``'s device writing, for k < out.numel(),
-    out[k] = the fold of the N inputs at flat element lo + k, in
-    ``order`` (see ``_order``).  The inputs may lie on other cards (peer
-    access).  Writes ``out`` in place and returns it."""
-    _check_fold(xs, out, lo, opname)
-    tree, seg, m = _order(order, len(xs))
-    if out.device.type == "cpu":
-        if any(x.device.type != "cpu" for x in xs):
-            raise ValueError("mesh_fold: a CPU output takes CPU inputs")
-        out.view(-1).copy_(mesh_fold_plain(xs, lo, out.numel(), opname,
-                                           order))
-        return out
-    if out.device.type != "cuda" or any(x.device.type != "cuda"
-                                        for x in xs):
-        raise ValueError("mesh_fold: inputs and output must lie on cards")
-    if out.numel() == 0:
-        return out
-    x0 = xs[0]
-    a = _FoldArgs()
-    for i, x in enumerate(xs):
-        require_peer(out.device, x.device)
-        a.inp[i] = x.data_ptr()
-        a.order[i] = i
-    a.out = out.data_ptr()
-    a.lo, a.len = lo, out.numel()
-    a.ring_seg, a.ring_m = seg, m
-    a.nin, a.tree = len(xs), tree
-    v = 16 // x0.element_size()
-    vec = (not tree and lo % v == 0 and (m == 0 or m % v == 0)
-           and all(p % 16 == 0 for p in a.inp[:len(xs)])
-           and a.out % 16 == 0)
-    lib = _library()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        _launch(lib.ompi_mesh_fold(ctypes.byref(a), _DTYPES[x0.dtype],
-                                   _OPS[opname], int(vec), stream),
-                "mesh_fold")
-        mesh_fold.launches.add()
-    return out
+    """K6 for one destination: ``mesh_fold_many`` over a table of one
+    (one launch on ``out``'s card), writing ``out`` in place."""
+    return mesh_fold_many(xs, [(out, lo)], opname, order)[0]
 
 
 mesh_fold.launches = LaunchCount()
@@ -210,6 +316,17 @@ def mesh_fold_plain(xs: Sequence[torch.Tensor], lo: int, length: int,
         out = res if out is None else \
             torch.where((rot == c).unsqueeze(1), res, out)
     return out.reshape(-1).view(xs[0].dtype)
+
+
+def mesh_fold_many_plain(xs: Sequence[torch.Tensor],
+                         jobs: Sequence[Tuple[torch.Tensor, int]],
+                         opname: str, order="rank") -> List[torch.Tensor]:
+    """Plain PyTorch version of ``mesh_fold_many``: ``mesh_fold_plain``
+    for each job, written into its output in place."""
+    for out, lo in jobs:
+        out.view(-1).copy_(mesh_fold_plain(xs, lo, out.numel(), opname,
+                                           order, device=out.device))
+    return [out for out, _ in jobs]
 
 
 # ---------------------------------------------------------------------------

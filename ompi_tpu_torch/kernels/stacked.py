@@ -7,14 +7,19 @@ programs, ``HbmCollModule._build_stacked("allreduce", op)`` and
 fold table ``_fold_fn`` at :136 and op/op.py:153 ``jax_binary``).
 K2 ``stacked_copy`` replaces their data-movement halves,
 ``_build_stacked("alltoall")`` (:1421-1431) and ``("allgather")``
-(:1418).  K2's peer mode, ``peer_copy``, serves the mesh tier: one
-launch per destination device, reading sources that may lie on other
-cards (the all_gather / all_to_all halves of ``_build_mesh_collective``,
+(:1418).  K2's peer mode, ``peer_copy_many`` (``peer_copy`` is a
+table of one), serves the mesh tier: ONE launch a card over every
+destination on that card, reading sources that may lie on other cards
+(the all_gather / all_to_all halves of ``_build_mesh_collective``,
 :997, and the segbcast / sega2a schedules of coll/pipeline.py:192).
 
-Both are bound by bytes (see the note at the top of stacked.cu): one
-read of every input and one write of every output, 16 bytes a thread
-where the pointers allow, is all the simple design does about it.
+Both are bound by bytes (see the note at the top of stacked.cu).  K1
+reads every input once and writes every output once, 16 bytes a
+thread where the pointers allow.  K2 is a persistent grid that walks
+a flat tile list over every (destination, source) row of the launch,
+moving each row's 16-byte-aligned body by bulk copies through a ring
+of shared-memory stages; ``_row_tiles`` and ``_row_split`` are the
+Python statement of its tiling, which the CPU tests hold.
 
 A wrapper takes the plain version only for tensors that lie on the
 CPU.  A CUDA tensor launches the kernel, or the wrapper raises: there
@@ -24,9 +29,8 @@ is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +38,8 @@ from ompi_tpu_torch.op.op import PREDEFINED, torch_binary
 from . import build
 
 MAX_PTRS = 128
+COPY_TILE = 32768  # bytes a K2 tile
+COPY_STAGES = 4    # K2's ring: 2, 4 or 8 stages
 
 _DTYPES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2,
            torch.float64: 3, torch.int8: 4, torch.uint8: 5,
@@ -101,8 +107,11 @@ class _CopyArgs(ctypes.Structure):
                 ("chunk", ctypes.c_longlong),
                 ("in_stride", ctypes.c_longlong),
                 ("out_stride", ctypes.c_longlong),
-                ("limit", ctypes.c_longlong), ("n", ctypes.c_int),
-                ("nout", ctypes.c_int), ("first_out", ctypes.c_int)]
+                ("limit", ctypes.c_longlong), ("tile", ctypes.c_longlong),
+                ("ntiles", ctypes.c_longlong),
+                ("first_tile", ctypes.c_int * (MAX_PTRS + 1)),
+                ("dst", ctypes.c_int * MAX_PTRS),
+                ("n", ctypes.c_int), ("nout", ctypes.c_int)]
 
 
 _lib_lock = threading.Lock()
@@ -340,6 +349,60 @@ def _width(nbytes: int, ptrs) -> int:
     return 1
 
 
+def groups(devices: Sequence, cap: int) -> List[List[int]]:
+    """The indices of ``devices`` grouped by device, in order of first
+    appearance, each group cut into runs of at most ``cap``: one launch
+    a run, so one a card while a card holds at most ``cap``."""
+    by: dict = {}
+    for i, d in enumerate(devices):
+        by.setdefault(d, []).append(i)
+    return [g[k:k + cap] for g in by.values() for k in range(0, len(g), cap)]
+
+
+def _row_tiles(nsrc: int, chunk: int, out_stride: int, limit: int,
+               tile: int) -> List[int]:
+    """K2's prefix table over the sources (bytes throughout): row j of
+    every destination moves min(chunk, limit - j * out_stride) bytes
+    in ceil(that / tile) tiles; entry j is the first tile of row j
+    among one destination's tiles, entry nsrc their count.  A launch
+    over D destinations walks D * pre[-1] tiles, tile t being tile
+    t // D - pre[j] of destination t % D's row j (source-major, so the
+    destinations that read one source tile run together)."""
+    pre = [0]
+    for j in range(nsrc):
+        cnt = min(chunk, limit - j * out_stride)
+        pre.append(pre[-1] + (-(-cnt // tile) if cnt > 0 else 0))
+    return pre
+
+
+def _row_split(src: Optional[int], dst: int, cnt: int, k: int, tile: int
+               ) -> Tuple[Optional[Tuple[int, int]], List[Tuple[int, int]]]:
+    """What tile k of a K2 row moves, as stacked.cu's copy_tiles splits
+    it (byte offsets into the row): (the bulk span, or None; the spans
+    its edge threads move).  ``src`` and ``dst`` are the row's
+    addresses (src None: a null source, zeros).  A row whose source and
+    destination are congruent modulo 16 moves its 16-byte-aligned body
+    by bulk copies, and its head and tail in its last tile; any other
+    row moves each tile with plain loads."""
+    ntile = -(-cnt // tile)
+    if src is not None and (src ^ dst) & 15 == 0:
+        h = min(cnt, (16 - src % 16) % 16)
+        end = h + ((cnt - h) & ~15)
+        b0 = h + k * tile
+        bulk = (b0, min(b0 + tile, end)) if b0 < end else None
+        edges = [(0, h), (end, cnt)] if k == ntile - 1 else []
+        return bulk, [e for e in edges if e[1] > e[0]]
+    return None, [(k * tile, min((k + 1) * tile, cnt))]
+
+
+def _copy_launch(c: _CopyArgs, dev: torch.device, what: str) -> None:
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(lib.ompi_stacked_copy(ctypes.byref(c), COPY_STAGES, stream),
+                what)
+
+
 def stacked_copy(xs: Sequence[torch.Tensor], kind: str
                  ) -> List[torch.Tensor]:
     """One launch over N inputs and N outputs.
@@ -366,24 +429,12 @@ def stacked_copy(xs: Sequence[torch.Tensor], kind: str
         return stacked_copy_plain(xs, kind)
     outs = [torch.empty(shape, dtype=x0.dtype, device=x0.device)
             for _ in range(n)]
-    a = _CopyArgs()
-    for i, x in enumerate(xs):
-        a.inp[i] = x.data_ptr()
-    for i, o in enumerate(outs):
-        a.out[i] = o.data_ptr()
-    w = _width(chunk, list(a.inp[:n]) + list(a.out[:n]))
-    a.chunk = a.out_stride = chunk // w
-    a.in_stride = a.chunk if kind == "alltoall" else 0
-    a.limit = n * a.chunk
-    a.n = a.nout = n
-    a.first_out = 0
-    lib = _library()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        if chunk:
-            _launch(lib.ompi_stacked_copy(ctypes.byref(a), w, stream),
-                    "stacked_copy")
-            stacked_copy.launches.add()
+    for dev, c in _copy_tables([x.data_ptr() for x in xs],
+                               [(o.device, o.data_ptr()) for o in outs], 0,
+                               chunk, chunk if kind == "alltoall" else 0,
+                               chunk, n * chunk):
+        _copy_launch(c, dev, "stacked_copy")
+        stacked_copy.launches.add()
     return outs
 
 
@@ -405,7 +456,7 @@ def stacked_copy_plain(xs: Sequence[torch.Tensor], kind: str
 
 
 # ---------------------------------------------------------------------------
-# K2 peer mode: one destination device, sources anywhere
+# K2 peer mode: destinations on any cards, sources anywhere
 # ---------------------------------------------------------------------------
 
 def _peer_plan(srcs, out, block, dst, src_stride, src_off, out_stride,
@@ -416,6 +467,8 @@ def _peer_plan(srcs, out, block, dst, src_stride, src_off, out_stride,
     if not srcs or len(srcs) > MAX_PTRS:
         raise ValueError(f"peer_copy: {len(srcs)} sources (1 to "
                          f"{MAX_PTRS})")
+    if not out.is_contiguous():
+        raise ValueError("peer_copy: out must be contiguous")
     a = src_off + dst * src_stride
     moves = []
     for j, s in enumerate(srcs):
@@ -435,75 +488,112 @@ def _peer_plan(srcs, out, block, dst, src_stride, src_off, out_stride,
     return a, moves
 
 
-def peer_copy(srcs: Sequence[torch.Tensor], out: torch.Tensor, block: int,
-              *, dst: int = 0, src_stride: int = 0, src_off: int = 0,
-              out_stride: int = None, out_off: int = 0,
-              limit: int = None) -> torch.Tensor:
-    """K2 in peer mode: ONE launch on ``out``'s device that writes, for
-    every source j and k < block,
+def peer_copy_many(srcs: Sequence[Optional[torch.Tensor]],
+                   outs: Sequence[torch.Tensor], block: int, *,
+                   first_dst: int = 0, src_stride: int = 0,
+                   src_off: int = 0, out_stride: int = None,
+                   out_off: int = 0, limit: int = None
+                   ) -> List[torch.Tensor]:
+    """K2 in peer mode over a destination table: for each output i
+    (destination d = first_dst + i), every source j and k < block,
 
-        out[out_off + j * out_stride + k]
-            = srcs[j][src_off + dst * src_stride + k]
+        outs[i][out_off + j * out_stride + k]
+            = srcs[j][src_off + d * src_stride + k]
 
     (flat element indices), but no element at or past ``out_off +
-    limit``.  The sources may lie on other cards (peer access).  An
-    allgather is src_stride 0; an alltoall's destination ``dst`` takes
-    block ``dst`` of every source.  A source given as None is a null
-    source (a PROC_NULL neighbour): the same launch writes zeros into
-    its block.  Writes ``out`` in place and returns it."""
+    limit``.  ONE launch a card: the outputs are grouped by device
+    (``groups``), each card's destinations in one table.  The sources
+    may lie on other cards (peer access).  An allgather is src_stride
+    0; an alltoall's destination d takes block d of every source.  A
+    source given as None is a null source (a PROC_NULL neighbour): the
+    launch writes zeros into its block.  Writes the outputs in place
+    and returns them.  Stream order: the launch runs on the output
+    card's current stream; logical devices of one card share that
+    stream (and coll/device's fence), so a grouped launch needs no
+    event of its own."""
     out_stride = block if out_stride is None else out_stride
     limit = len(srcs) * out_stride if limit is None else limit
-    if not out.is_contiguous():
-        raise ValueError("peer_copy: out must be contiguous")
-    a, moves = _peer_plan(srcs, out, block, dst, src_stride, src_off,
-                          out_stride, out_off, limit)
+    if not outs:
+        return []
+    for i, o in enumerate(outs):  # checks every destination's bounds
+        _peer_plan(srcs, o, block, first_dst + i, src_stride, src_off,
+                   out_stride, out_off, limit)
     real = [s for s in srcs if s is not None]
-    if out.device.type == "cpu":
+    if all(o.device.type == "cpu" for o in outs):
         if any(s.device.type != "cpu" for s in real):
             raise ValueError("peer_copy: a CPU output takes CPU sources")
-        return peer_copy_plain(srcs, out, block, dst=dst,
-                               src_stride=src_stride, src_off=src_off,
-                               out_stride=out_stride, out_off=out_off,
-                               limit=limit)
-    if out.device.type != "cuda" or any(s.device.type != "cuda"
-                                        for s in real):
-        raise ValueError("peer_copy: sources and output must lie on cards")
-    if not moves:
-        return out
-    isz = out.element_size()
-    c = _CopyArgs()
-    for j, s in enumerate(srcs):
-        if s is None:
-            c.inp[j] = None  # the kernel zero-fills a null source's block
-            continue
-        require_peer(out.device, s.device)
-        c.inp[j] = s.data_ptr() + a * isz
-    c.out[0] = out.data_ptr() + out_off * isz
-    w = _width(math.gcd(block * isz, out_stride * isz, limit * isz),
-               [p or 0 for p in c.inp[:len(srcs)]] + [c.out[0]])
-    c.chunk = block * isz // w
-    c.out_stride = out_stride * isz // w
-    c.limit = limit * isz // w
-    c.in_stride = 0
-    c.n = len(srcs)
-    c.nout = 1
-    c.first_out = 0
-    lib = _library()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        _launch(lib.ompi_stacked_copy(ctypes.byref(c), w, stream),
-                "peer_copy")
+        return peer_copy_many_plain(
+            srcs, outs, block, first_dst=first_dst, src_stride=src_stride,
+            src_off=src_off, out_stride=out_stride, out_off=out_off,
+            limit=limit)
+    if any(o.device.type != "cuda" for o in outs) or \
+            any(s.device.type != "cuda" for s in real):
+        raise ValueError("peer_copy: sources and outputs must lie on cards")
+    if any(o.dtype != outs[0].dtype for o in outs):
+        raise ValueError("peer_copy: outputs must share a dtype")
+    isz = outs[0].element_size()
+    tables = _copy_tables(
+        [None if s is None else s.data_ptr() + src_off * isz for s in srcs],
+        [(o.device, o.data_ptr() + out_off * isz) for o in outs], first_dst,
+        block * isz, src_stride * isz, out_stride * isz, limit * isz)
+    for dev, c in tables:
+        for s in real:
+            require_peer(dev, s.device)
+        _copy_launch(c, dev, "peer_copy")
         peer_copy.launches.add()
-    return out
+    return list(outs)
+
+
+def _copy_tables(ptrs, outs, first_dst: int, chunk: int, in_stride: int,
+                 out_stride: int, limit: int
+                 ) -> List[Tuple[object, _CopyArgs]]:
+    """K2 peer's launches over the source addresses ``ptrs`` (None: a
+    null source) and the destinations (device, address), destination i
+    taking source block first_dst + i (bytes throughout): one (device,
+    table) a card (``groups``: MAX_PTRS destinations a table); none
+    when no row has a byte to move."""
+    pre = _row_tiles(len(ptrs), chunk, out_stride, limit, COPY_TILE)
+    if not pre[-1]:
+        return []
+    tables = []
+    for grp in groups([d for d, _ in outs], MAX_PTRS):
+        c = _CopyArgs()
+        for j, p in enumerate(ptrs):
+            c.inp[j] = p
+        c.chunk, c.in_stride, c.out_stride, c.limit = (chunk, in_stride,
+                                                       out_stride, limit)
+        c.tile = COPY_TILE
+        c.first_tile[:len(pre)] = pre
+        c.n = len(ptrs)
+        for il, i in enumerate(grp):
+            c.out[il] = outs[i][1]
+            c.dst[il] = first_dst + i
+        c.nout = len(grp)
+        c.ntiles = len(grp) * pre[-1]
+        tables.append((outs[grp[0]][0], c))
+    return tables
+
+
+def peer_copy(srcs: Sequence[Optional[torch.Tensor]], out: torch.Tensor,
+              block: int, *, dst: int = 0, src_stride: int = 0,
+              src_off: int = 0, out_stride: int = None, out_off: int = 0,
+              limit: int = None) -> torch.Tensor:
+    """K2 in peer mode for one destination ``dst``: ``peer_copy_many``
+    over a table of one (one launch), writing ``out`` in place."""
+    return peer_copy_many(srcs, [out], block, first_dst=dst,
+                          src_stride=src_stride, src_off=src_off,
+                          out_stride=out_stride, out_off=out_off,
+                          limit=limit)[0]
 
 
 peer_copy.launches = LaunchCount()
 
 
-def peer_copy_plain(srcs: Sequence[torch.Tensor], out: torch.Tensor,
-                    block: int, *, dst: int = 0, src_stride: int = 0,
-                    src_off: int = 0, out_stride: int = None,
-                    out_off: int = 0, limit: int = None) -> torch.Tensor:
+def peer_copy_plain(srcs: Sequence[Optional[torch.Tensor]],
+                    out: torch.Tensor, block: int, *, dst: int = 0,
+                    src_stride: int = 0, src_off: int = 0,
+                    out_stride: int = None, out_off: int = 0,
+                    limit: int = None) -> torch.Tensor:
     """Plain PyTorch version of K2's peer mode, on any device: the same
     block copies, one ``copy_`` each (a ``zero_`` for a null source),
     in place."""
@@ -519,3 +609,12 @@ def peer_copy_plain(srcs: Sequence[torch.Tensor], out: torch.Tensor,
         else:
             flat[b:b + cnt].copy_(srcs[j].reshape(-1)[a:a + cnt])
     return out
+
+
+def peer_copy_many_plain(srcs: Sequence[Optional[torch.Tensor]],
+                         outs: Sequence[torch.Tensor], block: int, *,
+                         first_dst: int = 0, **kw) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``peer_copy_many``: ``peer_copy_plain``
+    for each destination, in place."""
+    return [peer_copy_plain(srcs, o, block, dst=first_dst + i, **kw)
+            for i, o in enumerate(outs)]

@@ -1,0 +1,227 @@
+"""Device-time A/B of K6 mesh_fold and K2 stacked_copy across checkouts.
+
+    python3 -m ompi_tpu_torch.tools.kernel_ab ROOT [ROOT ...]
+        [--iters 50] [--cpu]
+
+Each ROOT is the root of a checkout that holds ``ompi_tpu_torch/``:
+this one (``.``), or another commit unpacked with ``git archive`` into
+a directory that .gitignore lists.  For each ROOT, in the order given,
+a child process imports ``ompi_tpu_torch`` from that root alone,
+builds its kernels and times the launches that the mesh tier and
+coll/hbm make for one collective, at the main path's shapes (8
+members on one card):
+
+- K6: the fused mesh batch's fold (8 x 2 MiB), the 8 MiB allreduce's
+  fold in rank order and in the segring order, the 128 MiB plan's
+  fold, and one 1 MiB stripe of 8 inputs;
+- K2: the 8 MiB allreduce's gather of stripes, the 1 MiB alltoall,
+  8 stripes of 1 MiB into one output (peer mode), one member's
+  neighbour gather on the 2x4 periodic grid at 8 MiB, and the stacked
+  allgather and alltoall of 1 MiB a rank.
+
+A checkout whose wrappers take a destination table
+(``mesh.mesh_fold_many``, ``stacked.peer_copy_many``) makes one call
+of it, as its tier does; an older one makes one call a destination
+(``mesh_fold``, ``peer_copy``), as its tier did.  A time is the
+device's: CUDA events around a replayed CUDA graph of ``iters`` calls,
+divided by ``iters``, cold (input sets that move at least 256 MiB a
+replay).  Give the roots as A B B A.  Every root must write the same
+bytes for each row, or the tool exits non-zero.  Prints the card's
+name and power limit, one JSON line a root, and the median of each
+row per distinct root.  ``--cpu`` rehearses the control flow on the
+CPU with the plain versions, at 1/64 of the sizes, without timing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+MIB = 1 << 20
+COLD = 256 * MIB
+N = 8
+
+
+def _child(root: str, iters: int, cpu: bool) -> dict:
+    """Runs in a child process whose ompi_tpu_torch comes from root."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.coll.device import _stripe_elems
+    from ompi_tpu_torch.kernels import build, mesh, stacked
+
+    pkg = os.path.dirname(os.path.abspath(ompi_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(root):
+        raise RuntimeError(f"imported {pkg}, not the one under {root}")
+    div = 64 if cpu else 1
+    if cpu:
+        dev = torch.device("cpu")
+    else:
+        build.build_all(["stacked", "mesh"])
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    grouped = hasattr(mesh, "mesh_fold_many")
+
+    def fold(xs, jobs, order="rank"):
+        if grouped:
+            return mesh.mesh_fold_many(xs, jobs, "MPI_SUM", order)
+        return [mesh.mesh_fold(xs, o, lo, "MPI_SUM", order) for o, lo in jobs]
+
+    def copy(srcs, outs, block, **kw):
+        if grouped:
+            return stacked.peer_copy_many(srcs, outs, block, **kw)
+        return [stacked.peer_copy(srcs, o, block, dst=d, **kw)
+                for d, o in enumerate(outs)]
+
+    def ranks(nel, salt, count=N):
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            return [torch.randn(nel, generator=g, device=dev)
+                    for _ in range(count)]
+        return make
+
+    def folds(nel, order):
+        st = _stripe_elems(nel, N, 4)
+        return lambda xs: fold(xs, [
+            (torch.empty(min(st, nel - d * st), device=dev), d * st)
+            for d in range(N) if d * st < nel], order)
+
+    def empties(nel, count):
+        return [torch.empty(nel, device=dev) for _ in range(count)]
+
+    n1, n2, n8, n128 = (x // div for x in (MIB // 4, MIB // 2, 2 * MIB,
+                                           32 * MIB))
+    ms = _stripe_elems(n8, N, 4)
+    b1 = n1 // N
+    seg = MIB // 4 // div
+    nbrs = [4, 4, 3, 1]  # member 0 of the 2x4 periodic grid
+    rows = {  # name -> (bytes moved, make(i), fn)
+        "K6 fused_8x2MiB": ((N + 1) * n2 * 4, ranks(n2, 1), folds(n2, "rank")),
+        "K6 allreduce_8MiB_rank": ((N + 1) * n8 * 4, ranks(n8, 2),
+                                   folds(n8, "rank")),
+        "K6 allreduce_8MiB_segring": (
+            (N + 1) * n8 * 4, ranks(n8, 3),
+            folds(n8, ("ring", seg, seg // N))),
+        "K6 plan_128MiB": ((N + 1) * n128 * 4, ranks(n128, 4),
+                           folds(n128, "rank")),
+        "K6 one_stripe_1MiB": (
+            (N + 1) * n1 * 4, ranks(n1, 5),
+            lambda xs: fold(xs, [(torch.empty(n1, device=dev), 0)])),
+        "K2 gather_stripes_8MiB": (
+            (N + 1) * n8 * 4, ranks(ms, 6),
+            lambda st: copy(st, empties(n8, N), ms, limit=n8)),
+        "K2 alltoall_1MiB": (
+            2 * N * n1 * 4, ranks(n1, 7),
+            lambda xs: copy(xs, empties(n1, N), b1, src_stride=b1)),
+        "K2 gather_8_stripes_one_output_1MiB": (
+            2 * N * n1 * 4, ranks(n1, 8),
+            lambda st: copy(st, empties(N * n1, 1), n1)),
+        "K2 neighbor_gather_8MiB": (
+            7 * n8 * 4, ranks(n8, 9),
+            lambda xs: stacked.peer_copy([xs[s] for s in nbrs],
+                                         torch.empty(4 * n8, device=dev),
+                                         n8)),
+        "K2 stacked_allgather_1MiB": (
+            (N + N * N) * n1 * 4, ranks(n1, 10),
+            lambda xs: stacked.stacked_copy(xs, "allgather")),
+        "K2 stacked_alltoall_1MiB": (
+            2 * N * n1 * 4, ranks(n1, 11),
+            lambda xs: stacked.stacked_copy(xs, "alltoall")),
+    }
+
+    def flat(x):
+        return [x] if isinstance(x, torch.Tensor) else \
+            [t for y in x for t in flat(y)]
+
+    ms_, digests = {}, {}
+    for name, (nbytes, make, fn) in rows.items():
+        sets = [make(i) for i in range(max(1, -(-COLD // div // nbytes)))]
+        h = hashlib.sha256()
+        for t in flat(fn(sets[0])):
+            h.update(t.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        digests[name] = h.hexdigest()
+        if cpu:
+            continue
+        for i in range(3):
+            fn(sets[i % len(sets)])
+        torch.cuda.synchronize()
+        keep = []
+        g = torch.cuda.CUDAGraph()
+        n = max(iters, len(sets))
+        with torch.cuda.graph(g):
+            for i in range(n):
+                keep.append(fn(sets[i % len(sets)]))
+        g.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        ms_[name] = a.elapsed_time(b) / n
+        del g, keep, sets
+    return {"root": root, "grouped": grouped, "ms": ms_, "digests": digests}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on the CPU at 1/64 of the sizes")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.child:
+        print(json.dumps(_child(a.roots[0], a.iters, a.cpu)), flush=True)
+        return 0
+    if not a.cpu:
+        import torch
+        if not torch.cuda.is_available():
+            print("kernel_ab: no CUDA card available", file=sys.stderr)
+            return 2
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+        print(f"[card] {card}", flush=True)
+    runs = []
+    for root in a.roots:
+        # run this file by path, so the child imports no ompi_tpu_torch
+        # but the one under root
+        p = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child",
+             "--iters", str(a.iters), root] + (["--cpu"] if a.cpu else []),
+            capture_output=True, text=True, timeout=1800)
+        if p.returncode:
+            sys.stderr.write(p.stdout[-4000:] + p.stderr[-8000:])
+            raise RuntimeError(f"child for {root} exited {p.returncode}")
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    ok = True
+    names = list(runs[0]["digests"])
+    for name in names:
+        if len({r["digests"][name] for r in runs}) != 1:
+            print(f"[kernel_ab] {name}: the roots' results differ",
+                  file=sys.stderr)
+            ok = False
+    order = list(dict.fromkeys(a.roots))
+    for name in names if not a.cpu else []:
+        med = {root: statistics.median(
+            [r["ms"][name] for r in runs if r["root"] == root])
+            for root in order}
+        print(f"[kernel_ab] {name}: median ms "
+              + ", ".join(f"{root} {med[root]:.4f}" for root in order),
+              flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
