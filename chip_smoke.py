@@ -22,11 +22,14 @@ Phases, each fatal on failure (nothing is caught and carried on):
              K6 mesh_fold over every pair K1 takes, N in {2, 3, 8}, in
              rank order, the segring order and segrd's tree; K2's peer
              mode (alltoall destination, clipped gather, column
-             segment) and K7 slot_pack (zeroed slots, odd widths); K8
-             rma_copy at unaligned heads and tails, K9 rma_acc over
-             every window wire dtype and every op it takes (REPLACE and
-             NO_OP included), plain and fetch, aligned and misaligned,
-             and K10 rma_cas's value cases (signed zeros, NaN, complex
+             segment) and K7 slot_pack (zeroed slots, odd widths,
+             mixes of sources skewed from their destinations by 0, 1,
+             2, 4, 8 and 12 bytes with empty and zero slots, 64 and 65
+             slots); K8 rma_copy at unaligned heads and tails, K9
+             rma_acc over every window wire dtype and every op it takes
+             (REPLACE and NO_OP included), plain and fetch, at starts
+             0, isz, 1, 4, 16 - isz and 17 bytes, s and old one element
+             off, and K10 rma_cas's value cases (signed zeros, NaN, complex
              parts, bool bytes), each byte for byte.
              Tolerance: exact (max abs error 0, NaN where the plain
              version has NaN) — each pair computes the same fold in the
@@ -146,7 +149,9 @@ Phases, each fatal on failure (nothing is caught and carried on):
              launch (one a card); two rows time the body alone (one
              1 MiB stripe of 8 inputs, 8 stripes of 1 MiB into one
              output), and two B16's step at cols 2**19 (its K6 and its
-             K2 peer launches).
+             K2 peer launches); K7 also on a ragged mix (32 slots of
+             64 KiB + 20 B), K9 also at target_disp 1 (w 4 bytes off
+             16) and on the main path's 8 int32 (launch-bound).
 5. e2e     — host clock, slowest rank: comm.allreduce_arr at 8 ranks x
              8 MiB float32 (the headline); a fused batch of 32
              iallreduce_arr of 64 KiB with one wait against the same
@@ -1182,6 +1187,66 @@ def _kernels_mesh(dev, g) -> int:
                 ncases += 1
         log(f"[K2 peer/K7] {str(dtype)[6:]:>8} exact")
     torch.cuda.synchronize()
+    return ncases + _kernels_pack(dev, g)
+
+
+PACK_SKEWS = (0, 1, 2, 4, 8, 12)  # source against destination, bytes mod 16
+PACK_SIZES = (0, 1, 3, 15, 16, 17, 49, 16385, 70001)  # elements
+
+
+def _pack_mix(g, dev, dtype, nslots: int):
+    """``nslots`` slots of ``dtype`` (sizes cycling over PACK_SIZES)
+    whose sources are skewed from their packed destinations by each
+    skew of PACK_SKEWS the element size divides, in turn: slot i is a
+    view into an allocation of its own that starts where its bytes sit
+    that many bytes before their packed offset, modulo 16."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    skews = [k for k in PACK_SKEWS if k % isz == 0]
+    slots, off = [], 0
+    for i in range(nslots):
+        n = PACK_SIZES[i % len(PACK_SIZES)]
+        a = (off - skews[i % len(skews)]) % 16 // isz
+        slots.append(make_shard(g, n + 16, dtype, "MPI_SUM", dev)[a:a + n])
+        off += n * isz
+    return slots
+
+
+def _kernels_pack(dev, g) -> int:
+    """K7 over slot mixes whose sources are skewed from their
+    destinations by 0, 1, 2, 4, 8 and 12 bytes (each the dtype's size
+    divides), with empty slots, slots of 1 to 49 elements and of more
+    than one block, zero slots (every third), and 64 and 65 slots (one
+    launch and two), each mix's launch count checked; and 32 and 65
+    slots of one size (64 KiB + 20 B), whose blocks find their slot by
+    a division: exact."""
+    from ompi_tpu_torch.kernels import mesh
+    ncases = 0
+    for dtype in (torch.uint8, torch.int16, torch.float32, torch.float64,
+                  torch.complex128):
+        for nslots in (9, 27, 64, 65):
+            slots = _pack_mix(g, dev, dtype, nslots)
+            for zero in ([False] * nslots, [i % 3 == 1 for i in range(nslots)]):
+                before = mesh.slot_pack.launches.value
+                got = mesh.slot_pack(slots, zero)
+                torch.cuda.synchronize()
+                n = mesh.slot_pack.launches.value - before
+                if n != -(-nslots // mesh.MAX_SLOTS):
+                    raise AssertionError(f"K7 {dtype} {nslots} slots: {n} "
+                                         "launches")
+                _held([got], [mesh.slot_pack_plain(slots, zero)],
+                      f"K7 {dtype} {nslots} skewed slots zero={any(zero)}")
+                ncases += 1
+    for nslots in (32, 65):  # one size a slot: ``each`` blocks a slot
+        slots = [make_shard(g, 16385, torch.float32, "MPI_SUM", dev)
+                 for _ in range(nslots)]
+        for zero in ([False] * nslots, [i % 3 == 1 for i in range(nslots)]):
+            _held([mesh.slot_pack(slots, zero)],
+                  [mesh.slot_pack_plain(slots, zero)],
+                  f"K7 {nslots} slots of 16385 f32 zero={any(zero)}")
+            ncases += 1
+    log(f"[K7] skewed slot mixes exact ({ncases} cases: skews "
+        f"{PACK_SKEWS} bytes, empty and zero slots, 64 and 65 slots, "
+        "slots of one size)")
     return ncases
 
 
@@ -1460,33 +1525,44 @@ def _kernels_rma(dev, g) -> int:
         f"{ncases} cases)")
     for dtype in RMA_DTYPES:
         isz = torch.empty((), dtype=dtype).element_size()
+        v = 16 // isz
         ops = [o for o in RMA_OPS if rma.acc_supported(dtype, o)]
+        # (count, start byte, s and old element offsets): the first five
+        # as before; then every start of 0, isz, 1, 4, 16 - isz, 17 at
+        # max(1, V - 1), V + 1 and 1029 elements, s and old in turn one
+        # element off their allocation's 16-byte-aligned start
+        cases = [(c, st, 0, 0) for c, st in ((1, 0), (1, 3), (1029, 0),
+                                             (1029, isz + 1),
+                                             (4096 * 8 + 5, 16))]
+        for k, start in enumerate(sorted({0, isz, 1, 4, 16 - isz, 17})):
+            for j, count in enumerate((max(1, v - 1), v + 1, 1029)):
+                cases.append((count, start, (k + j) % 2, (k + j + 1) % 2))
         for opname in ops:
-            for count, start in ((1, 0), (1, 3), (1029, 0),
-                                 (1029, isz + 1), (4096 * 8 + 5, 16)):
+            for count, start, s_off, o_off in cases:
                 nb = count * isz
                 w0 = torch.randint(0, 256, (start + nb + 5,), generator=g,
                                    device=dev, dtype=torch.uint8)
                 w0[start:start + nb] = rma_values(g, count, dtype,
                                                   dev).view(torch.uint8)
-                s = rma_values(g, count, dtype, dev)
+                s = rma_values(g, count + s_off, dtype, dev)[s_off:]
                 for fetch in (False, True):
                     wk, wp = w0.clone(), w0.clone()
-                    ok = torch.empty(count, dtype=dtype, device=dev) \
-                        if fetch else None
+                    ok = torch.empty(count + o_off, dtype=dtype,
+                                     device=dev)[o_off:] if fetch else None
                     op_ = torch.empty(count, dtype=dtype, device=dev) \
                         if fetch else None
                     rma.rma_acc(wk, start, s, opname, ok)
                     rma.rma_acc_plain(wp, start, s, opname, op_)
                     what = (f"K9 {dtype} {opname} count={count} "
-                            f"start={start} fetch={fetch}")
+                            f"start={start} s+{s_off} old+{o_off} "
+                            f"fetch={fetch}")
                     _same_bytes(wk, wp, what)
                     if fetch:
                         _same_bytes(ok, op_, what + " (old)")
                         _same_bytes(ok, w0[start:start + nb], what + " old")
                     ncases += 1
         log(f"[K9] {str(dtype)[6:]:>10} {len(ops)} ops exact, plain and "
-            "fetch, aligned and misaligned")
+            f"fetch, {len(cases)} (count, start, s, old) cases each")
     torch.cuda.synchronize()
     for dtype in RMA_DTYPES:
         isz = torch.empty((), dtype=dtype).element_size()
@@ -2513,6 +2589,14 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
                    for k in range(FUSED_OPS)],
         lambda xs: mesh.slot_pack(xs), lambda xs: mesh.slot_pack_plain(xs),
         lambda xs: torch.cat(xs), 100, source="mesh.cu")
+    # the ragged mix: every slot 64 KiB + 20 B (16385 float32), so the
+    # packed offsets skew from the sources by 4, 8 and 12 bytes in turn
+    row(f"slot_pack:{FUSED_OPS}x(64KiB+20B)_f32_one_rank", "slot_pack", None,
+        "ompi_tpu/coll/fusion.py:231", 2 * FUSED_OPS * (nf + 5) * 4,
+        lambda i: [rank_elems(0, nf + 5, torch.float32, dev,
+                              74 + k + 40 * i) for k in range(FUSED_OPS)],
+        lambda xs: mesh.slot_pack(xs), lambda xs: mesh.slot_pack_plain(xs),
+        lambda xs: torch.cat(xs), 100, source="mesh.cu")
     # the RMA kernels: a 64 MiB put into a shard (K8), a 64 MiB float32
     # accumulate, plain and fetch (K9), and one int64 compare-and-swap
     # (K10: one thread, bound by its launch; one input set)
@@ -2554,6 +2638,35 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         lambda st: rma.rma_acc_plain(st[0], 0, st[1], "MPI_SUM", st[2])
         or [st[0].view(torch.float32), st[2]],
         None, 50, source="rma.cu")
+    # a window accumulate at target_disp 1: w one float32 into the
+    # shard (4 bytes off 16), s aligned; the library call on the same
+    # views
+    row("rma_acc:sum_f32_64MiB_disp1", "rma_acc", None,
+        "ompi_tpu/osc/device.py:220", 3 * nb,
+        lambda i: (torch.cat([bytes_in(i, 85)[:4], bytes_in(i, 86)]),
+                   rank_input(i % n, nb, torch.float32, dev, 87)),
+        lambda st: rma.rma_acc(st[0], 4, st[1], "MPI_SUM")
+        or st[0][4:].view(torch.float32),
+        lambda st: rma.rma_acc_plain(st[0], 4, st[1], "MPI_SUM")
+        or st[0][4:].view(torch.float32),
+        lambda st: torch.add(st[1], st[0][4:].view(torch.float32),
+                             out=st[0][4:].view(torch.float32)), 50,
+        source="rma.cu")
+
+    # the main path's accumulate: 8 int32, bound by its launch
+    def acc8_set(i):
+        gi = torch.Generator(device=dev)
+        gi.manual_seed(SEED * 1000 + 88 * 100 + i)
+        return tuple(torch.randint(-2 ** 31, 2 ** 31 - 1, (8,), generator=gi,
+                                   device=dev, dtype=torch.int32)
+                     for _ in range(2))
+
+    row("rma_acc:sum_i32_8elem", "rma_acc", "rma_counter_tensor_dma1",
+        "ompi_tpu/osc/device.py:220", 3 * 8 * 4, acc8_set,
+        lambda st: rma.rma_acc(st[0], 0, st[1], "MPI_SUM") or st[0],
+        lambda st: rma.rma_acc_plain(st[0], 0, st[1], "MPI_SUM") or st[0],
+        lambda st: torch.add(st[1], st[0], out=st[0]), 200, source="rma.cu",
+        nsets=1)
 
     def cas_set(i):
         w = torch.zeros(2, dtype=torch.int64, device=dev)

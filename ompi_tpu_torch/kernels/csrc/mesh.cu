@@ -31,8 +31,8 @@
 //
 // K7 slot_pack replaces _build_pack (coll/fusion.py:231): one launch
 // packs one rank's slots of one fused group into one buffer through a
-// slot table (source pointer, length, offset), writing zeros for the
-// slots flagged as non-root bcast entries.
+// slot table, writing zeros for the slots flagged as non-root bcast
+// entries.
 //
 // What bounds them: bytes.  K6 does N-1 operations per N elements
 // read; K7 none.  Least time: (bytes read once + bytes written once) /
@@ -74,6 +74,35 @@
 // 8-44 bytes of spills in 31 of the 110 (dtype, op) instantiations
 // (64-bit, 16-bit and complex types; none for float32).
 //
+// K7's design for the H100: a plan a slot (mesh.py _pack_plan), not one
+// width for the whole launch.  A slot row holds the head bytes ahead of
+// the slot's first 16-byte-aligned output address, a body of units of
+// the widest width w in {16, 8, 4, 2, 1} at which the source and the
+// output are both aligned there (16 for a zero slot: stores only), and
+// the tail bytes; so one odd slot narrows only itself.  A block serves
+// a fixed span of one slot's body, PACK_UNITS 16-byte units of bytes.
+// Its slot is b / each where every slot takes as many blocks (a fused
+// batch of one size: no table read before the slot's own record; 11 %
+// faster than the lookup at 32 x 64 KiB, tools/kernel_ab.py), else
+// found by each warp with two ballots over the table's compact
+// first_block prefix.  Each thread loads all of its units of a round
+// into registers first (PACK_U 16-byte units, or 4 PACK_U units of a
+// narrower width: the same registers) through __restrict__ pointers
+// with the streaming hint (ld.global.cs: the sources are read once),
+// and only then stores them, so that a thread keeps PACK_U * 16 bytes
+// in flight instead of one unit a round trip; the packed buffer keeps
+// the default store policy (K6 reads it right after).  The heads and tails, at most 15
+// bytes each, go byte by byte on the slot's first block after its
+// body.  The width is a switch on the slot row, uniform in a block.
+// Sizes (PACK_THREADS, PACK_UNITS = mesh.py UNITS, PACK_U), timed on an
+// H100 with ompi_tpu_torch/tools/tile_sweep.py, which builds copies of
+// this file with -DPACK_UNITS / -DPACK_U, and tools/kernel_ab.py: 128
+// threads a block (256 read 5 % slower); PACK_UNITS 256 at PACK_U 2,
+// the least summed time over 256, 512, 1024 x 2, 4, 8 (PERF.md section
+// 6): 512 blocks of 4 KiB for a fused flush's 32 x 64 KiB.
+// ptxas (sm_90a), K7: 40 registers, no stack, no spills, no static
+// shared memory.
+//
 // Plain C interface, loaded with ctypes: each entry returns the
 // cudaError_t of its launch (0 on success).
 
@@ -86,7 +115,13 @@
 #define FOLD_CONS 128  // consumer threads (four warps) of a K6 block
 #define FOLD_THREADS (32 + FOLD_CONS)
 #define PACK_MAX_SLOTS 64
-#define PACK_UNITS 1024  // units one block of K7 covers
+#define PACK_THREADS 128
+#ifndef PACK_UNITS
+#define PACK_UNITS 256  // 16-byte units of body bytes one K7 block covers
+#endif
+#ifndef PACK_U
+#define PACK_U 2  // 16-byte units a K7 thread loads before it stores
+#endif
 
 struct FoldJob {
   void* out;       // len elements: out[k] = fold at element lo + k
@@ -113,18 +148,25 @@ struct FoldArgs {
 };
 
 struct PackSlot {
-  const void* src;
-  long long n;          // units of this slot
-  long long off;        // unit offset of the slot in the packed buffer
-  int first_block;      // prefix table: first block of this slot
-  int zero;             // 1: write zeros (a non-root bcast entry)
+  const unsigned char* src;  // the slot's bytes; null: write zeros (a
+                             // non-root bcast entry)
+  long long off;    // byte offset of the slot in the packed buffer
+  long long units;  // body units of ``width`` bytes, after the head
+  int head;         // bytes ahead of the body (0-15)
+  int tail;         // bytes after the body (0-15)
+  int width;        // bytes a body unit holds: 16, 8, 4, 2 or 1
 };
 
 struct PackArgs {
+  int first_block[PACK_MAX_SLOTS];  // prefix table: each slot's first
+                                    // block (nondecreasing, from 0)
   PackSlot slot[PACK_MAX_SLOTS];
-  void* out;
+  unsigned char* out;
   int nslots;
+  int each;  // every slot's blocks when all slots take as many (block
+             // b's slot is then b / each, no lookup); else 0
 };
+static_assert(PACK_MAX_SLOTS == 64, "slot_pack_kernel's lookup takes two ballots");
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) MVec {
@@ -350,21 +392,73 @@ struct LaunchFold {
   }
 };
 
-template <typename W>
-__global__ void __launch_bounds__(256) slot_pack_kernel(const __grid_constant__ PackArgs a) {
+// Units [begin, end) of one slot's body, L units a thread a round: every
+// load of the round issued before its first store.  src null: zeros.
+template <typename W, int L>
+__device__ __forceinline__ void pack_body(const unsigned char* __restrict__ src,
+                                          unsigned char* __restrict__ dst,
+                                          long long begin, long long end) {
+  const W* __restrict__ s = reinterpret_cast<const W*>(src);
+  W* __restrict__ d = reinterpret_cast<W*>(dst);
+  for (long long i0 = begin + threadIdx.x; i0 < end;
+       i0 += (long long)PACK_THREADS * L) {
+    W v[L];
+    if (s) {
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const long long i = i0 + (long long)j * PACK_THREADS;
+        if (i < end) v[j] = __ldcs(s + i);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < L; ++j) v[j] = W();
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const long long i = i0 + (long long)j * PACK_THREADS;
+      if (i < end) d[i] = v[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(PACK_THREADS)
+    slot_pack_kernel(const __grid_constant__ PackArgs a) {
+  // the block's slot: b / each where every slot takes as many blocks;
+  // else the last whose first block is at most b, found by each warp at
+  // once from the compact prefix table
   const int b = (int)blockIdx.x;
-  int lo = 0, hi = a.nslots - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (a.slot[mid].first_block <= b) lo = mid; else hi = mid - 1;
+  int lo, k;
+  if (a.each) {
+    lo = b / a.each;
+    k = b - lo * a.each;
+  } else {
+    const int lane = (int)threadIdx.x & 31;
+    const unsigned m0 =
+        __ballot_sync(~0u, lane < a.nslots && a.first_block[lane] <= b);
+    const unsigned m1 =
+        __ballot_sync(~0u, lane + 32 < a.nslots && a.first_block[lane + 32] <= b);
+    lo = __popc(m0) + __popc(m1) - 1;
+    k = b - a.first_block[lo];
   }
   const PackSlot& sl = a.slot[lo];
-  const long long begin = (long long)(b - sl.first_block) * PACK_UNITS;
-  const long long end = begin + PACK_UNITS < sl.n ? begin + PACK_UNITS : sl.n;
-  const W* src = reinterpret_cast<const W*>(sl.src);
-  W* dst = reinterpret_cast<W*>(a.out) + sl.off;
-  for (long long i = begin + threadIdx.x; i < end; i += 256)
-    dst[i] = sl.zero ? W() : src[i];
+  const long long per = PACK_UNITS * 16 / sl.width;  // units a block covers
+  const long long begin = k * per;
+  const long long end = begin + per < sl.units ? begin + per : sl.units;
+  const unsigned char* src = sl.src ? sl.src + sl.head : nullptr;
+  unsigned char* dst = a.out + sl.off;
+  switch (sl.width) {
+    case 16: pack_body<uint4, PACK_U>(src, dst + sl.head, begin, end); break;
+    case 8: pack_body<uint2, 2 * PACK_U>(src, dst + sl.head, begin, end); break;
+    case 4: pack_body<uint32_t, 4 * PACK_U>(src, dst + sl.head, begin, end); break;
+    case 2: pack_body<uint16_t, 4 * PACK_U>(src, dst + sl.head, begin, end); break;
+    default: pack_body<uint8_t, 4 * PACK_U>(src, dst + sl.head, begin, end); break;
+  }
+  if (k == 0 && (int)threadIdx.x < sl.head + sl.tail) {  // the edges
+    const int t = (int)threadIdx.x;
+    const long long x =
+        t < sl.head ? t : sl.head + sl.units * sl.width + (t - sl.head);
+    dst[x] = sl.src ? sl.src[x] : (unsigned char)0;
+  }
 }
 
 extern "C" {
@@ -389,21 +483,28 @@ int ompi_mesh_fold(const FoldArgs* a, int dtype, int op, void* stream) {
   return dispatch_reduce<LaunchFold>(dtype, op, a, (cudaStream_t)stream);
 }
 
-// width: bytes a unit holds (16, 8, 4, 2 or 1), dividing every slot's
-// pointer, length and offset and the output pointer; nblocks: the sum
-// over slots of ceil(n / PACK_UNITS), also in the prefix table.
-int ompi_slot_pack(const PackArgs* a, int width, int nblocks, void* stream) {
-  if (a->nslots < 1 || a->nslots > PACK_MAX_SLOTS || nblocks < 1)
+// nblocks: the blocks of the slot table's prefix (every slot's
+// ceil(body bytes / (PACK_UNITS * 16)) blocks, one at least for a slot
+// of any bytes).  Each slot's body must be aligned to its width on both
+// sides.
+int ompi_slot_pack(const PackArgs* a, int nblocks, void* stream) {
+  if (a->nslots < 1 || a->nslots > PACK_MAX_SLOTS || nblocks < 1 ||
+      a->each < 0 || (a->each && nblocks != a->nslots * a->each))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (width) {
-    case 16: slot_pack_kernel<uint4><<<nblocks, 256, 0, s>>>(*a); break;
-    case 8: slot_pack_kernel<uint2><<<nblocks, 256, 0, s>>>(*a); break;
-    case 4: slot_pack_kernel<uint32_t><<<nblocks, 256, 0, s>>>(*a); break;
-    case 2: slot_pack_kernel<uint16_t><<<nblocks, 256, 0, s>>>(*a); break;
-    case 1: slot_pack_kernel<uint8_t><<<nblocks, 256, 0, s>>>(*a); break;
-    default: return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < a->nslots; ++i) {
+    const PackSlot& sl = a->slot[i];
+    const int w = sl.width;
+    if ((w != 16 && w != 8 && w != 4 && w != 2 && w != 1) || sl.head < 0 ||
+        sl.head > 15 || sl.tail < 0 || sl.tail > 15 || sl.units < 0 ||
+        a->first_block[i] < (i ? a->first_block[i - 1] : 0) ||
+        a->first_block[i] > nblocks || (i == 0 && a->first_block[0]) ||
+        (a->each && a->first_block[i] != i * a->each))
+      return (int)cudaErrorInvalidValue;
+    if (sl.units && (((uintptr_t)(a->out + sl.off + sl.head)) % w ||
+                     (sl.src && ((uintptr_t)(sl.src + sl.head)) % w)))
+      return (int)cudaErrorInvalidValue;
   }
+  slot_pack_kernel<<<nblocks, PACK_THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

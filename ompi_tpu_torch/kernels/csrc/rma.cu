@@ -31,12 +31,43 @@
 // one thread and is bound by the launch.  K8 moves 16 bytes a thread
 // where source and destination share their alignment modulo 16 (the
 // head and tail bytes one a thread), else the widest width they share.
-// K9 loads and stores whole elements where every pointer is aligned to
-// the element and assembles them byte by byte where it is not (a
-// window with disp_unit 1 takes any byte offset).
+//
+// K9's design for the H100.  The wrapper splits the op on the target's
+// alignment (rma.py _acc_split): the head elements before w reaches a
+// 16-byte boundary, a body of vectors of V = 16 / sizeof(T) elements,
+// the tail; and for each operand (w, s, old) its mode at the body's
+// start: 16-byte aligned, element-aligned, or neither (assembled byte
+// by byte: a window with disp_unit 1 takes any byte offset; a w that
+// is not element-aligned takes the whole body that way, head 0).  When
+// every operand is 16-byte aligned there, the body moves as 16-byte
+// words; otherwise element by element, each operand in its own mode
+// (one word an element where it is element-aligned; on aligned
+// operands this layout read 25 % slower for uint8 and 5 % for int16 on
+// an H100, tools/kernel_ab.py).  Either way a block's round is one
+// contiguous chunk, consecutive threads on consecutive units, so that
+// a warp's loads are whole lines whatever the offsets (a thread's V
+// element loads from one vector each touch four lines for a quarter of
+// each).  A thread takes ACC_U vectors'
+// worth a round (at most 4 ACC_U elements in the element layout): it
+// loads all of its w and s, every load issued before its first store
+// (__restrict__ pointers), then writes old, folds in registers (Traits:
+// half types in float32, rounded once) and writes w.  ACC_U is 1: 1, 2
+// and 4 timed within 1.2 % of each other (tools/tile_sweep.py builds
+// copies of this file with -DACC_U).  No cache hint: the streaming
+// hints (ld/st.global.cs) on every access read within 0.4 % of none on
+// an H100, the spread between two identical builds (kernel_ab.py).
+// The grid takes as many blocks as the body's chunks, one round a
+// thread, which beat a persistent grid of the occupancy API's blocks an
+// SM walking the chunks grid-stride (PERF.md §6).  The head's and the
+// tail's elements go one a thread on the grid's first threads, so an
+// op of a few elements is one block.  ptxas (sm_90a), K9's 140 (dtype,
+// op) kernels at ACC_U 1: 24-32 registers (32 for float32 and int32);
+// no stack and no spills.
 //
 // Plain C interface, loaded with ctypes: each entry returns the
 // cudaError_t of its launch (0 on success).
+
+#include <cstring>
 
 #include "reduce_ops.cuh"
 
@@ -82,69 +113,218 @@ static int launch_copy(uint8_t* dst, const uint8_t* src, long long n,
 
 // --- K9: rma_acc -------------------------------------------------------
 
+#define ACC_THREADS 256
+#ifndef ACC_U
+#define ACC_U 1  // 16-byte vectors of w and of s a K9 thread loads a round
+#endif
+
 struct AccArgs {
   uint8_t* w;          // the first target element (shard + byte offset)
   const uint8_t* s;    // count origin elements
   uint8_t* old;        // count elements of pre-op values, or null
-  long long count;
+  long long head;      // elements ahead of the body
+  long long nvec;      // body vectors of 16 / sizeof(T) elements
+  long long tail;      // elements after the body
+  int wm, sm, om;      // each operand's mode at the body's start: 2 its
+                       // address 16-byte aligned, 1 element-aligned, 0
+                       // neither (byte by byte)
 };
 
-template <typename T, bool ALIGNED>
-__device__ __forceinline__ T load_elem(const uint8_t* p) {
-  if constexpr (ALIGNED) {
-    return *reinterpret_cast<const T*>(p);
+template <int N> struct Word;  // the unsigned word of N bytes
+template <> struct Word<1> { using t = unsigned char; };
+template <> struct Word<2> { using t = unsigned short; };
+template <> struct Word<4> { using t = unsigned int; };
+template <> struct Word<8> { using t = unsigned long long; };
+template <> struct Word<16> { using t = uint4; };
+
+// One word of N bytes at p (aligned to N).
+template <int N>
+__device__ __forceinline__ typename Word<N>::t ld_word(const uint8_t* p) {
+  return *reinterpret_cast<const typename Word<N>::t*>(p);
+}
+
+template <int N>
+__device__ __forceinline__ void st_word(uint8_t* p, typename Word<N>::t v) {
+  *reinterpret_cast<typename Word<N>::t*>(p) = v;
+}
+
+// One element at p: one word where p is element-aligned, else byte by
+// byte.
+template <typename T>
+__device__ __forceinline__ T ld_elem(const uint8_t* p, bool aligned) {
+  T v;
+  if (aligned) {
+    const auto x = ld_word<sizeof(T)>(p);
+    memcpy(&v, &x, sizeof(T));
   } else {
-    T v;
-    uint8_t* q = reinterpret_cast<uint8_t*>(&v);
+    uint8_t b[sizeof(T)];
 #pragma unroll
-    for (int i = 0; i < (int)sizeof(T); ++i) q[i] = p[i];
-    return v;
+    for (int i = 0; i < (int)sizeof(T); ++i) b[i] = p[i];
+    memcpy(&v, b, sizeof(T));
+  }
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void st_elem(uint8_t* p, const T& v, bool aligned) {
+  if (aligned) {
+    typename Word<sizeof(T)>::t x;
+    memcpy(&x, &v, sizeof(T));
+    st_word<sizeof(T)>(p, x);
+  } else {
+    uint8_t b[sizeof(T)];
+    memcpy(b, &v, sizeof(T));
+#pragma unroll
+    for (int i = 0; i < (int)sizeof(T); ++i) p[i] = b[i];
   }
 }
 
-template <typename T, bool ALIGNED>
-__device__ __forceinline__ void store_elem(uint8_t* p, T v) {
-  if constexpr (ALIGNED) {
-    *reinterpret_cast<T*>(p) = v;
-  } else {
-    const uint8_t* q = reinterpret_cast<const uint8_t*>(&v);
+// Units i0 + k * step (k < K, each below n) of one operand's body at p:
+// 16-byte words (ELEM false) or elements (ELEM true, each one word where
+// ``al``, else byte by byte); every load issued before any use.
+template <typename T, int K, bool ELEM>
+__device__ __forceinline__ void ld_units(bool al, const uint8_t* p, long long i0,
+                                         long long step, long long n, T* v) {
+  constexpr int Z = (int)sizeof(T);
+  if constexpr (!ELEM) {
 #pragma unroll
-    for (int i = 0; i < (int)sizeof(T); ++i) p[i] = q[i];
-  }
-}
-
-template <typename T, int OP, bool ALIGNED>
-__global__ void __launch_bounds__(256) rma_acc_kernel(const AccArgs a) {
-  using Tr = Traits<T>;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < a.count; i += stride) {
-    const long long b = i * (long long)sizeof(T);
-    const T wv = load_elem<T, ALIGNED>(a.w + b);
-    if (a.old) store_elem<T, ALIGNED>(a.old + b, wv);
-    if constexpr (OP != NO_OP) {
-      const T sv = load_elem<T, ALIGNED>(a.s + b);
-      if constexpr (OP == REPLACE) {
-        store_elem<T, ALIGNED>(a.w + b, sv);
-      } else {
-        store_elem<T, ALIGNED>(
-            a.w + b, Tr::store(apply<OP>(Tr::load(sv), Tr::load(wv))));
+    for (int k = 0; k < K; ++k) {
+      const long long i = i0 + k * step;
+      if (i < n) {
+        const uint4 x = ld_word<16>(p + i * 16);
+        memcpy(v + k * (16 / Z), &x, 16);
       }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const long long i = i0 + k * step;
+      if (i < n) v[k] = ld_elem<T>(p + i * Z, al);
+    }
+  }
+}
+
+template <typename T, int K, bool ELEM>
+__device__ __forceinline__ void st_units(bool al, uint8_t* p, long long i0,
+                                         long long step, long long n, const T* v) {
+  constexpr int Z = (int)sizeof(T);
+  if constexpr (!ELEM) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const long long i = i0 + k * step;
+      if (i < n) {
+        uint4 x;
+        memcpy(&x, v + k * (16 / Z), 16);
+        st_word<16>(p + i * 16, x);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const long long i = i0 + k * step;
+      if (i < n) st_elem<T>(p + i * Z, v[k], al);
     }
   }
 }
 
 template <typename T, int OP>
-struct LaunchAcc {
-  static int run(const AccArgs* a, cudaStream_t s) {
-    const uintptr_t bits = (uintptr_t)a->w | (uintptr_t)a->s | (uintptr_t)a->old;
-    const unsigned grid = grid_for(a->count, (long long)sm_count() * 8);
-    if (bits % sizeof(T) == 0) {
-      rma_acc_kernel<T, OP, true><<<grid, 256, 0, s>>>(*a);
-    } else {
-      rma_acc_kernel<T, OP, false><<<grid, 256, 0, s>>>(*a);
+__device__ __forceinline__ T acc_one(const T& sv, const T& wv) {
+  using Tr = Traits<T>;
+  if constexpr (OP == REPLACE) return sv;
+  else return Tr::store(apply<OP>(Tr::load(sv), Tr::load(wv)));
+}
+
+// One layout of the body: K units a thread a round, a unit a 16-byte
+// vector (ELEM false: every operand 16-byte aligned there) or an
+// element (ELEM true, each operand in its own mode).  A block's round
+// is one contiguous chunk of ACC_THREADS * K units, consecutive threads
+// on consecutive units (a warp's loads stay whole lines whatever each
+// operand's offset); the blocks walk the chunks grid-stride.
+template <typename T, int OP, int K, bool ELEM>
+__device__ __forceinline__ void acc_body(const AccArgs& a, uint8_t* __restrict__ w,
+                                         const uint8_t* __restrict__ s,
+                                         uint8_t* __restrict__ old) {
+  constexpr int Z = (int)sizeof(T), E = ELEM ? 1 : 16 / Z;
+  constexpr long long CHUNK = (long long)ACC_THREADS * K;
+  const long long n = ELEM ? a.nvec * (16 / Z) : a.nvec;  // units
+  const long long b0 = a.head * Z;                       // the body's first byte
+  for (long long c = blockIdx.x; c * CHUNK < n; c += gridDim.x) {
+    const long long i0 = c * CHUNK + threadIdx.x;
+    T wv[K * E], sv[K * E];
+    ld_units<T, K, ELEM>(a.wm != 0, w + b0, i0, ACC_THREADS, n, wv);
+    if constexpr (OP != NO_OP) ld_units<T, K, ELEM>(a.sm != 0, s + b0, i0, ACC_THREADS, n, sv);
+    if (old) st_units<T, K, ELEM>(a.om != 0, old + b0, i0, ACC_THREADS, n, wv);
+    if constexpr (OP != NO_OP) {
+#pragma unroll
+      for (int e = 0; e < K * E; ++e) wv[e] = acc_one<T, OP>(sv[e], wv[e]);
+      st_units<T, K, ELEM>(a.wm != 0, w + b0, i0, ACC_THREADS, n, wv);
     }
-    return (int)cudaGetLastError();
+  }
+}
+
+// K units a thread a round in the element layout: ACC_U vectors' worth,
+// at most 4 ACC_U elements (narrow types keep 4 ACC_U registers an
+// operand).
+template <typename T>
+__host__ __device__ constexpr int acc_elems() {
+  return ACC_U * (16 / (int)sizeof(T) < 4 ? 16 / (int)sizeof(T) : 4);
+}
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(ACC_THREADS) rma_acc_kernel(const AccArgs a) {
+  constexpr int Z = (int)sizeof(T);
+  uint8_t* __restrict__ w = a.w;
+  const uint8_t* __restrict__ s = a.s;
+  uint8_t* __restrict__ old = a.old;
+  const long long t0 = (long long)blockIdx.x * ACC_THREADS + threadIdx.x;
+  if (a.wm == 2 && a.sm == 2 && (!old || a.om == 2))
+    acc_body<T, OP, ACC_U, false>(a, w, s, old);
+  else
+    acc_body<T, OP, acc_elems<T>(), true>(a, w, s, old);
+  if (t0 < a.head + a.tail) {  // the edges: one element a thread
+    const long long e = t0 < a.head ? t0 : a.head + a.nvec * (16 / Z) + (t0 - a.head);
+    const long long b = e * Z;
+    const T wv = ld_elem<T>(w + b, a.wm != 0);
+    T sv;
+    if constexpr (OP != NO_OP) sv = ld_elem<T>(s + b, a.sm != 0);
+    if (old) st_elem<T>(old + b, wv, a.om != 0);
+    if constexpr (OP != NO_OP) st_elem<T>(w + b, acc_one<T, OP>(sv, wv), a.wm != 0);
+  }
+}
+
+// As many blocks as the body's chunks (one round a thread; the kernel
+// walks grid-stride past the grid's limit), one at least for the edges.
+template <typename T, int OP>
+static int launch_acc(const AccArgs* a, cudaStream_t s) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const bool vec = a->wm == 2 && a->sm == 2 && (!a->old || a->om == 2);
+  const long long per = (long long)ACC_THREADS * (vec ? ACC_U : acc_elems<T>());
+  long long grid = ((vec ? a->nvec : a->nvec * V) + per - 1) / per;
+  if (grid > 0x7fffffffLL) grid = 0x7fffffffLL;
+  if (grid < 1) grid = 1;
+  rma_acc_kernel<T, OP><<<(unsigned)grid, ACC_THREADS, 0, s>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int OP>
+struct LaunchAcc {
+  // a->nvec holds the body's elements: a whole number of vectors
+  static int run(const AccArgs* a, cudaStream_t s) {
+    constexpr int Z = (int)sizeof(T), V = 16 / Z;
+    AccArgs b = *a;
+    b.nvec = a->nvec / V;
+    // each mode must hold for its operand (a wrong one would fault)
+    auto ok = [&](const uint8_t* p, int m) {
+      if (m == 0) return true;
+      return (uintptr_t)p % Z == 0 &&
+             (m == 1 || (m == 2 && (b.nvec == 0 ||
+                                    ((uintptr_t)p + b.head * Z) % 16 == 0)));
+    };
+    if (a->nvec % V || b.head >= V || b.tail >= V || b.wm == 1 ||
+        (b.wm == 0 && b.head) || !ok(b.w, b.wm) || !ok(b.s, b.sm) ||
+        (b.old && !ok(b.old, b.om)))
+      return (int)cudaErrorInvalidValue;
+    return launch_acc<T, OP>(&b, s);
   }
 };
 
@@ -174,10 +354,10 @@ struct CasArgs {
 
 template <typename T>
 __global__ void rma_cas_kernel(const CasArgs a) {
-  const T o = load_elem<T, false>(a.w);
-  if (same_value(o, load_elem<T, false>(a.cmp)))
-    store_elem<T, false>(a.w, load_elem<T, false>(a.nv));
-  store_elem<T, false>(a.old, o);
+  const T o = ld_elem<T>(a.w, false);
+  if (same_value(o, ld_elem<T>(a.cmp, false)))
+    st_elem<T>(a.w, ld_elem<T>(a.nv, false), false);
+  st_elem<T>(a.old, o, false);
 }
 
 template <typename T>
@@ -203,17 +383,25 @@ int ompi_rma_copy(void* dst, const void* src, long long n, void* stream) {
   return launch_copy<uint8_t>(d, r, n, s);
 }
 
-// old may be null (accumulate); count > 0.
+// old may be null (accumulate); count > 0 elements, split by the wrapper
+// into head + nvec * (16 / size) + tail elements with each operand's
+// mode (AccArgs).
 int ompi_rma_acc(void* w, const void* src, void* old, long long count,
+                 long long head, long long tail, int wm, int sm, int om,
                  int dtype, int op, void* stream) {
-  if (count <= 0) return (int)cudaErrorInvalidValue;
+  if (count <= 0 || head < 0 || tail < 0 || head + tail > count)
+    return (int)cudaErrorInvalidValue;
   AccArgs a;
   a.w = (uint8_t*)w;
   a.s = (const uint8_t*)src;
   a.old = (uint8_t*)old;
-  a.count = count;
-  return dispatch_reduce<LaunchAcc, true>(dtype, op, &a,
-                                          (cudaStream_t)stream);
+  a.head = head;
+  a.nvec = count - head - tail;  // elements here; vectors below
+  a.tail = tail;
+  a.wm = wm;
+  a.sm = sm;
+  a.om = om;
+  return dispatch_reduce<LaunchAcc, true>(dtype, op, &a, (cudaStream_t)stream);
 }
 
 int ompi_rma_cas(void* w, const void* cmp, const void* nv, void* old,

@@ -21,7 +21,10 @@ Both are bound by bytes (see the note at the top of mesh.cu).  K6 is
 a persistent grid over a flat tile list of every job of the launch,
 fed by bulk copies through a ring of shared-memory stages;
 ``_fold_job``, ``_fold_job_tiles`` and ``_fold_span`` are the Python
-statement of its tiling, which the CPU tests hold.
+statement of its tiling, which the CPU tests hold.  K7 moves each slot
+at its own width, planned here (``_pack_plan``: head bytes, a body of
+16-, 8-, 4-, 2- or 1-byte units, tail bytes) and laid out in slot
+tables (``_pack_tables``), which the CPU tests hold too.
 
 A wrapper takes the plain version only for tensors that lie on the
 CPU.  A CUDA tensor launches the kernel, or the wrapper raises: there
@@ -31,16 +34,14 @@ is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import build
-from .stacked import (_DTYPES, _OPS, LaunchCount, _launch, _width,
-                      fold_plain, groups, reduce_supported, require_peer,
-                      tree_plain)
+from .stacked import (_DTYPES, _OPS, LaunchCount, _launch, fold_plain,
+                      groups, reduce_supported, require_peer, tree_plain)
 
 MAX_PTRS = 128
 MAX_JOBS = 64     # destinations in one K6 table (FOLD_MAX_JOBS)
@@ -49,7 +50,7 @@ FOLD_TILE = 2048  # bytes of one member a K6 tile, at most
 FOLD_STAGES = 2   # K6's ring
 FOLD_SMEM = 192 * 1024  # bytes a K6 ring may take
 MAX_SLOTS = 64
-UNITS = 1024  # units one K7 block covers (PACK_UNITS in mesh.cu)
+UNITS = 256  # 16-byte units one K7 block covers (PACK_UNITS in mesh.cu)
 
 
 class _FoldJob(ctypes.Structure):
@@ -71,14 +72,15 @@ class _FoldArgs(ctypes.Structure):
 
 
 class _PackSlot(ctypes.Structure):
-    _fields_ = [("src", ctypes.c_void_p), ("n", ctypes.c_longlong),
-                ("off", ctypes.c_longlong), ("first_block", ctypes.c_int),
-                ("zero", ctypes.c_int)]
+    _fields_ = [("src", ctypes.c_void_p), ("off", ctypes.c_longlong),
+                ("units", ctypes.c_longlong), ("head", ctypes.c_int),
+                ("tail", ctypes.c_int), ("width", ctypes.c_int)]
 
 
 class _PackArgs(ctypes.Structure):
-    _fields_ = [("slot", _PackSlot * MAX_SLOTS), ("out", ctypes.c_void_p),
-                ("nslots", ctypes.c_int)]
+    _fields_ = [("first_block", ctypes.c_int * MAX_SLOTS),
+                ("slot", _PackSlot * MAX_SLOTS), ("out", ctypes.c_void_p),
+                ("nslots", ctypes.c_int), ("each", ctypes.c_int)]
 
 
 _lib_lock = threading.Lock()
@@ -96,7 +98,7 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.ompi_mesh_fold.restype = ctypes.c_int
             lib.ompi_slot_pack.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.ompi_slot_pack.restype = ctypes.c_int
             if (lib.ompi_fold_args_size() != ctypes.sizeof(_FoldArgs)
                     or lib.ompi_pack_args_size() != ctypes.sizeof(_PackArgs)
@@ -333,6 +335,72 @@ def mesh_fold_many_plain(xs: Sequence[torch.Tensor],
 # K7: slot pack
 # ---------------------------------------------------------------------------
 
+def _pack_plan(src_addrs: Sequence[int], nbytes: Sequence[int],
+               out_addr: int, offs: Sequence[int], zero: Sequence[bool]
+               ) -> List[Tuple[int, int, int, int]]:
+    """K7's plan, one row (head, width, units, tail) a slot, from integer
+    addresses: slot i's ``nbytes[i]`` bytes at ``src_addrs[i]`` go to
+    byte ``offs[i]`` of the buffer at ``out_addr``.  ``head``: the bytes
+    ahead of the slot's first 16-byte-aligned output address; then
+    ``units`` units of ``width`` bytes, the widest of 16, 8, 4, 2, 1 at
+    which the source and the output are both aligned there (16 for a
+    zero slot, which has no source); then ``tail`` bytes.  One odd slot
+    narrows only itself."""
+    rows = []
+    for src, n, off, z in zip(src_addrs, nbytes, offs, zero):
+        d = out_addr + off
+        head = min(n, -d % 16)
+        w = 16
+        if not z:  # the output is 16-byte aligned at head, or units is 0
+            while (src + head) % w:
+                w //= 2
+        units = (n - head) // w
+        rows.append((head, w, units, n - head - units * w))
+    return rows
+
+
+def _pack_blocks(row: Tuple[int, int, int, int]) -> int:
+    """K7's blocks for one slot row: ceil(body bytes / (UNITS * 16)),
+    and one for a slot whose bytes are all head and tail; none for an
+    empty slot."""
+    head, w, n, tail = row
+    return max(1 if head + tail else 0, -(-n * w // (UNITS * 16)))
+
+
+def _pack_tables(src_addrs: Sequence[int], nbytes: Sequence[int],
+                 out_addr: int, zero: Sequence[bool]
+                 ) -> List[Tuple[_PackArgs, int]]:
+    """K7's launches over the slots, packed in order at ``out_addr``:
+    (table, blocks) for each run of MAX_SLOTS slots that holds any byte
+    (a run of empty slots launches nothing), each slot's row of
+    ``_pack_plan`` and its first block filled in, and ``each`` set where
+    every slot of the table takes as many blocks."""
+    offs = [0] * len(nbytes)
+    for i in range(1, len(nbytes)):
+        offs[i] = offs[i - 1] + nbytes[i - 1]
+    plan = _pack_plan(src_addrs, nbytes, out_addr, offs, zero)
+    out = []
+    for lo in range(0, len(nbytes), MAX_SLOTS):
+        a = _PackArgs()
+        a.out = out_addr
+        nblocks = 0
+        counts = set()
+        for j, i in enumerate(range(lo, min(lo + MAX_SLOTS, len(nbytes)))):
+            rec = a.slot[j]
+            rec.src = None if zero[i] else src_addrs[i]
+            rec.off = offs[i]
+            rec.head, rec.width, rec.units, rec.tail = plan[i]
+            a.first_block[j] = nblocks
+            blocks = _pack_blocks(plan[i])
+            counts.add(blocks)
+            nblocks += blocks
+            a.nslots = j + 1
+        if nblocks:
+            a.each = counts.pop() if len(counts) == 1 else 0
+            out.append((a, nblocks))
+    return out
+
+
 def slot_pack(xs: Sequence[torch.Tensor],
               zero: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """K7: flatten and concatenate one rank's slots (one dtype, one
@@ -356,33 +424,16 @@ def slot_pack(xs: Sequence[torch.Tensor],
     if x0.device.type != "cuda":
         raise ValueError(f"slot_pack: unsupported device {x0.device}")
     isz = x0.element_size()
-    sizes = [x.numel() for x in xs]
-    offs = [0] * len(xs)
-    for i in range(1, len(xs)):
-        offs[i] = offs[i - 1] + sizes[i - 1]
-    out = torch.empty(offs[-1] + sizes[-1], dtype=x0.dtype, device=x0.device)
-    ptrs = [x.data_ptr() for x, z in zip(xs, zero) if not z]
-    w = _width(math.gcd(*[s * isz for s in sizes], *[o * isz for o in offs]),
-               ptrs + [out.data_ptr()])
+    out = torch.empty(sum(x.numel() for x in xs), dtype=x0.dtype,
+                      device=x0.device)
+    tables = _pack_tables([x.data_ptr() for x in xs],
+                          [x.numel() * isz for x in xs], out.data_ptr(),
+                          zero)
     lib = _library()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        for lo in range(0, len(xs), MAX_SLOTS):
-            a = _PackArgs()
-            nblocks = 0
-            for j, i in enumerate(range(lo, min(lo + MAX_SLOTS, len(xs)))):
-                rec = a.slot[j]
-                rec.src = xs[i].data_ptr()
-                rec.n = sizes[i] * isz // w
-                rec.off = offs[i] * isz // w
-                rec.first_block = nblocks
-                rec.zero = int(zero[i])
-                nblocks += -(-rec.n // UNITS)
-                a.nslots = j + 1
-            if nblocks == 0:
-                continue
-            a.out = out.data_ptr()
-            _launch(lib.ompi_slot_pack(ctypes.byref(a), w, nblocks, stream),
+        for a, nblocks in tables:
+            _launch(lib.ompi_slot_pack(ctypes.byref(a), nblocks, stream),
                     "slot_pack")
             slot_pack.launches.add()
     return out

@@ -66,8 +66,9 @@ def _library() -> ctypes.CDLL:
             lib.ompi_rma_copy.restype = ctypes.c_int
             lib.ompi_rma_acc.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
             lib.ompi_rma_acc.restype = ctypes.c_int
             lib.ompi_rma_cas.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -173,13 +174,38 @@ def _check_acc(w, start, s, opname, old):
     return wb, sb, ob
 
 
+def _mode(addr: int, body: int, isz: int) -> int:
+    """An operand's mode at the body's start ``addr + body``: 2 that
+    address 16-byte aligned, 1 element-aligned, 0 neither."""
+    return 2 if (addr + body) % 16 == 0 else 1 if addr % isz == 0 else 0
+
+
+def _acc_split(w_addr: int, s_addr: int, old_addr: Optional[int],
+               count: int, isz: int):
+    """K9's split of ``count`` elements of ``isz`` bytes, from integer
+    addresses: (head, vectors, tail, w mode, s mode, old mode or None).
+    ``head``: the elements before w reaches a 16-byte boundary (none
+    when w is not element-aligned: then the whole body goes byte by
+    byte for w); the body: vectors of 16 // isz elements; ``tail``: the
+    rest.  Each mode (``_mode``) is the operand's own at the body's
+    start, so that each is widened on its own; w's is 2 or 0 (its body
+    starts on a 16-byte boundary unless it is not element-aligned)."""
+    v = 16 // isz
+    head = 0 if w_addr % isz else min(count, -w_addr % 16 // isz)
+    nvec = (count - head) // v
+    body = head * isz
+    return (head, nvec, count - head - nvec * v, 0 if w_addr % isz else 2,
+            _mode(s_addr, body, isz),
+            None if old_addr is None else _mode(old_addr, body, isz))
+
+
 def rma_acc(w: torch.Tensor, start: int, s: torch.Tensor, opname: str,
             old: Optional[torch.Tensor] = None) -> None:
     """K9: for the s.numel() elements of s's dtype at byte ``start`` of
     the window buffer ``w``, ``w[i] = op(s[i], w[i])``; with ``old``,
     the pre-op bytes are written there first.  ONE launch on w's
     device's current stream (s and old may lie on peer cards); any
-    byte offset.  In place."""
+    byte offset, split by ``_acc_split``.  In place."""
     wb, sb, ob = _check_acc(w, start, s, opname, old)
     ts = [wb, sb] + ([ob] if ob is not None else [])
     if _where(ts, "rma_acc") == "cpu":
@@ -190,12 +216,16 @@ def rma_acc(w: torch.Tensor, start: int, s: torch.Tensor, opname: str,
     dev = w.device
     for t in ts[1:]:
         require_peer(dev, t.device)
+    w_addr, s_addr = wb.data_ptr() + start, sb.data_ptr()
+    o_addr = ob.data_ptr() if ob is not None else None
+    n = s.numel()
+    head, nvec, tail, wm, sm, om = _acc_split(w_addr, s_addr, o_addr, n,
+                                              s.element_size())
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(lib.ompi_rma_acc(
-            wb.data_ptr() + start, sb.data_ptr(),
-            ob.data_ptr() if ob is not None else None, s.numel(),
+            w_addr, s_addr, o_addr, n, head, tail, wm, sm, om or 0,
             _DTYPES[s.dtype], ACC_OPS[opname], stream), "rma_acc")
         rma_acc.launches.add()
 

@@ -342,13 +342,6 @@ def _cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # K2: stacked data movement (alltoall block transpose, allgather concat)
 # ---------------------------------------------------------------------------
 
-def _width(nbytes: int, ptrs) -> int:
-    for w in (16, 8, 4, 2):
-        if nbytes % w == 0 and all(p % w == 0 for p in ptrs):
-            return w
-    return 1
-
-
 def groups(devices: Sequence, cap: int) -> List[List[int]]:
     """The indices of ``devices`` grouped by device, in order of first
     appearance, each group cut into runs of at most ``cap``: one launch

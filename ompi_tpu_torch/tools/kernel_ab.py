@@ -1,4 +1,5 @@
-"""Device-time A/B of K6 mesh_fold and K2 stacked_copy across checkouts.
+"""Device-time A/B of K6 mesh_fold, K2 stacked_copy, K7 slot_pack and
+K9 rma_acc across checkouts.
 
     python3 -m ompi_tpu_torch.tools.kernel_ab ROOT [ROOT ...]
         [--iters 50] [--cpu]
@@ -7,9 +8,9 @@ Each ROOT is the root of a checkout that holds ``ompi_tpu_torch/``:
 this one (``.``), or another commit unpacked with ``git archive`` into
 a directory that .gitignore lists.  For each ROOT, in the order given,
 a child process imports ``ompi_tpu_torch`` from that root alone,
-builds its kernels and times the launches that the mesh tier and
-coll/hbm make for one collective, at the main path's shapes (8
-members on one card):
+builds its kernels and times the launches that the mesh tier, coll/hbm
+and the device window make for one collective or op, at the main
+path's shapes (8 members on one card):
 
 - K6: the fused mesh batch's fold (8 x 2 MiB), the 8 MiB allreduce's
   fold in rank order and in the segring order, the 128 MiB plan's
@@ -17,7 +18,15 @@ members on one card):
 - K2: the 8 MiB allreduce's gather of stripes, the 1 MiB alltoall,
   8 stripes of 1 MiB into one output (peer mode), one member's
   neighbour gather on the 2x4 periodic grid at 8 MiB, and the stacked
-  allgather and alltoall of 1 MiB a rank.
+  allgather and alltoall of 1 MiB a rank;
+- K7: one rank's pack of the fused flush (32 slots of 64 KiB float32)
+  and the ragged mix (32 slots of 64 KiB + 20 B, so that the packed
+  offsets skew from the sources by 4, 8 and 12 bytes);
+- K9: a 64 MiB float32 SUM accumulate, plain, fetch (``old`` written)
+  and at target_disp 1 (w 4 bytes off 16, s aligned), 64 MiB uint8 and
+  int16 SUM accumulates (every operand 16-byte aligned), and the main
+  path's accumulate of 8 int32 (one input set: bound by its launch;
+  four times the calls a graph).
 
 A checkout whose wrappers take a destination table
 (``mesh.mesh_fold_many``, ``stacked.peer_copy_many``) makes one call
@@ -54,7 +63,7 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
 
     import ompi_tpu_torch
     from ompi_tpu_torch.coll.device import _stripe_elems
-    from ompi_tpu_torch.kernels import build, mesh, stacked
+    from ompi_tpu_torch.kernels import build, mesh, rma, stacked
 
     pkg = os.path.dirname(os.path.abspath(ompi_tpu_torch.__file__))
     if os.path.dirname(pkg) != os.path.abspath(root):
@@ -63,7 +72,7 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
     if cpu:
         dev = torch.device("cpu")
     else:
-        build.build_all(["stacked", "mesh"])
+        build.build_all(["stacked", "mesh", "rma"])
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
     grouped = hasattr(mesh, "mesh_fold_many")
@@ -102,7 +111,33 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
     b1 = n1 // N
     seg = MIB // 4 // div
     nbrs = [4, 4, 3, 1]  # member 0 of the 2x4 periodic grid
-    rows = {  # name -> (bytes moved, make(i), fn)
+    nf, nb = 16 * 1024, 64 * MIB // div  # a 64 KiB slot; a 64 MiB op
+
+    def acc(salt, start, fetch, nel=nb // 4, dt=torch.float32):
+        """K9's input sets (w bytes, s, old or None) and its call: w's
+        elements sit ``start`` bytes into the shard's bytes."""
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            if dt.is_floating_point:
+                w, s = (torch.randn(nel, generator=g, device=dev, dtype=dt)
+                        for _ in range(2))
+            else:
+                w, s = (torch.randint(0, 99, (nel,), generator=g,
+                                      device=dev, dtype=dt)
+                        for _ in range(2))
+            w = torch.cat([torch.zeros(start, dtype=torch.uint8, device=dev),
+                           w.view(torch.uint8)])
+            return w, s, torch.empty(nel, dtype=dt, device=dev) \
+                if fetch else None
+
+        def fn(st):
+            w, s, old = st
+            rma.rma_acc(w, start, s, "MPI_SUM", old)
+            return [w] + ([old] if old is not None else [])
+        return make, fn
+
+    rows = {  # name -> (bytes moved, make(i), fn[, input sets])
         "K6 fused_8x2MiB": ((N + 1) * n2 * 4, ranks(n2, 1), folds(n2, "rank")),
         "K6 allreduce_8MiB_rank": ((N + 1) * n8 * 4, ranks(n8, 2),
                                    folds(n8, "rank")),
@@ -134,6 +169,18 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
         "K2 stacked_alltoall_1MiB": (
             2 * N * n1 * 4, ranks(n1, 11),
             lambda xs: stacked.stacked_copy(xs, "alltoall")),
+        "K7 pack_32x64KiB": (2 * 32 * nf * 4, ranks(nf, 12, 32),
+                             mesh.slot_pack),
+        "K7 pack_32x(64KiB+20B)": (2 * 32 * (nf + 5) * 4,
+                                   ranks(nf + 5, 13, 32), mesh.slot_pack),
+        "K9 acc_sum_f32_64MiB": (3 * nb, *acc(14, 0, False)),
+        "K9 acc_fetch_sum_f32_64MiB": (4 * nb, *acc(15, 0, True)),
+        "K9 acc_sum_f32_64MiB_disp1": (3 * nb, *acc(16, 4, False)),
+        "K9 acc_sum_u8_64MiB": (3 * nb, *acc(18, 0, False, nb, torch.uint8)),
+        "K9 acc_sum_i16_64MiB": (3 * nb, *acc(19, 0, False, nb // 2,
+                                              torch.int16)),
+        "K9 acc_sum_i32_8elem": (96, *acc(17, 0, False, 8, torch.int32),
+                                 1),
     }
 
     def flat(x):
@@ -141,8 +188,9 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
             [t for y in x for t in flat(y)]
 
     ms_, digests = {}, {}
-    for name, (nbytes, make, fn) in rows.items():
-        sets = [make(i) for i in range(max(1, -(-COLD // div // nbytes)))]
+    for name, (nbytes, make, fn, *nsets) in rows.items():
+        nsets = nsets[0] if nsets else max(1, -(-COLD // div // nbytes))
+        sets = [make(i) for i in range(nsets)]
         h = hashlib.sha256()
         for t in flat(fn(sets[0])):
             h.update(t.cpu().contiguous().view(torch.uint8).numpy().tobytes())
@@ -154,7 +202,7 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
         torch.cuda.synchronize()
         keep = []
         g = torch.cuda.CUDAGraph()
-        n = max(iters, len(sets))
+        n = max(iters if nsets > 1 else 4 * iters, len(sets))
         with torch.cuda.graph(g):
             for i in range(n):
                 keep.append(fn(sets[i % len(sets)]))

@@ -1,13 +1,22 @@
-"""Tile and ring sweep of K6 mesh_fold and K2 stacked_copy on one card.
+"""Tile and size sweep of K6 mesh_fold, K2 stacked_copy, K7 slot_pack
+and K9 rma_acc on one card.
 
     python3 -m ompi_tpu_torch.tools.tile_sweep [--iters 50]
+        [--kernels K6,K2,K7,K9]
 
 K6 and K2 walk flat tile lists through a ring of shared-memory stages
-(kernels/csrc/mesh.cu, stacked.cu).  For each (tile, stages) pair of
-the grids below, the wrappers' knobs (``mesh.FOLD_TILE`` /
-``mesh.FOLD_STAGES``, ``stacked.COPY_TILE`` / ``stacked.COPY_STAGES``)
-are set and each kernel is timed at the mesh tier's main-path shapes,
-8 members on one card (one grouped launch a call):
+(kernels/csrc/mesh.cu, stacked.cu), sized by the wrappers' knobs
+(``mesh.FOLD_TILE`` / ``mesh.FOLD_STAGES``, ``stacked.COPY_TILE`` /
+``stacked.COPY_STAGES``), set for each point of their grids below.  K7
+gives each block a span of ``PACK_UNITS`` 16-byte units of one slot and
+each thread ``PACK_U`` units it loads before it stores (mesh.cu); K9
+gives each thread ``ACC_U`` vectors of w and s it loads before it
+stores (rma.cu).  Those three are constants of their sources: for each
+point of K7's and K9's grids a copy of the library is built with
+``-D`` (into ``build/ompi_tpu_torch/sweep/``, one nvcc a copy, all
+started together) and loaded in place of the checkout's.  Each kernel
+is timed at the main path's shapes, 8 members on one card (one grouped
+launch a call):
 
 - K6: the fused mesh batch's fold (8 x 2 MiB, rank order), the 8 MiB
   allreduce's fold in rank order and in the segring order, and one
@@ -15,20 +24,27 @@ are set and each kernel is timed at the mesh tier's main-path shapes,
 - K2: the 1 MiB alltoall (peer mode), the 8 MiB allreduce's gather of
   stripes (peer mode), one member's neighbour gather on the 2x4
   periodic grid at 8 MiB (peer mode), and the stacked allgather and
-  alltoall of 1 MiB a rank (coll/hbm).
+  alltoall of 1 MiB a rank (coll/hbm);
+- K7: one rank's 32 slots of 64 KiB float32 (the fused flush), and the
+  ragged mix of 32 slots of 64 KiB + 20 B;
+- K9: a 64 MiB float32 SUM accumulate, plain, fetch and at target_disp
+  1 (w 4 bytes off 16), and the main path's 8 int32.
 
 A time is the device's: CUDA events around a replayed CUDA graph of
 ``iters`` calls, divided by ``iters``, cold (the calls rotate through
-input sets that move at least 256 MiB a replay, five times the L2).
-Every configuration's first output is held against the plain version
-(exact).  Prints the card's name and power limit, one line a (kernel,
-case, tile, stages), and the pair with the least summed time for each
-kernel.
+input sets that move at least 256 MiB a replay, five times the L2; the
+8-element row uses one set).  Every configuration's first output is
+held against the plain version (exact).  Prints the card's name and
+power limit, one line a (kernel, case, configuration), and the
+configuration with the least summed time for each kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import os
+import re
 import subprocess
 
 import torch
@@ -40,6 +56,44 @@ RING = 192 * 1024  # a ring's bytes at most (a stage: N slices for K6)
 FOLD_GRID = [(t, s) for t in (1024, 2048, 4096) for s in (2, 3, 4)]
 COPY_GRID = [(t, s) for t in (8192, 16384, 32768) for s in (2, 4, 8)
              if t * s <= RING]
+PACK_GRID = [(n, u) for n in (256, 512, 1024) for u in (2, 4, 8)]
+ACC_GRID = [(1,), (2,), (4,)]
+# a constant of a source that its wrapper module mirrors
+MIRRORS = {"PACK_UNITS": "UNITS"}
+
+
+def _variants(jobs):
+    """Build each (source name, knobs, point) of ``jobs``: the source
+    compiled with -D<knob>=<value>, one nvcc a job, all started
+    together.  Returns {(name, point): library path}."""
+    from ompi_tpu_torch.kernels import build
+    out_dir = os.path.join(build.BUILD_DIR, "sweep")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, knobs, point in jobs:
+        tag = "-".join(f"{k}{v}" for k, v in zip(knobs, point))
+        lib = os.path.join(out_dir, f"lib{name}-{tag}.so")
+        procs[name, point] = lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS,
+             *[f"-D{k}={v}" for k, v in zip(knobs, point)], "-o", lib,
+             os.path.join(build.CSRC, build.SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for key, (lib, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        libs[key] = lib
+    return libs
+
+
+def _defaults(name, knobs):
+    """The values of ``knobs`` that the checkout's source defines."""
+    from ompi_tpu_torch.kernels import build
+    with open(os.path.join(build.CSRC, build.SOURCES[name])) as fh:
+        text = fh.read()
+    return tuple(int(re.search(rf"#define {k} (\d+)", text).group(1))
+                 for k in knobs)
 
 
 def _time(fn, sets, iters: int) -> float:
@@ -65,14 +119,14 @@ def _time(fn, sets, iters: int) -> float:
 def _cases(dev):
     """name -> (kernel, bytes moved, make(i), kernel fn, plain fn)."""
     from ompi_tpu_torch.coll.device import _stripe_elems
-    from ompi_tpu_torch.kernels import mesh, stacked
+    from ompi_tpu_torch.kernels import mesh, rma, stacked
 
-    def ranks(nel, salt):
+    def ranks(nel, salt, count=N):
         def make(i):
             g = torch.Generator(device=dev)
             g.manual_seed(1000 * salt + i)
             return [torch.randn(nel, generator=g, device=dev)
-                    for _ in range(N)]
+                    for _ in range(count)]
         return make
 
     def folds(nel, order):
@@ -130,58 +184,128 @@ def _cases(dev):
             "K2", nb, ranks(n1, 12),
             lambda xs, kind=kind: stacked.stacked_copy(xs, kind),
             lambda xs, kind=kind: stacked.stacked_copy_plain(xs, kind))
+    nf = 16 * 1024  # 64 KiB of float32
+    for name, nel in (("pack_32x64KiB", nf), ("pack_32x(64KiB+20B)", nf + 5)):
+        out[name] = ("K7", 2 * 32 * nel * 4, ranks(nel, 14, 32),
+                     mesh.slot_pack, mesh.slot_pack_plain)
+    out.update(_acc_cases(dev, rma))
     return out
+
+
+def _acc_cases(dev, rma):
+    """K9's cases: (kernel, bytes, make(i), kernel fn, plain fn); a set
+    is (w bytes, s, old or None, start), w and old written in place."""
+    nb = 64 * MIB
+
+    def acc_set(salt, start, fetch, nel=nb // 4, dt=torch.float32):
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            if dt == torch.float32:
+                w, s = (torch.randn(nel, generator=g, device=dev)
+                        for _ in range(2))
+            else:
+                w, s = (torch.randint(-99, 99, (nel,), generator=g,
+                                      device=dev, dtype=dt)
+                        for _ in range(2))
+            w = torch.cat([torch.zeros(start, dtype=torch.uint8, device=dev),
+                           w.view(torch.uint8)])
+            old = torch.empty(nel, dtype=dt, device=dev) if fetch else None
+            return w, s, old, start
+        return make
+
+    def run(f):
+        def fn(st):
+            w, s, old, start = st
+            f(w, start, s, "MPI_SUM", old)
+            out = [w[start:].view(s.dtype)]
+            return out + ([old] if old is not None else [])
+        return fn
+
+    return {name: ("K9", nbytes, make, run(rma.rma_acc),
+                   run(rma.rma_acc_plain))
+            for name, nbytes, make in (
+                ("acc_sum_f32_64MiB", 3 * nb, acc_set(20, 0, False)),
+                ("acc_fetch_sum_f32_64MiB", 4 * nb, acc_set(21, 0, True)),
+                ("acc_sum_f32_64MiB_disp1", 3 * nb, acc_set(22, 4, False)),
+                ("acc_sum_i32_8elem", 96, acc_set(23, 0, False, 8,
+                                                   torch.int32)))}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--kernels", default="K6,K2,K7,K9",
+                    help="the kernels to sweep, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep: no CUDA card")
-    from ompi_tpu_torch.kernels import build, mesh, stacked
+    from ompi_tpu_torch.kernels import build, mesh, rma, stacked
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    build.build_all(["stacked", "mesh"])
+    grids = {"K6": (FOLD_GRID, ("FOLD_TILE", "FOLD_STAGES"), mesh, None),
+             "K2": (COPY_GRID, ("COPY_TILE", "COPY_STAGES"), stacked, None),
+             "K7": (PACK_GRID, ("PACK_UNITS", "PACK_U"), mesh, "mesh"),
+             "K9": (ACC_GRID, ("ACC_U",), rma, "rma")}
+    kernels = args.kernels.split(",")
+    build.build_all(["stacked", "mesh", "rma"])
+    libs = _variants([(grids[k][3], grids[k][1], point) for k in kernels
+                      if grids[k][3] for point in grids[k][0]])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[card] {card}", flush=True)
     cases = _cases(dev)
-    grids = {"K6": (FOLD_GRID, ("FOLD_TILE", "FOLD_STAGES"), mesh),
-             "K2": (COPY_GRID, ("COPY_TILE", "COPY_STAGES"), stacked)}
-    for kernel, (grid, (tk, sk), mod) in grids.items():
-        saved = getattr(mod, tk), getattr(mod, sk)
+    for kernel in kernels:
+        grid, knobs, mod, source = grids[kernel]
+        saved = _defaults(source, knobs) if source else \
+            tuple(getattr(mod, k) for k in knobs)
+
+        def use(point):
+            """Set the module's knobs (or the mirrors of the source's
+            constants) to ``point``."""
+            for k, v in zip(knobs, point):
+                if not source:
+                    setattr(mod, k, v)
+                elif k in MIRRORS:
+                    setattr(mod, MIRRORS[k], v)
         totals = {}
-        for tile, stages in grid:
-            setattr(mod, tk, tile)
-            setattr(mod, sk, stages)
+        for point in grid:
+            conf = ", ".join(f"{k} {v}" for k, v in zip(knobs, point))
+            use(point)
+            if source:
+                build._libs[source] = ctypes.CDLL(libs[source, point])
+                mod._lib = None  # the wrapper binds the copy at its call
             total = 0.0
             for name, (kk, nbytes, make, k_fn, p_fn) in cases.items():
                 if kk != kernel:
                     continue
-                sets = [make(i) for i in range(max(1, -(-COLD // nbytes)))]
-                got, want = k_fn(sets[0]), p_fn(sets[0])
+                got, want = k_fn(make(0)), p_fn(make(0))
                 got = got if isinstance(got, list) else [got]
                 want = want if isinstance(want, list) else [want]
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise AssertionError(f"{kernel} {name} tile {tile} "
-                                         f"stages {stages}: differs")
+                    raise AssertionError(f"{kernel} {name} {conf}: differs")
+                del got, want
+                sets = [make(i) for i in range(max(1, -(-COLD // nbytes))
+                                               if nbytes > MIB else 1)]
                 ms = _time(k_fn, sets, max(args.iters, len(sets)))
                 total += ms
-                print(f"[sweep] {kernel} {name}: tile {tile} B, {stages} "
-                      f"stages: {ms:.4f} ms (bound "
-                      f"{nbytes / 3.35e12 * 1e3:.4f} ms)", flush=True)
+                print(f"[sweep] {kernel} {name}: {conf}: {ms:.4f} ms "
+                      f"(bound {nbytes / 3.35e12 * 1e3:.4f} ms)", flush=True)
                 del sets
-            totals[(tile, stages)] = total
-        setattr(mod, tk, saved[0])
-        setattr(mod, sk, saved[1])
+            totals[point] = total
+        use(saved)
+        if source:  # back to the checkout's library
+            del build._libs[source]
+            mod._lib = None
         best = min(totals, key=totals.get)
-        print(f"[sweep] {kernel} best: tile {best[0]} B, {best[1]} stages "
-              f"({totals[best]:.4f} ms summed; now {saved[0]} B, "
-              f"{saved[1]} stages: {totals.get(saved, float('nan')):.4f}) "
-              f"[{card}]", flush=True)
+        print(f"[sweep] {kernel} best: "
+              + ", ".join(f"{k} {v}" for k, v in zip(knobs, best))
+              + f" ({totals[best]:.4f} ms summed; now "
+              + ", ".join(f"{k} {v}" for k, v in zip(knobs, saved))
+              + f": {totals.get(saved, float('nan')):.4f}) [{card}]",
+              flush=True)
     return 0
 
 
