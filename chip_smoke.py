@@ -25,7 +25,10 @@ Phases, each fatal on failure (nothing is caught and carried on):
              segment) and K7 slot_pack (zeroed slots, odd widths,
              mixes of sources skewed from their destinations by 0, 1,
              2, 4, 8 and 12 bytes with empty and zero slots, 64 and 65
-             slots); K8 rma_copy at unaligned heads and tails, K9
+             slots); K8 rma_copy at unaligned heads and tails and at
+             every destination shift 0-15 against source offsets 0 and
+             3 (sizes 1, 15, 16, 17, 31, 4096 + 13, 65536 + 13, each
+             source span ending at its tensor's last byte), K9
              rma_acc over every window wire dtype and every op it takes
              (REPLACE and NO_OP included), plain and fetch, at starts
              0, isz, 1, 4, 16 - isz and 17 bytes, s and old one element
@@ -40,7 +43,11 @@ Phases, each fatal on failure (nothing is caught and carried on):
              value cases (uint8 wrap, -1 as unsigned, NaN, +-inf, -0.0):
              INTSUM, MAX and MIN exact, FSUM within 1e-12 relative of
              the plain version (which sums in another order) and
-             bit-identical across two launches.  K12 driver_step
+             bit-identical across two launches; the same values at
+             every element offset 0..V-1 of a larger buffer give
+             identical bits under every fold, every dtype; two replays
+             of a captured graph (new values each) and an eager call
+             against the plain version.  K12 driver_step
              against driver_step_plain for float32, float64, int32,
              float16 and bfloat16, R in {2, 8}, N in {8, 1024, 2**21,
              37 R}, one launch a call, and its refusal of N % R != 0;
@@ -151,7 +158,9 @@ Phases, each fatal on failure (nothing is caught and carried on):
              output), and two B16's step at cols 2**19 (its K6 and its
              K2 peer launches); K7 also on a ragged mix (32 slots of
              64 KiB + 20 B), K9 also at target_disp 1 (w 4 bytes off
-             16) and on the main path's 8 int32 (launch-bound).
+             16) and on the main path's 8 int32 (launch-bound), K8
+             also at byte skews 1 and 4 (dst + 1, dst + 4), K11 also on
+             a float32 view 4 bytes into its buffer and on uint8.
 5. e2e     — host clock, slowest rank: comm.allreduce_arr at 8 ranks x
              8 MiB float32 (the headline); a fused batch of 32
              iallreduce_arr of 64 KiB with one wait against the same
@@ -169,8 +178,9 @@ The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
 on a host with two or more cards builds the kernels and runs only the
-one-rank-a-card branch (the mesh, RMA, integrity and halo phases over
-peer access).
+one-rank-a-card branch (K8's shift cases with the source on a peer
+card, then the mesh, RMA, integrity and halo phases over peer
+access).
 """
 
 from __future__ import annotations
@@ -422,9 +432,16 @@ def _digest_held(xs, codes, what: str) -> None:
     from ompi_tpu_torch.kernels import digest as k11
     got = k11.digest(xs, codes)
     again = k11.digest(xs, codes)
-    want = k11.digest_plain(xs, codes)
     if not torch.equal(got, again):
         raise AssertionError(f"K11 {what}: two launches differ")
+    _digest_agree(got, xs, codes, what)
+
+
+def _digest_agree(got, xs, codes, what: str) -> None:
+    """K11's results ``got`` for one table against the plain version:
+    INTSUM, MAX and MIN exact, FSUM within 1e-12 relative."""
+    from ompi_tpu_torch.kernels import digest as k11
+    want = k11.digest_plain(xs, codes)
     for x, c, a, b in zip(xs, codes, got.tolist(), want.tolist()):
         av, bv = k11.decode(a, c, x.dtype), k11.decode(b, c, x.dtype)
         if av != av and bv != bv:
@@ -500,7 +517,91 @@ def _kernels_digest(dev, g) -> int:
                                  f"{got}, expected {v}")
         ncases += 1
     torch.cuda.synchronize()
+    return ncases + _kernels_digest_offsets(dev, g) + _kernels_digest_graph(
+        dev, g)
+
+
+def _kernels_digest_offsets(dev, g) -> int:
+    """K11's bits do not depend on the address: the same values at every
+    element offset 0..V-1 inside a larger buffer (V = 16 / size; offset
+    0 is 16-byte aligned, the rest load element by element) give
+    identical bits under every fold the dtype takes — FSUM on finite
+    floats, INTSUM on every integer width, MAX and MIN (NaN among the
+    floats) on both — each also against the plain version, at 1, V + 1
+    and 2**17 + 3 elements (several blocks), and 8 MiB + 3 elements of
+    float32 (512 blocks)."""
+    from ompi_tpu_torch.kernels import digest as k11
+    ncases = 0
+    for dtype in DIGEST_DTYPES:
+        fl = dtype.is_floating_point
+        isz = torch.empty((), dtype=dtype).element_size()
+        v = 16 // isz
+        sizes = [1, v + 1, (1 << 17) + 3]
+        if dtype == torch.float32:
+            sizes.append(8 * MIB // isz + 3)
+        for n in sizes:
+            x = make_shard(g, n, dtype, "MPI_MAX", dev)
+            cases = [(x, c) for c in (k11.F_MAX, k11.F_MIN)]
+            cases.append((torch.nan_to_num(x, nan=1.5), k11.F_FSUM) if fl
+                         else (x, k11.F_INTSUM))
+            for vals, c in cases:
+                buf = torch.empty(n + v, dtype=dtype, device=dev)
+                if buf.data_ptr() % 16:
+                    raise AssertionError("K11: a fresh buffer is not "
+                                         "16-byte aligned")
+                first = None
+                for off in range(v):
+                    view = buf[off:off + n]
+                    view.copy_(vals)
+                    got = k11.digest([view], [c])
+                    _digest_agree(got, [view], [c], f"{dtype} n={n} "
+                                  f"fold {c} at element {off}")
+                    if first is None:
+                        first = got
+                    elif not torch.equal(got, first):
+                        raise AssertionError(
+                            f"K11 {dtype} n={n} fold {c}: element offset "
+                            f"{off} gives other bits than offset 0")
+                    ncases += 1
+        log(f"[K11] {str(dtype)[6:]:>8} identical bits at element offsets "
+            f"0..{v - 1}")
+    torch.cuda.synchronize()
     return ncases
+
+
+def _kernels_digest_graph(dev, g) -> int:
+    """K11 captured in a CUDA graph (a table of multi-block operands:
+    FSUM, INTSUM, MAX, and one view off 16 bytes), replayed twice with
+    other values in the operands each time, then called eagerly: each
+    result against the plain version (the done counters, reset by each
+    operand's finishing block, serve every replay with no memset)."""
+    from ompi_tpu_torch.kernels import digest as k11
+    xs = [torch.empty(n, dtype=dt, device=dev)[off:] for n, dt, off in (
+        ((1 << 20) + 7, torch.float32, 0), ((1 << 19) + 1, torch.int32, 0),
+        ((1 << 18) + 5, torch.float64, 1), ((1 << 20) + 3, torch.uint8, 3))]
+    codes = [k11.F_FSUM, k11.F_INTSUM, k11.F_MAX, k11.F_INTSUM]
+
+    def refill():
+        for x in xs:
+            x.copy_(make_shard(g, x.numel(), x.dtype, "MPI_SUM", dev))
+
+    refill()
+    k11.digest(xs, codes)  # load the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = k11.digest(xs, codes)
+    for r in range(2):
+        refill()
+        graph.replay()
+        torch.cuda.synchronize()
+        _digest_agree(got.clone(), xs, codes, f"graph replay {r}")
+    _digest_agree(k11.digest(xs, codes), xs, codes, "eager after replays")
+    torch.cuda.synchronize()
+    del graph
+    log("[K11] two graph replays (new values each) and an eager call "
+        "agree with the plain version")
+    return 3
 
 
 def _held_slots(outs, refs, what: str):
@@ -1500,13 +1601,47 @@ def _cas_cases(dtype):
     return [(5, 5, top, True), (5, 6, 1, False), (top, top, 0, True)]
 
 
+COPY_SIZES = (1, 15, 16, 17, 31, 4096 + 13, 65536 + 13)  # bytes
+
+
+def _kernels_copy_shifts(dst_dev, src_dev, g) -> int:
+    """K8 at every destination shift 0-15 against source offsets 0 and
+    3, at sizes across the head, body and tail edges (COPY_SIZES): each
+    source a fresh allocation of offset + n bytes, so that its span
+    starts at the tensor's first byte (offset 0) and always ends at its
+    last, and the aligned source words the kernel reads reach past the
+    span on both sides.  The launch runs on the destination's card; the
+    source may lie on a peer card.  Exact, byte for byte, the whole
+    destination buffer against the plain version's."""
+    from ompi_tpu_torch.kernels import rma
+    ncases = 0
+    for n in COPY_SIZES:
+        for s_off in (0, 3):
+            src = torch.randint(0, 256, (s_off + n,), generator=g,
+                                device=g.device, dtype=torch.uint8
+                                ).to(src_dev)
+            for d_off in range(16):
+                base = torch.randint(0, 256, (n + 32,), generator=g,
+                                     device=g.device, dtype=torch.uint8
+                                     ).to(dst_dev)
+                a, b = base.clone(), base.clone()
+                rma.rma_copy(a, d_off, src, s_off, n)
+                rma.rma_copy_plain(b, d_off, src.to(dst_dev), s_off, n)
+                _same_bytes(a, b, f"K8 n={n} dst+{d_off} src+{s_off} "
+                            f"({src_dev} -> {dst_dev})")
+                ncases += 1
+    torch.cuda.synchronize()
+    return ncases
+
+
 def _kernels_rma(dev, g) -> int:
-    """K8 at unaligned heads and tails; K9 over every wire dtype and
-    every op it takes (REPLACE and NO_OP included), plain and fetch, at
-    aligned and misaligned byte offsets; K10's value cases (signed
-    zeros, NaN, complex parts, bool bytes) at aligned and misaligned
-    offsets.  Tolerance: exact, byte for byte; K10 also against the
-    expected swap."""
+    """K8 at unaligned heads and tails and at every destination shift
+    (``_kernels_copy_shifts``); K9 over every wire dtype and every op
+    it takes (REPLACE and NO_OP included), plain and fetch, at aligned
+    and misaligned byte offsets; K10's value cases (signed zeros, NaN,
+    complex parts, bool bytes) at aligned and misaligned offsets.
+    Tolerance: exact, byte for byte; K10 also against the expected
+    swap."""
     from ompi_tpu_torch.kernels import rma
     ncases = 0
     for n in (1, 15, 16, 17, 1000, 65536 + 13):
@@ -1521,8 +1656,11 @@ def _kernels_rma(dev, g) -> int:
                 rma.rma_copy_plain(b, d_off, src, s_off, n)
                 _same_bytes(a, b, f"K8 n={n} dst+{d_off} src+{s_off}")
                 ncases += 1
-    log("[K8] rma_copy exact (unaligned heads and tails, "
-        f"{ncases} cases)")
+    shifts = _kernels_copy_shifts(dev, dev, g)
+    ncases += shifts
+    log("[K8] rma_copy exact (unaligned heads and tails; every "
+        "destination shift 0-15 against source offsets 0 and 3 at "
+        f"{len(COPY_SIZES)} sizes, {shifts} of the {ncases} cases)")
     for dtype in RMA_DTYPES:
         isz = torch.empty((), dtype=dtype).element_size()
         v = 16 // isz
@@ -2615,6 +2753,19 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         lambda st: rma.rma_copy(st[0], 0, st[1], 0, nb),
         lambda st: rma.rma_copy_plain(st[0], 0, st[1], 0, nb),
         lambda st: st[0].copy_(st[1]), 50, source="rma.cu")
+    # the same put at a byte skew (a window of disp_unit 1): dst 1 and 4
+    # bytes into the shard, src aligned; the library call on the same
+    # uint8 views
+    for skew in (1, 4):
+        row(f"rma_copy:put_64MiB_skew{skew}", "rma_copy", None,
+            "ompi_tpu/osc/device.py:181", 2 * nb,
+            lambda i: (torch.empty(nb + 16, dtype=torch.uint8, device=dev),
+                       bytes_in(i, 80)),
+            lambda st, k=skew: rma.rma_copy(st[0], k, st[1], 0, nb)[k:k + nb],
+            lambda st, k=skew: rma.rma_copy_plain(st[0], k, st[1], 0,
+                                                  nb)[k:k + nb],
+            lambda st, k=skew: st[0][k:k + nb].copy_(st[1]), 50,
+            source="rma.cu")
     row("rma_acc:sum_f32_64MiB", "rma_acc", "rma_counter_tensor_dma1",
         "ompi_tpu/osc/device.py:220", 3 * nb,
         lambda i: (bytes_in(i, 81).clone(), rank_input(i % n, nb,
@@ -2693,11 +2844,18 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         return (lambda xs: run(k11.digest, xs),
                 lambda xs: run(k11.digest_plain, xs))
 
-    def ints(i, nbytes, salt):
+    def ints(i, nbytes, salt, dtype=torch.int32):
         gi = torch.Generator(device=dev)
         gi.manual_seed(SEED * 1000 + salt * 100 + i)
         return torch.randint(-2 ** 31, 2 ** 31 - 1, (nbytes // 4,),
-                             generator=gi, device=dev, dtype=torch.int32)
+                             generator=gi, device=dev,
+                             dtype=torch.int32).view(dtype)
+
+    def off4(i):  # an 8 MiB float32 operand 4 bytes into its buffer
+        b = torch.empty(2 * MIB + 4, dtype=torch.float32, device=dev)
+        b[1:2 * MIB + 1] = rank_input(i % n, 8 * MIB, torch.float32, dev,
+                                      96 + 10 * i)
+        return [b[1:2 * MIB + 1]]
 
     for label, call, code, as_float, mib, make, lib_fn, iters in (
             ("gate_fsum_f32_8MiB", "ig_hbm_injected_ar8", k11.F_FSUM, True, 8,
@@ -2718,7 +2876,12 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
             ("verify_table_8x1MiB_intsum_i32", "ig_hbm_injected_a2a1",
              k11.F_INTSUM, False, 8,
              lambda i: [ints(8 * i + r, MIB, 95) for r in range(n)],
-             None, 50)):
+             None, 50),
+            ("gate_fsum_f32_8MiB_off4", None, k11.F_FSUM, True, 8, off4,
+             lambda xs: torch.sum(xs[0], dtype=torch.float64), 50),
+            ("verify_intsum_u8_8MiB", None, k11.F_INTSUM, False, 8,
+             lambda i: [ints(i, 8 * MIB, 97, torch.uint8)],
+             lambda xs: torch.sum(xs[0], dtype=torch.int64), 50)):
         k_fn, p_fn = dig(code, as_float)
         nops = len(make(0))
         row(f"digest:{label}", "digest", call, "ompi_tpu/obs/integrity.py:234",
@@ -3226,6 +3389,12 @@ def phase_cards() -> None:
     never takes this branch."""
     nc = min(NRANKS, torch.cuda.device_count())
     cards = [torch.device("cuda", r) for r in range(nc)]
+    g = torch.Generator(device=cards[0])
+    g.manual_seed(SEED)
+    ncases = sum(_kernels_copy_shifts(d, s, g) for d, s in
+                 ((cards[0], cards[1]), (cards[1], cards[0])))
+    log(f"[K8] rma_copy exact with the source on a peer card ({ncases} "
+        "cases: every destination shift, both directions)")
     phase_mesh(cards, f"{nc} cards, one rank each")
     phase_rma(cards, f"{nc} cards, one rank each")
     phase_integrity(cards, "tpu", f"{nc} cards, one rank each")

@@ -28,9 +28,42 @@
 //
 // What bounds them: bytes.  K8 reads n bytes and writes n; K9 reads s
 // and w and writes w (and old), with one operation an element; K10 is
-// one thread and is bound by the launch.  K8 moves 16 bytes a thread
-// where source and destination share their alignment modulo 16 (the
-// head and tail bytes one a thread), else the widest width they share.
+// one thread and is bound by the launch.
+//
+// K8's design for the H100: one design for every skew.  The wrapper
+// plans the copy from the two integer addresses (rma.py _copy_plan):
+// the head bytes up to dst's first 16-byte boundary, a body of whole
+// 16-byte destination words, the tail bytes, and the source's shift
+// (src + head) mod 16.  Every store of the body is an aligned 16-byte
+// word, whatever the skew between the pointers.  A thread owns COPY_U
+// consecutive destination words and issues all of its loads before
+// its first store (__restrict__ pointers): at shift 0, COPY_U aligned
+// source words; at any other shift, the COPY_U + 1 aligned 16-byte
+// source words that cover its span, each output word built from two
+// neighbouring source words with funnel shifts of their 32-bit lanes
+// (the lane offset shift / 4 is a template constant, so the words
+// stay in registers; the bit offset 8 (shift mod 4) is uniform).
+// Neighbouring threads share one source word at their edges, in the
+// same lines, so DRAM traffic does not grow.  Reads outside the span:
+// the first and the last aligned source word may hold up to 15 bytes
+// outside [src, src + n); they are read and never used, and they lie
+// in the same 16-byte granule as a byte of the span, so they never
+// cross a page (a granule never does).  The grid takes as many blocks
+// as the body has chunks of COPY_THREADS * COPY_U words, one round a
+// thread (the shape measured faster than a persistent grid for K9,
+// PERF.md §6); the head and tail bytes go one a thread to the grid's first
+// threads, so a copy of a few bytes is one block.  A source on a peer
+// card (NVLink, --cards runs) takes the same code.  The C entry
+// re-checks the plan against its pointers: a store or load that is not
+// 16-byte aligned would fault the context.  COPY_U is a constant of
+// this source (tools/tile_sweep.py builds -D copies to sweep it): 1,
+// since 2 and 4 read 4 % and 56 % slower aligned and 19 % and 102-104 %
+// slower at skews 1 and 4 on an H100 (a lane's words 32 and 64 bytes
+// apart: more lines an instruction).  A ring of bulk copies through
+// shared memory (bulk.cuh) on the shift-0 body read 8 % slower than
+// this design (tools/kernel_ab.py), so K8 keeps one design for every
+// skew.  ptxas (sm_90a): its five kernels 16-22 registers; no stack and
+// no spills.
 //
 // K9's design for the H100.  The wrapper splits the op on the target's
 // alignment (rma.py _acc_split): the head elements before w reaches a
@@ -73,41 +106,76 @@
 
 // --- K8: rma_copy ------------------------------------------------------
 
-struct CopySpan {
-  uint8_t* dst;
-  const uint8_t* src;
-  long long head;   // bytes before the first whole unit
-  long long units;  // whole units of the launch's width
-  long long tail;   // bytes after the last whole unit
+#define COPY_THREADS 256
+#ifndef COPY_U
+#define COPY_U 1  // consecutive 16-byte destination words a K8 thread owns
+#endif
+
+struct CopyArgs {
+  uint8_t* dst;        // the span's first destination byte
+  const uint8_t* src;  // the span's first source byte
+  long long head;      // bytes before dst's first 16-byte boundary
+  long long words;     // whole 16-byte destination words of the body
+  long long tail;      // bytes after the body
+  int shift;           // (src + head) mod 16
 };
 
-template <typename W>
-__global__ void __launch_bounds__(256) rma_copy_kernel(const CopySpan a) {
-  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const W* s = reinterpret_cast<const W*>(a.src + a.head);
-  W* d = reinterpret_cast<W*>(a.dst + a.head);
-  for (long long k = t0; k < a.units; k += stride) d[k] = s[k];
-  if (t0 < a.head) {
-    a.dst[t0] = a.src[t0];
-  } else if (t0 < a.head + a.tail) {
-    const long long k = a.head + a.units * (long long)sizeof(W) + (t0 - a.head);
-    a.dst[k] = a.src[k];
+// Bytes [4 Q + r, 4 Q + r + 16) of the 32 bytes lo:hi (lo first), r8 =
+// 8 r bits, r < 4: four funnel shifts of neighbouring 32-bit lanes.
+template <int Q>
+__device__ __forceinline__ uint4 shifted(const uint4& lo, const uint4& hi,
+                                         unsigned r8) {
+  const unsigned c[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  uint4 o;
+  o.x = __funnelshift_r(c[Q], c[Q + 1], r8);
+  o.y = __funnelshift_r(c[Q + 1], c[Q + 2], r8);
+  o.z = __funnelshift_r(c[Q + 2], c[Q + 3], r8);
+  o.w = __funnelshift_r(c[Q + 3], c[Q + 4], r8);
+  return o;
+}
+
+// Q < 0: shift 0 (source words aligned as the destination's); else the
+// shift's lane offset shift / 4.
+template <int Q>
+__global__ void __launch_bounds__(COPY_THREADS) rma_copy_kernel(const CopyArgs a) {
+  uint8_t* __restrict__ d = a.dst;
+  const uint8_t* __restrict__ s = a.src;
+  const long long t = (long long)blockIdx.x * COPY_THREADS + threadIdx.x;
+  const long long j0 = t * COPY_U;  // the thread's first destination word
+  if (j0 < a.words) {
+    uint4* __restrict__ dw = reinterpret_cast<uint4*>(d + a.head);
+    const uint4* __restrict__ sw =
+        reinterpret_cast<const uint4*>(s + a.head - a.shift);
+    const int m = a.words - j0 < COPY_U ? (int)(a.words - j0) : COPY_U;
+    constexpr int L = Q < 0 ? COPY_U : COPY_U + 1;  // source words loaded
+    uint4 v[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k)
+      if (k < m + (Q < 0 ? 0 : 1)) v[k] = sw[j0 + k];
+    const unsigned r8 = 8u * (unsigned)(a.shift & 3);
+#pragma unroll
+    for (int k = 0; k < COPY_U; ++k) {
+      if (k < m) {
+        if constexpr (Q < 0) dw[j0 + k] = v[k];
+        else dw[j0 + k] = shifted<Q>(v[k], v[k + 1], r8);
+      }
+    }
+  }
+  if (t < a.head) {  // the edges: one byte a thread
+    d[t] = s[t];
+  } else if (t < a.head + a.tail) {
+    const long long k = a.head + a.words * 16 + (t - a.head);
+    d[k] = s[k];
   }
 }
 
-template <typename W>
-static int launch_copy(uint8_t* dst, const uint8_t* src, long long n,
-                       cudaStream_t s) {
-  CopySpan a;
-  a.dst = dst;
-  a.src = src;
-  a.head = (long long)((sizeof(W) - (uintptr_t)dst % sizeof(W)) % sizeof(W));
-  if (a.head > n) a.head = n;
-  a.units = (n - a.head) / (long long)sizeof(W);
-  a.tail = n - a.head - a.units * (long long)sizeof(W);
-  long long work = a.units > a.head + a.tail ? a.units : a.head + a.tail;
-  rma_copy_kernel<W><<<grid_for(work, (long long)sm_count() * 8), 256, 0, s>>>(a);
+template <int Q>
+static int launch_copy(const CopyArgs& a, cudaStream_t s) {
+  const long long per = (long long)COPY_THREADS * COPY_U;
+  long long grid = (a.words + per - 1) / per;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // over 8 TiB
+  if (grid < 1) grid = 1;
+  rma_copy_kernel<Q><<<(unsigned)grid, COPY_THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -368,19 +436,32 @@ static int launch_cas(const CasArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// dst and src do not overlap; n > 0.  The launch runs on the current
-// device's ``stream``; either pointer may lie on a peer card.
-int ompi_rma_copy(void* dst, const void* src, long long n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+// dst and src do not overlap; n > 0 bytes, planned by the wrapper
+// (rma.py _copy_plan) as head + 16 words + tail with the source's
+// shift, which must hold for the pointers.  The launch runs on the
+// current device's ``stream``; either pointer may lie on a peer card.
+int ompi_rma_copy(void* dst, const void* src, long long n, long long head,
+                  long long words, long long tail, int shift, void* stream) {
+  const long long to16 = (long long)((16 - (uintptr_t)dst % 16) % 16);
+  if (n <= 0 || head != (to16 < n ? to16 : n) || tail < 0 || tail >= 16 ||
+      words < 0 || head + 16 * words + tail != n ||
+      shift != (int)(((uintptr_t)src + head) % 16))
+    return (int)cudaErrorInvalidValue;
+  CopyArgs a;
+  a.dst = (uint8_t*)dst;
+  a.src = (const uint8_t*)src;
+  a.head = head;
+  a.words = words;
+  a.tail = tail;
+  a.shift = shift;
   cudaStream_t s = (cudaStream_t)stream;
-  uint8_t* d = (uint8_t*)dst;
-  const uint8_t* r = (const uint8_t*)src;
-  const uintptr_t skew = (uintptr_t)d - (uintptr_t)r;
-  if (skew % 16 == 0) return launch_copy<uint4>(d, r, n, s);
-  if (skew % 8 == 0) return launch_copy<uint2>(d, r, n, s);
-  if (skew % 4 == 0) return launch_copy<uint32_t>(d, r, n, s);
-  if (skew % 2 == 0) return launch_copy<uint16_t>(d, r, n, s);
-  return launch_copy<uint8_t>(d, r, n, s);
+  switch (shift == 0 ? -1 : shift / 4) {
+    case -1: return launch_copy<-1>(a, s);
+    case 0: return launch_copy<0>(a, s);
+    case 1: return launch_copy<1>(a, s);
+    case 2: return launch_copy<2>(a, s);
+    default: return launch_copy<3>(a, s);
+  }
 }
 
 // old may be null (accumulate); count > 0 elements, split by the wrapper

@@ -9,11 +9,21 @@ one launch, so that only the results cross to the host.  The folds
 codes) and the value each gives are in the note at the top of
 digest.cu; ``decode`` turns a result's 8 bytes into that value.
 
-The kernel is deterministic (the same bytes give the same bits on
-every launch): the integrity plane compares a re-digest with a claim at
-zero tolerance.  The plain version sums floats in PyTorch's order, not
-the kernel's, so the two agree exactly for INTSUM, MAX and MIN and
-within float64 rounding for FSUM.
+The kernel is deterministic, and its bits depend on an operand's
+values and length, never on its address (the same values at any
+element offset give the same bits): the integrity plane compares a
+re-digest of an output or a view with a claim taken over a fresh clone
+at zero tolerance.  ``_plan`` gives what the wrapper works out for one
+operand: its blocks, a function of its length and width alone (the
+fold order follows from them), and its load mode, the one thing its
+address chooses (16-byte words where the base is 16-byte aligned, else
+element by element: the same elements in the same order either way).
+The counters that elect each operand's finishing block sit in the
+library's static device array, one row a slot; ``_slot`` gives each
+(device, stream) a row of its own, so no launch needs a memset.  The
+plain version sums floats in PyTorch's order, not the kernel's, so the
+two agree exactly for INTSUM, MAX and MIN and within float64 rounding
+for FSUM.
 
 A wrapper takes the plain version only for tensors that lie on the
 CPU.  A CUDA tensor launches the kernel, or the wrapper raises: there
@@ -25,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import struct
 import threading
-from typing import List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -36,8 +46,9 @@ F_INTSUM, F_FSUM, F_MAX, F_MIN = 1, 2, 3, 4
 
 MAX_OPS = 96
 THREADS = 256
-PER_THREAD = 16
+U = 4            # digest.cu DIGEST_U: 16-byte groups a thread a round
 MAX_BLOCKS = 1024
+SLOTS = 256      # streams a device
 
 _INTS = (torch.int8, torch.uint8, torch.int16, torch.uint16, torch.int32,
          torch.uint32, torch.int64, torch.uint64)
@@ -51,17 +62,19 @@ _M64 = (1 << 64) - 1
 class _DigestOp(ctypes.Structure):
     _fields_ = [("ptr", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("first_block", ctypes.c_int), ("nblocks", ctypes.c_int),
-                ("dtype", ctypes.c_int), ("code", ctypes.c_int)]
+                ("dtype", ctypes.c_int), ("code", ctypes.c_int),
+                ("vec", ctypes.c_int)]
 
 
 class _DigestArgs(ctypes.Structure):
     _fields_ = [("op", _DigestOp * MAX_OPS), ("partial", ctypes.c_void_p),
-                ("done", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("nops", ctypes.c_int)]
+                ("out", ctypes.c_void_p), ("nops", ctypes.c_int),
+                ("slot", ctypes.c_int)]
 
 
 _lib_lock = threading.Lock()
 _lib = None
+_slots: Dict[Tuple[int, int], int] = {}  # (device, stream) -> slot
 
 
 def _library() -> ctypes.CDLL:
@@ -77,8 +90,9 @@ def _library() -> ctypes.CDLL:
             if (lib.ompi_digest_args_size() != ctypes.sizeof(_DigestArgs)
                     or lib.ompi_digest_max_ops() != MAX_OPS
                     or lib.ompi_digest_threads() != THREADS
-                    or lib.ompi_digest_per_thread() != PER_THREAD
-                    or lib.ompi_digest_max_blocks() != MAX_BLOCKS):
+                    or lib.ompi_digest_u() != U
+                    or lib.ompi_digest_max_blocks() != MAX_BLOCKS
+                    or lib.ompi_digest_slots() != SLOTS):
                 raise RuntimeError("digest.cu argument layout does not "
                                    "match digest.py")
             _lib = lib
@@ -95,9 +109,39 @@ def supported(dtype: torch.dtype, code: int) -> bool:
     return code in (F_MAX, F_MIN) and (dtype in _INTS or dtype in _FLOATS)
 
 
-def blocks(n: int) -> int:
-    """Blocks K11 gives an n-element operand: a function of n alone."""
-    return max(1, min(MAX_BLOCKS, -(-n // (THREADS * PER_THREAD))))
+def blocks(n: int, isz: int) -> int:
+    """Blocks K11 gives an operand of n elements of isz bytes: one a
+    span of THREADS * U 16-byte groups, at most MAX_BLOCKS; a function
+    of the length and the width alone (digest.cu digest_blocks)."""
+    groups = -(-n * isz // 16)
+    return max(1, min(MAX_BLOCKS, -(-groups // (THREADS * U))))
+
+
+def _plan(addr: int, n: int, isz: int) -> Tuple[int, int, int]:
+    """What the wrapper plans for one operand at integer address
+    ``addr``: (blocks, groups of 16 // isz elements, load mode).  Only
+    the load mode (1: 16-byte words, ``addr`` 16-byte aligned; 0:
+    element by element) depends on the address; the blocks and groups,
+    which fix the fold order, do not."""
+    return blocks(n, isz), -(-n * isz // 16), int(addr % 16 == 0)
+
+
+def _slot(dev: torch.device, stream: int) -> int:
+    """The row of the library's done counters that launches on
+    ``stream`` of ``dev`` use: one a (device, stream), never shared, so
+    that digests on concurrent streams never race on a counter."""
+    key = (dev.index, stream)
+    slot = _slots.get(key)
+    if slot is None:
+        with _lib_lock:
+            slot = _slots.get(key)
+            if slot is None:
+                slot = sum(1 for d, _ in _slots if d == dev.index)
+                if slot >= SLOTS:
+                    raise RuntimeError(f"digest: more than {SLOTS} streams "
+                                       f"on {dev}")
+                _slots[key] = slot
+    return slot
 
 
 def _check(xs: Sequence[torch.Tensor], codes: Sequence[int]) -> None:
@@ -135,6 +179,7 @@ def digest(xs: Sequence[torch.Tensor], codes: Sequence[int]
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        slot = _slot(dev, stream)
         for lo in range(0, len(xs), MAX_OPS):
             part = range(lo, min(lo + MAX_OPS, len(xs)))
             a = _DigestArgs()
@@ -142,19 +187,20 @@ def digest(xs: Sequence[torch.Tensor], codes: Sequence[int]
             for j, i in enumerate(part):
                 x = xs[i]
                 rec = a.op[j]
-                rec.ptr = x.data_ptr() if x.numel() else None
+                addr = x.data_ptr() if x.numel() else 0
+                rec.ptr = addr or None
                 rec.n = x.numel()
                 rec.first_block = nblocks
-                rec.nblocks = blocks(x.numel())
+                rec.nblocks, _, rec.vec = _plan(addr, x.numel(),
+                                                x.element_size())
                 rec.dtype = _DTYPES[x.dtype]
                 rec.code = codes[i]
                 nblocks += rec.nblocks
             a.nops = len(part)
-            # block partials, then one 32-bit done counter an operand
-            scratch = torch.empty(nblocks + -(-len(part) // 2),
-                                  dtype=torch.int64, device=dev)
-            a.partial = scratch.data_ptr()
-            a.done = scratch.data_ptr() + 8 * nblocks
+            a.slot = slot
+            # one partial a block; each is written before it is read
+            partial = torch.empty(nblocks, dtype=torch.int64, device=dev)
+            a.partial = partial.data_ptr()
             a.out = out.data_ptr() + 8 * lo
             _launch(lib.ompi_digest(ctypes.byref(a), nblocks, stream),
                     "digest")

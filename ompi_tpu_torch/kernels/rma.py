@@ -5,7 +5,10 @@ K8 ``rma_copy`` replaces the reference's put, get and local-slice
 programs (ompi_tpu/osc/device.py:181 ``_build_put``, :203
 ``_build_get``, :286 ``_build_lslice``): raw bytes from one buffer
 into another at byte offsets, the source or the destination possibly
-on a peer card.  K9 ``rma_acc`` replaces ``_build_acc`` (:220), plain
+on a peer card.  ``_copy_plan`` splits a copy on the destination's
+alignment (head bytes, whole 16-byte destination words, tail bytes)
+and gives the source's shift against those words, so that every store
+of the body is an aligned 16-byte word at any byte skew (rma.cu).  K9 ``rma_acc`` replaces ``_build_acc`` (:220), plain
 and fetch: ``w[i] = op(s[i], w[i])`` over the wire dtypes, the pre-op
 bytes written to ``old`` first when one is given.  K10 ``rma_cas``
 replaces ``_build_cas`` (:259): one element swapped when it equals
@@ -62,7 +65,8 @@ def _library() -> ctypes.CDLL:
             lib = build.load("rma")
             lib.ompi_rma_copy.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_void_p]
             lib.ompi_rma_copy.restype = ctypes.c_int
             lib.ompi_rma_acc.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -115,13 +119,26 @@ def _where(tensors, what: str) -> str:
 # K8: rma_copy
 # ---------------------------------------------------------------------------
 
+def _copy_plan(dst_addr: int, src_addr: int, n: int):
+    """K8's plan of an n-byte copy, from integer addresses: (head,
+    words, tail, shift).  ``head``: the bytes before dst reaches a
+    16-byte boundary (all n when it never does); the body: ``words``
+    whole 16-byte destination words; ``tail``: the rest, under 16;
+    ``shift``: (src_addr + head) mod 16, where the body's source bytes
+    start inside their first aligned 16-byte source word."""
+    head = min(n, -dst_addr % 16)
+    words = (n - head) // 16
+    return head, words, n - head - 16 * words, (src_addr + head) % 16
+
+
 def rma_copy(dst: torch.Tensor, dst_off: int, src: torch.Tensor,
              src_off: int, n: int, device: Optional[torch.device] = None
              ) -> torch.Tensor:
     """K8: ``dst[dst_off:dst_off+n] = src[src_off:src_off+n]`` on the
     raw bytes of two contiguous tensors that do not overlap, in ONE
     launch on ``device``'s current stream (default: dst's device); the
-    other buffer may lie on a peer card.  Returns ``dst``."""
+    other buffer may lie on a peer card.  Any byte offsets, planned by
+    ``_copy_plan``.  Returns ``dst``."""
     db, sb = _bytes_of(dst, "rma_copy dst"), _bytes_of(src, "rma_copy src")
     _span(db, dst_off, n, "rma_copy dst")
     _span(sb, src_off, n, "rma_copy src")
@@ -132,12 +149,13 @@ def rma_copy(dst: torch.Tensor, dst_off: int, src: torch.Tensor,
     dev = dst.device if device is None else device
     require_peer(dev, db.device)
     require_peer(dev, sb.device)
+    d_addr, s_addr = db.data_ptr() + dst_off, sb.data_ptr() + src_off
+    head, words, tail, shift = _copy_plan(d_addr, s_addr, n)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.ompi_rma_copy(db.data_ptr() + dst_off,
-                                  sb.data_ptr() + src_off, n, stream),
-                "rma_copy")
+        _launch(lib.ompi_rma_copy(d_addr, s_addr, n, head, words, tail,
+                                  shift, stream), "rma_copy")
         rma_copy.launches.add()
     return dst
 

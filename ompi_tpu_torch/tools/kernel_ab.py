@@ -1,5 +1,5 @@
-"""Device-time A/B of K6 mesh_fold, K2 stacked_copy, K7 slot_pack and
-K9 rma_acc across checkouts.
+"""Device-time A/B of K6 mesh_fold, K2 stacked_copy, K7 slot_pack, K8
+rma_copy, K9 rma_acc, K10 rma_cas and K11 digest across checkouts.
 
     python3 -m ompi_tpu_torch.tools.kernel_ab ROOT [ROOT ...]
         [--iters 50] [--cpu]
@@ -26,7 +26,14 @@ path's shapes (8 members on one card):
   and at target_disp 1 (w 4 bytes off 16, s aligned), 64 MiB uint8 and
   int16 SUM accumulates (every operand 16-byte aligned), and the main
   path's accumulate of 8 int32 (one input set: bound by its launch;
-  four times the calls a graph).
+  four times the calls a graph);
+- K8: a 64 MiB put into a shard, aligned and at byte skews 1 and 4
+  (dst 1 and 4 bytes into the shard, src aligned);
+- K10: one int64 compare-and-swap (one input set, launch-bound);
+- K11: a gate's FSUM over 8 MiB and 128 MiB of float32, the 8 MiB
+  float32 operand 4 bytes into its buffer, a verify's INTSUM over 8
+  MiB of int32 and of uint8, MAX over 8 MiB of float32, and a verify's
+  table of 8 int32 operands of 1 MiB.
 
 A checkout whose wrappers take a destination table
 (``mesh.mesh_fold_many``, ``stacked.peer_copy_many``) makes one call
@@ -35,7 +42,9 @@ of it, as its tier does; an older one makes one call a destination
 device's: CUDA events around a replayed CUDA graph of ``iters`` calls,
 divided by ``iters``, cold (input sets that move at least 256 MiB a
 replay).  Give the roots as A B B A.  Every root must write the same
-bytes for each row, or the tool exits non-zero.  Prints the card's
+bytes for each row (a float SUM digest, whose bits follow each
+checkout's fold order: the same value within 1e-9 relative), or the
+tool exits non-zero.  Prints the card's
 name and power limit, one JSON line a root, and the median of each
 row per distinct root.  ``--cpu`` rehearses the control flow on the
 CPU with the plain versions, at 1/64 of the sizes, without timing.
@@ -64,6 +73,7 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
     import ompi_tpu_torch
     from ompi_tpu_torch.coll.device import _stripe_elems
     from ompi_tpu_torch.kernels import build, mesh, rma, stacked
+    from ompi_tpu_torch.kernels import digest as k11
 
     pkg = os.path.dirname(os.path.abspath(ompi_tpu_torch.__file__))
     if os.path.dirname(pkg) != os.path.abspath(root):
@@ -72,7 +82,7 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
     if cpu:
         dev = torch.device("cpu")
     else:
-        build.build_all(["stacked", "mesh", "rma"])
+        build.build_all(["stacked", "mesh", "rma", "digest"])
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
     grouped = hasattr(mesh, "mesh_fold_many")
@@ -137,6 +147,41 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
             return [w] + ([old] if old is not None else [])
         return make, fn
 
+    def put(salt, skew):
+        """K8's input sets (dst shard, src) and its put at dst + skew."""
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            return (torch.empty(nb + 16, dtype=torch.uint8, device=dev),
+                    torch.randint(0, 256, (nb,), generator=g, device=dev,
+                                  dtype=torch.uint8))
+        return make, lambda st: rma.rma_copy(st[0], skew, st[1], 0,
+                                             nb)[skew:skew + nb]
+
+    def cas(i):
+        return (torch.zeros(16, dtype=torch.uint8, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.full((1,), 7, dtype=torch.int64, device=dev),
+                torch.empty(1, dtype=torch.int64, device=dev))
+
+    def dig(salt, nel, code, dt=torch.float32, count=1, off=0):
+        """K11's input sets (``count`` operands of nel elements, each
+        ``off`` elements into its buffer) and its one table launch."""
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            xs = []
+            for _ in range(count):
+                b = torch.empty(nel + off, dtype=dt, device=dev)
+                b[off:] = torch.randn(nel, generator=g, device=dev) \
+                    if dt.is_floating_point else torch.randint(
+                        -2 ** 31, 2 ** 31 - 1, (nel,), generator=g,
+                        device=dev, dtype=torch.int64).to(dt)
+                xs.append(b[off:])
+            return xs
+        return make, lambda xs: k11.digest(xs, [code] * len(xs))
+
+    n32 = 8 * MIB // 4 // div
     rows = {  # name -> (bytes moved, make(i), fn[, input sets])
         "K6 fused_8x2MiB": ((N + 1) * n2 * 4, ranks(n2, 1), folds(n2, "rank")),
         "K6 allreduce_8MiB_rank": ((N + 1) * n8 * 4, ranks(n8, 2),
@@ -181,7 +226,26 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
                                               torch.int16)),
         "K9 acc_sum_i32_8elem": (96, *acc(17, 0, False, 8, torch.int32),
                                  1),
+        "K8 put_64MiB": (2 * nb, *put(20, 0)),
+        "K8 put_64MiB_skew1": (2 * nb, *put(21, 1)),
+        "K8 put_64MiB_skew4": (2 * nb, *put(22, 4)),
+        "K10 cas_int64": (40, cas, lambda st: rma.rma_cas(
+            st[0], 0, *st[1:]) or [st[0], st[3]], 1),
+        "K11 gate_fsum_f32_8MiB": (4 * n32, *dig(23, n32, k11.F_FSUM)),
+        "K11 gate_fsum_f32_128MiB": (64 * n32,
+                                     *dig(24, 16 * n32, k11.F_FSUM)),
+        "K11 gate_fsum_f32_8MiB_off4": (4 * n32,
+                                        *dig(25, n32, k11.F_FSUM, off=1)),
+        "K11 verify_intsum_i32_8MiB": (4 * n32, *dig(26, n32, k11.F_INTSUM,
+                                                     torch.int32)),
+        "K11 verify_intsum_u8_8MiB": (4 * n32, *dig(27, 4 * n32,
+                                                    k11.F_INTSUM,
+                                                    torch.uint8)),
+        "K11 gate_max_f32_8MiB": (4 * n32, *dig(28, n32, k11.F_MAX)),
+        "K11 verify_table_8x1MiB_intsum_i32": (
+            4 * n32, *dig(29, n32 // 8, k11.F_INTSUM, torch.int32, 8)),
     }
+    fsum = {name for name in rows if "_fsum_" in name}
 
     def flat(x):
         return [x] if isinstance(x, torch.Tensor) else \
@@ -191,10 +255,14 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
     for name, (nbytes, make, fn, *nsets) in rows.items():
         nsets = nsets[0] if nsets else max(1, -(-COLD // div // nbytes))
         sets = [make(i) for i in range(nsets)]
-        h = hashlib.sha256()
-        for t in flat(fn(sets[0])):
-            h.update(t.cpu().contiguous().view(torch.uint8).numpy().tobytes())
-        digests[name] = h.hexdigest()
+        if name in fsum:  # float64 values: compared within 1e-9
+            digests[name] = fn(sets[0]).view(torch.float64).tolist()
+        else:
+            h = hashlib.sha256()
+            for t in flat(fn(sets[0])):
+                h.update(t.cpu().contiguous().view(torch.uint8).numpy()
+                         .tobytes())
+            digests[name] = h.hexdigest()
         if cpu:
             continue
         for i in range(3):
@@ -255,8 +323,15 @@ def main(argv=None) -> int:
         print(json.dumps(runs[-1]), flush=True)
     ok = True
     names = list(runs[0]["digests"])
+    def same(a, b):
+        if isinstance(a, str):
+            return a == b
+        return all(x == y or abs(x - y) <= 1e-9 * max(abs(x), abs(y))
+                   for x, y in zip(a, b))
+
     for name in names:
-        if len({r["digests"][name] for r in runs}) != 1:
+        if not all(same(runs[0]["digests"][name], r["digests"][name])
+                   for r in runs[1:]):
             print(f"[kernel_ab] {name}: the roots' results differ",
                   file=sys.stderr)
             ok = False

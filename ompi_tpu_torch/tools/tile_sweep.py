@@ -1,8 +1,8 @@
-"""Tile and size sweep of K6 mesh_fold, K2 stacked_copy, K7 slot_pack
-and K9 rma_acc on one card.
+"""Tile and size sweep of K6 mesh_fold, K2 stacked_copy, K7 slot_pack,
+K8 rma_copy, K9 rma_acc and K11 digest on one card.
 
     python3 -m ompi_tpu_torch.tools.tile_sweep [--iters 50]
-        [--kernels K6,K2,K7,K9]
+        [--kernels K6,K2,K7,K8,K9,K11]
 
 K6 and K2 walk flat tile lists through a ring of shared-memory stages
 (kernels/csrc/mesh.cu, stacked.cu), sized by the wrappers' knobs
@@ -11,10 +11,13 @@ K6 and K2 walk flat tile lists through a ring of shared-memory stages
 gives each block a span of ``PACK_UNITS`` 16-byte units of one slot and
 each thread ``PACK_U`` units it loads before it stores (mesh.cu); K9
 gives each thread ``ACC_U`` vectors of w and s it loads before it
-stores (rma.cu).  Those three are constants of their sources: for each
-point of K7's and K9's grids a copy of the library is built with
-``-D`` (into ``build/ompi_tpu_torch/sweep/``, one nvcc a copy, all
-started together) and loaded in place of the checkout's.  Each kernel
+stores, K8 ``COPY_U`` consecutive destination words (rma.cu); K11
+gives each thread ``DIGEST_U`` 16-byte groups a round (digest.cu,
+mirrored as ``digest.U``, which fixes the block count).  Those are
+constants of their sources: for each point of K7's, K8's, K9's and
+K11's grids a copy of the library is built with ``-D`` (into
+``build/ompi_tpu_torch/sweep/``, one nvcc a copy, all started
+together) and loaded in place of the checkout's.  Each kernel
 is timed at the main path's shapes, 8 members on one card (one grouped
 launch a call):
 
@@ -27,14 +30,19 @@ launch a call):
   alltoall of 1 MiB a rank (coll/hbm);
 - K7: one rank's 32 slots of 64 KiB float32 (the fused flush), and the
   ragged mix of 32 slots of 64 KiB + 20 B;
+- K8: a 64 MiB put, aligned and at byte skews 1 and 4;
 - K9: a 64 MiB float32 SUM accumulate, plain, fetch and at target_disp
-  1 (w 4 bytes off 16), and the main path's 8 int32.
+  1 (w 4 bytes off 16), and the main path's 8 int32;
+- K11: a gate's FSUM over 8 MiB and 128 MiB of float32 and over the
+  8 MiB operand 4 bytes into its buffer, INTSUM over 8 MiB of int32
+  and of uint8, MAX over 8 MiB of float32, a table of 8 x 1 MiB int32.
 
 A time is the device's: CUDA events around a replayed CUDA graph of
 ``iters`` calls, divided by ``iters``, cold (the calls rotate through
 input sets that move at least 256 MiB a replay, five times the L2; the
 8-element row uses one set).  Every configuration's first output is
-held against the plain version (exact).  Prints the card's name and
+held against the plain version (exact; a float SUM digest within 1e-12
+relative, since the plain version sums in another order).  Prints the card's name and
 power limit, one line a (kernel, case, configuration), and the
 configuration with the least summed time for each kernel.
 """
@@ -58,14 +66,16 @@ COPY_GRID = [(t, s) for t in (8192, 16384, 32768) for s in (2, 4, 8)
              if t * s <= RING]
 PACK_GRID = [(n, u) for n in (256, 512, 1024) for u in (2, 4, 8)]
 ACC_GRID = [(1,), (2,), (4,)]
+COPY_GRID = [(1,), (2,), (4,)]
+DIGEST_GRID = [(1,), (2,), (4,), (8,)]
 # a constant of a source that its wrapper module mirrors
-MIRRORS = {"PACK_UNITS": "UNITS"}
+MIRRORS = {"PACK_UNITS": "UNITS", "DIGEST_U": "U"}
 
 
 def _variants(jobs):
     """Build each (source name, knobs, point) of ``jobs``: the source
     compiled with -D<knob>=<value>, one nvcc a job, all started
-    together.  Returns {(name, point): library path}."""
+    together.  Returns {(name, knobs, point): library path}."""
     from ompi_tpu_torch.kernels import build
     out_dir = os.path.join(build.BUILD_DIR, "sweep")
     os.makedirs(out_dir, exist_ok=True)
@@ -73,7 +83,7 @@ def _variants(jobs):
     for name, knobs, point in jobs:
         tag = "-".join(f"{k}{v}" for k, v in zip(knobs, point))
         lib = os.path.join(out_dir, f"lib{name}-{tag}.so")
-        procs[name, point] = lib, subprocess.Popen(
+        procs[name, knobs, point] = lib, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS,
              *[f"-D{k}={v}" for k, v in zip(knobs, point)], "-o", lib,
              os.path.join(build.CSRC, build.SOURCES[name])],
@@ -189,6 +199,66 @@ def _cases(dev):
         out[name] = ("K7", 2 * 32 * nel * 4, ranks(nel, 14, 32),
                      mesh.slot_pack, mesh.slot_pack_plain)
     out.update(_acc_cases(dev, rma))
+    out.update(_copy_digest_cases(dev, rma))
+    return out
+
+
+def _copy_digest_cases(dev, rma):
+    """K8's and K11's cases: (kernel, bytes, make(i), kernel fn, plain
+    fn[, compare])."""
+    from ompi_tpu_torch.kernels import digest as k11
+    nb = 64 * MIB
+
+    def put(salt, skew):
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            return (torch.empty(nb + 16, dtype=torch.uint8, device=dev),
+                    torch.randint(0, 256, (nb,), generator=g, device=dev,
+                                  dtype=torch.uint8))
+        return make, (lambda st: rma.rma_copy(st[0], skew, st[1], 0, nb)
+                      [skew:skew + nb]), \
+            (lambda st: rma.rma_copy_plain(st[0], skew, st[1], 0, nb)
+             [skew:skew + nb])
+
+    def dig(salt, nel, code, dt=torch.float32, count=1, off=0):
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            xs = []
+            for _ in range(count):
+                b = torch.empty(nel + off, dtype=dt, device=dev)
+                b[off:] = torch.randn(nel, generator=g, device=dev) \
+                    if dt.is_floating_point else torch.randint(
+                        -2 ** 31, 2 ** 31 - 1, (nel,), generator=g,
+                        device=dev, dtype=torch.int64).to(dt)
+                xs.append(b[off:])
+            return xs
+        return (make, lambda xs: k11.digest(xs, [code] * len(xs)),
+                lambda xs: k11.digest_plain(xs, [code] * len(xs)))
+
+    def close(a, b):  # float64 sums in two orders
+        a, b = a.view(torch.float64), b.view(torch.float64)
+        return bool(((a - b).abs() <= 1e-12 * torch.maximum(
+            a.abs(), b.abs())).all())
+
+    n32 = 8 * MIB // 4
+    out = {f"put_64MiB{'' if k == 0 else f'_skew{k}'}":
+           ("K8", 2 * nb, *put(30 + k, k)) for k in (0, 1, 4)}
+    for name, nbytes, args, cmp in (
+            ("gate_fsum_f32_8MiB", 8 * MIB, (31, n32, k11.F_FSUM), close),
+            ("gate_fsum_f32_128MiB", 128 * MIB, (32, 16 * n32, k11.F_FSUM),
+             close),
+            ("gate_fsum_f32_8MiB_off4", 8 * MIB,
+             (33, n32, k11.F_FSUM, torch.float32, 1, 1), close),
+            ("verify_intsum_i32_8MiB", 8 * MIB,
+             (34, n32, k11.F_INTSUM, torch.int32), None),
+            ("verify_intsum_u8_8MiB", 8 * MIB,
+             (35, 4 * n32, k11.F_INTSUM, torch.uint8), None),
+            ("gate_max_f32_8MiB", 8 * MIB, (36, n32, k11.F_MAX), None),
+            ("verify_table_8x1MiB_intsum_i32", 8 * MIB,
+             (37, n32 // 8, k11.F_INTSUM, torch.int32, 8), None)):
+        out[name] = ("K11", nbytes, *dig(*args)) + ((cmp,) if cmp else ())
     return out
 
 
@@ -235,22 +305,26 @@ def _acc_cases(dev, rma):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--kernels", default="K6,K2,K7,K9",
+    ap.add_argument("--kernels", default="K6,K2,K7,K8,K9,K11",
                     help="the kernels to sweep, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep: no CUDA card")
     from ompi_tpu_torch.kernels import build, mesh, rma, stacked
+    from ompi_tpu_torch.kernels import digest as k11
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     grids = {"K6": (FOLD_GRID, ("FOLD_TILE", "FOLD_STAGES"), mesh, None),
              "K2": (COPY_GRID, ("COPY_TILE", "COPY_STAGES"), stacked, None),
              "K7": (PACK_GRID, ("PACK_UNITS", "PACK_U"), mesh, "mesh"),
-             "K9": (ACC_GRID, ("ACC_U",), rma, "rma")}
+             "K8": (COPY_GRID, ("COPY_U",), rma, "rma"),
+             "K9": (ACC_GRID, ("ACC_U",), rma, "rma"),
+             "K11": (DIGEST_GRID, ("DIGEST_U",), k11, "digest")}
     kernels = args.kernels.split(",")
-    build.build_all(["stacked", "mesh", "rma"])
-    libs = _variants([(grids[k][3], grids[k][1], point) for k in kernels
-                      if grids[k][3] for point in grids[k][0]])
+    build.build_all(["stacked", "mesh", "rma", "digest"])
+    libs = _variants(list(dict.fromkeys(
+        (grids[k][3], grids[k][1], point) for k in kernels if grids[k][3]
+        for point in grids[k][0])))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -275,16 +349,17 @@ def main(argv=None) -> int:
             conf = ", ".join(f"{k} {v}" for k, v in zip(knobs, point))
             use(point)
             if source:
-                build._libs[source] = ctypes.CDLL(libs[source, point])
+                build._libs[source] = ctypes.CDLL(libs[source, knobs, point])
                 mod._lib = None  # the wrapper binds the copy at its call
             total = 0.0
-            for name, (kk, nbytes, make, k_fn, p_fn) in cases.items():
+            for name, (kk, nbytes, make, k_fn, p_fn, *cmp) in cases.items():
                 if kk != kernel:
                     continue
+                same = cmp[0] if cmp else torch.equal
                 got, want = k_fn(make(0)), p_fn(make(0))
                 got = got if isinstance(got, list) else [got]
                 want = want if isinstance(want, list) else [want]
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                if not all(same(a, b) for a, b in zip(got, want)):
                     raise AssertionError(f"{kernel} {name} {conf}: differs")
                 del got, want
                 sets = [make(i) for i in range(max(1, -(-COLD // nbytes))
