@@ -18,7 +18,16 @@ Phases, each fatal on failure (nothing is caught and carried on):
              ragged slots, bcast entries, NaN, a group split over
              several launches and a mixed batch of several groups; K4
              index_gather and K5 index_scatter over the five element
-             widths with vector, indexed and contiguous index vectors;
+             widths with vector, indexed and contiguous index vectors,
+             and K5 in run mode (stride 2 at 4099 and 2**20 elements,
+             blocks of 16-byte words, a falling stride, a 3-d subarray,
+             a contiguous span, 64 runs) and index mode (65 runs, a
+             permutation of 2**16 and 2**20 of 2**21 destinations, a
+             scattered third, one element), packed and out at element
+             offsets 0
+             and 1, out filled with a sentinel byte: every gap byte
+             unchanged, each case in its plan's mode, and a table
+             altered past its bounds refused before launch;
              K6 mesh_fold over every pair K1 takes, N in {2, 3, 8}, in
              rank order, the segring order and segrd's tree; K2's peer
              mode (alltoall destination, clipped gather, column
@@ -77,7 +86,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
              iallreduce_arr of 64 KiB, the interleaved batch of
              tests/test_coll_fusion.py, and BASELINE config 5:
              device_pack through a stride-2 vector, reduce_scatter MAX
-             float64, device_unpack into a stride-2 receive layout.
+             float64, device_unpack into a stride-2 receive layout
+             (every K5 launch in run mode: the layout is one run).
              Every result is checked against a plain computation on
              the card, the provider of every call driven must be
              coll/hbm (coll/nbc for the nonblocking ones), and the
@@ -160,7 +170,10 @@ Phases, each fatal on failure (nothing is caught and carried on):
              64 KiB + 20 B), K9 also at target_disp 1 (w 4 bytes off
              16) and on the main path's 8 int32 (launch-bound), K8
              also at byte skews 1 and 4 (dst + 1, dst + 4), K11 also on
-             a float32 view 4 bytes into its buffer and on uint8.
+             a float32 view 4 bytes into its buffer and on uint8, K5
+             also on the whole 2**20-element config 5 result (run mode)
+             and on 2**17 random destinations in a 2**18 span (index
+             mode).
 5. e2e     — host clock, slowest rank: comm.allreduce_arr at 8 ranks x
              8 MiB float32 (the headline); a fused batch of 32
              iallreduce_arr of 64 KiB with one wait against the same
@@ -678,17 +691,59 @@ def _kernels_fused(dev, g) -> int:
     return ncases
 
 
+SCATTER_DTYPES = (torch.int8, torch.float16, torch.float32, torch.float64,
+                  torch.complex128)  # the five element widths
+
+
+def _scatter_layouts(rng):
+    """K5's layouts: name -> (index vector, span of out, the mode its
+    plan must name)."""
+    import numpy as np
+    from ompi_tpu_torch.kernels import index
+    words = np.concatenate([np.arange(32) + 48 * k for k in range(70)])
+    cube = (np.arange(3)[:, None, None] * 120 + np.arange(4)[None, :, None]
+            * 12 + np.arange(8)[None, None, :] + 147).reshape(-1)
+    blocks = np.concatenate([np.arange(8 + j % 2) + 40 * j
+                             for j in range(index.MAX_RUNS + 1)])  # a run each
+    return {
+        "stride2": (np.arange(0, 2 * 4099, 2), 2 * 4099 + 1, "runs"),
+        # a grid of many waves
+        "stride2_large": (np.arange(0, 2 << 20, 2), (2 << 20) + 1, "runs"),
+        "blocks_of_words": (words, 70 * 48, "runs"),
+        "falling": (np.arange(3 * 5000, 0, -3), 3 * 5000 + 1, "runs"),
+        "subarray_3d": (cube, 720, "runs"),
+        "contiguous": (np.arange(5, 70005), 70010, "runs"),
+        "64_runs": (blocks[:-8], 40 * index.MAX_RUNS, "runs"),
+        "65_runs": (blocks, 40 * index.MAX_RUNS + 9, "index"),
+        "permutation": (rng.permutation(1 << 16), 1 << 16, "index"),
+        "permutation_large": (rng.permutation(1 << 21)[:1 << 20], 1 << 21,
+                              "index"),
+        "scattered_third": (rng.permutation(3 * 4099)[:4099], 3 * 4099,
+                            "index"),
+        "one_element": (np.array([3]), 5, "index"),
+    }
+
+
 def _kernels_index(dev, g) -> int:
-    """K4 and K5 against their plain versions: element widths 1, 2,
+    """K4 and K5 against their plain versions.  K4: element widths 1, 2,
     4, 8 and 16 bytes; vector (stride 2), indexed (a permutation of a
     third of the buffer) and contiguous index vectors; aligned and
-    ragged lengths."""
+    ragged lengths.  K5 at every width on run-mode layouts (stride 2 at
+    4099 and 2**20 elements, blocks of whole 16-byte words, a falling
+    stride, a 3-d subarray, a contiguous span, 64 runs) and index-mode
+    ones (65 runs, a permutation of 2**16 and one of 2**20 of 2**21
+    destinations, a scattered third, one element), the packed stream and
+    ``out`` each at element offsets 0 and 1 into their buffers, ``out``
+    filled with a sentinel byte: byte for byte against
+    index_scatter_plain (and run mode against index_scatter_runs_plain),
+    every gap byte unchanged, one launch a call in the mode its plan
+    names; and a table altered past the vector's bounds refused before
+    it launches."""
     import numpy as np
     from ompi_tpu_torch.kernels import index
     rng = np.random.default_rng(SEED)
     ncases = 0
-    for dtype in (torch.int8, torch.float16, torch.float32, torch.float64,
-                  torch.complex128):
+    for dtype in SCATTER_DTYPES:
         for nbuf in (7, 4099, 1 << 16):
             src = make_shard(g, nbuf, dtype, "MPI_SUM", dev)
             for idx in (np.arange(0, nbuf, 2),
@@ -705,8 +760,71 @@ def _kernels_index(dev, g) -> int:
                 _held([a], [b], f"K5 {dtype} {nbuf}")
                 ncases += 2
         log(f"[K4/K5] {str(dtype)[6:]:>10} exact")
+    modes = {"runs": 0, "index": 0}
+    for name, (idx, span, mode) in _scatter_layouts(rng).items():
+        for dtype in SCATTER_DTYPES:
+            iv = index.IndexVector(idx, dev)
+            if iv.mode != mode:
+                raise AssertionError(f"K5 {name}: plan names {iv.mode}, "
+                                     f"expected {mode}")
+            w = torch.empty((), dtype=dtype).element_size()
+            raw = make_shard(g, iv.n + 1, dtype, "MPI_SUM", dev)
+            gaps = torch.ones(span, dtype=torch.bool, device=dev)
+            gaps[iv.tensor] = False
+            for poff in (0, 1):
+                packed = raw[poff:poff + iv.n]
+                for off in (0, 1):
+                    buf = torch.full(((span + 2) * w,), 0xA5,
+                                     dtype=torch.uint8, device=dev)
+                    want = buf.clone()
+                    out = buf.view(dtype)[off:off + span]
+                    index.index_scatter_plain(
+                        packed, iv, want.view(dtype)[off:off + span])
+                    refs = [want]
+                    if mode == "runs":
+                        other = buf.clone()
+                        index.index_scatter_runs_plain(
+                            packed, iv, other.view(dtype)[off:off + span])
+                        refs.append(other)
+                    n0 = index.index_scatter.launches.value
+                    r0 = index.index_scatter.run_launches.value
+                    index.index_scatter(packed, iv, out)
+                    took = (index.index_scatter.launches.value - n0,
+                            index.index_scatter.run_launches.value - r0)
+                    if took != (1, int(mode == "runs")):
+                        raise AssertionError(f"K5 {name} {dtype}: "
+                                             f"launches {took} in {mode} "
+                                             "mode")
+                    what = f"K5 {mode} {name} {dtype} packed+{poff} out+{off}"
+                    for ref in refs:
+                        _held([buf], [ref], what)
+                    cells = buf.view(span + 2, w)
+                    kept = torch.cat([cells[:off], cells[off:off + span][gaps],
+                                      cells[off + span:]])
+                    if not bool((kept == 0xA5).all()):
+                        raise AssertionError(f"{what}: a gap byte changed")
+                    ncases += 1
+        modes[mode] += 1
+    iv = index.IndexVector(np.arange(0, 64, 2), dev)
+    iv.runs = iv.runs.copy()
+    iv.runs[0, index.DST] = 1  # its last element would land on 64
+    out = torch.zeros(64, dtype=torch.float64, device=dev)
+    try:
+        index.index_scatter(torch.ones(32, dtype=torch.float64, device=dev),
+                            iv, out)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("K5: a table past its bounds was launched")
     torch.cuda.synchronize()
-    return ncases
+    if bool(out.any()):
+        raise AssertionError("K5: a refused table wrote")
+    log(f"[K5] {modes['runs']} run-mode and {modes['index']} index-mode "
+        "layouts x 5 widths x packed and out at element offsets 0, 1: "
+        "exact, gap bytes unchanged, each in its plan's mode; a table past "
+        "its bounds refused before launch")
+    torch.cuda.synchronize()
+    return ncases + 1
 
 
 # ---------------------------------------------------------------------------
@@ -919,8 +1037,19 @@ def phase_main(dev) -> dict:
           "index_scatter": NRANKS},
          lambda c: config5(c, config5_raw(c.rank, dev), dt), {}),
     ]
+    from ompi_tpu_torch.kernels import index
+    runs = index.index_scatter.run_launches
+    runs.reset()
     res, launches, per_call = drive(plan, lambda r: dev, NRANKS, "hbm",
                                     f"8 ranks on {dev}")
+    # config 5's receive layout, vector(m, 1, 2, DOUBLE), is one run:
+    # every K5 launch of the main path reads no index
+    if runs.value != launches["index_scatter"]:
+        raise AssertionError(f"K5: {runs.value} of "
+                             f"{launches['index_scatter']} launches in run "
+                             "mode on the main path")
+    log(f"[main] K5: all {runs.value} launches of config 5's unpack in run "
+        "mode")
     check_main(dev, res)
     return launches, per_call
 
@@ -2568,13 +2697,35 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
                 index.IndexVector(np.arange(0, 2 * mm, 2), dev),
                 torch.zeros(2 * mm, dtype=torch.float64, device=dev))
 
-    row("index_scatter:config5_unpack_f64_1MiB", "index_scatter", "config5",
-        "ompi_tpu/datatype/device.py:86", mm * 8 * 2 + 2 * mm * 8,
-        stripe,
-        lambda s: index.index_scatter(*s),
-        lambda s: index.index_scatter_plain(*s),
-        lambda s: s[2].index_copy_(0, s[1].tensor, s[0]), 100,
-        source="index.cu")
+    def whole(i):  # the whole 2**20-element result, into a 16 MiB span
+        return (rank_elems(i % n, CONFIG5_N, torch.float64, dev, 62),
+                index.IndexVector(np.arange(0, 2 * CONFIG5_N, 2), dev),
+                torch.zeros(2 * CONFIG5_N, dtype=torch.float64, device=dev))
+
+    def perm(i):  # 2**17 distinct random destinations in a 2**18 span
+        return (rank_elems(i % n, mm, torch.float64, dev, 63),
+                index.IndexVector(np.random.default_rng(SEED + i)
+                                  .permutation(2 * mm)[:mm], dev),
+                torch.zeros(2 * mm, dtype=torch.float64, device=dev))
+
+    # a K5 row's bytes are what its mode must move: packed + span in
+    # run mode (no index is read), index + packed + span in index mode
+    for name, make, nel, mode in (
+            ("config5_unpack_f64_1MiB", stripe, mm, "runs"),
+            ("config5_unpack_f64_8MiB", whole, CONFIG5_N, "runs"),
+            ("perm_f64_1MiB", perm, mm, "index")):
+        if make(0)[1].mode != mode:
+            raise AssertionError(f"index_scatter:{name} plans "
+                                 f"{make(0)[1].mode}, expected {mode}")
+        row(f"index_scatter:{name}", "index_scatter",
+            "config5" if nel == mm and mode == "runs" else None,
+            "ompi_tpu/datatype/device.py:86",
+            nel * 8 * (mode == "index") + nel * 8 + 2 * nel * 8,
+            make,
+            lambda s: index.index_scatter(*s),
+            lambda s: index.index_scatter_plain(*s),
+            lambda s: s[2].index_copy_(0, s[1].tensor, s[0]), 100,
+            source="index.cu")
     # the mesh tier on 8 logical devices of the card, at its main-path
     # shapes: one collective's launch a row (one a card, over a table of
     # every member's destination)

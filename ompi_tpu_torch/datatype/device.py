@@ -7,7 +7,8 @@ becomes ``out[i] = buf[idx[i]]`` — K4 ``index_gather``
 (kernels/index.py; reference counterpart: the convertor pack loop
 feeding coll buffers, opal/datatype/opal_convertor.h:131-137, which
 walks descriptors element-wise on the host CPU).  Unpack is the
-mirrored scatter, K5 ``index_scatter``.
+mirrored scatter, K5 ``index_scatter``, which reads no index where the
+cached ``IndexVector`` holds a run table (config 5's vector: one run).
 
 The fused mesh batch's glue (coll/fusion) lives here too, as in the
 reference: ``segment_offsets`` (the static offset table of a flat

@@ -1,8 +1,9 @@
 """Device-time A/B of K6 mesh_fold, K2 stacked_copy, K7 slot_pack, K8
-rma_copy, K9 rma_acc, K10 rma_cas and K11 digest across checkouts.
+rma_copy, K9 rma_acc, K10 rma_cas, K11 digest, K4 index_gather and K5
+index_scatter across checkouts.
 
     python3 -m ompi_tpu_torch.tools.kernel_ab ROOT [ROOT ...]
-        [--iters 50] [--cpu]
+        [--iters 50] [--kernels K4,K5] [--cpu]
 
 Each ROOT is the root of a checkout that holds ``ompi_tpu_torch/``:
 this one (``.``), or another commit unpacked with ``git archive`` into
@@ -33,7 +34,11 @@ path's shapes (8 members on one card):
 - K11: a gate's FSUM over 8 MiB and 128 MiB of float32, the 8 MiB
   float32 operand 4 bytes into its buffer, a verify's INTSUM over 8
   MiB of int32 and of uint8, MAX over 8 MiB of float32, and a verify's
-  table of 8 int32 operands of 1 MiB.
+  table of 8 int32 operands of 1 MiB;
+- K4: config 5's pack, the even elements of 2**21 float64;
+- K5: config 5's unpack of one rank's 2**17 float64 into a stride-2
+  span and of the whole 2**20-element result, and 2**17 random
+  destinations in a 2**18 span (index mode where the root has modes).
 
 A checkout whose wrappers take a destination table
 (``mesh.mesh_fold_many``, ``stacked.peer_copy_many``) makes one call
@@ -65,14 +70,15 @@ COLD = 256 * MIB
 N = 8
 
 
-def _child(root: str, iters: int, cpu: bool) -> dict:
+def _child(root: str, iters: int, cpu: bool, only=()) -> dict:
     """Runs in a child process whose ompi_tpu_torch comes from root."""
     sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
     import torch
 
     import ompi_tpu_torch
     from ompi_tpu_torch.coll.device import _stripe_elems
-    from ompi_tpu_torch.kernels import build, mesh, rma, stacked
+    from ompi_tpu_torch.kernels import build, index, mesh, rma, stacked
     from ompi_tpu_torch.kernels import digest as k11
 
     pkg = os.path.dirname(os.path.abspath(ompi_tpu_torch.__file__))
@@ -82,7 +88,7 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
     if cpu:
         dev = torch.device("cpu")
     else:
-        build.build_all(["stacked", "mesh", "rma", "digest"])
+        build.build_all(["stacked", "mesh", "rma", "digest", "index"])
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
     grouped = hasattr(mesh, "mesh_fold_many")
@@ -181,6 +187,27 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
             return xs
         return make, lambda xs: k11.digest(xs, [code] * len(xs))
 
+    def scatter(salt, m, span, idx):
+        """K5's input sets (packed, IndexVector, out) and its call; the
+        index vector made anew a set, as config 5's device_unpack finds
+        it: written long before."""
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            return (torch.randn(m, generator=g, device=dev,
+                                dtype=torch.float64),
+                    index.IndexVector(idx(i), dev),
+                    torch.zeros(span, dtype=torch.float64, device=dev))
+        return make, lambda st: index.index_scatter(*st)
+
+    def pack(i):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1000 * 34 + i)
+        return (torch.randn(2 * c5, generator=g, device=dev,
+                            dtype=torch.float64),
+                index.IndexVector(np.arange(0, 2 * c5, 2), dev))
+
+    c5, m5 = (1 << 20) // div, (1 << 17) // div  # config 5's elements
     n32 = 8 * MIB // 4 // div
     rows = {  # name -> (bytes moved, make(i), fn[, input sets])
         "K6 fused_8x2MiB": ((N + 1) * n2 * 4, ranks(n2, 1), folds(n2, "rank")),
@@ -244,6 +271,15 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
         "K11 gate_max_f32_8MiB": (4 * n32, *dig(28, n32, k11.F_MAX)),
         "K11 verify_table_8x1MiB_intsum_i32": (
             4 * n32, *dig(29, n32 // 8, k11.F_INTSUM, torch.int32, 8)),
+        "K4 pack_config5_f64_8MiB": (32 * c5, pack,
+                                     lambda st: index.index_gather(*st)),
+        "K5 unpack_config5_f64_1MiB": (24 * m5, *scatter(
+            30, m5, 2 * m5, lambda i: np.arange(0, 2 * m5, 2))),
+        "K5 unpack_config5_f64_8MiB": (24 * c5, *scatter(
+            31, c5, 2 * c5, lambda i: np.arange(0, 2 * c5, 2))),
+        "K5 perm_f64_1MiB": (32 * m5, *scatter(
+            32, m5, 2 * m5, lambda i: np.random.default_rng(i).permutation(
+                2 * m5)[:m5])),
     }
     fsum = {name for name in rows if "_fsum_" in name}
 
@@ -252,6 +288,8 @@ def _child(root: str, iters: int, cpu: bool) -> dict:
             [t for y in x for t in flat(y)]
 
     ms_, digests = {}, {}
+    if only:
+        rows = {k: v for k, v in rows.items() if k.split()[0] in only}
     for name, (nbytes, make, fn, *nsets) in rows.items():
         nsets = nsets[0] if nsets else max(1, -(-COLD // div // nbytes))
         sets = [make(i) for i in range(nsets)]
@@ -293,10 +331,14 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the CPU at 1/64 of the sizes")
+    ap.add_argument("--kernels", default="",
+                    help="time only these kernels' rows, e.g. K4,K5")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child:
-        print(json.dumps(_child(a.roots[0], a.iters, a.cpu)), flush=True)
+        print(json.dumps(_child(a.roots[0], a.iters, a.cpu,
+                                tuple(filter(None, a.kernels.split(","))))),
+              flush=True)
         return 0
     if not a.cpu:
         import torch
@@ -314,7 +356,8 @@ def main(argv=None) -> int:
         # but the one under root
         p = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
-             "--iters", str(a.iters), root] + (["--cpu"] if a.cpu else []),
+             "--iters", str(a.iters), "--kernels", a.kernels, root]
+            + (["--cpu"] if a.cpu else []),
             capture_output=True, text=True, timeout=1800)
         if p.returncode:
             sys.stderr.write(p.stdout[-4000:] + p.stderr[-8000:])

@@ -1,8 +1,8 @@
 """Tile and size sweep of K6 mesh_fold, K2 stacked_copy, K7 slot_pack,
-K8 rma_copy, K9 rma_acc and K11 digest on one card.
+K8 rma_copy, K9 rma_acc, K11 digest and K5 index_scatter on one card.
 
     python3 -m ompi_tpu_torch.tools.tile_sweep [--iters 50]
-        [--kernels K6,K2,K7,K8,K9,K11]
+        [--kernels K6,K2,K7,K8,K9,K11,K5]
 
 K6 and K2 walk flat tile lists through a ring of shared-memory stages
 (kernels/csrc/mesh.cu, stacked.cu), sized by the wrappers' knobs
@@ -13,9 +13,13 @@ each thread ``PACK_U`` units it loads before it stores (mesh.cu); K9
 gives each thread ``ACC_U`` vectors of w and s it loads before it
 stores, K8 ``COPY_U`` consecutive destination words (rma.cu); K11
 gives each thread ``DIGEST_U`` 16-byte groups a round (digest.cu,
-mirrored as ``digest.U``, which fixes the block count).  Those are
-constants of their sources: for each point of K7's, K8's, K9's and
-K11's grids a copy of the library is built with ``-D`` (into
+mirrored as ``digest.U``, which fixes the block count); K5 gives each
+thread at most ``SCATTER_ELEMS`` packed elements in blocks of
+``SCATTER_THREADS`` threads and holds a run table of ``SCATTER_RUNS``
+runs in its launch arguments (index.cu; mirrored as
+``index.MAX_RUNS``).  Those are constants of their
+sources: for each point of K7's, K8's, K9's, K11's and K5's grids a
+copy of the library is built with ``-D`` (into
 ``build/ompi_tpu_torch/sweep/``, one nvcc a copy, all started
 together) and loaded in place of the checkout's.  Each kernel
 is timed at the main path's shapes, 8 members on one card (one grouped
@@ -35,7 +39,10 @@ launch a call):
   1 (w 4 bytes off 16), and the main path's 8 int32;
 - K11: a gate's FSUM over 8 MiB and 128 MiB of float32 and over the
   8 MiB operand 4 bytes into its buffer, INTSUM over 8 MiB of int32
-  and of uint8, MAX over 8 MiB of float32, a table of 8 x 1 MiB int32.
+  and of uint8, MAX over 8 MiB of float32, a table of 8 x 1 MiB int32;
+- K5: config 5's unpack of 2**17 float64 into a stride-2 span and of
+  the whole 2**20-element result (run mode), and 2**17 random
+  destinations in a 2**18 span (index mode).
 
 A time is the device's: CUDA events around a replayed CUDA graph of
 ``iters`` calls, divided by ``iters``, cold (the calls rotate through
@@ -66,10 +73,13 @@ COPY_GRID = [(t, s) for t in (8192, 16384, 32768) for s in (2, 4, 8)
              if t * s <= RING]
 PACK_GRID = [(n, u) for n in (256, 512, 1024) for u in (2, 4, 8)]
 ACC_GRID = [(1,), (2,), (4,)]
-COPY_GRID = [(1,), (2,), (4,)]
+RMA_COPY_GRID = [(1,), (2,), (4,)]
 DIGEST_GRID = [(1,), (2,), (4,), (8,)]
+SCATTER_GRID = [(e, t, r) for e in (2, 4, 8) for t in (128, 256, 512)
+                for r in (4, 64)]
 # a constant of a source that its wrapper module mirrors
-MIRRORS = {"PACK_UNITS": "UNITS", "DIGEST_U": "U"}
+MIRRORS = {"PACK_UNITS": "UNITS", "DIGEST_U": "U",
+           "SCATTER_RUNS": "MAX_RUNS"}
 
 
 def _variants(jobs):
@@ -200,7 +210,44 @@ def _cases(dev):
                      mesh.slot_pack, mesh.slot_pack_plain)
     out.update(_acc_cases(dev, rma))
     out.update(_copy_digest_cases(dev, rma))
+    out.update(_scatter_cases(dev))
     return out
+
+
+def _scatter_cases(dev):
+    """K5's cases at config 5's shapes, float64: one rank's unpack of
+    2**17 elements into a stride-2 span and the whole 2**20-element
+    result (run mode), and 2**17 random destinations in a 2**18 span
+    (index mode); a set is (packed, IndexVector, out), out written in
+    place.  Bytes: packed + span in run mode, index + packed + span in
+    index mode, as chip_smoke's rows."""
+    import numpy as np
+    from ompi_tpu_torch.kernels import index
+
+    def sets(salt, n, idx):
+        def make(i):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1000 * salt + i)
+            return (torch.randn(n, generator=g, device=dev,
+                                dtype=torch.float64),
+                    index.IndexVector(idx(i), dev),
+                    torch.zeros(2 * n, dtype=torch.float64, device=dev))
+        return make
+
+    def run(f):
+        return lambda st: f(*st)
+
+    m = 1 << 17
+    return {name: ("K5", nb * n, sets(40 + k, n, idx),
+                   run(index.index_scatter), run(index.index_scatter_plain))
+            for k, (name, n, nb, idx) in enumerate((
+                ("unpack_config5_f64_1MiB", m, 24,
+                 lambda i: np.arange(0, 2 * m, 2)),
+                ("unpack_config5_f64_8MiB", 8 * m, 24,
+                 lambda i: np.arange(0, 16 * m, 2)),
+                ("perm_f64_1MiB", m, 32,
+                 lambda i: np.random.default_rng(i).permutation(
+                     2 * m)[:m])))}
 
 
 def _copy_digest_cases(dev, rma):
@@ -305,23 +352,25 @@ def _acc_cases(dev, rma):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--kernels", default="K6,K2,K7,K8,K9,K11",
+    ap.add_argument("--kernels", default="K6,K2,K7,K8,K9,K11,K5",
                     help="the kernels to sweep, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep: no CUDA card")
-    from ompi_tpu_torch.kernels import build, mesh, rma, stacked
+    from ompi_tpu_torch.kernels import build, index, mesh, rma, stacked
     from ompi_tpu_torch.kernels import digest as k11
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     grids = {"K6": (FOLD_GRID, ("FOLD_TILE", "FOLD_STAGES"), mesh, None),
              "K2": (COPY_GRID, ("COPY_TILE", "COPY_STAGES"), stacked, None),
              "K7": (PACK_GRID, ("PACK_UNITS", "PACK_U"), mesh, "mesh"),
-             "K8": (COPY_GRID, ("COPY_U",), rma, "rma"),
+             "K8": (RMA_COPY_GRID, ("COPY_U",), rma, "rma"),
              "K9": (ACC_GRID, ("ACC_U",), rma, "rma"),
-             "K11": (DIGEST_GRID, ("DIGEST_U",), k11, "digest")}
+             "K11": (DIGEST_GRID, ("DIGEST_U",), k11, "digest"),
+             "K5": (SCATTER_GRID, ("SCATTER_ELEMS", "SCATTER_THREADS",
+                                   "SCATTER_RUNS"), index, "index")}
     kernels = args.kernels.split(",")
-    build.build_all(["stacked", "mesh", "rma", "digest"])
+    build.build_all(["stacked", "mesh", "rma", "digest", "index"])
     libs = _variants(list(dict.fromkeys(
         (grids[k][3], grids[k][1], point) for k in kernels if grids[k][3]
         for point in grids[k][0])))
