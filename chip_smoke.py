@@ -186,6 +186,27 @@ Phases, each fatal on failure (nothing is caught and carried on):
              lowerings; the headline with the integrity plane armed at
              1-in-1 against unarmed, in turns; the 8 MiB sendrecv_arr
              ring and neighbor_allgather_arr on both tiers.
+6. trace   — the span tracer and the critical-path profiler
+             (trace_enable 1, trace_phase_enable 1, trace_sample_auto
+             0; per-rank dumps under build/trace/): the headline
+             (comm.allreduce_arr SUM, 8 ranks x 8 MiB float32, 20
+             chained ops after 3 warm-up ones) traced on its own route
+             (the plan tier: 1 K1 an op) and with coll_plan_enable 0 (8
+             segments: 8 K1 an op), each in turns with the untraced
+             headline (untraced, traced, traced, untraced) so the
+             trace's own cost shows: critpath on the dumps — the median
+             µs of each phase (rendezvous, pack, dispatch, execute,
+             unpack) in an allreduce_arr call and its share of the
+             calls' time, coverage (asserted >= 0.90 on the segmented
+             route, printed on the plan route), the gating verdicts and
+             the dispatch-tax table.  Traced results byte-identical to
+             untraced ones, launch counts exactly the route's.  Then one
+             armed integrity gate (1-in-1) on the plan route with the
+             same split, and the straggler: ft_inject delay of 40 ms at
+             every deposit of one rank on the segmented route —
+             critpath must name that rank and the rendezvous as gating,
+             with an arrival skew of at least 20 ms, and the stitched
+             Chrome trace must carry flow arrows.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -199,7 +220,9 @@ access).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -3532,6 +3555,311 @@ def phase_e2e_halo(dev) -> None:
             f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# 6. trace: the per-phase split of the headline
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "trace")
+TRACE_ON = {"trace_enable": 1, "trace_phase_enable": 1,
+            "trace_sample_auto": 0, "trace_buffer_events": 1 << 16}
+TRACE_WARM = 3          # warm-up calls a rank before the timed ones
+LABELS = ("rendezvous", "pack", "dispatch", "execute", "unpack",
+          "compile")
+STRAGGLER = 3           # the rank the delay injector holds
+STRAGGLE = {"ft_inject_plan": "delay:1.0", "ft_inject_skip": 0,
+            "ft_inject_delay_ms": 40}
+SEGMENTS = {"coll_plan_enable": 0}
+
+
+def traced_headline(dev, iters: int):
+    """The headline's rank program, returning (seconds of ``iters``
+    chained calls, sha256 of this rank's last output).  Under
+    ``STRAGGLE`` the injector stays armed on STRAGGLER alone."""
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        if comm.rank != STRAGGLER:
+            comm.state.extra["coll_delay_inj"] = False
+        x = rank_input(comm.rank, 8 * MIB, torch.float32, dev, 40) * 1e-6
+        for _ in range(TRACE_WARM):
+            x = comm.allreduce_arr(x, SUM) * 0.125
+        torch.cuda.synchronize()
+        comm.Barrier()
+        t0 = time.perf_counter()
+        y = x
+        for _ in range(iters):
+            y = comm.allreduce_arr(y, SUM)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        comm.Barrier()
+        if not torch.isfinite(y).all():
+            raise AssertionError("traced headline went non-finite")
+        return dt, hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+    return fn
+
+
+def trace_run(dev, knobs: dict, name, iters: int = 20):
+    """One 8-rank world of ``traced_headline`` under ``knobs``, traced
+    into TRACE_DIR/<name> when ``name`` is not None.  Every launch
+    counter is zeroed just before the world and read just after.
+    Returns (µs an op, slowest rank; the output's digest; launches;
+    the dumps or None)."""
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.obs import integrity as ig
+    from ompi_tpu_torch.testing import run_ranks
+    from ompi_tpu_torch.tools import traceview
+    knobs = dict(knobs)
+    if name is not None:
+        out = os.path.join(TRACE_DIR, name)
+        shutil.rmtree(out, ignore_errors=True)
+        os.makedirs(out)
+        knobs.update(TRACE_ON, trace_dump_path=out)
+    saved = {k: registry.get(k) for k in knobs}
+    counters = launch_counters()
+    try:
+        for k, v in knobs.items():
+            registry.set(k, v)
+        for c in counters.values():
+            c.reset()
+        res = run_ranks(NRANKS, traced_headline(dev, iters),
+                        device_map=lambda r: dev, timeout=600)
+        torch.cuda.synchronize()
+        launches = {k: c.value for k, c in counters.items() if c.value}
+    finally:
+        for k, v in saved.items():
+            registry.set(k, v)
+        ig.refresh()
+    if len({d for _, d in res}) != 1:
+        raise AssertionError(f"{name}: the ranks' results differ")
+    us = max(dt for dt, _ in res) / iters * 1e6
+    dumps = None
+    if name is not None:
+        dumps = traceview.load_dumps([os.path.join(out, "trace-r*.json")])
+        if len(dumps) != NRANKS or len(traceview.embedded_offsets(
+                dumps)) != NRANKS:
+            raise AssertionError(f"{name}: {len(dumps)} dumps, or no "
+                                 "embedded clock offsets")
+    return us, res[0][1], launches, dumps
+
+
+def phase_split(dumps) -> dict:
+    """Where the headline's time goes, from the dumps.  An op is one
+    allreduce_arr call on every rank, correlated by its (cid, seq); the
+    first TRACE_WARM ops are skipped.  For each op and label, the phase
+    spans inside each rank's call window, clipped to it: the op's
+    value is the largest rank's (dispatch and execute run on one rank,
+    the meeting's trigger), and the label's share is its time summed
+    over ranks and ops over the calls' summed time — a decomposition
+    of the rank threads' time in the call, with the rest unattributed.
+    Returns the median call µs, the median op µs (first entry to last
+    exit), per label (median µs an op, share) and the unattributed
+    share."""
+    from ompi_tpu_torch.tools import critpath, traceview
+    events = traceview.corrected_events(
+        dumps, traceview.embedded_offsets(dumps))
+    idx = critpath.phase_index(events)
+    ops = {}
+    for e in events:
+        if e["ph"] == "X" and e["cat"] == "coll" \
+                and e["name"] == "allreduce_arr":
+            ops.setdefault((e["args"]["cid"], e["args"]["seq"]),
+                           []).append(e)
+    timed = [ops[k] for k in sorted(ops)][TRACE_WARM:]
+    if not timed or any(len(op) != NRANKS for op in timed):
+        raise AssertionError("allreduce_arr spans missing from the dumps")
+    per = {lab: [] for lab in LABELS}
+    summed = {lab: 0.0 for lab in LABELS}
+    calls, walls, total = [], [], 0.0
+    for op in timed:
+        walls.append(max(c["ts"] + c["dur"] for c in op)
+                     - min(c["ts"] for c in op))
+        most = {lab: 0.0 for lab in LABELS}
+        for call in op:
+            calls.append(call["dur"])
+            total += call["dur"]
+            got = {}
+            for e in critpath.contained_phases(call, idx):
+                lab = critpath.PHASE_OF[e["name"]]
+                got[lab] = got.get(lab, 0.0) + \
+                    critpath._clipped_phase_us(call, [e])
+            for lab, us in got.items():
+                us = min(us, call["dur"])
+                summed[lab] += us
+                most[lab] = max(most[lab], us)
+        for lab in LABELS:
+            per[lab].append(most[lab])
+    out = {"ops": len(timed), "call_us": critpath._median(calls),
+           "op_us": critpath._median(walls)}
+    for lab in LABELS:
+        out[lab] = (critpath._median(per[lab]), summed[lab] / total)
+    out["unattributed"] = 1.0 - sum(summed.values()) / total
+    return out
+
+
+#: the spans that nest inside an allreduce_arr call, innermost first:
+#: a stretch of a call outside every phase is charged to the innermost
+#: one that holds it
+NESTED = ("meet", "seg_meet", "plan_exec", "pipeline_allreduce")
+
+
+def phase_gaps(dumps) -> dict:
+    """Where the unattributed time of the timed allreduce_arr calls
+    lies: each call's window less the union of its rank's phase spans,
+    each stretch charged to the innermost span of NESTED around it (a
+    meeting's stretch also by its place: before its first phase, between
+    two, after its last), or to the call itself.  Returns the share of
+    the calls' summed time of each place."""
+    from ompi_tpu_torch.tools import critpath, traceview
+    events = traceview.corrected_events(
+        dumps, traceview.embedded_offsets(dumps))
+    spans = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans.setdefault(e["rank"], []).append(e)
+    out, total = {}, 0.0
+    for rank, lst in spans.items():
+        calls = sorted((e for e in lst if e["cat"] == "coll"
+                        and e["name"] == "allreduce_arr"),
+                       key=lambda e: e["ts"])[TRACE_WARM:]
+        phases = sorted((e for e in lst if e["name"] in critpath.PHASE_OF),
+                        key=lambda e: e["ts"])
+        outer = [e for e in lst if e["name"] in NESTED]
+        for call in calls:
+            lo, hi = call["ts"], call["ts"] + call["dur"]
+            total += hi - lo
+            cut, t = [], lo
+            for ph in phases:
+                a, b = max(ph["ts"], lo), min(ph["ts"] + ph["dur"], hi)
+                if b <= a:
+                    continue
+                if a > t:
+                    cut.append((t, a))
+                t = max(t, b)
+            if t < hi:
+                cut.append((t, hi))
+            for a, b in cut:
+                mid = 0.5 * (a + b)
+                place = "call"
+                for name in NESTED:
+                    box = next((e for e in outer if e["name"] == name
+                                and e["ts"] <= mid <= e["ts"] + e["dur"]),
+                               None)
+                    if box is None:
+                        continue
+                    place = name
+                    if name in ("meet", "seg_meet"):
+                        inside = [p for p in phases if box["ts"] <= p["ts"]
+                                  <= box["ts"] + box["dur"]]
+                        if not inside or mid < inside[0]["ts"]:
+                            place += " before its first phase"
+                        elif mid > max(p["ts"] + p["dur"] for p in inside):
+                            place += " after its last phase"
+                        else:
+                            place += " between phases"
+                    break
+                out[place] = out.get(place, 0.0) + (b - a)
+    return {k: v / total for k, v in sorted(out.items(),
+                                            key=lambda kv: -kv[1])}
+
+
+def _log_split(what: str, split: dict, doc: dict, gaps: dict) -> None:
+    log(f"[trace] {what}: {split['ops']} ops, median {split['op_us']:.1f}"
+        f" us an op (first entry to last exit), {split['call_us']:.1f} us "
+        f"a call; median us an op (share of the calls' summed time): "
+        + ", ".join(f"{lab} {split[lab][0]:.1f} ({split[lab][1] * 100:.1f}"
+                    f"%)" for lab in LABELS) +
+        f"; unattributed {split['unattributed'] * 100:.1f}%")
+    log(f"[trace] {what}: critpath coverage {doc['coverage']:.4f} of "
+        f"{doc['ops']} op spans, {doc['multi_rank_ops']} multi-rank ops, "
+        f"arrival skew us {doc['skew_us']}, gating "
+        f"{dict(list(doc['gating'].items())[:4])}")
+    for ctx, row in doc["tax"].items():
+        log(f"[trace] {what}: dispatch tax {ctx}: " + "  ".join(
+            f"{ph}={us}" for ph, us in row.items()))
+    log(f"[trace] {what}: the unattributed time by place, share of the "
+        f"calls' summed time: " + ", ".join(
+            f"{k} {v * 100:.1f}%" for k, v in gaps.items()))
+
+
+def phase_trace(dev) -> None:
+    """Phase 6: the traced headline on both routes, each in turns with
+    the untraced one, the armed gate, and the straggler."""
+    from ompi_tpu_torch.tools import critpath, traceview
+    card = card_line()
+    for route, knobs, k1 in (("plan", {}, 1), ("segments", SEGMENTS, 8)):
+        want = {"stacked_reduce": k1 * (TRACE_WARM + 20)}
+        runs = {False: [], True: []}
+        digests, split, doc = set(), None, None
+        for traced in (False, True, True, False):
+            us, dig, launches, dumps = trace_run(
+                dev, knobs, f"headline_{route}" if traced else None)
+            runs[traced].append(us)
+            digests.add(dig)
+            if launches != want:
+                raise AssertionError(
+                    f"{route}, traced {traced}: launches {launches}, "
+                    f"expected {want}")
+            if dumps is not None:
+                split, gaps = phase_split(dumps), phase_gaps(dumps)
+                doc = critpath.analyze(dumps,
+                                       traceview.embedded_offsets(dumps))
+        _log_split(f"headline, {route} route", split, doc, gaps)
+        if len(digests) != 1:
+            raise AssertionError(f"{route}: traced and untraced results "
+                                 "differ")
+        if route == "segments" and doc["coverage"] < 0.90:
+            raise AssertionError(f"segmented route: coverage "
+                                 f"{doc['coverage']} < 0.90")
+        off, on = sorted(runs[False]), sorted(runs[True])
+        log(f"[trace] headline 8 ranks x 8 MiB float32, {route} route "
+            f"(untraced, traced, traced, untraced): untraced "
+            f"{[round(u, 1) for u in runs[False]]} us/op, traced "
+            f"{[round(u, 1) for u in runs[True]]} us/op (slowest rank, "
+            f"20 chained ops); traced over untraced, best of each "
+            f"{(on[0] / off[0] - 1) * 100:.1f}%; results byte-identical; "
+            f"launches {want} a run [{card}]")
+    # one armed integrity gate at 1-in-1: N gate + 1 verify K11 a call
+    us, _, launches, dumps = trace_run(
+        dev, dict(IG_ARM, ft_inject_plan=""), "integrity_armed")
+    want = {"stacked_reduce": TRACE_WARM + 20,
+            "digest": (NRANKS + 1) * (TRACE_WARM + 20)}
+    if launches != want:
+        raise AssertionError(f"armed: launches {launches}, expected {want}")
+    doc = critpath.analyze(dumps, traceview.embedded_offsets(dumps))
+    _log_split("headline, plan route, integrity armed at 1-in-1",
+               phase_split(dumps), doc, phase_gaps(dumps))
+    log(f"[trace] armed headline traced: {us:.1f} us/op [{card}]")
+    # the straggler: 40 ms at every deposit of one rank, segmented route
+    us, _, launches, dumps = trace_run(
+        dev, dict(SEGMENTS, **STRAGGLE), "straggler", iters=3)
+    if launches != {"stacked_reduce": 8 * (TRACE_WARM + 3)}:
+        raise AssertionError(f"straggler: launches {launches}")
+    offsets = traceview.embedded_offsets(dumps)
+    doc = critpath.analyze(dumps, offsets, min_skew_us=20000.0)
+    gating = doc["gating"]
+    top = next(iter(gating), None)
+    held = sum(v for k, v in gating.items()
+               if k.startswith(f"r{STRAGGLER}:"))
+    if top != f"r{STRAGGLER}:rendezvous" or \
+            held <= sum(gating.values()) / 2:
+        raise AssertionError(f"straggler not named gating: {gating}")
+    if doc["skew_us"]["max"] < 20000.0:
+        raise AssertionError(f"straggler skew {doc['skew_us']}")
+    stitched = critpath.stitched_chrome_trace(dumps, offsets)
+    path = os.path.join(TRACE_DIR, "straggler", "stitched.json")
+    with open(path, "w") as fh:
+        json.dump(stitched, fh)
+    phs = {e.get("ph") for e in stitched["traceEvents"]}
+    if not {"s", "f"} <= phs:
+        raise AssertionError("stitched trace without flow arrows")
+    log(f"[trace] straggler (rank {STRAGGLER} held 40 ms at every "
+        f"deposit, segmented route): gating {gating}, arrival skew us "
+        f"{doc['skew_us']}; flow arrows in {path} "
+        f"({sum(1 for e in stitched['traceEvents'] if e.get('ph') == 's')}"
+        f" arrows)")
+
+
 def phase_cards() -> None:
     """One rank a card, on a host with two or more: the mesh, RMA,
     integrity and halo phases again, where every cross-device read or
@@ -3621,6 +3949,7 @@ def main(argv) -> int:
     phase_e2e_integrity(dev, next(r["ms"] for r in rows
                                   if r["name"] == "digest:gate_fsum_f32_8MiB"))
     phase_e2e_halo(dev)
+    phase_trace(dev)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -283,6 +283,29 @@ def reset_cache() -> None:
         _profile, _profile_key = None, None
 
 
+def update_profile(fields: Dict, persist: bool = False) -> Dict:
+    """Merge ``fields`` into the process-wide profile IN MEMORY (the
+    online-autotune write path: coll/autotune folds EWMA-updated
+    thresholds here between probe runs).  The merged profile replaces
+    the cached one immediately — every rank-thread of the process sees
+    the same updated decision surface, preserving the comm-consistency
+    property get_profile() documents.  With ``persist`` the merge is
+    also written to the profile file (best effort; an unwritable path
+    keeps the in-memory update)."""
+    global _profile, _profile_key
+    prof = dict(get_profile(create=True) or {})
+    prof.update(fields)
+    path = _path()
+    with _lock:
+        _profile, _profile_key = prof, path
+    if persist:
+        try:
+            save_profile(prof, path)
+        except OSError:
+            pass
+    return prof
+
+
 # ---------------------------------------------------------------------------
 # the decision surface consumed by coll/tuned and coll/device
 # ---------------------------------------------------------------------------

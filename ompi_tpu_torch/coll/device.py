@@ -33,7 +33,9 @@ after them; each member's stream waits on the done event of its own
 device before it touches its output.  A launch that reads a buffer
 another device wrote inside the same body (the mesh allreduce's
 stripes) waits on that device's stream first (``_cross_fence``).  That
-fence replaces the reference's ``_block_ready``.
+fence replaces the reference's ``_block_ready`` on the data path;
+``_block_ready`` waits for its events only to end a traced op's
+execute phase.
 
 Large messages (at or above ``coll_pipeline_min_bytes``) take the
 tiers of coll/pipeline and coll/plan: an allreduce runs as one plan
@@ -48,10 +50,29 @@ Before a deposit enters the rendezvous (``meet``, ``meet_begin``) it
 passes, in the reference's order, the ft_inject ``delay`` straggler,
 the integrity gate (obs/integrity: a sampled op's deposit becomes a
 ``_Checked`` carrier, its body a checked body that verifies, bisects
-and retries) and the ft_inject ``device_sdc`` flip.  Not ported yet
-(ROADMAP.md Queue A): the compiled-executable cache (``CompiledLRU``),
-the tracing and monitoring hooks of ``meet``, and the other injectors
-(``rdv_sever``, ``host_slow``).
+and retries) and the ft_inject ``device_sdc`` flip.
+
+Tracing (ompi_tpu_torch/trace): a traced ``meet`` records a ``meet``
+span (cat ``coll_dispatch``) and a segment's ``meet_begin`` /
+``meet_finish`` a ``seg_meet`` span (cat ``coll_segment``), keyed by
+the comm's cid and its device sequence ``_dev_seq``, which every
+member ticks in lockstep.  With ``trace_phase_enable`` an op that
+samples in builds ONE phase ctx (tracer, cid, seq, nbytes) at the
+gate, against the depositing rank's tracer; the rendezvous waits
+record ``ph_rdv_wait`` on that tracer, and the body, on the last
+arriver's thread or the dispatcher's, records ``ph_dispatch`` (the
+launches) and ``ph_execute`` on the triggering rank's tracer; on a
+card the deposit's ready event (``_fenced``) is a ``ph_pack`` and the
+member's wait on the meeting's done event (``_collect``) a
+``ph_unpack`` of the depositing rank (steps the reference has not).  The
+execute phase ends when the done events ``_fence`` recorded complete
+(``_block_ready``: an event a card, never a device-wide synchronize,
+which would time the other rank threads' work too); a sampled-out op
+keeps its launches asynchronous.
+
+Not ported yet (ROADMAP.md Queue A): the compiled-executable cache
+(``CompiledLRU``), the monitoring hook of ``meet``, and the other
+injectors (``rdv_sever``, ``host_slow``).
 
 Only host buffers ever take the host-staged p2p stack (HostArrModule):
 structured pair types, which torch cannot hold, and user-defined ops,
@@ -74,6 +95,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import convert, ft_inject
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.coll import pipeline
 from ompi_tpu_torch.coll.framework import (CollComponent, CollModule,
                                            coll_framework)
@@ -83,6 +105,20 @@ from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.obs import integrity as _ig
 from ompi_tpu_torch.op.op import Op
 from ompi_tpu_torch.runtime.init import device_key
+
+# trace ids as module constants: meet() runs once per device
+# collective and must not pay module-attribute lookups for them
+_CAT_DISP = _trace.CAT_COLL_DISPATCH
+_CAT_SEG = _trace.CAT_COLL_SEGMENT
+_NAME_MEET = _trace.NAME_MEET
+_NAME_SEG_MEET = _trace.NAME_SEG_MEET
+_CAT_PHASE = _trace.CAT_PHASE
+_NAME_PH_RDV = _trace.NAME_PH_RDV
+_NAME_PH_DISPATCH = _trace.NAME_PH_DISPATCH
+_NAME_PH_EXECUTE = _trace.NAME_PH_EXECUTE
+_NAME_PH_PACK = _trace.NAME_PH_PACK
+_NAME_PH_UNPACK = _trace.NAME_PH_UNPACK
+_HIST_RDV = _trace.HIST_RDV_WAIT
 
 _prio_tpu = registry.register(
     "coll", "tpu", "priority", 80, int,
@@ -287,6 +323,66 @@ def _finalize_state(state) -> None:
             d.close()
 
 
+# -- phase profiler helpers ----------------------------------------------------
+# A "ph ctx" is the tuple (tracer, cid, seq, nbytes) a traced op builds
+# ONCE — only when tracer.phase is armed (the zero-cost-when-off gate
+# everywhere else is a single attribute check) AND the op samples in
+# through the phase category (Tracer.gate_sampled at the build site) —
+# and threads through the rendezvous so the waits, the dispatch and
+# the fenced device execute decompose the op span into named phases.
+# A non-None ctx means every sub-span records, so one op's
+# decomposition is always coherent.
+
+def _ph_rdv_start(ph):
+    """Open a rendezvous-wait phase span (0 when the ctx is absent —
+    a present ctx already sampled in at build time)."""
+    if ph is None:
+        return 0
+    return ph[0].start()
+
+
+def _ph_rdv_end(ph, t0) -> None:
+    """Close a rendezvous-wait phase span and feed the straggler-skew
+    histogram (rdv_wait is the one phase with its own gauge — it IS
+    the cross-rank skew signal)."""
+    tr = ph[0]
+    dur = tr.end(t0, _NAME_PH_RDV, _CAT_PHASE, ph[1], ph[2], ph[3])
+    tr.hist_add(_HIST_RDV, dur * 1e-9)
+
+
+def _phase_fn(fn, shards, ph):
+    """Run a meeting's body with dispatch/execute phases recorded
+    against the triggering rank's tracer.  The execute fence
+    (``_block_ready``) runs ONLY for a sampled-in op (ph non-None) —
+    a sampled-out op keeps its launches asynchronous."""
+    if ph is None:
+        return fn(shards)
+    tr = ph[0]
+    t0 = tr.start()
+    res = fn(shards)
+    tr.end(t0, _NAME_PH_DISPATCH, _CAT_PHASE, ph[1], ph[2], ph[3])
+    t1 = tr.start()
+    _block_ready(res)
+    tr.end(t1, _NAME_PH_EXECUTE, _CAT_PHASE, ph[1], ph[2], ph[3])
+    return res
+
+
+def _block_ready(res) -> None:
+    """Fence a dispatched body to device completion (the execute phase
+    boundary): wait for the done events ``_fence`` recorded on the
+    body's streams, one a card (none on the CPU, where the body ran to
+    its end: a zero-length execute span).  Never a device-wide
+    synchronize: the rank threads share the card, and it would time
+    their work too.  Raises what the wait raises — a fence that fails
+    on the card is a device fault, not a zero-length span (the
+    reference's ``_block_ready`` swallows every exception)."""
+    last = None
+    for _, done in res:
+        if done is not None and done is not last:
+            done.synchronize()
+            last = done
+
+
 class Rendezvous:
     """Per-communicator meeting point for device collectives.
 
@@ -318,7 +414,14 @@ class Rendezvous:
         blocked (the opal_progress-in-every-blocking-call discipline,
         ref: opal/runtime/opal_progress.c:186), outside the meeting
         lock: p2p traffic aimed at this rank must not starve while it
-        sits in a collective."""
+        sits in a collective.
+
+        The sweep releases the meeting lock, so a notify from the last
+        arriver in that window reaches no waiter: ``cond()`` is read
+        again under the lock before the waiter parks.  The reference's
+        loop parks for its 2 ms timeout without that check
+        (``ompi_tpu/coll/device.py`` ``_wait_for``), a lost wake-up the
+        port repairs."""
         poll = _rv_poll_var.value
         stall = _rv_timeout_var.value
 
@@ -355,7 +458,7 @@ class Rendezvous:
                     progress.idle_wait(park)
             finally:
                 self.cv.acquire()
-            if events == 0 and not progress.has_idle_fds:
+            if events == 0 and not progress.has_idle_fds and not cond():
                 self.cv.wait(timeout=0.002)
             tick(t0)
 
@@ -363,7 +466,8 @@ class Rendezvous:
               fn: Callable[[List[Any]], List[Any]],
               abort_check: Optional[Callable[[], None]] = None,
               progress: Any = None,
-              dispatch_async: Optional[bool] = None) -> int:
+              dispatch_async: Optional[bool] = None,
+              ph: Optional[tuple] = None) -> int:
         """Deposit ``value`` for the next generation; the last arriver
         triggers fn(slots) -> per-rank outputs.  Returns the generation
         token to collect with ``finish``.
@@ -381,9 +485,12 @@ class Rendezvous:
             dispatch_async = _dispatcher_var.value
         with self.cv:
             # wait until my slot from the previous generation is consumed
+            tw = _ph_rdv_start(ph)
             self._wait_for(lambda: self.slots[rank] is self._SENTINEL,
                            "previous generation unconsumed",
                            abort_check, progress)
+            if tw:
+                _ph_rdv_end(ph, tw)
             gen = self.gen
             self.slots[rank] = value
             self.count += 1
@@ -394,10 +501,10 @@ class Rendezvous:
                 self.gen += 1
                 if dispatch_async:
                     _dispatcher().submit(
-                        functools.partial(self._work, gen, fn, shards))
+                        functools.partial(self._work, gen, fn, shards, ph))
                 else:
                     try:
-                        self.results[gen] = fn(shards)
+                        self.results[gen] = _phase_fn(fn, shards, ph)
                     except BaseException as e:  # noqa: BLE001
                         self.errors[gen] = e
                         self.results[gen] = [None] * self.size
@@ -408,11 +515,11 @@ class Rendezvous:
                             prog.wakeup()
         return gen
 
-    def _work(self, gen: int, fn, shards) -> None:
+    def _work(self, gen: int, fn, shards, ph=None) -> None:
         """The dispatcher thread's half of an async meeting: compute,
         publish the generation, wake every member."""
         try:
-            res = fn(shards)
+            res = _phase_fn(fn, shards, ph)
             err = None
         except BaseException as e:  # noqa: BLE001
             res = [None] * self.size
@@ -431,15 +538,19 @@ class Rendezvous:
 
     def finish(self, rank: int, gen: int,
                abort_check: Optional[Callable[[], None]] = None,
-               progress: Any = None) -> Any:
+               progress: Any = None,
+               ph: Optional[tuple] = None) -> Any:
         """Collect this rank's output of generation ``gen`` (a token
         from ``begin``).  Each member must finish every generation it
         begins, exactly once — results are refcounted away after the
         last reader."""
         with self.cv:
+            tw = _ph_rdv_start(ph)
             self._wait_for(lambda: gen in self.results,
                            f"waiting for peers (gen {gen})",
                            abort_check, progress)
+            if tw:
+                _ph_rdv_end(ph, tw)
             err = self.errors.get(gen)
             out = self.results[gen][rank]
             self.readers[gen] -= 1
@@ -454,12 +565,12 @@ class Rendezvous:
     def run(self, rank: int, value: Any,
             fn: Callable[[List[Any]], List[Any]],
             abort_check: Optional[Callable[[], None]] = None,
-            progress: Any = None) -> Any:
+            progress: Any = None, ph: Optional[tuple] = None) -> Any:
         """Deposit ``value``; the last arriver runs fn(slots) ->
         outputs; block until this rank's output is ready (begin +
         finish)."""
-        gen = self.begin(rank, value, fn, abort_check, progress)
-        return self.finish(rank, gen, abort_check, progress)
+        gen = self.begin(rank, value, fn, abort_check, progress, ph=ph)
+        return self.finish(rank, gen, abort_check, progress, ph=ph)
 
 
 def _get_rendezvous(comm) -> Rendezvous:
@@ -494,15 +605,20 @@ def _tensors(value) -> List[torch.Tensor]:
     return [t for t in value if isinstance(t, torch.Tensor)]
 
 
-def _fenced(value):
+def _fenced(value, ph=None):
     """The deposit as it enters the meeting: (value, event).  On a
     card the event marks the end of the depositor's work on the
-    value's tensors, on the depositor's current stream."""
+    value's tensors, on the depositor's current stream.  A phase ctx
+    records the event's creation and record as the op's ``ph_pack``:
+    the deposit's last preparation (the reference has no such step)."""
     ts = _tensors(value)
     if not ts or not ts[0].is_cuda:
         return value, None
+    t0 = ph[0].start() if ph is not None else 0
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(ts[0].device))
+    if t0:
+        ph[0].end(t0, _NAME_PH_PACK, _CAT_PHASE, ph[1], ph[2], ph[3])
     return value, ev
 
 
@@ -569,15 +685,23 @@ def _cross_fence(devices, bufs) -> None:
                 b.record_stream(s)
 
 
-def _collect(res):
+def _collect(res, ph=None):
+    """This member's output of a meeting, its stream made to wait on
+    the meeting's done event.  A phase ctx records that wait as the
+    op's ``ph_unpack``: taking the output (the reference has no such
+    step)."""
     out, done = res
     if done is not None:
         ts = _tensors(out)
         if ts:
+            t0 = ph[0].start() if ph is not None else 0
             stream = torch.cuda.current_stream(ts[0].device)
             stream.wait_event(done)
             for t in ts:
                 t.record_stream(stream)
+            if t0:
+                ph[0].end(t0, _NAME_PH_UNPACK, _CAT_PHASE, ph[1], ph[2],
+                          ph[3])
     return out
 
 
@@ -636,10 +760,48 @@ def meet(comm, value, body: Callable[[List[Any]], List[Any]],
     (the integrity gate's work included) and every rank's later work
     after the kernels.  ``ck``: the integrity check spec (``_enter``)."""
     track_state(comm.state)
+    tr = comm.state.tracer
+    if tr is None:
+        value, body = _enter(comm, value, body, ck)
+        return _collect(_get_rendezvous(comm).run(
+            comm.rank, _fenced(value), _fence(body), abort_check,
+            progress=comm.state.progress))
+    # the payload as the caller gave it (the gate may wrap it)
+    nbytes = value.nbytes if isinstance(value, torch.Tensor) else 0
     value, body = _enter(comm, value, body, ck)
-    return _collect(_get_rendezvous(comm).run(
-        comm.rank, _fenced(value), _fence(body), abort_check,
-        progress=comm.state.progress))
+    rv = _get_rendezvous(comm)
+    # dispatch span: entry->rendezvous-release of the device fast path
+    # (cat coll_dispatch feeds the dispatch-latency histogram); the
+    # per-comm sequence number is the straggler correlation key
+    seq = comm._dev_seq
+    comm._dev_seq = seq + 1
+    # inlined start_sampled skip branch (the steady-state common case;
+    # see trace.coll_begin) — the sampled-out cost of the dispatch
+    # span is two list ops, no method call, no clock read
+    ctr = tr._ctr
+    c = ctr[_CAT_DISP]
+    if c:
+        ctr[_CAT_DISP] = c - 1
+        tr._skipped[_CAT_DISP] += 1
+        t0 = 0
+    else:
+        t0 = tr.start_sampled(_CAT_DISP)
+    # phase ctx: one tuple per op ONLY when the profiler is armed AND
+    # this op samples in — off, a single attribute check
+    ph = None
+    if tr.phase:
+        c = ctr[_CAT_PHASE]
+        if c:
+            ctr[_CAT_PHASE] = c - 1
+            tr._skipped[_CAT_PHASE] += 1
+        elif tr.gate_sampled(_CAT_PHASE):
+            ph = (tr, comm.cid, seq, nbytes)
+    out = _collect(rv.run(comm.rank, _fenced(value, ph), _fence(body),
+                          abort_check, progress=comm.state.progress,
+                          ph=ph), ph)
+    if t0:
+        tr.end(t0, _NAME_MEET, _CAT_DISP, comm.cid, seq, nbytes)
+    return out
 
 
 def meet_begin(comm, value, body, abort_check, ck=None):
@@ -651,18 +813,42 @@ def meet_begin(comm, value, body, abort_check, ck=None):
     (results are refcounted per generation).  ``ck`` as in ``meet``:
     each segment takes its own sampling decision."""
     track_state(comm.state)
+    tr = comm.state.tracer
+    nbytes = value.nbytes if tr is not None \
+        and isinstance(value, torch.Tensor) else 0
     value, body = _enter(comm, value, body, ck)
     rv = _get_rendezvous(comm)
-    gen = rv.begin(comm.rank, _fenced(value), _fence(body), abort_check,
-                   progress=comm.state.progress, dispatch_async=True)
-    return rv, gen
+    t0 = 0
+    ph = None
+    if tr is not None:
+        t0 = tr.start_sampled(_CAT_SEG)
+        if tr.phase and tr.gate_sampled(_CAT_PHASE):
+            # the final seq is assigned at meet_finish; the CURRENT
+            # _dev_seq is close enough for critpath's containment-
+            # based attribution (exact keys ride the seg_meet span)
+            ph = (tr, comm.cid, comm._dev_seq, nbytes)
+    gen = rv.begin(comm.rank, _fenced(value, ph), _fence(body),
+                   abort_check, progress=comm.state.progress,
+                   dispatch_async=True, ph=ph)
+    return (rv, gen, t0, nbytes, ph)
 
 
 def meet_finish(comm, handle, abort_check) -> Any:
-    """Collect one ``meet_begin`` handle."""
-    rv, gen = handle
-    return _collect(rv.finish(comm.rank, gen, abort_check,
-                              progress=comm.state.progress))
+    """Collect one ``meet_begin`` handle.  The deposit→collect span is
+    recorded under cat ``coll_segment`` (its own latency histogram —
+    per-segment latency, unlike coll_dispatch's whole-op latency)."""
+    rv, gen, t0, nbytes, ph = handle
+    out = _collect(rv.finish(comm.rank, gen, abort_check,
+                             progress=comm.state.progress, ph=ph), ph)
+    tr = comm.state.tracer
+    if tr is not None:
+        # the seq ticks on EVERY traced segment (sampled out or not)
+        # so surviving spans keep cross-rank-aligned correlation keys
+        seq = comm._dev_seq
+        comm._dev_seq = seq + 1
+        if t0:
+            tr.end(t0, _NAME_SEG_MEET, _CAT_SEG, comm.cid, seq, nbytes)
+    return out
 
 
 def _abort_check(comm):

@@ -78,6 +78,50 @@ class CollComponent(Component):
         return self.comm_query(comm)
 
 
+def _instrumented(fname: str, fn):
+    """Entry shim over a winning blocking collective: the SHARED
+    instrumentation point for span tracing and the extended PERUSE
+    coll events (ompi_tpu_torch/trace coll_begin/coll_end).  When both
+    systems are off, coll_begin returns None after one flag check and
+    the shim is a bare pass-through — nonblocking collectives are not
+    shimmed (their lifecycle is observed by the nbc hooks instead).
+
+    The reference's shim also runs the ULFM entry check (a collective
+    on a revoked comm, or one naming a failed member, raises); the port
+    has no ULFM yet (ROADMAP.md A7), so that check comes with it."""
+    from ompi_tpu_torch import trace
+
+    # intern once at wrap time: the shim passes a small int on the
+    # hot path, never a string; the hook functions bind into the
+    # closure so each call skips the module attribute lookups
+    fid = trace.intern_name(fname, ("cid", "seq"))
+    _begin = trace.coll_begin
+    _end = trace.coll_end
+
+    def shim(comm, *args, **kwargs):
+        pr = comm.state.progress
+        if pr.interrupt is not None:
+            # armed interrupts fire at blocking-collective entry: the
+            # device providers can complete whole ops on their own
+            # fast paths without one progress sweep, so a rank looping
+            # over collectives would otherwise never consume its
+            # pending interrupt
+            pr.progress()
+        tok = _begin(comm, fid)
+        if tok is None:
+            return fn(comm, *args, **kwargs)
+        out = fn(comm, *args, **kwargs)
+        if tok:
+            # falsy tok == sampled out: nothing to close, skip the
+            # coll_end call itself (kept-span tokens and peruse tuples
+            # are always truthy)
+            _end(comm, fid, tok)
+        return out
+
+    shim._coll_inner = fn  # the unwrapped provider, for introspection
+    return shim
+
+
 def comm_select(comm) -> None:
     """Stack modules on a communicator (coll_base_comm_select analog)."""
     merged = MergedColl()
@@ -89,7 +133,12 @@ def comm_select(comm) -> None:
         for fname in COLL_FUNCS:
             fn = getattr(module, fname, None)
             if fn is not None:
-                setattr(merged, fname, fn)
+                # blocking collectives get the entry-span shim; the
+                # i* surface completes asynchronously and is observed
+                # at its own lifecycle points (nbc/fusion hooks)
+                setattr(merged, fname,
+                        fn if fname.startswith("i")
+                        else _instrumented(fname, fn))
                 merged.providers[fname] = component.name
     comm.coll = merged
     # verify the mandatory blocking set is covered

@@ -37,10 +37,13 @@ deadlocking.
 A batch is checked by the integrity plane as one op (``_fused_ck``):
 one claim a slot (hbm) or a group buffer (mesh), or none at all.
 
+A traced flush records a ``fused_flush`` span (cat ``coll``); a mesh
+batch's pack a ``fused_pack`` span and, with ``trace_phase_enable``,
+a ``ph_pack`` phase of the meeting that follows.
+
 Not ported yet (ROADMAP.md): the cross-session batcher (``_XBatcher``,
 ``_build_fused_mesh_multi``, ``dvm_batch_window_us``: it needs the host
-pool of resident sessions that reports their count) and the tracing
-spans.
+pool of resident sessions that reports their count).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import convert
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.kernels import fused
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.obs import integrity as _ig
@@ -282,12 +286,17 @@ class _FusionEngine:
         if not self.pending:
             return
         batch, self.pending = self.pending, []
+        tr = self.comm.state.tracer
+        t0 = tr.start_sampled(_trace.CAT_COLL) if tr is not None else 0
         try:
             outs = self._run(batch)
         except BaseException as e:  # noqa: BLE001
             for p in batch:
                 p.req._fail(e)
             raise
+        if t0:
+            tr.end(t0, _trace.NAME_FUSED_FLUSH, _trace.CAT_COLL,
+                   self.comm.cid, len(batch))
         nbytes = 0
         for p, out in zip(batch, outs):
             nbytes += p.nbytes
@@ -321,9 +330,30 @@ class _FusionEngine:
 
         arrays = [device._deposit(comm, p.x) for p in batch]
         if mode != "hbm":
-            arrays = _build_pack(comm.rank, sig, arrays)
+            arrays = self._pack_groups(sig, arrays)
         ck = _fused_ck(mode, sig) if _ig.on else None
         return device.meet(comm, (sig, arrays), body, self._abort_check, ck)
+
+
+    def _pack_groups(self, sig, arrays):
+        """Mesh-mode deposit payload: this rank's slots packed into one
+        buffer a (reducer, dtype) group (K7), on the owning rank's
+        thread BEFORE the rendezvous.  Traced as ``fused_pack``, the
+        host-pack phase of the op the following meet() dispatches —
+        comm._dev_seq is exactly the seq that meet will record."""
+        comm = self.comm
+        tr = comm.state.tracer
+        t0 = tr.start_sampled(_trace.CAT_COLL) if tr is not None else 0
+        tp = tr.start_sampled(_trace.CAT_PHASE) \
+            if tr is not None and tr.phase else 0
+        deposit = _build_pack(comm.rank, sig, arrays)
+        if tp:
+            tr.end(tp, _trace.NAME_PH_PACK, _trace.CAT_PHASE,
+                   comm.cid, comm._dev_seq, 0)
+        if t0:
+            tr.end(t0, _trace.NAME_FUSED_PACK, _trace.CAT_COLL,
+                   comm.cid, len(_group_plan(sig)[0]), len(sig))
+        return deposit
 
 
 def _engine(comm) -> _FusionEngine:

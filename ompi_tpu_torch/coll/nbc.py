@@ -92,6 +92,10 @@ class NBCRequest(Request):
         self._ri = -1
         self._reqs: List[Request] = []
         self._on_complete = on_complete
+        # activate->complete span + PERUSE nbc events (shared hook;
+        # None after one flag check when both systems are off)
+        from ompi_tpu_torch import trace as _tracemod
+        self._trace_tok = _tracemod.nbc_begin(comm)
         self._start_next_round()
         if not self.complete:
             _nbc_state(comm.state).add(self)
@@ -102,6 +106,10 @@ class NBCRequest(Request):
             if self._ri >= len(self._rounds):
                 if self._on_complete is not None:
                     self._on_complete()
+                if self._trace_tok is not None:
+                    from ompi_tpu_torch import trace as _tracemod
+                    _tracemod.nbc_end(self._trace_tok)
+                    self._trace_tok = None
                 self._complete()
                 return
             self._reqs = []

@@ -40,8 +40,15 @@ so every segment of every size takes the same kernel arguments.
 Every segment of an op carries the op's integrity check spec to its
 meeting, where it takes its own sampling decision.
 
+Tracing: a traced call of this tier records one ``pipeline_<kind>``
+span (cat ``coll_dispatch``, its algorithm as an arg) around the
+whole op; with ``trace_phase_enable``, the pack of each segment
+(``ph_pack``, around the segment generator's step) and the unpack
+(``ph_unpack``) are phases of it, and each segment's meeting records
+its own ``seg_meet`` span and phases (coll/device).
+
 Not ported yet (ROADMAP.md): the hierarchical tier (``hier``: it needs
-``topo.slice_groups`` and the health plane) and the tracing spans.
+``topo.slice_groups`` and the health plane).
 """
 
 from __future__ import annotations
@@ -51,9 +58,24 @@ from typing import Any, List, Optional
 
 import torch
 
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.kernels import stacked
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.obs import integrity as _ig
+
+# interned span names for the per-kind dispatch spans (args: cid,
+# payload bytes, interned algorithm tag)
+_PIPE_NAME = {
+    kind: _trace.intern_name(f"pipeline_{kind}",
+                             ("cid", "nbytes", "alg$"))
+    for kind in ("allreduce", "bcast", "alltoall")
+}
+
+# phase-profiler aliases: host pack (segment slicing) and unpack
+# (trim + concat) sub-op phases
+_CAT_PHASE = _trace.CAT_PHASE
+_NAME_PH_PACK = _trace.NAME_PH_PACK
+_NAME_PH_UNPACK = _trace.NAME_PH_UNPACK
 
 _seg_size_var = registry.register(
     "coll", "seg", "size", 1 << 20, int,
@@ -139,6 +161,22 @@ def segment_elems(comm, itemsize: int) -> int:
     return elems + (comm.size - rem) if rem else elems
 
 
+def _pull_segment(it, ph):
+    """Pack stage: pull one (value, fn) job from the segment
+    generator.  The slice+pad work happens inside next(), so the span
+    around it IS the host-pack phase.  Hot (once per segment, per
+    rank): audited by hotpath_audit.  A non-None ctx sampled in at
+    build time (Tracer.gate_sampled), so every segment of a kept op
+    records.  The exhausted-iterator probe records one ~0 span."""
+    if ph is None:
+        return next(it, None)
+    tr = ph[0]
+    t0 = tr.start()
+    job = next(it, None)
+    tr.end(t0, _NAME_PH_PACK, _CAT_PHASE, ph[1], ph[2], ph[3])
+    return job
+
+
 def _run_pipelined(comm, jobs, ck=None) -> List[Any]:
     """Drive (value, fn) segment jobs through the async rendezvous
     with bounded depth.  Every begun handle is finished even on error
@@ -148,12 +186,16 @@ def _run_pipelined(comm, jobs, ck=None) -> List[Any]:
     from ompi_tpu_torch.coll import device
     depth = max(1, _depth_var.value)
     check = device._abort_check(comm)
+    tr = comm.state.tracer
+    ph = ((tr, comm.cid, 0, 0)
+          if tr is not None and tr.phase and tr.gate_sampled(_CAT_PHASE)
+          else None)
     it = iter(jobs)
     handles: deque = deque()
     outs: List[Any] = []
     try:
         while True:
-            job = next(it, None)
+            job = _pull_segment(it, ph)
             if job is None:
                 break
             value, fn = job
@@ -197,6 +239,20 @@ def _concat_trim(outs: List[torch.Tensor], n: int, seg: int
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def _unpack_trim(comm, outs: List[torch.Tensor], n: int, seg: int
+                 ) -> torch.Tensor:
+    """Unpack stage: trim the padded tail and concatenate, wrapped in
+    a ph_unpack phase span when the phase profiler is armed."""
+    tr = comm.state.tracer
+    if tr is None or not tr.phase:
+        return _concat_trim(outs, n, seg)
+    t0 = tr.start_sampled(_CAT_PHASE)
+    out = _concat_trim(outs, n, seg)
+    if t0:
+        tr.end(t0, _NAME_PH_UNPACK, _CAT_PHASE, comm.cid, 0, 0)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # hbm (intra-card) segmentation
 # ---------------------------------------------------------------------------
@@ -220,7 +276,7 @@ def _hbm_seg_reduce(module, comm, x, op):
     ck = _ig.spec("allreduce", op.name, flat) if _ig.on else None
     outs = _run_pipelined(comm, ((p, fn) for p in _flat_segments(
         flat, n, seg, pad)), ck)
-    return _concat_trim(outs, n, seg).reshape(shape)
+    return _unpack_trim(comm, outs, n, seg).reshape(shape)
 
 
 def _hbm_seg_alltoall(module, comm, x):
@@ -363,6 +419,9 @@ def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
                                  op.name if op is not None else None)
     if alg is None:
         return UNHANDLED
+    tr = comm.state.tracer
+    t0 = tr.start_sampled(_trace.CAT_COLL_DISPATCH) \
+        if tr is not None else 0
     if module.name == "hbm":
         if kind == "allreduce":
             out = _hbm_seg_reduce(module, comm, x, op)
@@ -379,4 +438,7 @@ def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
     else:
         return UNHANDLED
     pv_ops.add(1)
+    if t0:
+        tr.end(t0, _PIPE_NAME[kind], _trace.CAT_COLL_DISPATCH,
+               comm.cid, nbytes, _trace.intern_name(alg))
     return out

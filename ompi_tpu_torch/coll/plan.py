@@ -41,7 +41,11 @@ A plan carries the integrity check spec of its op (``Plan.ck``), built
 once with ``spec_static`` (plans outlive arm and disarm); ``execute``
 passes it to the meeting only while the plane is armed.
 
-Not ported yet (ROADMAP.md): the tracing spans.
+Tracing: a traced ``execute`` records one ``plan_exec`` span (cat
+``coll_segment``, args cid, payload bytes and the plan's algorithm)
+around pack, the meeting and unpack; with ``trace_phase_enable`` the
+pack and unpack of a padded payload are ``ph_pack`` / ``ph_unpack``
+phases of it.
 """
 
 from __future__ import annotations
@@ -51,9 +55,16 @@ from collections import OrderedDict
 
 import torch
 
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.coll import pipeline as _pl
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.obs import integrity as _ig
+
+_CAT_SEG = _trace.CAT_COLL_SEGMENT
+_CAT_PHASE = _trace.CAT_PHASE
+_NAME_PLAN = _trace.NAME_PLAN_EXEC
+_NAME_PH_PACK = _trace.NAME_PH_PACK
+_NAME_PH_UNPACK = _trace.NAME_PH_UNPACK
 
 _enable_var = registry.register(
     "coll", "plan", "enable", True, bool,
@@ -73,6 +84,13 @@ _native_var = registry.register(
 
 #: ops with a native cross-replica lowering
 _NATIVE_OPS = frozenset(("MPI_SUM", "MPI_MAX", "MPI_MIN"))
+
+#: interned alg ids for the plan_exec span
+_ALG_ID = {
+    "segring": _trace.intern_name("segring"),
+    "segrd": _trace.intern_name("segrd"),
+    "hbm": _trace.intern_name("hbm"),
+}
 
 pv_builds = registry.register_pvar(
     "coll", "plan", "builds",
@@ -114,9 +132,13 @@ class Plan:
     identity and the geometry.  Everything per-op-variable is an
     ``execute`` argument; everything else was decided at build."""
 
-    __slots__ = ("nsegs", "seg", "total", "pad_val", "fn", "ck")
+    __slots__ = ("alg_id", "nsegs", "seg", "total", "itemsize", "pad_val",
+                 "fn", "ck")
 
-    def __init__(self, nsegs: int, seg: int, pad_val, fn, ck=None) -> None:
+    def __init__(self, alg: str, nsegs: int, seg: int, itemsize: int,
+                 pad_val, fn, ck=None) -> None:
+        self.alg_id = _ALG_ID[alg]
+        self.itemsize = itemsize
         self.nsegs = nsegs
         self.seg = seg
         self.total = nsegs * seg
@@ -127,30 +149,53 @@ class Plan:
         self.ck = ck
 
     def execute(self, comm, flat: torch.Tensor, n: int) -> torch.Tensor:
-        """The whole steady-state op: pack, one meet, unpack."""
+        """The whole steady-state op: pack, one meet, unpack.  Hot
+        (once per large-message collective): audited by hotpath_audit
+        — pack/unpack and all key/closure work live off this path."""
         from ompi_tpu_torch.coll import device
+        tr = comm.state.tracer
+        t0 = 0
+        if tr is not None:
+            t0 = tr.start_sampled(_CAT_SEG)
         ns0 = time.perf_counter_ns()
         pad = self.pad_val is not None and n != self.total
-        value = _pack(flat, n, self) if pad else flat
+        value = _pack(comm, flat, n, self) if pad else flat
         out = device.meet(comm, value, self.fn, device._abort_check(comm),
                           self.ck if _ig.on else None)
         if pad:
-            out = _unpack(out, n)
+            out = _unpack(comm, out, n, self)
         pv_exec_us.add((time.perf_counter_ns() - ns0) // 1000)
+        if t0:
+            tr.end(t0, _NAME_PLAN, _CAT_SEG,
+                   comm.cid, n * self.itemsize, self.alg_id)
         return out
 
 
-def _pack(flat: torch.Tensor, n: int, plan: Plan) -> torch.Tensor:
+def _pack(comm, flat: torch.Tensor, n: int, plan: Plan) -> torch.Tensor:
     """Identity-pad ``flat`` (n,) to the plan's fixed (total,) shape,
     composed on the card on the depositor's stream: one new tensor, so
     the caller's buffer is never written."""
-    return torch.cat([flat, torch.full((plan.total - n,), plan.pad_val,
-                                       dtype=flat.dtype,
-                                       device=flat.device)])
+    tr = comm.state.tracer
+    t0 = tr.start_sampled(_CAT_PHASE) \
+        if tr is not None and tr.phase else 0
+    value = torch.cat([flat, torch.full((plan.total - n,), plan.pad_val,
+                                        dtype=flat.dtype,
+                                        device=flat.device)])
+    if t0:
+        tr.end(t0, _NAME_PH_PACK, _CAT_PHASE,
+               comm.cid, 0, n * plan.itemsize)
+    return value
 
 
-def _unpack(out: torch.Tensor, n: int) -> torch.Tensor:
-    return out[:n]
+def _unpack(comm, out: torch.Tensor, n: int, plan: Plan) -> torch.Tensor:
+    tr = comm.state.tracer
+    t0 = tr.start_sampled(_CAT_PHASE) \
+        if tr is not None and tr.phase else 0
+    res = out[:n]
+    if t0:
+        tr.end(t0, _NAME_PH_UNPACK, _CAT_PHASE,
+               comm.cid, 0, n * plan.itemsize)
+    return res
 
 
 def _plans_of(comm) -> OrderedDict:
@@ -183,7 +228,8 @@ def _resolve(comm, pkey, builder) -> Plan:
 
 def _build_hbm_plan(module, nsegs: int, seg: int, dtype,
                     opname: str) -> Plan:
-    return Plan(nsegs, seg, _pl._pad_value(opname, dtype),
+    return Plan("hbm", nsegs, seg, dtype.itemsize,
+                _pl._pad_value(opname, dtype),
                 module._stacked_fn("allreduce", opname),
                 _ig.spec_static("allreduce", opname, dtype))
 
@@ -212,7 +258,7 @@ def _build_mesh_plan(comm, alg: str, nsegs: int, seg: int, dtype,
                      opname: str, native: bool) -> Plan:
     from ompi_tpu_torch.coll import device
     order = "rank" if native else _pl.fold_order(alg, comm.size, seg)
-    return Plan(nsegs, seg, None,
+    return Plan(alg, nsegs, seg, dtype.itemsize, None,
                 lambda s: device._mesh_allreduce(s, opname, order),
                 _ig.spec_static("allreduce", opname, dtype))
 

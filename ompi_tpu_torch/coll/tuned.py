@@ -15,6 +15,7 @@ import json
 import os
 from typing import Callable, Dict, Optional
 
+from ompi_tpu_torch.coll import autotune
 from ompi_tpu_torch.coll import base as alg
 from ompi_tpu_torch.coll import calibrate
 from ompi_tpu_torch.coll.basic import P2PCollModule, _is_pow2
@@ -114,11 +115,24 @@ def device_algorithm(comm, kind: str, nbytes: int,
     and cached per comm (a large message should pay one dict hit, not
     a profile walk, to be routed).
 
+    With coll/autotune active the cache re-resolves at collective-seq
+    WINDOW boundaries through a put-once shared snapshot: every
+    member of a given collective shares the same seq, hence the same
+    window, hence identical thresholds — the online profile updates
+    can never split one collective across algorithms.
+
     Not ported yet: the hierarchical pick (the hierarchical tier,
-    ``coll_hier_enable``, is not ported) and the coll/autotune window
-    that re-resolves the cache online."""
+    ``coll_hier_enable``, is not ported)."""
     from ompi_tpu_torch.coll import pipeline
     tbl = comm.__dict__.get("_pipeline_pick")
+    at = autotune.active()
+    if at is not None:
+        win = comm._coll_seq // at.window_ops()
+        if tbl is None or tbl.get("__win") != win:
+            agreed = at.thresholds_for(comm, win)
+            if agreed is not None:
+                tbl = comm.__dict__["_pipeline_pick"] = dict(agreed)
+            # worlds without a shared store keep the frozen cache
     if tbl is None:
         tbl = comm.__dict__["_pipeline_pick"] = {}
     seg_min = tbl.get(kind)

@@ -78,6 +78,12 @@ class Group:
 
 
 class Communicator:
+    # per-comm monotone span-correlation counters (ompi_tpu_torch/trace).
+    # Class-level defaults so the hot paths read/write them as plain
+    # attributes — no dict.get() call
+    _coll_seq = 0
+    _dev_seq = 0
+
     def __init__(self, state, cid: int, group: Group, name: str = "") -> None:
         self.state = state
         self.cid = cid

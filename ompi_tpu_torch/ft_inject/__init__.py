@@ -19,10 +19,13 @@ Determinism: a rolling injector owns a ``random.Random`` seeded from
 from its seed; ``device_sdc`` uses no RNG at all (an armed op count
 and a period).  ``ft_inject_max`` bounds the injections a scope makes.
 
+An injection that fires leaves an ``ft_inject`` instant (cat
+``fault``) on the injecting rank's trace when tracing is on.
+
 Not ported (ROADMAP.md): the btl/tcp frame faults, kv, checkpoint
 I/O, dvm, node, rank, host and process kills, ``rdv_sever`` (with the
 hang doctor), ``host_slow`` and ``net_jitter`` (with the health plane),
-and the trace instants and event records an injection leaves.
+and the flight-recorder event records an injection leaves (A6).
 """
 
 from __future__ import annotations
@@ -118,6 +121,14 @@ class _Scoped:
         for cls, rate in self.classes.items():
             if self._rng.random() < rate:
                 self._injected += 1
+                # annotate the span timeline: a fault firing explains
+                # the latency spike around it (trace is a leaf module;
+                # import here keeps injection import-light when off)
+                from ompi_tpu_torch import trace
+                tr = trace.current_tracer()
+                if tr is not None:
+                    tr.instant("ft_inject", "fault", cls=cls,
+                               scope=self.scope)
                 return cls
         return None
 
@@ -169,6 +180,11 @@ class SdcInjector:
                 return False
         self.flips += 1
         self.last_flip_ns = time.monotonic_ns()
+        from ompi_tpu_torch import trace
+        tr = trace.current_tracer()
+        if tr is not None:
+            tr.instant("ft_inject", "fault", cls="device_sdc",
+                       scope="coll", rank=self.rank)
         return True
 
 

@@ -9,7 +9,10 @@ changed source or header builds anew, an unchanged one is loaded as it
 is.  ``build_all`` starts one ``nvcc``
 for each source, all at once.
 
-The build runs at first use; there is no other build step.
+The build runs at first use; there is no other build step.  A traced
+rank (ompi_tpu_torch/trace) records a library's first-use build and
+load as a ``kernel_load`` span under the compile category — the port's
+counterpart of the reference's ``xla_compile``.
 """
 
 from __future__ import annotations
@@ -106,8 +109,14 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            from ompi_tpu_torch import trace
+            tr = trace.current_tracer()
+            t0 = tr.start() if tr is not None else 0
             path = _paths(name)[1]
             if not os.path.exists(path):
                 build_all([name])
             lib = _libs[name] = ctypes.CDLL(path)
+            if t0:
+                tr.end(t0, trace.NAME_KERNEL_LOAD, trace.CAT_COMPILE,
+                       trace.intern_name(name))
     return lib

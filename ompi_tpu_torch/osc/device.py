@@ -58,12 +58,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.kernels import rma as _rma
 from ompi_tpu_torch.kernels.stacked import require_peer
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.op import op as opmod
 from ompi_tpu_torch.osc import window as _host
 from ompi_tpu_torch.osc.window import _DT_CODE, Window, _op_code, bump
+
+# trace ids as module constants (the data-plane entries are hot)
+_CAT_RMA = _trace.CAT_RMA
+_NAME_RMA_PUT = _trace.NAME_RMA_PUT
+_NAME_RMA_GET = _trace.NAME_RMA_GET
+_NAME_RMA_ACC = _trace.NAME_RMA_ACC
 
 _dma_var = registry.register(
     "osc", "device", "dma", 1, int,
@@ -280,12 +287,28 @@ class DeviceWindow(Window):
     # -- data plane: put / get -------------------------------------------
 
     def put(self, arr, target: int, disp: int = 0) -> None:
-        nbytes = self._put_impl(arr, target, disp)
+        tr = self.state.tracer
+        if tr is None:
+            nbytes = self._put_impl(arr, target, disp)
+        else:
+            t0 = tr.start_sampled(_CAT_RMA)
+            nbytes = self._put_impl(arr, target, disp)
+            if t0:
+                tr.end(t0, _NAME_RMA_PUT, _CAT_RMA, self.comm.cid,
+                       target, nbytes)
         bump(_host.pv_puts)
         bump(_host.pv_bytes_put, nbytes)
 
     def get(self, arr, target: int, disp: int = 0) -> None:
-        nbytes = self._get_impl(arr, target, disp)
+        tr = self.state.tracer
+        if tr is None:
+            nbytes = self._get_impl(arr, target, disp)
+        else:
+            t0 = tr.start_sampled(_CAT_RMA)
+            nbytes = self._get_impl(arr, target, disp)
+            if t0:
+                tr.end(t0, _NAME_RMA_GET, _CAT_RMA, self.comm.cid,
+                       target, nbytes)
         bump(_host.pv_gets)
         bump(_host.pv_bytes_got, nbytes)
 
@@ -348,8 +371,7 @@ class DeviceWindow(Window):
 
     def accumulate(self, arr, target: int, disp: int = 0,
                    op: opmod.Op = opmod.SUM) -> None:
-        self._acc_impl(arr, None, target, disp, op)
-        bump(_host.pv_accs)
+        self._acc_entry(arr, None, target, disp, op)
 
     def raccumulate(self, arr, target: int, disp: int = 0,
                     op: opmod.Op = opmod.SUM):
@@ -359,8 +381,7 @@ class DeviceWindow(Window):
 
     def get_accumulate(self, arr, result, target: int, disp: int = 0,
                        op: opmod.Op = opmod.SUM) -> None:
-        self._acc_impl(arr, result, target, disp, op)
-        bump(_host.pv_accs)
+        self._acc_entry(arr, result, target, disp, op)
 
     def rget_accumulate(self, arr, result, target: int, disp: int = 0,
                         op: opmod.Op = opmod.SUM):
@@ -376,6 +397,18 @@ class DeviceWindow(Window):
         else:
             origin = np.atleast_1d(np.asarray(value, dtype=_np_dtype(dt)))
         self.get_accumulate(origin, result, target, disp, op)
+
+    def _acc_entry(self, arr, result, target, disp, op) -> None:
+        tr = self.state.tracer
+        if tr is None:
+            nbytes = self._acc_impl(arr, result, target, disp, op)
+        else:
+            t0 = tr.start_sampled(_CAT_RMA)
+            nbytes = self._acc_impl(arr, result, target, disp, op)
+            if t0:
+                tr.end(t0, _NAME_RMA_ACC, _CAT_RMA, self.comm.cid,
+                       target, nbytes)
+        bump(_host.pv_accs)
 
     def _acc_impl(self, arr, result, target: int, disp: int,
                   op: opmod.Op) -> int:

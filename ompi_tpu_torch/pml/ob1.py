@@ -29,7 +29,8 @@ import itertools
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-
+from ompi_tpu_torch import peruse
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.datatype.convertor import Convertor, make_convertor
 from ompi_tpu_torch.mca.base import Component, frameworks
 from ompi_tpu_torch.mca.params import registry
@@ -37,6 +38,15 @@ from .request import (ANY_SOURCE, ANY_TAG, PROC_NULL, ERR_TRUNCATE,
                       CompletedRequest, Request, Status)
 
 pml_framework = frameworks.create("ompi", "pml")
+
+# interned trace ids as module constants: the span call sites pass
+# small ints, never strings, on the hot path
+_CAT_P2P = _trace.CAT_P2P
+_NAME_SEND = _trace.NAME_SEND
+_NAME_RECV = _trace.NAME_RECV
+_CAT_PHASE = _trace.CAT_PHASE
+_NAME_PH_RDV = _trace.NAME_PH_RDV
+_HIST_RDV = _trace.HIST_RDV_WAIT
 
 registry.register(
     "pml", "ob1", "rsend_is_standard", True, bool,
@@ -62,7 +72,7 @@ FRAG = "F"
 
 
 class SendRequest(Request):
-    __slots__ = ("conv", "req_id", "total", "dst", "cid", "acked")
+    __slots__ = ("conv", "req_id", "total", "dst", "cid", "acked", "tr")
 
     def __init__(self, progress, conv, req_id, dst, cid=-1):
         super().__init__(progress)
@@ -71,16 +81,18 @@ class SendRequest(Request):
         self.total = conv.packed_size
         self.dst = dst           # GLOBAL rank (failure matching)
         self.cid = cid           # communicator id
+        self.tr = None  # (t0_ns, cid, src, tag, seq) while traced
 
 
 class RecvRequest(Request):
     __slots__ = ("conv", "req_id", "src", "tag", "cid", "matched",
                  "expected", "received", "incoming", "_canceller",
-                 "_held")
+                 "_held", "tr")
 
     def __init__(self, progress, conv, req_id, src, tag, cid):
         super().__init__(progress)
         self._canceller = None
+        self.tr = None  # [t0_ns, cid, src, tag, seq] while traced
         self.conv = conv
         self.req_id = req_id
         self.src = src
@@ -133,6 +145,10 @@ class PmlOb1:
             "pml", "ob1", f"bytes_sent_r{state.rank}")
         self.pvar_recv = registry.register_pvar(
             "pml", "ob1", f"bytes_recv_r{state.rank}")
+        # span tracer cached once (mpi_init attaches it before pml
+        # selection): the p2p hot paths pay one is-None check when
+        # tracing is off — the peruse-flag discipline
+        self._tracer = getattr(state, "tracer", None)
         state.progress.register(self.progress)
 
     # -- wiring ----------------------------------------------------------
@@ -179,6 +195,16 @@ class PmlOb1:
         req = SendRequest(self.state.progress, conv, req_id, gdst, cid)
         req.status.count = conv.packed_size
         self.pvar_sent.add(conv.packed_size)
+        if peruse.enabled:
+            peruse.fire("req_activate", kind="send", cid=cid, peer=dst,
+                        tag=tag, bytes=conv.packed_size)
+        if self._tracer is not None:
+            # the match-id components (identical on the receiver's
+            # span) ride as ints; the mid string traceview stitches
+            # on is synthesized at snapshot time, off the hot path
+            t0 = self._tracer.start_sampled(_CAT_P2P)
+            if t0:
+                req.tr = (t0, cid, src, tag, seq)
         gsrc = self.state.rank  # global sender id
         if conv.packed_size <= btl.eager_limit and mode != MODE_SYNC:
             # pack_bytes: the request completes NOW, but the frag may
@@ -186,6 +212,11 @@ class PmlOb1:
             payload = conv.pack_bytes()
             ep.send((MATCH, cid, src, tag, seq, gsrc, payload))
             req._complete()
+            if peruse.enabled:
+                peruse.fire("req_complete", kind="send",
+                            bytes=req.total)
+            if req.tr is not None:
+                self._trace_p2p_end(req, _NAME_SEND, req.total)
         elif conv.packed_size <= btl.eager_limit:  # sync eager
             payload = conv.pack_bytes()
             self._send_reqs[req_id] = req
@@ -258,6 +289,15 @@ class PmlOb1:
                           comm.cid)
         req._canceller = self.cancel_recv
         self._recv_reqs[req_id] = req
+        if peruse.enabled:
+            peruse.fire("req_activate", kind="recv", cid=comm.cid,
+                        peer=src, tag=tag, bytes=conv.packed_size)
+        if self._tracer is not None:
+            # match-id ints filled at match time (_bind) once the
+            # sender's src/seq are known
+            t0 = self._tracer.start_sampled(_CAT_P2P)
+            if t0:
+                req.tr = [t0, 0, 0, 0, 0]
         # match against buffered unexpected messages first
         msg = self._match_unexpected(req)
         if msg is not None:
@@ -364,6 +404,12 @@ class PmlOb1:
         req.incoming = msg.total
         req.status.source = msg.src
         req.status.tag = msg.tag
+        if req.tr is not None:
+            rt = req.tr
+            rt[1] = msg.cid
+            rt[2] = msg.src
+            rt[3] = msg.tag
+            rt[4] = msg.seq
         capacity = req.conv.packed_size
         req.expected = min(msg.total, capacity)
         if msg.total > capacity:
@@ -386,9 +432,22 @@ class PmlOb1:
             req.status.count = min(msg.total, capacity)
             self._finish_recv(req)
 
+    def _trace_p2p_end(self, req, name_id: int, nbytes: int) -> None:
+        """Close a p2p span (activate → complete); feeds the
+        p2p_complete latency histogram through the tracer."""
+        t0, cid, src, tag, seq = req.tr
+        req.tr = None
+        self._tracer.end(t0, name_id, _CAT_P2P, cid, src, tag, seq,
+                         nbytes)
+
     def _finish_recv(self, req: RecvRequest) -> None:
         self._recv_reqs.pop(req.req_id, None)
         req._complete()
+        if peruse.enabled:
+            peruse.fire("req_complete", kind="recv",
+                        bytes=req.status.count)
+        if req.tr is not None:
+            self._trace_p2p_end(req, _NAME_RECV, req.status.count)
 
     def state_comm_peer(self, cid: int, comm_rank: int) -> int:
         comm = self.state.comms.get(cid)
@@ -430,6 +489,11 @@ class PmlOb1:
             req = self._send_reqs.pop(sreq_id, None)
             if req is not None:
                 req._complete()
+                if peruse.enabled:
+                    peruse.fire("req_complete", kind="send",
+                                bytes=req.total)
+                if req.tr is not None:
+                    self._trace_p2p_end(req, _NAME_SEND, req.total)
         elif kind == FRAG:
             _, rreq_id, pos, payload = frag
             self._recv_segment(rreq_id, pos, payload)
@@ -460,14 +524,30 @@ class PmlOb1:
             return
         req = self._match_posted(msg.cid, msg.src, msg.tag)
         if req is not None:
+            if peruse.enabled:
+                peruse.fire("req_match", cid=msg.cid, peer=msg.src,
+                            tag=msg.tag, bytes=msg.total)
             self._bind(req, msg)
         else:
+            if peruse.enabled:
+                peruse.fire("req_match_unex", cid=msg.cid,
+                            peer=msg.src, tag=msg.tag, bytes=msg.total)
             self._unexpected.setdefault(msg.cid, []).append(msg)
 
     def _send_rest(self, sreq_id: int, rreq_id: int) -> None:
         req = self._send_reqs.pop(sreq_id, None)
         if req is None:
             return
+        tr = self._tracer
+        if tr is not None and tr.phase and req.tr is not None:
+            # host-path rendezvous wait (RNDV sent at isend, ACK just
+            # arrived): rides the p2p span's sampling decision — no
+            # second start_sampled, req.tr stays armed for the send
+            # span closed below
+            t0, cid, src, tag, seq = req.tr
+            dur = tr.end(t0, _NAME_PH_RDV, _CAT_PHASE, cid, seq,
+                         req.total)
+            tr.hist_add(_HIST_RDV, dur * 1e-9)
         ep = self._ep(req.dst)
         btl = ep.btl
         conv = req.conv
@@ -478,6 +558,10 @@ class PmlOb1:
             # (receiver coverage is interval-based, order-free)
             ep.send_striped((FRAG, rreq_id, pos, payload))
         req._complete()
+        if peruse.enabled:
+            peruse.fire("req_complete", kind="send", bytes=req.total)
+        if req.tr is not None:
+            self._trace_p2p_end(req, _NAME_SEND, req.total)
 
     def _recv_segment(self, rreq_id: int, pos: int, payload: bytes) -> None:
         req = self._recv_reqs.get(rreq_id)

@@ -6,11 +6,14 @@ comm_world/self → coll select → final fence) and ompi_mpi_finalize.c's
 reverse teardown.
 
 The port carries the in-process transports only (btl/inproc and
-btl/self).  Of the reference's optional planes it has the integrity
-plane (its knobs are read at init, as the reference's obs.attach
-does) and the fault injectors of the rendezvous and the RMA AM apply;
-tracing, telemetry, online autotune, pstat, binding, ULFM, vprotocol
-and live recovery are listed in ROADMAP.md as still to port.
+btl/self).  Of the reference's optional planes it has the span tracer
+(attached before pml selection, clock offsets measured before the
+finalize fence, the per-rank dump written last), the online autotuner
+(attached right after the tracer), the integrity plane (its knobs are
+read at init, as the reference's obs.attach does) and the fault
+injectors of the rendezvous and the RMA AM apply; telemetry, pstat,
+binding, ULFM, vprotocol and live recovery are listed in ROADMAP.md as
+still to port.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 from ompi_tpu_torch.btl import base as btl_base
 from ompi_tpu_torch.btl import inproc as _btl_inproc  # noqa: F401 (registers)
 from ompi_tpu_torch.btl import self_btl as _btl_self  # noqa: F401
+from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.comm.communicator import Communicator, Group
 from ompi_tpu_torch.obs import integrity
 from ompi_tpu_torch.pml import ob1 as _pml_ob1
@@ -31,6 +35,15 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     host-only world), or a ``LogicalDevice``: a torch device and this
     rank's logical slot on it."""
     set_current(state)
+    # span tracer attach BEFORE pml/coll selection so every layer
+    # constructed below can cache state.tracer (None when trace_enable
+    # is off — the whole hot-path cost)
+    _trace.attach(state)
+    # online autotune attach rides DIRECTLY on the trace attach (it
+    # force-attaches a tracer when trace_enable is off) so the pml/
+    # coll layers below still cache a non-None state.tracer
+    from ompi_tpu_torch.coll import autotune as _autotune
+    _autotune.attach(state)
     integrity.refresh()
     if isinstance(device, LogicalDevice):
         device, state.device_slot = device.device, device.slot
@@ -98,10 +111,20 @@ def mpi_finalize(state: ProcState) -> None:
     # flush deferred work BEFORE the fence: a flush may need one last
     # cross-rank rendezvous, so peers must still be alive here
     state.progress.run_finalize_hooks()
+    # mpisync clock-offset measurement BEFORE the fence (it is itself
+    # collective — Barrier/Send/Recv/Bcast need a live pml): embeds
+    # the offset table into every rank's trace dump
+    _trace.sync_state(state)
     # barrier, then teardown in reverse (ref: ompi_mpi_finalize.c:101)
     state.rte.fence()
     for m in state.btls:
         m.finalize()
+    # autotune deregistration before the tracer dump: the process
+    # tuner must stop reading this world's histograms
+    from ompi_tpu_torch.coll import autotune as _autotune
+    _autotune.detach(state)
     state.rte.finalize()
+    # trace dump LAST: teardown spans are part of the timeline
+    _trace.dump_state(state)
     state.finalized = True
     clear_current(state)

@@ -99,6 +99,10 @@ class Progress:
         # mpi_finalize runs them BEFORE the finalize fence so a flush
         # that needs a cross-rank rendezvous still has live peers.
         self._finalize_hooks: List[Callable[[], None]] = []
+        # span tracer (ompi_tpu_torch/trace): set by mpi_init when
+        # trace_enable; every sweep then feeds the progress-tick
+        # latency histogram.  None = one is-None check per sweep.
+        self.tracer = None
 
     def deferred_interrupts(self):
         """Context manager: hold any armed ft interrupt until exit.
@@ -273,6 +277,13 @@ class Progress:
                 exc = self.interrupt
                 self.interrupt = None
                 raise exc
+        tr = self.tracer
+        if tr is not None:
+            # SAMPLED tick timing (1 in 16): a blocked rank spins this
+            # loop thousands of times a second, and two clock reads
+            # per sweep measurably slow every other rank thread
+            _t0 = time.perf_counter_ns() if (self._counter & 15) == 0 \
+                else 0
         self._counter += 1
         events = 0
         for cb in self._cbs:
@@ -280,6 +291,8 @@ class Progress:
         if self._lp_cbs and self._counter % max(1, _lp_ratio_var.value) == 0:
             for cb in self._lp_cbs:
                 events += cb()
+        if tr is not None and _t0:
+            tr.tick_ns(time.perf_counter_ns() - _t0)
         return events
 
     def idle_tick(self, timeout: float = 0.002) -> None:

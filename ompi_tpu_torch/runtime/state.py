@@ -43,6 +43,9 @@ class ProcState:
         # and its logical slot on that device (None: the whole device)
         self.device: Any = None
         self.device_slot: Optional[int] = None
+        # span tracer (ompi_tpu_torch/trace); None unless trace_enable —
+        # hot paths pay exactly one is-None check when tracing is off
+        self.tracer: Any = None
         self.finalized = False
         self.initialized = False
         self.extra: Dict[str, Any] = {}
