@@ -207,14 +207,40 @@ Phases, each fatal on failure (nothing is caught and carried on):
              critpath must name that rank and the rendezvous as gating,
              with an arrival skew of at least 20 ms, and the stitched
              Chrome trace must carry flow arrows.
+7. shmem   — the OpenSHMEM layer (ompi_tpu_torch.shmem) on 8 PEs, 8
+             logical devices of the card, shmem_memheap_size 64 MiB a
+             PE (512 MiB of heap on the card), in the manner of the OSU
+             OpenSHMEM micro-benchmarks (osu_oshm_put, osu_oshm_get,
+             osu_oshm_atomics), messages up to 4 MiB.  7a: every
+             workload of ompi_tpu_torch/testing/shmem.py (the ring with
+             wait_until, fetch-inc tickets with collect, CAS and swap,
+             the ticket lock's mutual exclusion, strided iput/iget,
+             scoll, the bulk put/get ladder) on the host heap (--mca osc
+             pt2pt) and on the device heap under osc_device_dma 1 and 0:
+             ctx.device on every PE, the device runs byte-identical to
+             the host run, K9 and K10 launch counts exact, K8 none with
+             dma 1 and at least the deterministic puts and gets with dma
+             0.  7b: the card reports a copying runtime; a pool of pinned
+             stages round trips 8 B, 64 KiB, 1 MiB and 4 MiB equal to
+             the pageable path (each stage asserted pinned, the pool's
+             allocation count flat after the warm-up); the window's
+             numpy puts and gets at those sizes exact, the race case
+             (two puts, origins overwritten before the fence) intact,
+             and the plan's ragged 2**21 + 3 allreduce again (composed
+             on the card, one K1).
+             7c (printed): µs an op of shmem.put and get at the four
+             sizes, atomic_fetch_add ops/s, the ring's µs a hop and the
+             lock's µs a critical section, both lowerings, host clock,
+             slowest PE.  With two or more cards 7a runs again one PE a
+             card.  7a's launches join the kernels line's counts.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
 on a host with two or more cards builds the kernels and runs only the
 one-rank-a-card branch (K8's shift cases with the source on a peer
-card, then the mesh, RMA, integrity and halo phases over peer
-access).
+card, then the mesh, RMA, integrity and halo phases and the SHMEM
+workloads over peer access).
 """
 
 from __future__ import annotations
@@ -3860,12 +3886,347 @@ def phase_trace(dev) -> None:
         f" arrows)")
 
 
+# ---------------------------------------------------------------------------
+# 7. shmem: the OpenSHMEM heap on the device window, host staging
+# ---------------------------------------------------------------------------
+
+SHMEM_HEAP = 64 * MIB   # shmem_memheap_size a PE: 512 MiB of heap on 8 PEs
+SHMEM_SIZES = (8, 64 << 10, MIB, 4 * MIB)  # osu_oshm_put/get's ladder, cut
+SHMEM_REPS = 20         # ops a size, laps, lock sections a PE in 7c
+
+
+def pinned(stage) -> bool:
+    """Whether a host stage is page-locked memory."""
+    return isinstance(stage, torch.Tensor) and stage.is_pinned()
+
+
+@contextlib.contextmanager
+def _knobs(**kv):
+    """The MCA variables ``kv`` set around the body (never inside a
+    rank), restored after."""
+    from ompi_tpu_torch.mca.params import registry
+    saved = {k: registry.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            registry.set(k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            registry.set(k, v)
+
+
+def phase_shmem_workloads(devs, what: str) -> dict:
+    """7a: every workload of ompi_tpu_torch.testing.shmem (ring, atomics
+    with tickets, CAS and swap, the lock's mutual exclusion, strided
+    iput/iget, scoll, the bulk put/get ladder up to 4 MiB) on N =
+    len(devs) PEs, PE r on devs[r], through ``ShmemCtx`` at
+    ``shmem_memheap_size`` SHMEM_HEAP: on the host heap (--mca osc
+    pt2pt, numpy), then on the device heap under osc_device_dma 1 and
+    0 — ``ctx.device`` on every PE, every PE's bytes the host run's,
+    and the counts zeroed just before each run and read just after: K9
+    and K10 exactly ``testing.shmem.launches``, K8 none with dma 1 and
+    at least its count with dma 0 (exactly, where the workload polls
+    nothing).  Returns the launches of the device runs."""
+    from ompi_tpu_torch import shmem
+    # registers osc_device_dma
+    from ompi_tpu_torch.osc import device as _  # noqa: F401
+    from ompi_tpu_torch.testing import run_ranks
+    from ompi_tpu_torch.testing import shmem as wl
+    n = len(devs)
+    counters = launch_counters()
+    total = {k: 0 for k in counters}
+    with _knobs(shmem_memheap_size=SHMEM_HEAP):
+        for name, fn in wl.WORKLOADS.items():
+            runs = {}
+            for key, dma, osc in (("host", None, "pt2pt"), ("dma1", 1, ""),
+                                  ("dma0", 0, "")):
+                knobs = {"osc": osc}
+                if dma is not None:
+                    knobs["osc_device_dma"] = dma
+                with _knobs(**knobs):
+                    for c in counters.values():
+                        c.reset()
+                    t0 = time.perf_counter()
+                    res = run_ranks(n, wl.pe_program(shmem, fn),
+                                    device_map=lambda r: devs[r],
+                                    timeout=600)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    got = {k: c.value for k, c in counters.items()}
+                if [r["device"] for r in res] != [key != "host"] * n:
+                    raise AssertionError(f"{name} {key}: ctx.device "
+                                         f"{[r['device'] for r in res]}")
+                runs[key] = [{k: v for k, v in r.items() if k != "device"}
+                             for r in res]
+                want = wl.launches(name, n) if key != "host" else {}
+                exact = {k: want.get(k, 0) for k in counters
+                         if k != "rma_copy"}
+                k8 = got["rma_copy"]
+                k8_ok = (k8 == 0 if key != "dma0" else
+                         k8 == want["rma_copy"] if name not in ("ring", "lock")
+                         else k8 >= want["rma_copy"])
+                log(f"[shmem] {what}: {name} {key} heap in {wall:.3f} s, "
+                    f"launches { {k: v for k, v in got.items() if v} }")
+                if not k8_ok or {k: got[k] for k in exact} != exact:
+                    raise AssertionError(
+                        f"{name} {key}: launches {got}, expected K9/K10 "
+                        f"{exact} and K8 {want.get('rma_copy', 0)} "
+                        f"({'at least' if key == 'dma0' else 'none'})")
+                if key != "host":
+                    for k in total:
+                        total[k] += got[k]
+            for key in ("dma1", "dma0"):
+                if runs[key] != runs["host"]:
+                    raise AssertionError(f"{name}: the device heap's bytes "
+                                         f"({key}) differ from the host "
+                                         "heap's")
+            log(f"[shmem] {what}: {name} byte-identical on the host heap "
+                "and the device heap (dma 1 and 0)")
+    return total
+
+
+def phase_shmem_staging(dev) -> None:
+    """7b: host staging on the card.  ``runtime_zero_copy`` says the
+    card copies; a MirrorPool of pinned stages for the card, NRANKS
+    stages in use at once, round trips seeded bytes at SHMEM_SIZES
+    (stage -> card by a queued copy, card -> stage, each waited for)
+    equal to the pageable path's (``torch.from_numpy(x).to``),
+    every stage pinned and the pool's allocation count flat from the
+    warm-up on.  Then the device window's numpy-origin puts and
+    numpy-result gets at SHMEM_SIZES on 8 logical devices, every PE to
+    its right neighbour, each closed by a flush and checked byte for
+    byte; the race case (put A, at once put B, overwrite both before
+    the fence: the original bytes land); and the plan tier's ragged
+    2**21 + 3 allreduce of phase 3 again, exact and one K1 launch."""
+    import numpy as np
+
+    from ompi_tpu_torch import osc
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.osc import device as _  # noqa: F401
+    from ompi_tpu_torch.runtime import staging
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    from ompi_tpu_torch.testing import run_ranks
+    from ompi_tpu_torch.kernels.stacked import stacked_reduce_plain
+    zc = staging.runtime_zero_copy(dev)
+    log(f"[shmem] runtime_zero_copy({dev}) = {zc}; the CPU's "
+        f"{staging.runtime_zero_copy('cpu')}")
+    if zc:
+        raise AssertionError("the card reported a zero-copy runtime")
+    big = SHMEM_SIZES[-1]
+    rounds = 4
+    pool = staging.MirrorPool(max_buffers=NRANKS, device=dev)
+    for st in [pool.take(big) for _ in range(NRANKS)]:
+        pool.park(st)
+    allocs, ok = [pool.allocs], True
+    for rnd in range(rounds):
+        for nb in SHMEM_SIZES:
+            data = [np.random.default_rng(SEED + 100 * r + nb + rnd).integers(
+                0, 256, nb, dtype=np.uint8) for r in range(NRANKS)]
+            ups = [pool.take(nb) for _ in range(NRANKS)]
+            cards = []
+            for st, x in zip(ups, data):
+                np.copyto(np.asarray(st), x)
+                cards.append(torch.empty(nb, dtype=torch.uint8, device=dev))
+                cards[-1].copy_(torch.as_tensor(st), non_blocking=True)
+            torch.cuda.synchronize()
+            ok &= all(pinned(st) for st in ups)
+            for st in ups:
+                pool.park(st)
+            downs = [pool.take(nb) for _ in range(NRANKS)]
+            for st, c in zip(downs, cards):
+                torch.as_tensor(st).copy_(c, non_blocking=True)
+            torch.cuda.synchronize()
+            for st, c, x in zip(downs, cards, data):
+                ok &= (np.asarray(st).tobytes() == x.tobytes() and torch.equal(
+                    c, torch.from_numpy(x).to(dev)))
+            ok &= all(pinned(st) for st in downs)
+            for st in downs:
+                pool.park(st)
+        allocs.append(pool.allocs)
+    log(f"[shmem] staging: pinned round trips at {SHMEM_SIZES} B, "
+        f"{NRANKS} stages at once, equal to the pageable path and every "
+        f"stage pinned: {ok}; the pool's allocations after the warm-up "
+        f"and each round {allocs}")
+    if not ok:
+        raise AssertionError("a pinned round trip was wrong or a stage "
+                             "was not pinned")
+    if len(set(allocs)) != 1:
+        raise AssertionError(f"the pool grew after the warm-up: {allocs}")
+
+    def fn(comm):
+        me, n = comm.rank, comm.size
+        right, left = (me + 1) % n, (me - 1) % n
+        win = osc.allocate(comm, 2 * big, name="staging")
+        ok = True
+        win.lock(right, osc.LOCK_SHARED)
+        for nb in SHMEM_SIZES:
+            data = np.random.default_rng(SEED + 100 * me + nb).integers(
+                0, 256, nb, dtype=np.uint8)
+            win.put(data, right)
+            win.flush(right)
+            back = np.empty(nb, dtype=np.uint8)
+            win.get(back, right)
+            ok &= back.tobytes() == data.tobytes()
+        win.unlock(right)
+        win.fence()
+        a = np.full(big, 1 + me, dtype=np.uint8)
+        b = np.full(big, 101 + me, dtype=np.uint8)
+        win.put(a, right, disp=0)
+        win.put(b, right, disp=big)
+        a[:] = 0
+        b[:] = 0
+        win.fence()
+        mem = win.memory.cpu().numpy()
+        race = bool((mem[:big] == 1 + left).all()
+                    and (mem[big:] == 101 + left).all())
+        comm.Barrier()
+        win.free()
+        return ok, race
+
+    res = run_ranks(NRANKS, fn, device_map=lambda r: LogicalDevice(dev, r),
+                    timeout=600)
+    log(f"[shmem] window, 8 PEs: numpy puts and gets at {SHMEM_SIZES} B "
+        f"exact: {all(r[0] for r in res)}; race case intact: "
+        f"{all(r[1] for r in res)}")
+    if not all(r[0] for r in res):
+        raise AssertionError("a numpy put or get on the window was wrong")
+    if not all(r[1] for r in res):
+        raise AssertionError("a put's origin was read after it returned")
+    plan = [("ar_ragged", "allreduce_arr", {"stacked_reduce": 1},
+             lambda c: c.allreduce_arr(
+                 rank_elems(c.rank, RAGGED, torch.float32, dev, 11), SUM),
+             {})]
+    out, _, _ = drive(plan, lambda r: dev, NRANKS, "hbm",
+                      f"8 ranks on {dev}, the ragged plan after staging")
+    _held([out[r]["ar_ragged"] for r in range(NRANKS)],
+          stacked_reduce_plain([rank_elems(r, RAGGED, torch.float32, dev, 11)
+                                for r in range(NRANKS)], "MPI_SUM"),
+          "allreduce SUM f32 ragged (plan)")
+    log(f"[shmem] the plan's ragged {RAGGED}-element allreduce composes on "
+        "the card: exact, one K1 launch")
+
+
+def phase_e2e_shmem(dev) -> None:
+    """7c: host clock, slowest PE, 8 PEs on logical devices of the card
+    at shmem_memheap_size SHMEM_HEAP, both lowerings (printed, not
+    asserted): µs an op of shmem.put and shmem.get (numpy, every PE to
+    its right neighbour, SHMEM_REPS ops a size) at SHMEM_SIZES;
+    atomic_fetch_add ops/s of PE 0 alone on PE 1; the ring's µs a hop
+    (SHMEM_REPS laps of a token); the ticket lock's µs a critical
+    section (every PE SHMEM_REPS sections, all contending)."""
+    import numpy as np
+
+    from ompi_tpu_torch import shmem
+    from ompi_tpu_torch.osc import device as _  # noqa: F401
+    from ompi_tpu_torch.testing import logical_devices, run_ranks
+    reps = SHMEM_REPS
+
+    def fn(comm):
+        me, n = comm.rank, comm.size
+        right = (me + 1) % n
+        ctx = shmem.ShmemCtx(comm)
+        out = {}
+        for nb in SHMEM_SIZES:
+            blk = ctx.malloc(nb, np.uint8)
+            data = np.full(nb, me, dtype=np.uint8)
+            ctx.put(blk, data, right)
+            ctx.get(blk, right)
+            ctx.barrier_all()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ctx.put(blk, data, right)
+            ctx.quiet()
+            tp = time.perf_counter() - t0
+            ctx.barrier_all()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                got = ctx.get(blk, right)
+            tg = time.perf_counter() - t0
+            if got[0] != me:
+                raise AssertionError(f"PE {me}: get of {nb} B read {got[0]}")
+            out[nb] = (tp / reps * 1e6, tg / reps * 1e6)
+            ctx.barrier_all()
+            ctx.free(blk)
+        ctr = ctx.malloc(1, np.int64)
+        ctx._write_sym(ctr, np.zeros(1, np.int64))
+        ctx.barrier_all()
+        if me == 0:
+            for _ in range(4):
+                ctx.atomic_fetch_add(ctr, 0, 1, 1)
+            t0 = time.perf_counter()
+            for _ in range(10 * reps):
+                ctx.atomic_fetch_add(ctr, 0, 1, 1)
+            out["fadd_ops"] = 10 * reps / (time.perf_counter() - t0)
+        ctx.barrier_all()
+        flag = ctx.malloc(1, np.int64)
+        ctx._write_sym(flag, np.full(1, -1, np.int64))
+        ctx.barrier_all()
+        t0 = time.perf_counter()
+        for lap in range(reps):
+            base = 1000 * lap
+            if me == 0:
+                ctx.p(flag, 0, base, right)
+            ctx.wait_until(flag, 0, "ge", base + (n - 1 if me == 0 else 0))
+            if me != 0:
+                ctx.p(flag, 0, int(flag.local[0]) + 1, right)
+        out["hop_us"] = (time.perf_counter() - t0) / (reps * n) * 1e6
+        ctx.barrier_all()
+        lk = ctx.malloc(1, np.int64)
+        cnt = ctx.malloc(1, np.int64)
+        ctx._write_sym(lk, np.zeros(1, np.int64))
+        ctx._write_sym(cnt, np.zeros(1, np.int64))
+        ctx.barrier_all()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ctx.set_lock(lk)
+            ctx.p(cnt, 0, int(ctx.g(cnt, 0, 0)) + 1, 0)
+            ctx.clear_lock(lk)
+        ctx.barrier_all()
+        out["lock_s"] = time.perf_counter() - t0
+        if me == 0 and int(ctx.g(cnt, 0, 0)) != n * reps:
+            raise AssertionError("lost updates under the lock")
+        ctx.finalize()
+        return out
+
+    card = card_line()
+    for dma in (1, 0):
+        with _knobs(osc_device_dma=dma, shmem_memheap_size=SHMEM_HEAP):
+            res = run_ranks(NRANKS, fn, device_map=logical_devices(dev),
+                            timeout=900)
+        for nb in SHMEM_SIZES:
+            pu = max(r[nb][0] for r in res)
+            gu = max(r[nb][1] for r in res)
+            log(f"[e2e] shmem dma {dma}, 8 PEs, {nb} B (numpy, every PE to "
+                f"its right neighbour; logical devices of one card, host "
+                f"cost): put {pu:.1f} us an op ({nb / (pu * 1e-6) / 1e9:.4f} "
+                f"GB/s a PE), get {gu:.1f} us an op "
+                f"({nb / (gu * 1e-6) / 1e9:.4f} GB/s a PE) [{card}]")
+        hop = max(r["hop_us"] for r in res)
+        lock_us = max(r["lock_s"] for r in res) / (NRANKS * reps) * 1e6
+        log(f"[e2e] shmem dma {dma}, 8 PEs: atomic_fetch_add "
+            f"{res[0]['fadd_ops']:.1f} ops/s (PE 0 alone on PE 1); ring "
+            f"{hop:.1f} us a hop ({reps} laps); lock {lock_us:.1f} us a "
+            f"critical section ({NRANKS} PEs x {reps}, contended) [{card}]")
+
+
+def phase_shmem(dev) -> dict:
+    """Phase 7: 7a on 8 logical devices of the card, 7b, 7c; returns
+    7a's launches."""
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    launches = phase_shmem_workloads(
+        [LogicalDevice(dev, r) for r in range(NRANKS)],
+        f"8 logical devices on {dev}")
+    phase_shmem_staging(dev)
+    phase_e2e_shmem(dev)
+    return launches
+
+
 def phase_cards() -> None:
     """One rank a card, on a host with two or more: the mesh, RMA,
-    integrity and halo phases again, where every cross-device read or
-    write goes over peer access (NVLink) — send_arr's copy too — and a
-    verify digests each card's outputs on that card; a one-card host
-    never takes this branch."""
+    integrity and halo phases and the SHMEM workloads (7a) again, where
+    every cross-device read or write goes over peer access (NVLink) —
+    send_arr's copy too — and a verify digests each card's outputs on
+    that card; a one-card host never takes this branch."""
     nc = min(NRANKS, torch.cuda.device_count())
     cards = [torch.device("cuda", r) for r in range(nc)]
     g = torch.Generator(device=cards[0])
@@ -3878,6 +4239,7 @@ def phase_cards() -> None:
     phase_rma(cards, f"{nc} cards, one rank each")
     phase_integrity(cards, "tpu", f"{nc} cards, one rank each")
     phase_halo(cards, "tpu", f"{nc} cards, one rank each")
+    phase_shmem_workloads(cards, f"{nc} cards, one PE each")
 
 
 def main(argv) -> int:
@@ -3950,6 +4312,9 @@ def main(argv) -> int:
                                   if r["name"] == "digest:gate_fsum_f32_8MiB"))
     phase_e2e_halo(dev)
     phase_trace(dev)
+    s_launches = phase_shmem(dev)
+    for r in rows:  # phase 7a's launches join the main path's counts
+        r["launches"] += s_launches[r["name"].split(":")[0]]
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,11 @@ identity.  Executing a plan is pure data motion:
       -> unpack (trim) + pvar accounting.
 
 A payload that is not a whole number of plan elements (a ragged size)
-pays the pack: one extra on-card copy of its payload.  The reference's
-zero-copy host-alias branch (``runtime/staging``) is not ported; the
-port always takes the copying branch.
+pays the pack: one extra copy of its payload, on its own device.  The
+reference's zero-copy branch (one memcpy into an aligned host buffer
+that jax then aliases, ``runtime/staging``) has no torch counterpart:
+``torch.cat`` already makes one fresh copy, and on the CPU its
+allocator aligns it to 64 bytes, so every device composes.
 
 Keying: resolved ``Plan`` objects live per comm in
 ``comm._coll_plans`` (bounded LRU, ``coll_plan_cache_max``).

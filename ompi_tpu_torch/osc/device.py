@@ -32,9 +32,14 @@ an op, that stream waits on an event recorded on the origin's current
 stream (a card-tensor origin or result written just before is read
 after the write); after it, a done event is recorded, and every tensor
 the stream read or wrote gets ``record_stream``.  A numpy origin is
-uploaded to the target's device before the call returns; a numpy
-result is filled after the stream has finished the op; a card-tensor
-result makes the caller's current stream wait on the done event.
+uploaded to the target's device before the call returns (one copy from
+pageable memory, so the caller's buffer is free once ``put`` returns);
+a numpy result is filled after the stream has finished the op; a
+card-tensor result makes the caller's current stream wait on the done
+event.  The port keeps no host mirror of a shard: the reference's
+write-through mirror and wholesale-put borrow exist only on its
+zero-copy runtime, and here a CPU shard already is host memory and a
+card's shard is the only copy.
 fence, flush*, unlock*, complete wait on every done event this origin
 recorded (the completion point, where the reference decouples its
 zero-copy puts): MPI forbids touching an origin buffer before them.

@@ -1,7 +1,7 @@
 """End-to-end A/B of checkouts of the port on one card.
 
     python3 -m ompi_tpu_torch.tools.e2e_ab ROOT [ROOT ...] [--reps 5]
-        [--iters 20] [--trace]
+        [--iters 20] [--trace | --rma-numpy]
 
 Each ROOT is the root of a checkout that holds ``ompi_tpu_torch/``:
 this one (``.``), or another commit unpacked with ``git archive`` into
@@ -34,6 +34,14 @@ tracer and the phase profiler on (full fidelity, dumps under
 waits, and its sum a call (a rank's waits in one call, averaged over
 the ranks and calls), to each root's line and the summary; a root
 whose package has no tracer cannot be traced.
+
+``--rma-numpy`` times the device window's host-buffer path in place of
+the collectives: 2 ranks on 2 logical devices of card 0, rank 0 puts a
+seeded numpy array to rank 1 (and gets it back into a numpy array)
+under a shared lock, ``iters`` ops closed by one flush, at 8 B, 64 KiB,
+1 MiB and 4 MiB, with ``osc_device_dma`` 1 and 0: the ladder a new
+way of moving the window's numpy buffers (pinned stages, say) has to
+beat.  The bytes each get returns must be the same in every root.
 """
 
 from __future__ import annotations
@@ -61,6 +69,10 @@ CASES = {  # name -> (collective, float32 elements a rank, knobs)
     "allreduce_sum_f32_1MiB": ("allreduce", MIB // 4, {}),
     "alltoall_f32_1MiB": ("alltoall", MIB // 4, {}),
 }
+RMA_SIZES = (8, 64 << 10, MIB, 4 * MIB)
+RMA_CASES = {  # name -> (op, bytes, osc_device_dma)
+    f"{op}_numpy_{nb}B_dma{dma}": (op, nb, dma)
+    for dma in (1, 0) for nb in RMA_SIZES for op in ("put", "get")}
 TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "trace", "ab")
 
@@ -75,7 +87,7 @@ def _rdv_wait_us(dumps, calls: int):
 
 
 def _child(root: str, reps: int, iters: int, cpu: bool,
-           traced: bool) -> dict:
+           traced: bool, rma: bool) -> dict:
     """Runs in a child process whose ompi_tpu_torch comes from root.
     ``cpu``: a rehearsal on the CPU at 1/256 of the sizes."""
     sys.path.insert(0, os.path.abspath(root))
@@ -154,11 +166,64 @@ def _child(root: str, reps: int, iters: int, cpu: bool,
             rdv = _rdv_wait_us(dumps, iters + 4)
         return max(dt for dt, _ in res) / iters * 1e6, res[0][1], rdv
 
-    us = {name: [] for name in CASES}
-    rdv = {name: [] for name in CASES}
+    def measure_rma(op, nb, dma, first):
+        import numpy as np
+
+        from ompi_tpu_torch import osc
+        from ompi_tpu_torch.osc import device as _  # noqa: F401
+        from ompi_tpu_torch.testing import logical_devices
+
+        def fn(comm):
+            win = osc.allocate(comm, nb, name="ab")
+            dt = digest = None
+            if comm.rank == 0:
+                data = np.random.default_rng(SEED + nb).integers(
+                    0, 256, nb, dtype=np.uint8)
+                back = np.empty(nb, dtype=np.uint8)
+                win.lock(1, osc.LOCK_SHARED)
+                for _ in range(2):
+                    win.put(data, 1)
+                    win.get(back, 1)
+                    win.flush(1)
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    if op == "put":
+                        win.put(data, 1)
+                    else:
+                        win.get(back, 1)
+                win.flush(1)
+                dt = time.perf_counter() - t0
+                win.unlock(1)
+                if back.tobytes() != data.tobytes():
+                    raise AssertionError(f"{nb} B round trip corrupt")
+                if first:
+                    digest = hashlib.sha256(back.tobytes()).hexdigest()
+            comm.Barrier()
+            win.free()
+            return dt, digest
+
+        saved = registry.get("osc_device_dma")
+        registry.set("osc_device_dma", dma)
+        try:
+            res = run_ranks(2, fn, device_map=logical_devices(dev),
+                            timeout=600)
+        finally:
+            registry.set("osc_device_dma", saved)
+        return res[0][0] / iters * 1e6, res[0][1], None
+
+    cases = RMA_CASES if rma else CASES
+    us = {name: [] for name in cases}
+    rdv = {name: [] for name in cases}
     digests = {}
     for rep in range(reps):
-        for name in CASES:
+        for name in cases:
+            if rma:
+                op, nb, dma = cases[name]
+                t, d, w = measure_rma(op, max(1, nb // div), dma, rep == 0)
+                us[name].append(t)
+                if d is not None:
+                    digests[name] = d
+                continue
             kind, n, knobs = CASES[name]
             t, d, w = measure(kind, n // div + n % div, rep == 0, knobs)
             us[name].append(t)
@@ -181,11 +246,16 @@ def main(argv=None) -> int:
                     help="rehearse on the CPU at 1/256 of the sizes")
     ap.add_argument("--trace", action="store_true",
                     help="trace every measurement; report ph_rdv_wait")
+    ap.add_argument("--rma-numpy", action="store_true",
+                    help="time the device window's numpy-buffer puts "
+                         "and gets in place of the collectives")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
+    if a.trace and a.rma_numpy:
+        ap.error("--trace and --rma-numpy exclude each other")
     if a.child:
         print(json.dumps(_child(a.roots[0], a.reps, a.iters, a.cpu,
-                                a.trace)), flush=True)
+                                a.trace, a.rma_numpy)), flush=True)
         return 0
     if not a.cpu:
         import torch
@@ -205,7 +275,8 @@ def main(argv=None) -> int:
             [sys.executable, os.path.abspath(__file__), "--child",
              "--reps", str(a.reps), "--iters", str(a.iters), root]
             + (["--cpu"] if a.cpu else [])
-            + (["--trace"] if a.trace else []),
+            + (["--trace"] if a.trace else [])
+            + (["--rma-numpy"] if a.rma_numpy else []),
             capture_output=True, text=True, timeout=1800)
         if p.returncode:
             sys.stderr.write(p.stdout[-4000:] + p.stderr[-8000:])
@@ -213,13 +284,14 @@ def main(argv=None) -> int:
         runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     ok = True
-    for name in CASES:
+    cases = list(runs[0]["us_per_op"])
+    for name in cases:
         if len({r["digests"][name] for r in runs}) != 1:
             print(f"[e2e_ab] {name}: the roots' results differ",
                   file=sys.stderr)
             ok = False
     order = list(dict.fromkeys(a.roots))
-    for name in CASES:
+    for name in cases:
         med = {root: statistics.median(
             [t for r in runs if r["root"] == root
              for t in r["us_per_op"][name]]) for root in order}
