@@ -15,8 +15,10 @@ Phases, each fatal on failure (nothing is caught and carried on):
              {2, 3, 8}, ragged and misaligned lengths, NaN inputs for
              MAX/MIN; K2 stacked_copy for alltoall and allgather; K3
              fused_batch over every pair K1 takes, N in {2, 3, 8},
-             ragged slots, bcast entries, NaN, a group split over
-             several launches and a mixed batch of several groups; K4
+             ragged slots, bcast entries, NaN, a group of 300 slots
+             split over several launches, a combined dispatch's table
+             of 128 slots in one launch and its refusal of 129, and a
+             mixed batch of several groups; K4
              index_gather and K5 index_scatter over the five element
              widths with vector, indexed and contiguous index vectors,
              and K5 in run mode (stride 2 at 4099 and 2**20 elements,
@@ -173,7 +175,11 @@ Phases, each fatal on failure (nothing is caught and carried on):
              a float32 view 4 bytes into its buffer and on uint8, K5
              also on the whole 2**20-element config 5 result (run mode)
              and on 2**17 random destinations in a 2**18 span (index
-             mode).
+             mode).  The cross-session combined dispatches of phase 8:
+             K3 over 2 x 32 slots of 64 KiB at N = 8 in one launch
+             (B4m), K6 over two sessions' 2 MiB group buffers as jobs
+             of one table and K2 peer over the stripes of the 4 MiB
+             end-to-end vector (B10m).
 5. e2e     — host clock, slowest rank: comm.allreduce_arr at 8 ranks x
              8 MiB float32 (the headline); a fused batch of 32
              iallreduce_arr of 64 KiB with one wait against the same
@@ -200,7 +206,10 @@ Phases, each fatal on failure (nothing is caught and carried on):
              calls' time, coverage (asserted >= 0.90 on the segmented
              route, printed on the plan route), the gating verdicts and
              the dispatch-tax table.  Traced results byte-identical to
-             untraced ones, launch counts exactly the route's.  Then one
+             untraced ones, launch counts exactly the route's.  The
+             traced plan headline again with the obs scrape tick on
+             (obs_scrape_interval_ms at its default, 100) and off (0),
+             in turns (on, off, off, on): its cost.  Then one
              armed integrity gate (1-in-1) on the plan route with the
              same split, and the straggler: ft_inject delay of 40 ms at
              every deposit of one rank on the segmented route —
@@ -233,6 +242,30 @@ Phases, each fatal on failure (nothing is caught and carried on):
              lock's µs a critical section, both lowerings, host clock,
              slowest PE.  With two or more cards 7a runs again one PE a
              card.  7a's launches join the kernels line's counts.
+8. sessions — two resident sessions (testing.sessions.run_sessions:
+             thread worlds of 8 ranks in cid bands 1 and 2) flushing
+             fused batches of 32 iallreduce_arr SUM of 64 KiB float32,
+             every rank of both behind one barrier before each flush.
+             8a on the card (coll/hbm), 8b on its 8 logical devices
+             (the mesh tier): the solo runs, window 0, then the window
+             open (200 ms): every output byte-identical to its solo
+             run; launches exact (a combined dispatch: one K3 a group;
+             one K6 and one K2 peer a card, K7 one a rank); the
+             dvm_xsession pvars and the per-band fused_batches exact;
+             the bands' cids disjoint.  Then 8a's join limit: 5
+             sessions, one flush each, the window open: at most 4 a
+             combined dispatch (one K3 launch holds 128 slots at 8
+             ranks), the fifth in a window of its own, one K3 launch a
+             dispatch, outputs byte-identical to the solo runs.
+             8c: phase 3d's injected mode
+             again on both tiers with the flight recorder: ft_inject
+             and sdc_* events equal the integrity pvars' moves, each
+             with the reference's fields, the ring's dump loads in
+             traceview.  8d (printed): host clock, slowest rank, us a
+             collective of two sessions x 20 flushes at windows 0, 200
+             and 1000 us in turns (A B C A B C), and the combined K3
+             against two solo launches (device and a call).  8a/8b's
+             launches join the kernels line's counts.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -677,10 +710,11 @@ def _held_slots(outs, refs, what: str):
 def _kernels_fused(dev, g) -> int:
     """K3 against its plain version: every pair K1 takes, N = 2, 3, 8,
     ragged slots (1 to 5000 elements, one misaligned), bcast entries in
-    the SUM groups, NaN for float MAX/MIN (make_shard); a group of 80
-    slots at N = 8, which the wrapper splits over several launches;
-    and one mixed batch of several groups through coll/fusion's
-    grouping (_hbm_slot_outs)."""
+    the SUM groups, NaN for float MAX/MIN (make_shard); a group of 300
+    slots at N = 8, which the wrapper splits over several launches; a
+    combined dispatch's table of 128 slots in one launch, and its
+    refusal of 129 (split=False); and one mixed batch of several
+    groups through coll/fusion's grouping (_hbm_slot_outs)."""
     from ompi_tpu_torch.coll import fusion
     from ompi_tpu_torch.kernels import fused, stacked
     ncases = 0
@@ -707,16 +741,31 @@ def _kernels_fused(dev, g) -> int:
                 ncases += 1
             log(f"[K3] {str(dtype)[6:]:>8} {opname:<9} max_abs {worst[0]} "
                 f"max_rel {worst[1]}")
+    nbig = 300
     slots = [([make_shard(g, 300 + k, torch.float32, "MPI_MAX", dev)
-               for _ in range(NRANKS)], None) for k in range(80)]
+               for _ in range(NRANKS)], None) for k in range(nbig)]
     c0 = fused.fused_batch.launches.value
     got = fused.fused_batch(slots, "MPI_MAX")
     parts = fused.fused_batch.launches.value - c0
     _held_slots(got, fused.fused_batch_plain(slots, "MPI_MAX"),
-                "K3 80-slot group")
-    if parts != -(-80 // (fused.MAX_PTRS // NRANKS)):
-        raise AssertionError(f"K3 80-slot group took {parts} launches")
-    ncases += 1
+                f"K3 {nbig}-slot group")
+    if parts != -(-nbig // fused.per_launch(NRANKS)):
+        raise AssertionError(f"K3 {nbig}-slot group took {parts} launches")
+    # a combined dispatch's table: one launch up to per_launch slots,
+    # a ValueError past it (nothing launched, nothing split)
+    per = fused.per_launch(NRANKS)
+    c0 = fused.fused_batch.launches.value
+    got = fused.fused_batch(slots[:per], "MPI_MAX", split=False)
+    _held_slots(got, fused.fused_batch_plain(slots[:per], "MPI_MAX"),
+                f"K3 combined table of {per} slots")
+    try:
+        fused.fused_batch(slots[:per + 1], "MPI_MAX", split=False)
+        raise AssertionError("K3 took a combined table past one launch")
+    except ValueError:
+        pass
+    if fused.fused_batch.launches.value - c0 != 1:
+        raise AssertionError("K3's combined table is not one launch")
+    ncases += 2
     # a mixed batch: the interleaved signature of test_coll_fusion plus
     # a second float32 MAX and a bool LOR slot, several groups
     sig = (("allreduce", (16,), torch.int32, "MPI_SUM"),
@@ -2181,7 +2230,7 @@ def integrity_cases(devs, tier: str, injected: bool):
     return cases, meetings[0]
 
 
-def phase_integrity(devs, tier: str, what: str):
+def phase_integrity(devs, tier: str, what: str, modes=(True, False)):
     """The integrity plane through the port's entry points, armed at
     1-in-1 (integrity_sample 1, integrity_sample_auto 0), on N =
     len(devs) rank threads of ``tier``.  Injected (ft_inject_plan
@@ -2190,13 +2239,14 @@ def phase_integrity(devs, tier: str, what: str):
     byte, the convictions exactly rank 1, mismatches = retries =
     convictions = the checked meetings.  Clean (no plan; the same mix
     plus a float16 SUM and an unchecked bfloat16 SUM): zero mismatches,
-    checks > 0.  Launch counts (K11 included) exact, case by case."""
+    checks > 0.  Launch counts (K11 included) exact, case by case.
+    ``modes``: the runs to make (True injected, False clean)."""
     from ompi_tpu_torch import ft_inject  # noqa: F401  (registers knobs)
     from ompi_tpu_torch.mca.params import registry
     from ompi_tpu_torch.obs import integrity as ig
     n = len(devs)
     launches, per_call = {}, {}
-    for injected in (True, False):
+    for injected in modes:
         knobs = dict(IG_ARM, **(IG_INJECT if injected else
                                 {"ft_inject_plan": ""}))
         saved = {k: registry.get(k) for k in knobs}
@@ -2726,6 +2776,16 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         lambda slots: fused.fused_batch_plain(slots, "MPI_SUM"),
         lambda slots: [torch.stack(xs).sum(0) for xs, _ in slots], 100,
         source="fused.cu")
+    # B4m: the cross-session combined dispatch of phase 8a, both
+    # sessions' 2 x 32 slots of 64 KiB in one K3 launch
+    row(f"fused_batch:combined_2x{FUSED_OPS}x64KiB_sum_f32", "fused_batch",
+        None, "ompi_tpu/coll/fusion.py:371", 2 * 2 * n * FUSED_OPS * nf * 4,
+        lambda i: [([rank_elems(r, nf, torch.float32, dev, 160 + k + 70 * i)
+                     for r in range(n)], None) for k in range(2 * FUSED_OPS)],
+        lambda slots: fused.fused_batch(slots, "MPI_SUM", split=False),
+        lambda slots: fused.fused_batch_plain(slots, "MPI_SUM"),
+        lambda slots: [torch.stack(xs).sum(0) for xs, _ in slots], 100,
+        source="fused.cu")
     # K4 and K5 at config 5's shapes: gather the even elements of a
     # 2 * CONFIG5_N float64 buffer; scatter a CONFIG5_N / N stripe into
     # a stride-2 receive layout.  Bytes: the index vector, the packed
@@ -2816,6 +2876,34 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
             (n + 1) * nbytes, ranks(nbytes, torch.float32, 74),
             k_fn, p_fn, lambda xs: torch.stack(xs).sum(0), iters,
             source="mesh.cu")
+    # B10m: phase 8b's combined dispatch — K6 over both sessions' group
+    # buffers (2 MiB a rank a session) as jobs of one table, then K2
+    # peer gathering the stripes of the 4 MiB end-to-end vector
+    nb = int(FUSED_OPS * FUSED_MIB * MIB) // 4
+    xl = 2 * nb
+    xst = _stripe_elems(xl, n, 4)
+
+    def xjobs():
+        jobs = []
+        for d in range(n):
+            lo0, hi0 = d * xst, min((d + 1) * xst, xl)
+            buf = torch.empty(xst, device=dev)
+            for p in range(2):
+                lo, hi = max(lo0, p * nb), min(hi0, (p + 1) * nb)
+                if lo < hi:
+                    jobs.append((buf[lo - lo0:hi - lo0], lo - p * nb, p))
+        return jobs
+
+    row(f"mesh_fold:combined_2x{FUSED_OPS}x64KiB_sum_f32", "mesh_fold", None,
+        "ompi_tpu/coll/fusion.py:310", (n + 1) * 2 * nb * 4,
+        lambda i: [[rank_elems(r, nb, torch.float32, dev, 170 + 10 * p + 40 * i)
+                    for r in range(n)] for p in range(2)],
+        lambda sets: mesh.mesh_fold_many(sets, xjobs(), "MPI_SUM",
+                                         split=False),
+        lambda sets: [mesh.mesh_fold_plain(sets[p], lo, o.numel(), "MPI_SUM")
+                      for o, lo, p in xjobs()],
+        lambda sets: [torch.stack(xs).sum(0) for xs in sets], 100,
+        source="mesh.cu")
     # the body without the grouping: the one launch a card of one rank a
     # card, folding one 1 MiB stripe of 8 inputs
     n1 = MIB // 4
@@ -2838,6 +2926,13 @@ def phase_timing(dev, launches: dict, per_call: dict) -> list:
         gathers(stacked.peer_copy_many, n8, ms, n),
         gathers(stacked.peer_copy_many_plain, n8, ms, n),
         lambda st: torch.cat(list(st) * n), 50)
+    row(f"peer_copy:combined_2x{FUSED_OPS}x64KiB_stripes_f32", "peer_copy",
+        None, "ompi_tpu/coll/fusion.py:310", (n + 1) * xl * 4,
+        lambda i: [rank_elems(r, xst, torch.float32, dev, 178 + 10 * i)
+                   for r in range(n)],
+        gathers(stacked.peer_copy_many, xl, xst, n),
+        gathers(stacked.peer_copy_many_plain, xl, xst, n),
+        lambda st: torch.cat(list(st) * n), 100)
     row("peer_copy:gather_8_stripes_1MiB_one_output_f32", "peer_copy", None,
         "ompi_tpu/coll/device.py:997", 2 * n * MIB,
         lambda i: [rank_elems(r, n1, torch.float32, dev, 76 + 10 * i)
@@ -3845,6 +3940,21 @@ def phase_trace(dev) -> None:
             f"20 chained ops); traced over untraced, best of each "
             f"{(on[0] / off[0] - 1) * 100:.1f}%; results byte-identical; "
             f"launches {want} a run [{card}]")
+    # the scrape tick's cost: the traced headline, plan route, with the
+    # obs scraper on the progress tick (obs_scrape_interval_ms at its
+    # default) and off (0), in turns
+    scrape = {True: [], False: []}
+    for on in (True, False, False, True):
+        us, _, launches, _ = trace_run(
+            dev, {} if on else {"obs_scrape_interval_ms": 0}, "scrape")
+        if launches != {"stacked_reduce": TRACE_WARM + 20}:
+            raise AssertionError(f"scrape {on}: launches {launches}")
+        scrape[on].append(us)
+    log(f"[trace] scrape tick, traced headline, plan route (on, off, off, "
+        f"on): on {[round(u, 1) for u in scrape[True]]} us/op, off "
+        f"{[round(u, 1) for u in scrape[False]]} us/op; on over off, best "
+        f"of each {(min(scrape[True]) / min(scrape[False]) - 1) * 100:.1f}%"
+        f" [{card}]")
     # one armed integrity gate at 1-in-1: N gate + 1 verify K11 a call
     us, _, launches, dumps = trace_run(
         dev, dict(IG_ARM, ft_inject_plan=""), "integrity_armed")
@@ -4221,6 +4331,309 @@ def phase_shmem(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 8. sessions: cross-session fused batches (B4m, B10m) and their plane
+# ---------------------------------------------------------------------------
+
+XS_WINDOW_US = 200_000   # 8a/8b's window: long against the host's jitter
+XS_FLUSHES = 2           # flushes a session in 8a/8b
+XS_WINDOWS = (0, 200, 1000)  # 8d's windows (us), timed in turns
+XS_TIMED = 20            # flushes a session in a timed run of 8d
+XS_COUNTED = ("fused_batch", "mesh_fold", "peer_copy", "slot_pack")
+
+
+def xs_program(nflush: int, barrier, timed: bool = False):
+    """fn(comm) of a resident session: ``nflush`` fused flushes of
+    FUSED_OPS iallreduce_arr SUM of 64 KiB float32, inputs seeded by
+    (session band, rank, flush, slot); every rank of every session
+    passes ``barrier`` (a threading.Barrier) before each flush, or once
+    before the timed loop.  Returns each flush's outputs (cloned: they
+    are views of the combined dispatch's buffers), the world's and a
+    dup's cid, and, timed, the seconds of the loop (ending in a
+    synchronize)."""
+    from ompi_tpu_torch.op.op import SUM
+    nf = int(FUSED_MIB * MIB) // 4
+
+    def fn(comm):
+        s = comm.state.cid_band
+        dev = comm.state.device
+        xs = [[rank_elems(comm.rank, nf, torch.float32, dev,
+                          1000 * s + 50 * (f % 4) + k)
+               for k in range(FUSED_OPS)] for f in range(min(nflush, 4))]
+        torch.cuda.synchronize()
+        outs = []
+        if timed:
+            barrier.wait()
+            t0 = time.perf_counter()
+        for f in range(nflush):
+            if not timed:
+                barrier.wait()
+            qs = [comm.iallreduce_arr(x, SUM) for x in xs[f % 4]]
+            comm.flush_arr()
+            if not timed:
+                outs.append([q.result.clone() for q in qs])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0 if timed else None
+        return {"outs": outs, "cids": (comm.cid, comm.dup().cid),
+                "s": took}
+    return fn
+
+
+def xs_counts():
+    """The counters phase 8 reads: the kernels' launches, the
+    cross-session pvars, and fused_batches in bands 1 and 2 and in
+    all."""
+    from ompi_tpu_torch.coll import fusion
+    c = launch_counters()
+    return dict({k: c[k].value for k in XS_COUNTED},
+                xb=fusion._pv_xbatches.read(), xc=fusion._pv_xcolls.read(),
+                b1=fusion._pv_batches.read_band(1),
+                b2=fusion._pv_batches.read_band(2),
+                fb=fusion._pv_batches.read())
+
+
+def xs_run(device_map, window_us, nflush: int, solo: bool = False,
+           k: int = 2):
+    """``k`` sessions of NRANKS ranks: at once through run_sessions
+    (window ``window_us``), or one after the other (``solo``: window
+    closed, hint 0, each in its own band).  The launch counters are
+    set to 0 just before and read just after.  Returns (results, the
+    counters' moves)."""
+    import threading
+    from ompi_tpu_torch.testing import run_ranks
+    from ompi_tpu_torch.testing.sessions import run_sessions
+    for c in launch_counters().values():
+        c.reset()
+    c0 = xs_counts()
+    if solo:
+        with _knobs(dvm_batch_window_us=0):
+            res = [run_ranks(NRANKS, xs_program(nflush,
+                                                threading.Barrier(NRANKS)),
+                             device_map=device_map, cid_band=s + 1,
+                             timeout=600) for s in range(k)]
+    else:
+        res = run_sessions(k, NRANKS, xs_program(
+            nflush, threading.Barrier(k * NRANKS)), device_map=device_map,
+            window_us=window_us, timeout=600)
+    torch.cuda.synchronize()
+    c1 = xs_counts()
+    return res, {k: c1[k] - c0[k] for k in c0}
+
+
+def phase_sessions_path(dev, tier: str) -> dict:
+    """8a (hbm: 8 ranks of each session on the card) or 8b (mesh: 8
+    logical devices of it): the solo runs, then window 0, then the
+    window open.  Every session's outputs equal its solo run's byte for
+    byte; the launches, the cross-session pvars and the per-band
+    fused_batches exact; the bands' cids disjoint.  Returns the open
+    window's launches."""
+    from ompi_tpu_torch.comm.communicator import SESSION_CID_STRIDE
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    if tier == "hbm":
+        dmap, what = (lambda r: dev), f"8 ranks a session on {dev}"
+    else:
+        dmap = lambda r: LogicalDevice(dev, r)  # noqa: E731
+        what = f"8 logical devices of {dev}"
+    F, n = XS_FLUSHES, NRANKS
+    solo, _ = xs_run(dmap, 0, F, solo=True)
+    # expected launches a flush pair: hbm one K3 a session (one group),
+    # combined one; mesh one K7 a rank, one K6 and one K2 peer a card a
+    # session, combined one
+    pack = {"slot_pack": 2 * n * F} if tier != "hbm" else {}
+    kern = ("fused_batch",) if tier == "hbm" else ("mesh_fold", "peer_copy")
+    want = {0: dict(pack, **{k: 2 * F for k in kern}, xb=0, xc=0),
+            XS_WINDOW_US: dict(pack, **{k: F for k in kern}, xb=F,
+                               xc=F * 2 * FUSED_OPS)}
+    launches = {}
+    for window in (0, XS_WINDOW_US):
+        res, got = xs_run(dmap, window, F)
+        for s in range(2):
+            for r in range(n):
+                for f in range(F):
+                    for a, b in zip(res[s][r]["outs"][f],
+                                    solo[s][r]["outs"][f]):
+                        if not torch.equal(a.view(torch.uint8),
+                                           b.view(torch.uint8)):
+                            raise AssertionError(
+                                f"8{'a' if tier == 'hbm' else 'b'} window "
+                                f"{window}: session {s + 1} rank {r} flush "
+                                f"{f} differs from its solo run")
+        for k, v in want[window].items():
+            if got[k] != v:
+                raise AssertionError(f"sessions {tier} window {window}: "
+                                     f"{k} {got[k]}, expected {v}")
+        for k in XS_COUNTED:
+            if k not in want[window] and got[k]:
+                raise AssertionError(f"sessions {tier}: {k} launched "
+                                     f"{got[k]} times")
+        if not (got["b1"] == got["b2"] == n * F
+                and got["fb"] == got["b1"] + got["b2"]):
+            raise AssertionError(f"sessions {tier}: fused_batches bands "
+                                 f"{got['b1']}, {got['b2']}, all {got['fb']}")
+        cids = [{c for r in res[s] for c in r["cids"]} for s in range(2)]
+        if cids[0] & cids[1] or not all(
+                (s + 1) * SESSION_CID_STRIDE <= c < (s + 2) *
+                SESSION_CID_STRIDE for s in range(2) for c in cids[s]):
+            raise AssertionError(f"sessions {tier}: cids {cids}")
+        log(f"[sessions] {tier}, 2 sessions x {F} flushes of {FUSED_OPS} x "
+            f"64 KiB, {what}, window {window} us: outputs equal the solo "
+            f"runs byte for byte; launches "
+            f"{ {k: got[k] for k in XS_COUNTED if got[k]} }, "
+            f"xsession_batches {got['xb']}, xsession_collectives "
+            f"{got['xc']}, fused_batches bands 1/2 {got['b1']}/{got['b2']}"
+            f" (all {got['fb']}), cids {sorted(min(c) for c in cids)}")
+        if window:
+            launches = {k: got[k] for k in XS_COUNTED}
+    return launches
+
+
+XS_MANY = 5   # sessions of 8a's join limit: one more than a K3 launch holds
+
+
+def phase_sessions_limit(dev) -> None:
+    """8a, the join limit: XS_MANY sessions of 8 ranks on the card, one
+    flush each, the window open.  One K3 launch holds 4 sessions' 32
+    slots at 8 ranks, so a batch that would pass it leads a window of
+    its own: every dispatch is one K3 launch (a combined one carrying
+    at most 4 sessions), nothing raises, and every session's outputs
+    equal its solo run's byte for byte."""
+    from ompi_tpu_torch.kernels import fused
+    k, n = XS_MANY, NRANKS
+    per = fused.per_launch(n) // FUSED_OPS
+    dmap = lambda r: dev  # noqa: E731
+    solo, _ = xs_run(dmap, 0, 1, solo=True, k=k)
+    res, got = xs_run(dmap, XS_WINDOW_US, 1, k=k)
+    for s in range(k):
+        for r in range(n):
+            for a, b in zip(res[s][r]["outs"][0], solo[s][r]["outs"][0]):
+                if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                    raise AssertionError(
+                        f"8a limit: session {s + 1} rank {r} differs from "
+                        "its solo run")
+    combined = got["xc"] // FUSED_OPS   # sessions that rode a combined one
+    alone = k - combined
+    if not (got["xb"] >= 1 and combined <= per * got["xb"]
+            and got["fused_batch"] == got["xb"] + alone):
+        raise AssertionError(f"8a limit: {got['xb']} combined dispatches "
+                             f"carrying {combined} sessions, {alone} alone, "
+                             f"{got['fused_batch']} K3 launches")
+    log(f"[sessions] hbm join limit, {k} sessions x 1 flush of {FUSED_OPS} "
+        f"x 64 KiB, 8 ranks a session on {dev}, window {XS_WINDOW_US} us: "
+        f"{got['xb']} combined dispatches carrying {combined} sessions "
+        f"(at most {per} a launch), {alone} alone, {got['fused_batch']} K3 "
+        "launches (one a dispatch), outputs equal the solo runs byte for "
+        "byte")
+
+
+def phase_sessions_flight(dev) -> None:
+    """8c: the flight recorder under phase 3d's injected device_sdc
+    (its injected mode again, both tiers): the ft_inject and sdc_*
+    events equal the integrity pvars' moves, every event carries the
+    reference's fields, and the ring's trace dump loads in the port's
+    traceview."""
+    from ompi_tpu_torch import obs
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.obs import integrity  # noqa: F401  (its pvars)
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    from ompi_tpu_torch.tools import traceview
+    rec = obs.recorder()
+    for tier, devs, what in (
+            ("hbm", [dev] * NRANKS, f"8 ranks on {dev}"),
+            ("tpu", [LogicalDevice(dev, r) for r in range(NRANKS)],
+             f"8 logical devices on {dev}")):
+        h0 = rec.recorded
+        base = {k: registry._pvars[k].read() for k in IG_PVARS}
+        phase_integrity(devs, tier, f"8c flight recorder, {what}",
+                        modes=(True,))
+        nev = rec.recorded - h0
+        if nev > rec.cap:
+            raise AssertionError(f"8c: {nev} events overran the ring of "
+                                 f"{rec.cap}")
+        pv = {k: registry._pvars[k].read() - base[k] for k in IG_PVARS}
+        evs = rec.snapshot(last=nev)
+        count = {nm: sum(e["name"] == nm for e in evs) for nm in (
+            "ft_inject", "sdc_mismatch", "sdc_convict", "sdc_retry")}
+        want = {"ft_inject": pv["integrity_mismatches"],
+                "sdc_mismatch": pv["integrity_mismatches"],
+                "sdc_convict": pv["integrity_convictions"],
+                "sdc_retry": pv["integrity_retry_ops"]}
+        if count != want or not count["sdc_mismatch"] or \
+                sum(count.values()) != nev:
+            raise AssertionError(f"8c {tier}: events {count}, pvars {pv}")
+        for e in evs:
+            i = obs.EVENT_NAMES.index(e["name"])
+            if tuple(e["args"]) != tuple(f.rstrip("$") for f in
+                                         obs.EVENT_FIELDS[i]):
+                raise AssertionError(f"8c: event {e} lacks its fields")
+            if e["name"] == "sdc_convict" and e["args"]["rank"] != 1:
+                raise AssertionError(f"8c: conviction of {e['args']}")
+        path = os.path.join(TRACE_DIR, f"flight-{tier}.json")
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        if rec.persist(path) != path:
+            raise AssertionError(f"8c: the ring did not persist to {path}")
+        doc = traceview.chrome_trace(traceview.load_dumps([path]), [])
+        names = {e.get("name") for e in doc["traceEvents"]}
+        if not set(count) <= names:
+            raise AssertionError(f"8c: traceview lost events: {names}")
+        log(f"[sessions] 8c flight recorder, {what}: {count} = the "
+            f"integrity pvars' moves {pv}; every event has its fields; "
+            f"{path} loads in traceview ({len(doc['traceEvents'])} "
+            "trace events)")
+
+
+def phase_sessions_timing(dev) -> None:
+    """8d: host clock, slowest rank of either session, us a collective:
+    two sessions x XS_TIMED flushes of FUSED_OPS x 64 KiB on the card
+    (hbm), windows XS_WINDOWS in turns (A B C A B C); and the combined
+    K3 launch (2 x FUSED_OPS slots) against two solo launches, device
+    time (CUDA graph replay) and time a call."""
+    import threading
+    from ompi_tpu_torch.coll import fusion
+    from ompi_tpu_torch.kernels import fused
+    from ompi_tpu_torch.testing.sessions import run_sessions
+    per = {w: [] for w in XS_WINDOWS}
+    comb = {w: [] for w in XS_WINDOWS}
+    for turn in range(2):
+        for w in XS_WINDOWS:
+            xb0 = fusion._pv_xbatches.read()
+            res = run_sessions(2, NRANKS, xs_program(
+                XS_TIMED, threading.Barrier(2 * NRANKS), timed=True),
+                device_map=lambda r: dev, window_us=w, timeout=600)
+            slow = max(r["s"] for ss in res for r in ss)
+            per[w].append(slow / (XS_TIMED * FUSED_OPS) * 1e6)
+            comb[w].append(fusion._pv_xbatches.read() - xb0)
+    for w in XS_WINDOWS:
+        log(f"[sessions] 8d window {w} us: "
+            f"{', '.join(f'{u:.2f}' for u in per[w])} us a collective "
+            f"(two sessions x {XS_TIMED} flushes of {FUSED_OPS} x 64 KiB, "
+            f"slowest rank, turns A B C A B C), combined dispatches "
+            f"{comb[w]} of {XS_TIMED}")
+    nf = int(FUSED_MIB * MIB) // 4
+    slots = [([rank_elems(r, nf, torch.float32, dev, 90 + k)
+               for r in range(NRANKS)], None) for k in range(2 * FUSED_OPS)]
+    a, b = slots[:FUSED_OPS], slots[FUSED_OPS:]
+    c_ms, c_call = time_ms(
+        lambda i: fused.fused_batch(slots, "MPI_SUM", split=False), 100)
+    s_ms, s_call = time_ms(lambda i: (fused.fused_batch(a, "MPI_SUM"),
+                                      fused.fused_batch(b, "MPI_SUM")), 100)
+    bound = 2 * NRANKS * 2 * FUSED_OPS * nf * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"[sessions] 8d K3 combined ({2 * FUSED_OPS} slots x 8 ranks, one "
+        f"launch): {c_ms:.4f} ms device ({c_call:.4f} a call), two solo "
+        f"launches of {FUSED_OPS}: {s_ms:.4f} ms device ({s_call:.4f} a "
+        f"call); bound {bound:.4f} ms (warm: one input set)")
+
+
+def phase_sessions(dev) -> dict:
+    """Phase 8: 8a, 8b (their launches, the path's count), 8c, 8d."""
+    launches = phase_sessions_path(dev, "hbm")
+    for k, v in phase_sessions_path(dev, "tpu").items():
+        launches[k] = launches.get(k, 0) + v
+    phase_sessions_limit(dev)
+    phase_sessions_flight(dev)
+    phase_sessions_timing(dev)
+    return launches
+
+
 def phase_cards() -> None:
     """One rank a card, on a host with two or more: the mesh, RMA,
     integrity and halo phases and the SHMEM workloads (7a) again, where
@@ -4253,6 +4666,12 @@ def main(argv) -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)}")
     phase_build()
+    from ompi_tpu_torch import obs
+    from ompi_tpu_torch.mca.params import registry
+    # the flight recorder's ring (sized at its first use, the first
+    # world's init): room for every event of phase 8c's injected runs
+    registry.set("obs_events_ring", 4096)
+    obs.recorder()
     if argv == ["--cards"]:
         if torch.cuda.device_count() < 2:
             print("chip_smoke: --cards needs two or more cards",
@@ -4315,6 +4734,12 @@ def main(argv) -> int:
     s_launches = phase_shmem(dev)
     for r in rows:  # phase 7a's launches join the main path's counts
         r["launches"] += s_launches[r["name"].split(":")[0]]
+    x_launches = phase_sessions(dev)
+    for r in rows:  # and phase 8a/8b's, the combined dispatches'
+        k = r["name"].split(":")[0]
+        r["launches"] += x_launches.get(k, 0)
+        if ":combined_" in r["name"]:
+            r["launches_per_call"] = x_launches[k] // XS_FLUSHES
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1132,28 +1132,63 @@ def _mesh_allreduce(xs: List[torch.Tensor], opname: str, order="rank",
                     outs: Optional[List[torch.Tensor]] = None
                     ) -> List[torch.Tensor]:
     """Allreduce of one tensor a member (xs[d] on member d's device):
-    device d folds stripe d of every member's tensor (K6, ``order`` as
-    ``kernels.mesh._order`` takes it) into a stripe buffer on d, then
-    gathers every stripe from its owner (K2 peer mode) into its output
-    — ``outs[d]`` when given (written in place), else a new tensor.
-    One K6 and one K2 peer launch a card (each over a destination
-    table of every member on that card)."""
-    x0 = xs[0]
-    n = x0.numel()
+    ``_mesh_allreduce_sets`` over one set, into ``outs[d]`` when given
+    (written in place), else new tensors.  One K6 and one K2 peer
+    launch a card."""
+    bufs = None if outs is None else [o.view(-1) for o in outs]
+    res = _mesh_allreduce_sets([xs], opname, order, bufs)[0]
+    return res if outs is None else outs
+
+
+def _mesh_allreduce_sets(sets: List[List[torch.Tensor]], opname: str,
+                         order="rank",
+                         outs: Optional[List[torch.Tensor]] = None,
+                         split: bool = True) -> List[List[torch.Tensor]]:
+    """Allreduce of one or more tensors a member at once: sets[p] holds
+    one tensor a member (sets[p][d] on member d's device, the same
+    devices for every p; one dtype).  The sets are laid end to end as
+    one vector of L elements; device d folds stripe d of that vector
+    (K6, ``order`` as ``kernels.mesh._order`` takes it: a job for each
+    set the stripe meets, reading that set's inputs) into a stripe
+    buffer on d, then gathers every stripe from its owner (K2 peer)
+    into one buffer of L elements — ``outs[d]`` when given (flat,
+    written in place), else a new one — so that the result's [p][d]
+    is a view of set p's elements on device d.  One K6 and one K2 peer
+    launch a card for all the sets (each over a destination table of
+    every member on that card): a combined dispatch of several
+    sessions' group buffers.  ``split`` False raises ValueError where
+    K6's table would need a second launch on a card."""
+    xs0 = sets[0]
+    size = len(xs0)
+    devices = [x.device for x in xs0]
+    for xs in sets:
+        if [x.device for x in xs] != devices:
+            raise ValueError("_mesh_allreduce_sets: every set lies on the "
+                             "members' devices")
+    lens = [xs[0].numel() for xs in sets]
+    offs = [0] * len(sets)
+    for p in range(1, len(sets)):
+        offs[p] = offs[p - 1] + lens[p - 1]
+    total = offs[-1] + lens[-1]
+    dt = xs0[0].dtype
     if outs is None:
-        outs = [torch.empty(x0.shape, dtype=x0.dtype, device=x.device)
-                for x in xs]
-    if n == 0:
-        return outs
-    flats = [x.reshape(-1) for x in xs]
-    m = _stripe_elems(n, len(xs), x0.element_size())
-    stripes = [torch.empty(m, dtype=x0.dtype, device=x.device) for x in xs]
-    mesh.mesh_fold_many(flats, [(buf[:min(m, n - d * m)], d * m)
-                                for d, buf in enumerate(stripes)
-                                if d * m < n], opname, order)
-    _cross_fence([x.device for x in xs], stripes)
-    stacked.peer_copy_many(stripes, [o.view(-1) for o in outs], m, limit=n)
-    return outs
+        outs = [torch.empty(total, dtype=dt, device=d) for d in devices]
+    if total:
+        m = _stripe_elems(total, size, xs0[0].element_size())
+        stripes = [torch.empty(m, dtype=dt, device=d) for d in devices]
+        jobs = []
+        for d in range(size):
+            a, b = d * m, min((d + 1) * m, total)
+            for p, (o, n) in enumerate(zip(offs, lens)):
+                lo, hi = max(a, o), min(b, o + n)
+                if lo < hi:
+                    jobs.append((stripes[d][lo - a:hi - a], lo - o, p))
+        mesh.mesh_fold_many([[x.reshape(-1) for x in xs] for xs in sets],
+                            jobs, opname, order, split)
+        _cross_fence(devices, stripes)
+        stacked.peer_copy_many(stripes, outs, m, limit=total)
+    return [[outs[d][o:o + n].view(xs[d].shape) for d in range(size)]
+            for xs, o, n in zip(sets, offs, lens)]
 
 
 def _mesh_reduce_scatter(xs: List[torch.Tensor], opname: str

@@ -41,19 +41,36 @@ A traced flush records a ``fused_flush`` span (cat ``coll``); a mesh
 batch's pack a ``fused_pack`` span and, with ``trace_phase_enable``,
 a ``ph_pack`` phase of the meeting that follows.
 
-Not ported yet (ROADMAP.md): the cross-session batcher (``_XBatcher``,
-``_build_fused_mesh_multi``, ``dvm_batch_window_us``: it needs the host
-pool of resident sessions that reports their count).
+Cross-session batching (the reference's serve plane): resident
+sessions — independent thread worlds of one process, each in its own
+cid band (``testing.sessions.run_sessions``; the pool's socket plane
+will sit on top of it) — share the card, so their fused batches, each
+already one meeting, can share the launches too when they land within
+``dvm_batch_window_us`` of each other.  The window opens only while
+``set_xsession_hint`` reports more than one resident session.  The
+last arriver of a session's meeting hands its batch to ``_xdispatch``;
+the first under a key (("hbm", N), or ("mesh", the members' devices))
+leads: it sleeps the window inside its meeting body, then runs ONE
+combined dispatch over every batch that joined — a K3 launch a (op,
+dtype) group for all sessions' slots (hbm), or one K6 and one K2 peer
+launch a card a group over all sessions' group buffers (mesh) — and
+hands each session its outputs, byte for byte the outputs of its solo
+dispatch.  A batch joins a window only while every group still fits
+one launch (``_hbm_fits``, ``_mesh_fits``); one that would not leads a
+window of its own, so nothing splits and nothing falls back.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ompi_tpu_torch import convert
+from ompi_tpu_torch import obs as _obs
 from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.kernels import fused
 from ompi_tpu_torch.mca.params import registry
@@ -77,15 +94,44 @@ _max_ops_var = registry.register(
     help="Auto-flush a pending fusion batch at this many collectives "
          "(bounds result latency and the batch's kernel arguments)")
 
-_pv_batches = registry.register_pvar(
+# session-banded (ompi_tpu_torch/obs): each flush belongs to exactly
+# one session (the engine is per comm, the comm's state carries
+# cid_band); global reads through the registry are untouched
+_pv_batches = _obs.scoped_pvar(
     "coll", "device", "fused_batches",
     help="Fused device-collective batches dispatched")
-_pv_colls = registry.register_pvar(
+_pv_colls = _obs.scoped_pvar(
     "coll", "device", "fused_collectives",
     help="Individual collectives that rode in a fused batch")
-_pv_bytes = registry.register_pvar(
+_pv_bytes = _obs.scoped_pvar(
     "coll", "device", "fused_bytes",
     help="Payload bytes carried by fused batches")
+
+# -- cross-session batching -------------------------------------------------
+_xwin_var = registry.register(
+    "dvm", "", "batch_window_us", 0, int,
+    help="Cross-session fusion window (microseconds): a fused batch "
+         "dispatched from a resident session waits this long for "
+         "compatible batches from OTHER resident sessions and rides "
+         "one combined dispatch with them.  0 disables.  Only "
+         "consulted while more than one session is resident")
+_pv_xbatches = registry.register_pvar(
+    "dvm", "", "xsession_batches",
+    help="Combined dispatches that carried fused batches from 2+ "
+         "concurrently-resident sessions")
+_pv_xcolls = registry.register_pvar(
+    "dvm", "", "xsession_collectives",
+    help="Individual collectives that rode a cross-session combined "
+         "dispatch")
+
+_xsession_hint = 0  # resident-session count (testing/sessions.py)
+
+
+def set_xsession_hint(n: int) -> None:
+    """The host of resident sessions reports their count here on every
+    attach and detach; the cross-session window opens only above 1."""
+    global _xsession_hint
+    _xsession_hint = n
 
 class FusedRequest(Request):
     """Request handle for a (possibly) coalesced device collective.
@@ -167,25 +213,68 @@ def _group_plan(sig: Sequence[SigEntry]):
                  for (opname, dt), slots in groups.items())
 
 
+def _hbm_batch_outs(size: int, sigs: Sequence[Sequence[SigEntry]],
+                    arrays) -> List[List[List[torch.Tensor]]]:
+    """Run the hbm batches of one or more sessions: ``arrays[s][r][i]``
+    is session s's rank r payload of slot i.  Slots are grouped by (op,
+    dtype) across the sessions, and each group is ONE K3 call — split
+    only where one session's group outgrows the kernel's argument
+    block.  A combined group past it raises: the batcher admits no
+    session that would push a group past it (``_hbm_fits``).  Returns
+    outs[s][r] = session s's rank r list of slot outputs, each its own
+    tensor."""
+    outs = [[[None] * len(sig) for _ in range(size)] for sig in sigs]
+    keyed: Dict[tuple, List[Tuple[int, int]]] = {}
+    for s, sig in enumerate(sigs):
+        for opname, dt, slots in _group_plan(sig):
+            keyed.setdefault((opname, dt), []).extend((s, i) for i in slots)
+    for (opname, _dt), members in keyed.items():
+        entries = []
+        for s, i in members:
+            kind, _shape, _dt2, extra = sigs[s][i]
+            entries.append(([arrays[s][r][i] for r in range(size)],
+                            extra if kind == "bcast" else None))
+        res = fused.fused_batch(entries, opname) if len(sigs) == 1 \
+            else fused.fused_batch(entries, opname, split=False)
+        for (s, i), per_rank in zip(members, res):
+            for r in range(size):
+                outs[s][r][i] = per_rank[r]
+    return outs
+
+
+def _group_counts(sigs: Sequence[Sequence[SigEntry]]) -> Dict[tuple, List[int]]:
+    """(op, dtype) -> the slots of that group in each session that has
+    one (``_group_plan`` across the sessions, as the combined
+    dispatches key them)."""
+    counts: Dict[tuple, List[int]] = {}
+    for sig in sigs:
+        for opname, dt, slots in _group_plan(sig):
+            counts.setdefault((opname, dt), []).append(len(slots))
+    return counts
+
+
+def _hbm_fits(size: int, sigs: Sequence[Sequence[SigEntry]]) -> bool:
+    """Whether the sessions' hbm batches ride one combined dispatch:
+    every (op, dtype) group's slots, summed over the sessions, fit one
+    K3 launch (``fused.per_launch``)."""
+    per = fused.per_launch(size)
+    return all(sum(c) <= per for c in _group_counts(sigs).values())
+
+
+def _mesh_fits(size: int, sigs: Sequence[Sequence[SigEntry]]) -> bool:
+    """Whether the sessions' mesh batches ride one combined dispatch:
+    every (op, dtype) group's buffers, one a session, fit one K6 table
+    a card (``mesh.sets_per_launch``)."""
+    from ompi_tpu_torch.kernels import mesh
+    per = mesh.sets_per_launch(size)
+    return all(len(c) <= per for c in _group_counts(sigs).values())
+
+
 def _hbm_slot_outs(size: int, sig: Sequence[SigEntry],
                    arrays: Sequence[Sequence[torch.Tensor]]):
-    """Run one hbm batch: ``arrays[r][i]`` is rank r's payload of slot
-    i.  Slots are grouped by (op, dtype), and each group is ONE K3 call
-    (split only where a group outgrows the kernel's argument block).
-    Returns outs[r] = rank r's list of slot outputs, each its own
-    tensor."""
-    outs = [[None] * len(sig) for _ in range(size)]
-    for opname, _dt, slots in _group_plan(sig):
-        entries = []
-        for i in slots:
-            kind, _shape, _dt2, extra = sig[i]
-            entries.append(([arrays[r][i] for r in range(size)],
-                            extra if kind == "bcast" else None))
-        res = fused.fused_batch(entries, opname)
-        for i, per_rank in zip(slots, res):
-            for r in range(size):
-                outs[r][i] = per_rank[r]
-    return outs
+    """One session's hbm batch: ``arrays[r][i]`` is rank r's payload of
+    slot i; one K3 call a (op, dtype) group.  Returns outs[r]."""
+    return _hbm_batch_outs(size, (sig,), (arrays,))[0]
 
 
 def _build_pack(rank: int, sig: Sequence[SigEntry],
@@ -200,23 +289,40 @@ def _build_pack(rank: int, sig: Sequence[SigEntry],
             for _op, _dt, slots in _group_plan(sig)]
 
 
-def _mesh_slot_outs(size: int, sig: Sequence[SigEntry],
-                    deposits: Sequence[Sequence[torch.Tensor]]):
-    """Run one mesh-mode batch: ``deposits[r]`` is rank r's packed
-    group buffers.  Each group is ONE mesh allreduce with the group's
-    op (rank-order fold), its result sliced back into the slots as
-    views of each rank's own buffer.  Returns outs[r][i]."""
+def _mesh_batch_outs(size: int, sigs: Sequence[Sequence[SigEntry]],
+                     deposits) -> List[List[List[torch.Tensor]]]:
+    """Run the mesh batches of one or more sessions: ``deposits[s][r]``
+    is session s's rank r packed group buffers.  The group buffers of
+    one (op, dtype) across the sessions reduce as ONE rank-order mesh
+    allreduce (``device._mesh_allreduce_sets``: one K6 and one K2 peer
+    launch a card; a combined table past K6's raises, and the batcher
+    admits no session that would push it there: ``_mesh_fits``), each
+    session's result sliced back into its slots as views.  Returns
+    outs[s][r][i]."""
     from ompi_tpu_torch.coll import device
     from ompi_tpu_torch.datatype.device import unpack_segments
-    outs = [[None] * len(sig) for _ in range(size)]
-    for gi, (opname, _dt, slots) in enumerate(_group_plan(sig)):
-        red = device._mesh_allreduce([deposits[r][gi] for r in range(size)],
-                                     opname)
-        shapes = [sig[i][1] for i in slots]
-        for r in range(size):
-            for i, o in zip(slots, unpack_segments(red[r], shapes)):
-                outs[r][i] = o
+    outs = [[[None] * len(sig) for _ in range(size)] for sig in sigs]
+    keyed: Dict[tuple, List[Tuple[int, int, tuple]]] = {}
+    for s, sig in enumerate(sigs):
+        for gi, (opname, dt, slots) in enumerate(_group_plan(sig)):
+            keyed.setdefault((opname, dt), []).append((s, gi, slots))
+    for (opname, _dt), members in keyed.items():
+        red = device._mesh_allreduce_sets(
+            [[deposits[s][r][gi] for r in range(size)]
+             for s, gi, _ in members], opname, split=len(sigs) == 1)
+        for (s, _gi, slots), per_rank in zip(members, red):
+            shapes = [sigs[s][i][1] for i in slots]
+            for r in range(size):
+                for i, o in zip(slots, unpack_segments(per_rank[r], shapes)):
+                    outs[s][r][i] = o
     return outs
+
+
+def _mesh_slot_outs(size: int, sig: Sequence[SigEntry],
+                    deposits: Sequence[Sequence[torch.Tensor]]):
+    """One session's mesh batch: one mesh allreduce a (op, dtype)
+    group.  Returns outs[r][i]."""
+    return _mesh_batch_outs(size, (sig,), (deposits,))[0]
 
 
 def _fused_ck(mode, sig):
@@ -251,6 +357,139 @@ def _fused_ck(mode, sig):
     return ("fused", tuple(ents))
 
 
+def _x_marks(tensors) -> Optional[Dict[Any, Any]]:
+    """An event on the calling thread's current stream of each card
+    ``tensors`` lie on (None off the cards): what a combined dispatch
+    orders itself after, or what its sessions wait on."""
+    marks = {}
+    for t in tensors:
+        if t.is_cuda and t.device not in marks:
+            ev = marks[t.device] = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+    return marks or None
+
+
+def _x_wait(marks) -> None:
+    """The calling thread's current streams wait on ``marks``."""
+    for dev, ev in (marks or {}).items():
+        torch.cuda.current_stream(dev).wait_event(ev)
+
+
+def _x_tensors(args) -> List[torch.Tensor]:
+    return [t for per_rank in args for t in per_rank]
+
+
+class _XEntry:
+    __slots__ = ("sig", "args", "ready", "outs", "done", "err", "event")
+
+    def __init__(self, sig, args) -> None:
+        self.sig = sig
+        self.args = args
+        # the session's deposits are ready on ITS body thread's streams
+        # (coll/device._fence); a leader on another stream waits here
+        self.ready = _x_marks(_x_tensors(args))
+        self.outs = None
+        self.done = None
+        self.err: Optional[BaseException] = None
+        self.event = threading.Event()
+
+
+class _XBatcher:
+    """Process-global meeting point for cross-session batch
+    coalescing.  Callers are the last-arriver threads of independent
+    sessions' batch rendezvous (device.meet's body) — one thread per
+    session batch.  The first arriver under a compatibility key
+    becomes the leader: it holds the window open, then runs ONE
+    combined dispatch over every batch that joined and hands each
+    follower its outputs.  A batch joins only while ``fits`` holds for
+    the window's signatures and its own, so that every combined
+    dispatch stays one launch a group; one that does not fit leads a
+    window of its own, and the window it found takes no more batches.
+    Entries are sorted by signature before
+    combining, so the combined launches do not depend on arrival
+    order.  Stream order: the leader's streams wait on every
+    session's ready events before the launches, and every session's
+    streams wait on the leader's done events before it returns."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.groups: Dict[Any, List[_XEntry]] = {}  # key -> open window
+
+    def run(self, key, sig, args, single_fn, multi_fn, fits):
+        win_s = max(0, _xwin_var.value) / 1e6
+        e = _XEntry(sig, args)
+        with self.lock:
+            grp = self.groups.get(key)
+            leader = grp is None or not fits([x.sig for x in grp] + [sig])
+            if leader:
+                grp = self.groups[key] = [e]
+            else:
+                grp.append(e)
+        if leader:
+            time.sleep(win_s)
+            with self.lock:
+                if self.groups.get(key) is grp:
+                    del self.groups[key]
+            self._dispatch(grp, single_fn, multi_fn)
+        if not e.event.wait(timeout=120.0):
+            raise RuntimeError(
+                "cross-session batch leader did not dispatch within "
+                "120s (dvm_batch_window_us misconfigured or leader "
+                "session died mid-window)")
+        if e.err is not None:
+            raise RuntimeError(
+                f"cross-session combined dispatch failed: {e.err}"
+            ) from e.err
+        _x_wait(e.done)
+        return e.outs
+
+    def _dispatch(self, entries, single_fn, multi_fn) -> None:
+        try:
+            if len(entries) == 1:
+                entries[0].outs = single_fn(entries[0].args)
+            else:
+                order = sorted(range(len(entries)),
+                               key=lambda i: repr(entries[i].sig))
+                for i in order:
+                    _x_wait(entries[i].ready)
+                    for t in _x_tensors(entries[i].args):
+                        if t.is_cuda:
+                            t.record_stream(
+                                torch.cuda.current_stream(t.device))
+                outs = multi_fn([entries[i].sig for i in order],
+                                [entries[i].args for i in order])
+                done = _x_marks(t for per in outs for per_rank in per
+                                for t in per_rank)
+                ncolls = 0
+                for i, o in zip(order, outs):
+                    entries[i].outs = o
+                    entries[i].done = done
+                    ncolls += len(entries[i].sig)
+                _pv_xbatches.add(1)
+                _pv_xcolls.add(ncolls)
+        except BaseException as exc:  # noqa: BLE001
+            for e in entries:
+                e.err = exc
+        finally:
+            for e in entries:
+                e.event.set()
+
+
+_xbatcher = _XBatcher()
+
+
+def _xdispatch(key, sig, args, single_fn, multi_fn, fits):
+    """Run one session's prepared fused batch: straight through when
+    the cross-session window is closed (knob 0, or fewer than 2
+    resident sessions), else through the batcher.  ``single_fn(args)``
+    is the solo dispatch; ``multi_fn(sigs, argss)`` the combined one,
+    returning one output list a session; ``fits(sigs)`` whether those
+    sessions' batches fit one combined dispatch."""
+    if _xwin_var.value <= 0 or _xsession_hint < 2:
+        return single_fn(args)
+    return _xbatcher.run(key, sig, args, single_fn, multi_fn, fits)
+
+
 class _FusionEngine:
     """Per-comm, per-rank staging area for pending fusible collectives.
     Single-threaded (each rank owns its comm object); flush runs the
@@ -264,6 +503,9 @@ class _FusionEngine:
         if m == "tpu" and comm.mesh() is None:
             m = None  # partly shared devices: the blocking calls refuse
         self.mode = m if m in ("tpu", "hbm") else None
+        # the cross-session key of a mesh batch: the members' devices
+        self._dev_key = tuple(device._member_devices(comm)) \
+            if self.mode == "tpu" else None
         self.pending: List[_Pending] = []
         self._abort_check = device._abort_check(comm)
         # finalize hook registration happens HERE, not at the first
@@ -301,9 +543,10 @@ class _FusionEngine:
         for p, out in zip(batch, outs):
             nbytes += p.nbytes
             p.req._deliver(out.reshape(()) if p.was_scalar else out)
-        _pv_batches.add(1)
-        _pv_colls.add(len(batch))
-        _pv_bytes.add(nbytes)
+        band = self.comm.state.cid_band
+        _pv_batches.add(1, band)
+        _pv_colls.add(len(batch), band)
+        _pv_bytes.add(nbytes, band)
 
     def _run(self, batch: List[_Pending]) -> List[torch.Tensor]:
         from ompi_tpu_torch.coll import device
@@ -325,15 +568,22 @@ class _FusionEngine:
                         "device collectives between flushes")
             arrays = [a for _s, a in shards]
             if mode == "hbm":
-                return _hbm_slot_outs(size, sig0, arrays)
-            return _mesh_slot_outs(size, sig0, arrays)
+                return _xdispatch(
+                    ("hbm", size, comm.state.device), sig0, arrays,
+                    lambda a: _hbm_slot_outs(size, sig0, a),
+                    lambda sigs, argss: _hbm_batch_outs(size, sigs, argss),
+                    lambda sigs: _hbm_fits(size, sigs))
+            return _xdispatch(
+                ("mesh", self._dev_key), sig0, arrays,
+                lambda a: _mesh_slot_outs(size, sig0, a),
+                lambda sigs, argss: _mesh_batch_outs(size, sigs, argss),
+                lambda sigs: _mesh_fits(size, sigs))
 
         arrays = [device._deposit(comm, p.x) for p in batch]
         if mode != "hbm":
             arrays = self._pack_groups(sig, arrays)
         ck = _fused_ck(mode, sig) if _ig.on else None
         return device.meet(comm, (sig, arrays), body, self._abort_check, ck)
-
 
     def _pack_groups(self, sig, arrays):
         """Mesh-mode deposit payload: this rank's slots packed into one

@@ -57,6 +57,7 @@ from collections import OrderedDict
 
 import torch
 
+from ompi_tpu_torch import obs as _obs
 from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.coll import pipeline as _pl
 from ompi_tpu_torch.mca.params import registry
@@ -94,14 +95,16 @@ _ALG_ID = {
     "hbm": _trace.intern_name("hbm"),
 }
 
-pv_builds = registry.register_pvar(
+# session-banded (ompi_tpu_torch/obs): the global value is the plain
+# pvar's; each add also lands in the calling rank's cid band
+pv_builds = _obs.scoped_pvar(
     "coll", "plan", "builds",
     help="collective plans resolved (per rank): a Plan object built "
          "and cached on the comm — steady state should be ~0")
-pv_hits = registry.register_pvar(
+pv_hits = _obs.scoped_pvar(
     "coll", "plan", "hits",
     help="collective ops served by an already-resolved plan")
-pv_exec_us = registry.register_pvar(
+pv_exec_us = _obs.scoped_pvar(
     "coll", "plan", "exec_us",
     help="cumulative wall microseconds inside plan execution "
          "(pack + rendezvous + unpack)")
@@ -166,7 +169,8 @@ class Plan:
                           self.ck if _ig.on else None)
         if pad:
             out = _unpack(comm, out, n, self)
-        pv_exec_us.add((time.perf_counter_ns() - ns0) // 1000)
+        pv_exec_us.add((time.perf_counter_ns() - ns0) // 1000,
+                       comm.state.cid_band)
         if t0:
             tr.end(t0, _NAME_PLAN, _CAT_SEG,
                    comm.cid, n * self.itemsize, self.alg_id)
@@ -213,16 +217,17 @@ def _resolve(comm, pkey, builder) -> Plan:
     no lock."""
     plans = _plans_of(comm)
     plan = plans.get(pkey)
+    band = comm.state.cid_band
     if plan is not None:
         plans.move_to_end(pkey)
-        pv_hits.add(1)
+        pv_hits.add(1, band)
         return plan
     plan = builder()
     plans[pkey] = plan
     cap = max(1, int(_cache_max_var.value))
     while len(plans) > cap:
         plans.popitem(last=False)
-    pv_builds.add(1)
+    pv_builds.add(1, band)
     return plan
 
 

@@ -33,9 +33,38 @@ TAG_SPLIT = -18
 TAG_BCAST = -19
 TAG_GATHER = -20
 
+# respawn recovery epochs partition the cid space into disjoint bands
+# (epoch E allocates from [E*STRIDE, (E+1)*STRIDE)): a fragment or
+# cached plan addressed to a pre-failure cid can never alias a
+# communicator built after an in-job rank replacement.
+EPOCH_CID_STRIDE = 65536
+
+# Resident sessions band the same space along a DISJOINT outer
+# dimension: session b owns [b*SESSION_CID_STRIDE,
+# (b+1)*SESSION_CID_STRIDE), subdivided into its own respawn-epoch
+# bands.  The dimensions must not be additive — (band+epoch)*STRIDE
+# would alias session k at epoch e with session k+e at epoch 0.
+MAX_RESPAWN_EPOCHS = 1024
+SESSION_CID_STRIDE = MAX_RESPAWN_EPOCHS * EPOCH_CID_STRIDE
+
 UNDEFINED = -32766
 
 COMM_TYPE_SHARED = 1
+
+
+def _cid_proposal(state) -> int:
+    """This rank's lower bound for a cid agreement: its smallest unused
+    cid at or above the floor of its band (the session's outer band,
+    then the respawn epoch's inside it)."""
+    floor = (state.cid_band * SESSION_CID_STRIDE
+             + state.respawn_epoch * EPOCH_CID_STRIDE)
+    proposal = state.next_cid_local()
+    if proposal < floor:
+        proposal = floor
+        while proposal in state.comms:
+            proposal += 1
+    return proposal
+
 
 class Group:
     """Dense ordered set of global ranks (ref: ompi/group)."""
@@ -139,10 +168,14 @@ class Communicator:
 
     def next_cid(self) -> int:
         """Agree on a cid free on every member of *this* comm
-        (ref: ompi_comm_nextcid multi-round agreement)."""
+        (ref: ompi_comm_nextcid multi-round agreement).  The proposal
+        is floored into this rank's band: the session's outer band
+        (state.cid_band * SESSION_CID_STRIDE) and, inside it, the
+        respawn epoch's (state.respawn_epoch * EPOCH_CID_STRIDE), so
+        derived comms of concurrent sessions never alias."""
         while True:
-            proposal = self.state.next_cid_local()
-            agreed = self._allreduce_max_int(proposal, TAG_CID)
+            agreed = self._allreduce_max_int(_cid_proposal(self.state),
+                                             TAG_CID)
             ok = 1 if agreed not in self.state.comms else 0
             all_ok = self._allreduce_max_int(-ok, TAG_CID)  # max(-ok)=0 iff any not ok
             if all_ok == -1:
@@ -192,8 +225,8 @@ class Communicator:
         # comm/tag pair disambiguates real uses)
         wire_tag = -400 - (tag % 1000)
         while True:
-            proposal = self.state.next_cid_local()
-            agreed = shim._allreduce_max_int(proposal, wire_tag)
+            agreed = shim._allreduce_max_int(_cid_proposal(self.state),
+                                             wire_tag)
             ok = 1 if agreed not in self.state.comms else 0
             all_ok = shim._allreduce_max_int(-ok, wire_tag)
             if all_ok == -1:

@@ -20,12 +20,12 @@ from its seed; ``device_sdc`` uses no RNG at all (an armed op count
 and a period).  ``ft_inject_max`` bounds the injections a scope makes.
 
 An injection that fires leaves an ``ft_inject`` instant (cat
-``fault``) on the injecting rank's trace when tracing is on.
+``fault``) on the injecting rank's trace when tracing is on, and an
+``EV_FT_INJECT`` event in the flight recorder (ompi_tpu_torch/obs).
 
 Not ported (ROADMAP.md): the btl/tcp frame faults, kv, checkpoint
 I/O, dvm, node, rank, host and process kills, ``rdv_sever`` (with the
-hang doctor), ``host_slow`` and ``net_jitter`` (with the health plane),
-and the flight-recorder event records an injection leaves (A6).
+hang doctor), ``host_slow`` and ``net_jitter`` (with the health plane).
 """
 
 from __future__ import annotations
@@ -124,11 +124,15 @@ class _Scoped:
                 # annotate the span timeline: a fault firing explains
                 # the latency spike around it (trace is a leaf module;
                 # import here keeps injection import-light when off)
+                from ompi_tpu_torch import obs as _obs
                 from ompi_tpu_torch import trace
                 tr = trace.current_tracer()
                 if tr is not None:
                     tr.instant("ft_inject", "fault", cls=cls,
                                scope=self.scope)
+                _obs.record_event(_obs.EV_FT_INJECT,
+                                  _obs.intern(cls),
+                                  _obs.intern(str(self.scope)))
                 return cls
         return None
 
@@ -180,11 +184,15 @@ class SdcInjector:
                 return False
         self.flips += 1
         self.last_flip_ns = time.monotonic_ns()
+        from ompi_tpu_torch import obs as _obs
         from ompi_tpu_torch import trace
         tr = trace.current_tracer()
         if tr is not None:
             tr.instant("ft_inject", "fault", cls="device_sdc",
                        scope="coll", rank=self.rank)
+        _obs.record_event(_obs.EV_FT_INJECT,
+                          _obs.intern("device_sdc"),
+                          _obs.intern("coll"), rank=self.rank)
         return True
 
 

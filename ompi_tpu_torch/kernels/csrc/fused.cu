@@ -2,17 +2,22 @@
 // coll/hbm half of coll/fusion).
 //
 // K3 fused_batch replaces the reference package's fused hbm programs:
-// coll/fusion.py _hbm_slot_outs (:335) and _build_fused_hbm (:359).
-// A flush of the nonblocking batch
+// coll/fusion.py _hbm_slot_outs (:335) and _build_fused_hbm (:359),
+// and the cross-session combined dispatch _build_fused_hbm_multi
+// (:371).  A flush of the nonblocking batch
 // (iallreduce_arr / ibcast_arr) holds S small slots; the reference
 // runs them all in one jitted dispatch.  Here the slots are grouped by
 // (op, dtype), bcast slots joining the SUM group of their dtype as
 // copy-from-root entries (coll/fusion.py:174 _group_plan), and ONE
 // launch covers every slot of a group: a flush costs one launch per
-// group, never one per slot.  Each slot is a left fold in rank order
+// group, never one per slot.  A combined dispatch (coll/fusion.py
+// _XBatcher: the batches of several resident sessions met within the
+// cross-session window) puts every session's slots of one group into
+// the same launch.  Each slot is a left fold in rank order
 // over its N inputs (the templates of reduce_ops.cuh, the same as K1
 // stacked_reduce), or for a bcast entry a copy of the root's input,
-// written to every rank's output.
+// written to every rank's output; a slot's bytes are the same whatever
+// else rides its launch.
 //
 // Layout of a launch:
 //   * the N input pointers of every slot travel in the parameter
@@ -23,9 +28,18 @@
 //   * blocks map onto (slot, chunk) through the per-launch prefix
 //     table slot[s].first_block: block b serves the slot with the
 //     largest first_block <= b, chunk b - first_block, ELEMS elements.
-// FUSED_MAX_PTRS pointers (2 KiB) and FUSED_MAX_SLOTS slot records
-// (1.5 KiB) keep the block under the 4 KiB parameter limit; the
-// wrapper splits a group that holds more into several launches.
+//
+// The table's size: a combined dispatch of 4 sessions x 32 slots x 8
+// ranks needs 1024 input pointers and 128 slot records in one launch.
+// They travel as a __grid_constant__ parameter block of 11 KiB, under
+// Hopper's 32 KiB kernel-parameter limit (CUDA 12.1 and later; older
+// toolkits hold 4 KiB, and this file refuses to build with them),
+// rather than as a slot table in device memory written from a pinned
+// stage by a copy ahead of each launch: the parameter block needs no
+// stage, no copy and no event to keep the stage alive until the kernel
+// has read it, and a launch is still one call.  The wrapper splits a
+// solo batch that holds more into several launches; a combined
+// dispatch past the limit raises (fused.py).
 //
 // What bounds it: bytes, as for K1 (N-1 operations per N elements
 // read).  But a batch is small by construction (at most
@@ -41,8 +55,12 @@
 
 #include "reduce_ops.cuh"
 
-#define FUSED_MAX_PTRS 256
-#define FUSED_MAX_SLOTS 64
+#if !defined(CUDART_VERSION) || CUDART_VERSION < 12010
+#error "fused.cu passes an 11 KiB parameter block: CUDA 12.1 or later"
+#endif
+
+#define FUSED_MAX_PTRS 1024
+#define FUSED_MAX_SLOTS 128
 #define FUSED_THREADS 256
 #define FUSED_ELEMS 1024  // elements one block covers
 
@@ -61,6 +79,7 @@ struct FusedArgs {
   int nslots;
   int nranks;
 };
+static_assert(sizeof(FusedArgs) <= 32764, "over the kernel-parameter limit");
 
 template <typename T, int OP>
 __global__ void __launch_bounds__(FUSED_THREADS)

@@ -14,7 +14,12 @@
 // on one card serves a destination table: for each job (out, lo, len)
 // it folds the N members' inputs over the elements [lo, lo + len) —
 // the stripe that job's device owns — into out: a reduce-scatter by
-// pulls, ONE launch a card for every destination on it.  The allgather
+// pulls, ONE launch a card for every destination on it.  A job reads
+// its own set of N inputs (job.in0: the first of its pointers), so one
+// launch also folds several sets: the group buffers of every session a
+// cross-session combined dispatch carries (the reference's
+// _build_fused_mesh_multi, coll/fusion.py:310), each job a stripe of
+// one session's buffer.  The allgather
 // half that follows is K2 in peer mode (stacked.cu).  The reference
 // circulates partial sums hop by hop (P - 1 ppermutes a phase); here
 // one pull computes what the hops compute, in the same order, so that
@@ -130,10 +135,11 @@ struct FoldJob {
   int first_tile;  // prefix table: the job's first tile in the launch
   int head;        // elements ahead of the first whole 16-byte vector;
                    // -1: the whole job on the edge path
+  int in0;         // the job's inputs: in[in0], ..., in[in0 + nin - 1]
 };
 
 struct FoldArgs {
-  const void* in[MESH_MAX_PTRS];
+  const void* in[MESH_MAX_PTRS];  // one set of nin inputs, or several
   FoldJob job[FOLD_MAX_JOBS];
   long long ring_seg;  // segring: segment length; 0: no rotation
   long long ring_m;    // segring: stripe length inside a segment
@@ -180,25 +186,26 @@ __device__ __forceinline__ int rotation(const FoldArgs& a, long long g) {
 
 // One element from device memory, linear fold or tree (the edge path).
 template <typename T, int OP>
-__device__ __forceinline__ T fold_one(const FoldArgs& a, long long g) {
+__device__ __forceinline__ T fold_one(const FoldArgs& a, int in0, long long g) {
   using Tr = Traits<T>;
   using A = typename Tr::A;
   const int n = a.nin;
+  const void* const* in = a.in + in0;
   if (a.tree) {
     A stack[8];
     int top = 0;
     for (int r = 0; r < n; ++r) {
-      A v = first<OP>(Tr::load(reinterpret_cast<const T*>(a.in[a.order[r]])[g]));
+      A v = first<OP>(Tr::load(reinterpret_cast<const T*>(in[a.order[r]])[g]));
       for (int c = r; c & 1; c >>= 1) v = apply<OP>(stack[--top], v);
       stack[top++] = v;
     }
     return Tr::store(stack[0]);
   }
   int k = rotation(a, g);
-  A acc = first<OP>(Tr::load(reinterpret_cast<const T*>(a.in[a.order[k]])[g]));
+  A acc = first<OP>(Tr::load(reinterpret_cast<const T*>(in[a.order[k]])[g]));
   for (int s = 1; s < n; ++s) {
     if (++k == n) k = 0;
-    acc = apply<OP>(acc, Tr::load(reinterpret_cast<const T*>(a.in[a.order[k]])[g]));
+    acc = apply<OP>(acc, Tr::load(reinterpret_cast<const T*>(in[a.order[k]])[g]));
   }
   return Tr::store(acc);
 }
@@ -333,10 +340,12 @@ __global__ void __launch_bounds__(FOLD_THREADS)
       const uint32_t bar = smem_u32(&full[s]);
       mbar_expect_tx(bar, nb * (unsigned)a.nin);
       const unsigned char* st = ring + s * sbytes;
-      const long long off = (a.job[sp.job].lo + sp.e0) * (long long)sizeof(T);
+      const FoldJob& jb = a.job[sp.job];
+      const long long off = (jb.lo + sp.e0) * (long long)sizeof(T);
       for (int m = 0; m < a.nin; ++m)
         bulk_g2s(smem_u32(st + m * mbytes),
-                 reinterpret_cast<const unsigned char*>(a.in[m]) + off, nb, bar);
+                 reinterpret_cast<const unsigned char*>(a.in[jb.in0 + m]) + off,
+                 nb, bar);
       ++i;
     }
     return;
@@ -349,14 +358,14 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     T* out = reinterpret_cast<T*>(jb.out);
     if (sp.kind == 0) {
       for (long long e = sp.e0 + tid; e < sp.e1; e += FOLD_CONS)
-        out[e] = fold_one<T, OP>(a, jb.lo + e);
+        out[e] = fold_one<T, OP>(a, jb.in0, jb.lo + e);
       continue;
     }
     if (sp.kind == 2) {
       const long long nhead = sp.e0, ntail = jb.len - sp.e1;
       for (long long e = tid; e < nhead + ntail; e += FOLD_CONS) {
         const long long x = e < nhead ? e : sp.e1 + (e - nhead);
-        out[x] = fold_one<T, OP>(a, jb.lo + x);
+        out[x] = fold_one<T, OP>(a, jb.in0, jb.lo + x);
       }
       continue;
     }
@@ -480,6 +489,9 @@ int ompi_mesh_fold(const FoldArgs* a, int dtype, int op, void* stream) {
       (a->tree && (a->nin & (a->nin - 1))) ||
       (a->ring_m != 0 && (a->ring_seg < 1 || a->ring_m < 1)))
     return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < a->njobs; ++j)
+    if (a->job[j].in0 < 0 || a->job[j].in0 + a->nin > MESH_MAX_PTRS)
+      return (int)cudaErrorInvalidValue;
   return dispatch_reduce<LaunchFold>(dtype, op, a, (cudaStream_t)stream);
 }
 

@@ -2,10 +2,11 @@
 PyTorch version, and its launch counter.
 
 K3 ``fused_batch`` replaces the reference's fused hbm programs,
-``_hbm_slot_outs`` / ``_build_fused_hbm`` (ompi_tpu/coll/fusion.py:335-368;
-the cross-session ``_build_fused_hbm_multi`` is not ported): one launch
+``_hbm_slot_outs`` / ``_build_fused_hbm`` (ompi_tpu/coll/fusion.py:335-368)
+and the cross-session ``_build_fused_hbm_multi`` (:371-385): one launch
 covers every slot of one (op, dtype) group of a flushed batch of small
-nonblocking collectives.
+nonblocking collectives, or of every session's batch that a combined
+dispatch carries (``split=False``: one launch, or a ValueError).
 A slot folds its N ranks' inputs with the group's op (the templates K1
 uses, csrc/reduce_ops.cuh), or, as a bcast entry, copies its root's
 input; every rank gets its own output.
@@ -31,8 +32,8 @@ from . import build
 from .stacked import (_DTYPES, _OPS, LaunchCount, _launch,
                       reduce_supported, stacked_reduce_plain)
 
-MAX_PTRS = 256
-MAX_SLOTS = 64
+MAX_PTRS = 1024   # FUSED_MAX_PTRS: 4 sessions x 32 slots x 8 ranks
+MAX_SLOTS = 128   # FUSED_MAX_SLOTS
 ELEMS = 1024  # elements one block covers (FUSED_ELEMS in fused.cu)
 
 #: one slot of a batch: the N ranks' inputs, and the bcast root (None
@@ -82,6 +83,8 @@ def _check(slots: Sequence[Slot], opname: str) -> None:
         raise ValueError("fused_batch: no slots")
     x0 = slots[0][0][0]
     n = len(slots[0][0])
+    if not 1 <= n <= MAX_PTRS:
+        raise ValueError(f"fused_batch: {n} ranks (1 to {MAX_PTRS})")
     if not reduce_supported(x0.dtype, opname):
         raise TypeError(f"fused_batch: {opname} on {x0.dtype} is not a "
                         "pair the kernel takes")
@@ -104,7 +107,12 @@ def _check(slots: Sequence[Slot], opname: str) -> None:
                 raise ValueError("fused_batch: inputs must be contiguous")
 
 
-def fused_batch(slots: Sequence[Slot], opname: str
+def per_launch(n: int) -> int:
+    """Slots one launch holds at N = ``n`` ranks."""
+    return min(MAX_SLOTS, MAX_PTRS // n)
+
+
+def fused_batch(slots: Sequence[Slot], opname: str, split: bool = True
                 ) -> List[List[torch.Tensor]]:
     """Run one (op, dtype) group of a fused batch.
 
@@ -114,10 +122,17 @@ def fused_batch(slots: Sequence[Slot], opname: str
     Returns outs[slot][rank], each its own tensor of the slot's shape.
     One launch covers the whole group unless it holds more than
     MAX_SLOTS slots or MAX_PTRS input pointers; then one launch per
-    part."""
+    part, or, with ``split`` False (a combined dispatch), a ValueError
+    on any device."""
     _check(slots, opname)
     x0 = slots[0][0][0]
     n = len(slots[0][0])
+    per = per_launch(n)
+    if not split and len(slots) > per:
+        raise ValueError(
+            f"fused_batch: {len(slots)} slots of {n} ranks exceed one "
+            f"launch ({per} slots: MAX_SLOTS {MAX_SLOTS}, MAX_PTRS "
+            f"{MAX_PTRS})")
     if x0.device.type == "cpu":
         return fused_batch_plain(slots, opname)
     sizes = [xs[0].numel() for xs, _ in slots]
@@ -129,7 +144,6 @@ def fused_batch(slots: Sequence[Slot], opname: str
     outs = [[buf[r * total + o:r * total + o + m].view(xs[0].shape)
              for r in range(n)]
             for (xs, _), o, m in zip(slots, offs, sizes)]
-    per = min(MAX_SLOTS, MAX_PTRS // n)
     lib = _library()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream

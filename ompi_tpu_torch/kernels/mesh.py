@@ -11,7 +11,11 @@ launch a card folds the N members' inputs, read through their
 pointers, over each job's stripe [lo, lo + out.numel()), in the
 reference's order: rank order, the segring rotation (stripe c of a
 segment folds ranks c, c+1, ..., c-1), or segrd's balanced tree.
-``mesh_fold`` is a table of one.
+``mesh_fold`` is a table of one.  A job may read its own set of N
+inputs: one launch a card over the group buffers of every session a
+cross-session combined dispatch carries (the reference's
+``_build_fused_mesh_multi``, coll/fusion.py:310; ``split=False``: one
+launch a card, or a ValueError where they outgrow one table).
 
 K7 ``slot_pack`` replaces ``_build_pack`` (coll/fusion.py:231): one
 launch packs one rank's slots of a fused group into one buffer,
@@ -56,7 +60,7 @@ UNITS = 256  # 16-byte units one K7 block covers (PACK_UNITS in mesh.cu)
 class _FoldJob(ctypes.Structure):
     _fields_ = [("out", ctypes.c_void_p), ("lo", ctypes.c_longlong),
                 ("len", ctypes.c_longlong), ("first_tile", ctypes.c_int),
-                ("head", ctypes.c_int)]
+                ("head", ctypes.c_int), ("in0", ctypes.c_int)]
 
 
 class _FoldArgs(ctypes.Structure):
@@ -205,39 +209,77 @@ def _fold_span(length: int, head: int, tile: int, v: int, k: int):
     return 2, head, head + body
 
 
-def mesh_fold_many(xs: Sequence[torch.Tensor],
-                   jobs: Sequence[Tuple[torch.Tensor, int]], opname: str,
-                   order="rank") -> List[torch.Tensor]:
-    """K6 over a destination table: for each job (out, lo) and k <
-    out.numel(), out[k] = the fold of the N inputs at flat element lo +
-    k, in ``order`` (see ``_order``).  The jobs are grouped by
-    ``out.device``: ONE launch a card (MAX_JOBS a table; a longer
-    table splits), each counted on ``mesh_fold.launches``.  The inputs
-    may lie on other cards (peer access).  Writes the outputs in place
-    and returns them.  Stream order: each launch runs on its card's
-    current stream; logical devices of one card share that stream (and
-    coll/device's fence), so a grouped launch needs no event of its
-    own."""
-    _check_inputs(xs, opname)
-    x0 = xs[0]
-    for out, lo in jobs:
-        _check_job(x0, out, lo)
-    tree, seg, m = _order(order, len(xs))
-    outs = [out for out, _ in jobs]
+def _sets(xs) -> List[List[torch.Tensor]]:
+    """The input sets of a K6 table: ``xs`` is one set of N inputs, or
+    a list of such sets."""
+    if not xs:
+        raise ValueError(f"mesh_fold: 0 inputs (1 to {MAX_PTRS})")
+    return [list(xs)] if isinstance(xs[0], torch.Tensor) \
+        else [list(s) for s in xs]
+
+
+def sets_per_launch(n: int) -> int:
+    """Input sets of N members one K6 launch a card holds, whatever
+    their lengths, in a mesh allreduce over the sets laid end to end
+    (coll/device ``_mesh_allreduce_sets``): MAX_PTRS pointers in all,
+    and MAX_JOBS jobs on a card — the N members' stripes, cut once
+    more by each boundary between two sets, when every member lies on
+    that card."""
+    return max(0, min(MAX_PTRS // n, MAX_JOBS - n + 1))
+
+
+def mesh_fold_many(xs, jobs, opname: str, order="rank", split: bool = True
+                   ) -> List[torch.Tensor]:
+    """K6 over a destination table: for each job (out, lo[, k]) and e <
+    out.numel(), out[e] = the fold of input set k's N inputs at flat
+    element lo + e, in ``order`` (see ``_order``).  ``xs`` is one set
+    of N inputs (every job's k is 0), or a list of sets of N inputs of
+    one dtype — the group buffers of every session a cross-session
+    combined dispatch carries; MAX_PTRS pointers in all.  The jobs are
+    grouped by ``out.device``: ONE launch a card (MAX_JOBS a table; a
+    longer table splits, or, with ``split`` False, raises ValueError
+    on any device), each counted on ``mesh_fold.launches``.  The
+    inputs may lie on other cards (peer access).  Writes the outputs
+    in place and returns them.  Stream order: each launch runs on its
+    card's current stream; logical devices of one card share that
+    stream (and coll/device's fence), so a grouped launch needs no
+    event of its own."""
+    sets = _sets(xs)
+    n = len(sets[0])
+    if len(sets) * n > MAX_PTRS:
+        raise ValueError(f"mesh_fold: {len(sets)} sets of {n} inputs "
+                         f"exceed one table ({MAX_PTRS} pointers)")
+    for s in sets:
+        if len(s) != n:
+            raise ValueError("mesh_fold: every set holds N inputs")
+        _check_inputs(s, opname)
+        if s[0].dtype != sets[0][0].dtype:
+            raise ValueError("mesh_fold: the sets share a dtype")
+    jobs = [(j[0], j[1], j[2] if len(j) > 2 else 0) for j in jobs]
+    for out, lo, k in jobs:
+        _check_job(sets[k][0], out, lo)
+    tree, seg, m = _order(order, n)
+    outs = [out for out, _, _ in jobs]
+    cards = [o.device for o in outs if o.numel()]
+    if not split and len(groups(cards, MAX_JOBS)) > len(set(cards)):
+        raise ValueError(f"mesh_fold: more than {MAX_JOBS} jobs on one "
+                         "card")
+    xs_all = [x for s in sets for x in s]
     if all(o.device.type == "cpu" for o in outs):
-        if any(x.device.type != "cpu" for x in xs):
+        if any(x.device.type != "cpu" for x in xs_all):
             raise ValueError("mesh_fold: a CPU output takes CPU inputs")
-        return mesh_fold_many_plain(xs, jobs, opname, order)
+        return mesh_fold_many_plain(sets, jobs, opname, order)
     if any(o.device.type != "cuda" for o in outs) or \
-            any(x.device.type != "cuda" for x in xs):
+            any(x.device.type != "cuda" for x in xs_all):
         raise ValueError("mesh_fold: inputs and outputs must lie on cards")
-    ptrs = [x.data_ptr() for x in xs]
-    tables = _fold_tables(ptrs, [(o.device, o.data_ptr(), lo, o.numel())
-                                 for o, lo in jobs if o.numel()],
-                          x0.element_size(), tree, seg, m)
+    x0 = xs_all[0]
+    tables = _fold_tables([x.data_ptr() for x in xs_all],
+                          [(o.device, o.data_ptr(), lo, o.numel(), k)
+                           for o, lo, k in jobs if o.numel()],
+                          x0.element_size(), tree, seg, m, nin=n)
     lib = _library()
     for dev, a in tables:
-        for x in xs:
+        for x in xs_all:
             require_peer(dev, x.device)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -248,26 +290,36 @@ def mesh_fold_many(xs: Sequence[torch.Tensor],
 
 
 def _fold_tables(ptrs: Sequence[int], jobs, isz: int, tree: int = 0,
-                 seg: int = 0, m: int = 0) -> List[Tuple[object, _FoldArgs]]:
+                 seg: int = 0, m: int = 0, nin: Optional[int] = None
+                 ) -> List[Tuple[object, _FoldArgs]]:
     """K6's launches over the input addresses ``ptrs`` and the
-    non-empty jobs (device, out address, lo, len): one (device, table)
-    a card (``groups``: MAX_JOBS jobs a table), each job's head and
-    first tile filled in, the tile and the stages set."""
-    n = len(ptrs)
+    non-empty jobs (device, out address, lo, len[, set]): one (device,
+    table) a card (``groups``: MAX_JOBS jobs a table), each job's head and
+    first tile filled in, the tile and the stages set.  ``nin``: the
+    members a fold reads, when ``ptrs`` holds several sets of them
+    back to back (job set k reads ptrs[k * nin:(k + 1) * nin]); None
+    for one set."""
+    n = len(ptrs) if nin is None else nin
+    if len(ptrs) % n or len(ptrs) > MAX_PTRS:
+        raise ValueError(f"mesh_fold: {len(ptrs)} input pointers (sets "
+                         f"of {n}, at most {MAX_PTRS} in all)")
     v = 16 // isz
     tile = _fold_tile(n, isz)
+    order = range(n)
     out = []
     for grp in groups([j[0] for j in jobs], MAX_JOBS):
         a = _FoldArgs()
         for i, p in enumerate(ptrs):
             a.inp[i] = p
-            a.order[i] = i
+        a.order[:n] = order
         t = 0
         for q, i in enumerate(grp):
-            _, addr, lo, length = jobs[i]
+            _, addr, lo, length = jobs[i][:4]
+            in0 = jobs[i][4] * n if len(jobs[i]) > 4 else 0
             rec = a.job[q]
-            rec.out, rec.lo, rec.len = addr, lo, length
-            rec.head = _fold_job(ptrs, addr, lo, length, isz, seg, m)
+            rec.out, rec.lo, rec.len, rec.in0 = addr, lo, length, in0
+            rec.head = _fold_job(ptrs[in0:in0 + n], addr, lo, length, isz,
+                                 seg, m)
             rec.first_tile = t
             t += _fold_job_tiles(length, rec.head, tile, v)
         a.ring_seg, a.ring_m, a.tile = seg, m, tile
@@ -320,15 +372,18 @@ def mesh_fold_plain(xs: Sequence[torch.Tensor], lo: int, length: int,
     return out.reshape(-1).view(xs[0].dtype)
 
 
-def mesh_fold_many_plain(xs: Sequence[torch.Tensor],
-                         jobs: Sequence[Tuple[torch.Tensor, int]],
-                         opname: str, order="rank") -> List[torch.Tensor]:
-    """Plain PyTorch version of ``mesh_fold_many``: ``mesh_fold_plain``
-    for each job, written into its output in place."""
-    for out, lo in jobs:
-        out.view(-1).copy_(mesh_fold_plain(xs, lo, out.numel(), opname,
-                                           order, device=out.device))
-    return [out for out, _ in jobs]
+def mesh_fold_many_plain(xs, jobs, opname: str, order="rank"
+                         ) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``mesh_fold_many`` (one set or a list
+    of sets, jobs (out, lo[, k])): ``mesh_fold_plain`` of set k for
+    each job, written into its output in place."""
+    sets = _sets(xs)
+    for j in jobs:
+        out, lo = j[0], j[1]
+        out.view(-1).copy_(mesh_fold_plain(
+            sets[j[2] if len(j) > 2 else 0], lo, out.numel(), opname,
+            order, device=out.device))
+    return [j[0] for j in jobs]
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ banked checks.
 Divergences from the reference, pinned by tests: the source stays on
 the device; a K11 build or launch error raises (only the comparison of
 digests fails open, where the reference fails open on everything).
-Not ported: the event records (the port has no event ring yet).
+A mismatch, a conviction and a retry each leave a flight-recorder event
+(``obs.EV_SDC_MISMATCH``, ``EV_SDC_CONVICT``, ``EV_SDC_RETRY``).
 """
 
 from __future__ import annotations
@@ -443,6 +444,10 @@ def _run_checked(comm, fn, ck, shards):
     if ok:
         return outs
     _pv_mismatches.add(1)
+    from ompi_tpu_torch import obs as _obs
+    _obs.record_event(_obs.EV_SDC_MISMATCH, getattr(comm, "cid", 0),
+                      int(getattr(comm, "_dev_seq", 0)),
+                      _obs.intern(ck[0]), rank=comm.rank)
     bad = _bisect(ck, shards, claims)
     if bad < 0:
         # no rank's operand diverged from its gate claim: the
@@ -452,6 +457,9 @@ def _run_checked(comm, fn, ck, shards):
     _convict(comm, bad, ck[0])
     outs = fn([s.src for s in shards])
     _pv_retries.add(1)
+    _obs.record_event(_obs.EV_SDC_RETRY, getattr(comm, "cid", 0),
+                      int(getattr(comm, "_dev_seq", 0)), bad,
+                      rank=comm.rank)
     return outs
 
 
@@ -522,6 +530,9 @@ def _convict(comm, rank: int, kind: str) -> None:
     _pv_convictions.add(1)
     rec = {"rank": int(grank), "host": host,
            "cid": int(getattr(comm, "cid", 0)), "kind": kind}
+    from ompi_tpu_torch import obs as _obs
+    _obs.record_event(_obs.EV_SDC_CONVICT, int(grank), host,
+                      _obs.intern(kind), rank=comm.rank)
     with _conv_lock:
         convicted.append(rec)
         hooks = list(_hooks)

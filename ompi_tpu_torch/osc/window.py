@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import errhandler as _eh
+from ompi_tpu_torch import obs as _obs
 from ompi_tpu_torch import ft_inject
 from ompi_tpu_torch.datatype import engine as dtmod
 from ompi_tpu_torch.mca.params import registry
@@ -76,33 +77,32 @@ _WIRE_DTYPES = [np.dtype(t) for t in (
 _DT_CODE = {dt: i for i, dt in enumerate(_WIRE_DTYPES)}
 
 
-# osc pvar surface, shared by BOTH components (pt2pt and device).  The
-# reference scopes the counters by session band; the port has one
-# band, so they are plain pvars, bumped under one lock (ranks are
-# threads, and += on a pvar is a read-modify-write).
-pv_puts = registry.register_pvar(
+# osc pvar surface, shared by BOTH components (pt2pt and device):
+# band-scoped (ompi_tpu_torch/obs), so resident sessions get exact
+# per-session attribution.
+pv_puts = _obs.scoped_pvar(
     "osc", "", "puts", help="RMA put/rput operations issued")
-pv_gets = registry.register_pvar(
+pv_gets = _obs.scoped_pvar(
     "osc", "", "gets", help="RMA get/rget operations issued")
-pv_accs = registry.register_pvar(
+pv_accs = _obs.scoped_pvar(
     "osc", "", "accs",
     help="RMA accumulate/get_accumulate/fetch_and_op operations issued")
-pv_cas = registry.register_pvar(
+pv_cas = _obs.scoped_pvar(
     "osc", "", "cas", help="RMA compare_and_swap operations issued")
-pv_bytes_put = registry.register_pvar(
+pv_bytes_put = _obs.scoped_pvar(
     "osc", "", "bytes_put", help="Origin bytes moved by put/rput")
-pv_bytes_got = registry.register_pvar(
+pv_bytes_got = _obs.scoped_pvar(
     "osc", "", "bytes_got", help="Origin bytes moved by get/rget")
 pv_lock_wait = registry.register_pvar(
     "osc", "", "lock_wait_us", var_class="highwatermark",
     help="Worst time (us) an origin waited for a passive-target lock "
          "grant")
-_pv_lock = threading.Lock()
+_pv_lock = threading.Lock()  # pv_lock_wait's read-modify-write
 
 
-def bump(pv, n: int = 1) -> None:
-    with _pv_lock:
-        pv.add(n)
+def bump(pv: _obs.ScopedPvar, n: int = 1) -> None:
+    """Add ``n`` to a scoped osc counter, in the calling rank's band."""
+    pv.add(n, _obs.current_band())
 
 
 def _op_code(op: opmod.Op) -> int:

@@ -9,11 +9,12 @@ The port carries the in-process transports only (btl/inproc and
 btl/self).  Of the reference's optional planes it has the span tracer
 (attached before pml selection, clock offsets measured before the
 finalize fence, the per-rank dump written last), the online autotuner
-(attached right after the tracer), the integrity plane (its knobs are
-read at init, as the reference's obs.attach does) and the fault
-injectors of the rendezvous and the RMA AM apply; telemetry, pstat,
-binding, ULFM, vprotocol and live recovery are listed in ROADMAP.md as
-still to port.
+(attached right after the tracer), the telemetry plane (obs.attach:
+its gauges, the flight recorder, the scrape tick, and the integrity
+plane's knobs; obs.detach at finalize), the session cid band (the
+predefined communicators at the band base) and the fault injectors of
+the rendezvous and the RMA AM apply; pstat, binding, ULFM, vprotocol
+and live recovery are listed in ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from ompi_tpu_torch.btl import base as btl_base
 from ompi_tpu_torch.btl import inproc as _btl_inproc  # noqa: F401 (registers)
 from ompi_tpu_torch.btl import self_btl as _btl_self  # noqa: F401
 from ompi_tpu_torch import trace as _trace
-from ompi_tpu_torch.comm.communicator import Communicator, Group
-from ompi_tpu_torch.obs import integrity
+from ompi_tpu_torch.comm.communicator import (SESSION_CID_STRIDE,
+                                              Communicator, Group)
 from ompi_tpu_torch.pml import ob1 as _pml_ob1
 from .state import LogicalDevice, ProcState, clear_current, set_current
 
@@ -44,7 +45,11 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     # coll layers below still cache a non-None state.tracer
     from ompi_tpu_torch.coll import autotune as _autotune
     _autotune.attach(state)
-    integrity.refresh()
+    # telemetry plane: gauges + flight recorder (idempotent across
+    # looped worlds), the scrape tick when enabled, and the integrity
+    # plane's knobs
+    from ompi_tpu_torch import obs as _obs
+    _obs.attach(state)
     if isinstance(device, LogicalDevice):
         device, state.device_slot = device.device, device.slot
     state.device = device
@@ -76,10 +81,13 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     state.rte.fence()
     endpoints = btl_base.wire_endpoints(state, modules)
     state.pml.add_procs(endpoints)
-    # 3. predefined communicators: world cid 0, self cid 1
-    state.comm_world = Communicator(state, 0, Group(range(state.size)),
+    # 3. predefined communicators at the band base: world cid 0, self
+    # cid 1 for an ordinary job; a resident session's band shifts them
+    # (next_cid floors derived comms into the same band)
+    band = state.cid_band * SESSION_CID_STRIDE
+    state.comm_world = Communicator(state, band, Group(range(state.size)),
                                     name="MPI_COMM_WORLD")
-    state.comm_self = Communicator(state, 1, Group([state.rank]),
+    state.comm_self = Communicator(state, band + 1, Group([state.rank]),
                                    name="MPI_COMM_SELF")
     # 4. collective module stacks are installed by Communicator
     # construction itself (coll_base_comm_select analog)
@@ -124,6 +132,10 @@ def mpi_finalize(state: ProcState) -> None:
     from ompi_tpu_torch.coll import autotune as _autotune
     _autotune.detach(state)
     state.rte.finalize()
+    # stop the scrape tick for this world (the recorder and the gauges
+    # are process-scoped and survive into the next looped world)
+    from ompi_tpu_torch import obs as _obs
+    _obs.detach(state)
     # trace dump LAST: teardown spans are part of the timeline
     _trace.dump_state(state)
     state.finalized = True

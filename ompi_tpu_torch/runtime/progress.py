@@ -103,6 +103,10 @@ class Progress:
         # trace_enable; every sweep then feeds the progress-tick
         # latency histogram.  None = one is-None check per sweep.
         self.tracer = None
+        # telemetry scraper (ompi_tpu_torch/obs): set by obs.attach when
+        # obs_scrape_interval_ms > 0 and a tracer is on; ticked only on
+        # the tracer's sampled sweeps with the timestamp already read
+        self.obs = None
 
     def deferred_interrupts(self):
         """Context manager: hold any armed ft interrupt until exit.
@@ -292,6 +296,13 @@ class Progress:
             for cb in self._lp_cbs:
                 events += cb()
         if tr is not None and _t0:
+            # the scrape tick rides 1 in 16 of the sampled sweeps (1 in
+            # 256 overall), before the tick-end read so that a
+            # refresh's copy lands in the progress_tick histogram
+            if (self._counter & 255) == 1:
+                obs = self.obs
+                if obs is not None:
+                    obs.tick(_t0)
             tr.tick_ns(time.perf_counter_ns() - _t0)
         return events
 

@@ -46,6 +46,14 @@ class ProcState:
         # span tracer (ompi_tpu_torch/trace); None unless trace_enable —
         # hot paths pay exactly one is-None check when tracing is off
         self.tracer: Any = None
+        # respawn recovery epochs (the reference's ft/respawn; stays 0
+        # until it is ported) and the session cid band: both shift this
+        # rank's communicator-id space (comm/communicator.py
+        # EPOCH_CID_STRIDE, SESSION_CID_STRIDE), so concurrently
+        # resident sessions in one process never share a cid (trace
+        # spans, pvar bands and meeting keys stay unambiguous)
+        self.respawn_epoch = 0
+        self.cid_band = 0
         self.finalized = False
         self.initialized = False
         self.extra: Dict[str, Any] = {}

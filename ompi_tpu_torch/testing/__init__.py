@@ -54,7 +54,8 @@ def logical_devices(device) -> Callable:
 
 
 def run_ranks(n: int, fn: Callable, devices: bool = False,
-              timeout: float = 120.0, device_map=None) -> List[Any]:
+              timeout: float = 120.0, device_map=None,
+              cid_band: int = 0) -> List[Any]:
     """Run fn(comm_world) on n thread-ranks; returns per-rank results.
 
     devices=True maps rank i to torch.device("cuda", i % ncards): with
@@ -64,7 +65,9 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
     lambda r: torch.device("cuda", 0) to co-locate every rank on one
     card, lambda r: torch.device("cpu") to run the device path on the
     CPU with the kernels' plain versions, or logical_devices("cpu") /
-    logical_devices("cuda:0") for a mesh of logical devices)."""
+    logical_devices("cuda:0") for a mesh of logical devices).
+    ``cid_band``: the world's session cid band (its communicators' ids
+    start at cid_band * SESSION_CID_STRIDE; see testing.sessions)."""
     world = InprocWorld(n)
     results: List[Any] = [None] * n
     errors: List[Optional[RankError]] = [None] * n
@@ -75,6 +78,7 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
         try:
             rte = world.make_rte(rank)
             state = ProcState(rank, n, rte)
+            state.cid_band = cid_band
             world.states[rank] = state
             dev = device_map(rank) if device_map is not None else None
             mpi_init(state, device=dev)

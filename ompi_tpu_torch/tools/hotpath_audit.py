@@ -34,8 +34,8 @@ from typing import Dict, List, Tuple
 # (module path relative to the package root, {qualified function: ...})
 # Qualified names are "Class.method" or bare "function".  The port's
 # copy declares the hot functions the port has: the reference's
-# telemetry scrape, checkpoint drain, fleet controller, DVM and health
-# ticks have no counterpart here yet (ROADMAP.md A6-A9).
+# checkpoint drain, fleet controller, DVM and health ticks have no
+# counterpart here yet (ROADMAP.md A6-A9).
 HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     "ompi_tpu_torch/trace/__init__.py": (
         "Tracer.start",
@@ -87,6 +87,13 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     # in ``_fold_claims`` on the checked path only)
     "ompi_tpu_torch/obs/integrity.py": (
         "sample",
+    ),
+    # the telemetry scrape rides 1 in 256 progress sweeps on a traced
+    # rank whenever obs_scrape_interval_ms > 0: no clock read of its
+    # own, a round-robin single-histogram integer copy only when the
+    # interval elapses, never an allocation
+    "ompi_tpu_torch/obs/__init__.py": (
+        "Scraper.tick",
     ),
 }
 
