@@ -266,6 +266,34 @@ Phases, each fatal on failure (nothing is caught and carried on):
              and 1000 us in turns (A B C A B C), and the combined K3
              against two solo launches (device and a call).  8a/8b's
              launches join the kernels line's counts.
+9. hier    — the hierarchical allreduce tier on the card's 8 logical
+             devices in two slices of 4 (coll_hier_enable 1,
+             coll_hier_slice_size 4).  9a: allreduce_arr at 8 and 128
+             MiB of f32 SUM, i32 SUM and f32 MAX, and the ragged 2**21
+             + 3 f32 SUM: an op is each slice's intra plan (one K6 and
+             one K2 peer launch a card) and its segbcast of the total
+             (one K2 peer launch a card a segment), launch counts exact
+             case by case; coll_hier_ops moves by 8 an op (one a rank);
+             each leader records one D2H, host allreduce and H2D span
+             an op (phase tracing on), both stages pinned, and no other
+             rank any; every rank's bytes the same and the plain
+             version's on the CPU byte for byte; against the flat mesh
+             allreduce of the same inputs (the tier off), ints and MAX
+             byte for byte and float SUM within 4*N*2^-24 of
+             sum(|x_i|).  9b: node 0 (ranks 0 and 1) held degraded by
+             the health plane: slice 0's leader is rank 2, the bytes
+             unchanged.  9c: ft_inject rdv_sever wedges rank 5 short of
+             its first deposit on coll/hbm (8 ranks on the card) and on
+             the mesh: the hang doctor's capture
+             (testing.sessions.doctor_capture), built once the other 7
+             have arrived, names rank 5 absent, and poisoning the world
+             unwinds every rank within 5 s.  9d (printed): host_slow on
+             node 1 (ranks 4-7, 18 ms a deposit) against clean, A B B A,
+             us an op.  9e (printed): the tier against the flat mesh
+             allreduce at 8 MiB, A B B A, us an op, with the leader
+             hop's D2H, host allreduce and H2D host time, and one pinned
+             8 MiB copy each way.  9a's launches join the kernels
+             line's counts.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -273,7 +301,8 @@ result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
 on a host with two or more cards builds the kernels and runs only the
 one-rank-a-card branch (K8's shift cases with the source on a peer
 card, then the mesh, RMA, integrity and halo phases and the SHMEM
-workloads over peer access).
+workloads over peer access, and with four or more cards phase 9 in
+slices of two: 9a, 9b, 9c on the mesh, 9d and 9e).
 """
 
 from __future__ import annotations
@@ -3229,11 +3258,13 @@ def chained_allreduce(dev, nbytes: int, iters: int):
     """A rank program: ``iters`` chained comm.allreduce_arr SUM calls
     of ``nbytes`` float32 (each rank feeds its output back in) after a
     warm-up, host clock from a barrier to torch.cuda.synchronize();
-    returns the seconds."""
+    returns the seconds.  ``dev``: the inputs' device, or a list of one
+    a rank."""
     from ompi_tpu_torch.op.op import SUM
 
     def fn(comm):
-        x = rank_input(comm.rank, nbytes, torch.float32, dev, 40) * 1e-6
+        d = dev[comm.rank] if isinstance(dev, list) else dev
+        x = rank_input(comm.rank, nbytes, torch.float32, d, 40) * 1e-6
         for _ in range(3):
             x = comm.allreduce_arr(x, SUM) * 0.125
         torch.cuda.synchronize()
@@ -4634,6 +4665,438 @@ def phase_sessions(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 9. hier: the hierarchical allreduce tier, its leader hop, the health
+#    plane's reroute, the hang doctor and the gray-failure injectors
+# ---------------------------------------------------------------------------
+
+HIER_SIZES = (8 * MIB, 128 * MIB)
+HIER_OPS = (("f32_sum", torch.float32, "MPI_SUM"),
+            ("i32_sum", torch.int32, "MPI_SUM"),
+            ("f32_max", torch.float32, "MPI_MAX"))
+HIER_TIMED = 10   # chained ops a timed run of 9d and 9e
+HIER_SLOW = {"ft_inject_plan": "host_slow", "ft_inject_victim_host": 1,
+             "ft_inject_host_slow_factor": 10, "ft_inject_delay_ms": 2}
+HIER_SEVER = {"ft_inject_plan": "rdv_sever:1",
+              "coll_device_rendezvous_timeout": 60.0}
+
+
+def hier_knobs(sl: int, on: bool = True):
+    """The tier's knobs around a world (never inside a rank: a comm
+    caches its eligibility): on, slices of ``sl`` consecutive ranks;
+    phase tracing on (``TRACE_ON``), so the leader hop's steps are
+    counted and timed from their spans."""
+    return _knobs(coll_hier_enable=on, coll_hier_slice_size=sl, **TRACE_ON)
+
+
+HOP = ("ph_hop_d2h", "ph_hop_host", "ph_hop_h2d")
+
+
+def hop_spans(tr, since: int = 0):
+    """The leader hop's phase spans ``tr`` recorded after its event
+    ``since``, oldest first: (name, nbytes, pinned (None for the host
+    step), seconds)."""
+    new = tr.cursor - since
+    if new > tr.capacity:
+        raise AssertionError("the trace ring wrapped under the leader hop")
+    evs = tr.snapshot()[-new:] if new > 0 else []
+    return [(e["name"], e["args"]["nbytes"], e["args"].get("pinned"),
+             e["dur"]) for e in evs if e["name"] in HOP]
+
+
+def hop_want(nbytes: int, card: bool):
+    """A leader's hop spans for one op of ``nbytes``, without their
+    times: its D2H and H2D through pinned stages on a card (numpy
+    stages on the CPU), the host allreduce between."""
+    p = int(card)
+    return [("ph_hop_d2h", nbytes, p), ("ph_hop_host", nbytes, None),
+            ("ph_hop_h2d", nbytes, p)]
+
+
+def _with_hop(call):
+    """``call`` as a case that returns (its result, the leader-hop
+    spans this rank recorded in it, without their times)."""
+    def run(comm):
+        tr = comm.state.tracer
+        n0 = tr.cursor
+        out = call(comm)
+        return out, [s[:3] for s in hop_spans(tr, n0)]
+    return run
+
+
+def hier_cases(cards, sl: int):
+    """(key, entry point, launches, call, knobs, (nbytes, dtype, op,
+    salt)) of 9a: allreduce_arr at 8 and 128 MiB of f32 SUM, i32 SUM and
+    f32 MAX, and the ragged 2**21 + 3 f32 SUM, on N = len(cards) ranks
+    in slices of ``sl``.  An op is, in each slice, the intra comm's
+    plan (one K6 and one K2 peer a card) and its segbcast of the total
+    (one K2 peer launch a card a segment of coll_seg_size)."""
+    from ompi_tpu_torch.op import op as mpi_op
+    n = len(cards)
+    slices, c = n // sl, len(set(cards[:sl]))
+    out = []
+    sizes = [(f"{nb // MIB}MiB", nb, HIER_OPS) for nb in HIER_SIZES] + \
+        [("ragged", RAGGED * 4, HIER_OPS[:1])]
+    salt = 60
+    for tag, nb, ops in sizes:
+        for name, dt, opname in ops:
+            segs = -(-nb // MIB)
+            want = {"mesh_fold": slices * c,
+                    "peer_copy": slices * c * (1 + segs)}
+            op = getattr(mpi_op, opname[4:])
+            out.append((f"h_{name}_{tag}", "allreduce_arr", want,
+                        lambda comm, nb=nb, dt=dt, op=op, salt=salt:
+                        comm.allreduce_arr(mesh_input(comm.rank, nb, dt,
+                                                      cards, salt), op),
+                        {}, (nb, dt, opname, salt)))
+            salt += 1
+    return out
+
+
+def _hier_want(cards, sl: int, nb: int, dt, opname: str, salt: int):
+    """The plain version of one hier op on the CPU: every slice's left
+    fold in rank order (the intra plan's native order), then the two
+    slice results folded (the leaders' host allreduce: one op of two
+    operands)."""
+    from ompi_tpu_torch.kernels.stacked import fold_plain
+    n = len(cards)
+    xs = [mesh_input(r, nb, dt, cards, salt).cpu() for r in range(n)]
+    parts = [fold_plain(xs[lo:lo + sl], opname) for lo in range(0, n, sl)]
+    return xs, fold_plain(parts, opname)
+
+
+def phase_hier_path(devs, sl: int, what: str) -> dict:
+    """9a: the tier through comm.allreduce_arr on N = len(devs) ranks in
+    slices of ``sl``, then the same cases with the tier off (the flat
+    mesh allreduce).  Every entry point is coll/tpu, every case's K6
+    and K2 peer launches exact; coll_hier_ops moves by N an op (one a
+    rank), none with the tier off; each leader (the first rank of a
+    slice) records exactly one D2H, host allreduce and H2D span an op,
+    the payload's bytes through stages pinned on a card, and no other
+    rank any; every rank's bytes the same and equal, byte for
+    byte, to the plain version on the CPU; against the flat route,
+    ints and MAX byte for byte and float SUM within 4*N*2^-24 of
+    sum(|x_i|).  Returns the tier's launches."""
+    from ompi_tpu_torch.coll import pipeline
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    n = len(devs)
+    cards = [d.device if isinstance(d, LogicalDevice) else d for d in devs]
+    card = cards[0].type == "cuda"
+    cases = hier_cases(cards, sl)
+    plan = [(k, f, w, _with_hop(call), kn) for k, f, w, call, kn, _ in cases]
+    h0 = pipeline.pv_hier.read()
+    with hier_knobs(sl):
+        res, launches, _ = drive(plan, lambda r: devs[r], n, "tpu",
+                                 f"hier, {what}, slices of {sl}")
+    ops = pipeline.pv_hier.read() - h0
+    with hier_knobs(sl, on=False):
+        flat, _, _ = drive(_flat_plan(cases, cards), lambda r: devs[r], n,
+                           "tpu", f"flat (hier off), {what}")
+    if ops != n * len(cases) or pipeline.pv_hier.read() - h0 != ops:
+        raise AssertionError(f"hier: coll_hier_ops moved {ops}, expected "
+                             f"{n * len(cases)} ({n} ranks x "
+                             f"{len(cases)} ops)")
+    for key, _, _, _, _, (nb, dt, opname, salt) in cases:
+        for r in range(n):
+            spans = res[r][key][1]
+            if spans != (hop_want(nb, card) if r % sl == 0 else []):
+                raise AssertionError(f"hier {key}: rank {r}'s leader hop "
+                                     f"{spans}")
+        xs, want = _hier_want(cards, sl, nb, dt, opname, salt)
+        outs = [res[r][key][0].cpu() for r in range(n)]
+        for r, o in enumerate(outs):
+            if o.dtype != want.dtype or o.shape != want.shape or \
+                    not torch.equal(o.view(torch.uint8),
+                                    want.view(torch.uint8)):
+                raise AssertionError(f"hier {key}: rank {r} differs from "
+                                     "the plain version on the CPU")
+        f = flat[0][key].cpu()
+        if opname == "MPI_SUM" and dt.is_floating_point:
+            absum = torch.stack([x.double().abs() for x in xs]).sum(0)
+            bad = int(((want.double() - f.double()).abs()
+                       > 4 * n * 2.0 ** -24 * absum).sum())
+            if bad or not torch.isfinite(want).all():
+                raise AssertionError(f"hier {key}: {bad} elements outside "
+                                     "the float SUM band of the flat route")
+            how = "within 4*N*2^-24 of the flat route"
+        else:
+            if not torch.equal(f.view(torch.uint8), want.view(torch.uint8)):
+                raise AssertionError(f"hier {key}: differs from the flat "
+                                     "route")
+            how = "the flat route's bytes"
+        log(f"[hier] {key}, {what}: every rank the plain version's bytes "
+            f"on the CPU, {how}")
+        del xs, want, outs
+    log(f"[hier] {what}, slices of {sl}: coll_hier_ops {ops} "
+        f"({len(cases)} ops x {n} ranks); leader hop: ranks "
+        f"{list(range(0, n, sl))} one D2H, host allreduce and H2D an op, "
+        f"the payload's bytes (pinned stages: {card}), no other rank; "
+        f"launches {launches}")
+    return launches
+
+
+def _flat_plan(cases, cards):
+    """9a's cases for the flat mesh allreduce: one K6 and one K2 peer a
+    card an op."""
+    c = len(set(cards))
+    return [(k, f, {"mesh_fold": c, "peer_copy": c}, call, kn)
+            for k, f, _, call, kn, _ in cases]
+
+
+def phase_hier_reroute(devs, sl: int, what: str) -> None:
+    """9b: each rank's node id is rank // (sl // 2), node 0 held
+    degraded by the health plane's mask: slice 0's first half is on it,
+    so its leader is rank sl // 2 (the other slices keep their first
+    rank); the leader hop runs on those ranks' threads, the launches
+    are 9a's, and the result is the plain version's bytes (the healthy
+    fleet's)."""
+    from ompi_tpu_torch.coll import pipeline
+    from ompi_tpu_torch.obs import health
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    from ompi_tpu_torch.testing import run_ranks
+    n = len(devs)
+    cards = [d.device if isinstance(d, LogicalDevice) else d for d in devs]
+    half = max(1, sl // 2)
+    nb, salt = 8 * MIB, 90
+
+    def fn(comm):
+        comm.state.rte.node_id = comm.rank // half
+        x = mesh_input(comm.rank, nb, torch.int32, cards, salt)
+        comm.Barrier()
+        out = comm.allreduce_arr(x, SUM)
+        torch.cuda.synchronize()
+        intra, lead = pipeline._hier_plan(comm)
+        hop = [sp[:3] for sp in hop_spans(comm.state.tracer)]
+        return intra.group[0], lead is not None, out, hop
+
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    health.set_degraded_mask(1)
+    try:
+        with hier_knobs(sl):
+            res = run_ranks(n, fn, device_map=lambda r: devs[r],
+                            timeout=600)
+    finally:
+        health.set_degraded_mask(0)
+    got = {k: c.value for k, c in counters.items() if c.value}
+    c = len(set(cards[:sl]))
+    segs = -(-nb // MIB)
+    want_l = {"mesh_fold": n // sl * c,
+              "peer_copy": n // sl * c * (1 + segs)}
+    leaders = [half] + list(range(sl, n, sl))
+    want_lead = [(leaders[r // sl], r in leaders) for r in range(n)]
+    _, want = _hier_want(cards, sl, nb, torch.int32, "MPI_SUM", salt)
+    hops = [h for _, _, _, h in res]
+    want_hops = [hop_want(nb, cards[0].type == "cuda") if r in leaders
+                 else [] for r in range(n)]
+    if [(a, b) for a, b, _, _ in res] != want_lead or got != want_l or \
+            hops != want_hops:
+        raise AssertionError(f"hier reroute: leaders "
+                             f"{[(a, b) for a, b, _, _ in res]}, expected "
+                             f"{want_lead}; launches {got}; hop {hops}")
+    for r, (_, _, o, _) in enumerate(res):
+        if not torch.equal(o.cpu(), want):
+            raise AssertionError(f"hier reroute: rank {r} differs from "
+                                 "the plain version")
+    log(f"[hier] 9b reroute, {what}: node 0 degraded, slice leaders "
+        f"{leaders} (the leader hop's spans on those ranks alone), "
+        f"launches {got}, i32 SUM 8 MiB the plain version's bytes")
+
+
+def phase_hier_wedge(devs, tier: str, what: str) -> None:
+    """9c: ft_inject rdv_sever wedges rank N - 3 (5 of 8) short of its
+    first deposit (a 1 MiB allreduce_arr f32 SUM, one meeting); a
+    watcher thread builds the hang doctor's capture once the other
+    N - 1 have arrived (testing.sessions.doctor_capture): its
+    rendezvous row and the verdict name that rank absent and the
+    others waiting; then poisoning
+    the world unwinds every rank, the wedged one included, within 5 s
+    (the rendezvous timeout is 60 s)."""
+    from ompi_tpu_torch.obs import health
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    from ompi_tpu_torch.testing import RankError, run_ranks, sessions
+    from ompi_tpu_torch.tools import doctor
+    n = len(devs)
+    cards = [d.device if isinstance(d, LogicalDevice) else d for d in devs]
+    victim = n - 3
+    held, got = {}, {}
+
+    def fn(comm):
+        if comm.rank == 0:
+            held["world"] = comm.state.rte.world
+        x = mesh_input(comm.rank, MIB, torch.float32, cards, 95)
+        return comm.allreduce_arr(x, SUM)
+
+    hp = health.HealthPlane(1, expect_beat_ns=100_000_000,
+                            floor_grace_ns=1_000_000_000)
+
+    def watcher():
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            w = held.get("world")
+            if w is not None:
+                with w.shared_lock:
+                    rvs = [v for k, v in w.shared.items()
+                           if isinstance(k, tuple) and k[0] == "coll_rv"]
+                if any(rv.snapshot()["count"] == n - 1 for rv in rvs):
+                    t0 = time.monotonic()
+                    got["doc"] = sessions.doctor_capture(
+                        w, sid=9, run_ms=0, health=hp)
+                    got["capture_s"] = time.monotonic() - t0
+                    got["t"] = time.monotonic()
+                    sessions.poison(w, 3, "hang doctor")
+                    return
+            time.sleep(0.01)
+
+    th = threading.Thread(target=watcher, daemon=True)
+    with _knobs(**HIER_SEVER, ft_inject_victim_rank=str(victim)):
+        th.start()
+        try:
+            run_ranks(n, fn, device_map=lambda r: devs[r], timeout=300)
+        except RankError as e:
+            if "aborted" not in str(e):
+                raise
+        else:
+            raise AssertionError("hier wedge: the wedged world returned")
+        unwound = time.monotonic()
+    th.join(10)
+    doc = got.get("doc")
+    if doc is None:
+        raise AssertionError("hier wedge: no capture was built")
+    rvs = doc["rendezvous"]
+    lines = doctor.verdict(doc)
+    text = "\n".join(lines)
+    want_wait = ",".join(str(r) for r in range(n) if r != victim)
+    if len(rvs) != 1 or rvs[0]["absent"] != [victim] or \
+            f"ABSENT ranks [{victim}]" not in text or \
+            f"waiting ranks [{want_wait}]" not in text or \
+            unwound - got["t"] > 5.0 or \
+            len(doc["stacks"]) != n:
+        raise AssertionError(f"hier wedge {tier}: rendezvous {rvs}, "
+                             f"verdict {lines}, unwound in "
+                             f"{unwound - got['t']:.3f} s, "
+                             f"{len(doc['stacks'])} stacks")
+    log(f"[hier] 9c rdv_sever wedge, {tier}, {what}: capture in "
+        f"{got['capture_s'] * 1e3:.1f} ms ({len(doc['stacks'])} stacks, "
+        f"{len(doc['events'])} flight events); verdict: "
+        f"{[ln.strip() for ln in lines if 'ABSENT' in ln]}; the poisoned "
+        f"world unwound in {unwound - got['t']:.3f} s")
+
+
+def _hier_chained(cards, sl: int, iters: int):
+    """A rank program for 9d/9e: node id rank // sl, then
+    ``chained_allreduce``'s 8 MiB float32 chain; returns (seconds,
+    whether this rank holds a host_slow injector, the leader hop's
+    spans of the ``iters`` timed ops where tracing is on)."""
+    inner = chained_allreduce(cards, 8 * MIB, iters)
+
+    def fn(comm):
+        comm.state.rte.node_id = comm.rank // sl
+        dt = inner(comm)
+        tr = comm.state.tracer
+        hop = hop_spans(tr)[-3 * iters:] if tr is not None else []
+        return dt, bool(comm.state.extra.get("coll_slow_inj")), hop
+    return fn
+
+
+def phase_hier_timing(devs, sl: int, what: str) -> None:
+    """9d: host_slow on node 1 (ranks sl..2sl-1) against clean, A B B A,
+    µs an op of the tier at 8 MiB (slowest rank); only node 1's ranks
+    hold an injector.  9e: the tier against the flat mesh allreduce,
+    A B B A, µs an op, with the leader hop's host time split by its
+    phase spans into its D2H (the copy and the wait on its event), the
+    host allreduce (the leaders' p2p over btl/inproc, the other
+    leader's wait included) and its H2D (enqueue), a leader's mean over
+    the timed ops; and one 8 MiB copy each way between a pinned stage
+    and the card, CUDA events around 20.  Every turn of 9d and 9e runs
+    with phase tracing on (``hier_knobs``)."""
+    from ompi_tpu_torch.runtime import staging
+    from ompi_tpu_torch.testing import run_ranks
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    n = len(devs)
+    cards = [d.device if isinstance(d, LogicalDevice) else d for d in devs]
+    dev = cards[0]
+    fn = _hier_chained(cards, sl, HIER_TIMED)
+    runs = {False: [], True: []}
+    with hier_knobs(sl):
+        for slow in (False, True, True, False):
+            with _knobs(**(HIER_SLOW if slow else {"ft_inject_plan": ""})):
+                res = run_ranks(n, fn, device_map=lambda r: devs[r],
+                                timeout=600)
+            inj = [f for _, f, _ in res]
+            if inj != [slow and r // sl == 1 for r in range(n)]:
+                raise AssertionError(f"host_slow: injectors on {inj}")
+            runs[slow].append(max(dt for dt, _, _ in res) / HIER_TIMED * 1e6)
+    stall = HIER_SLOW["ft_inject_delay_ms"] * (
+        HIER_SLOW["ft_inject_host_slow_factor"] - 1)
+    log(f"[hier] 9d host_slow, {what}: node 1's ranks stall {stall} ms a "
+        f"deposit; us an op clean {[round(u, 1) for u in runs[False]]}, "
+        f"slow {[round(u, 1) for u in runs[True]]} (turns A B B A, slowest "
+        f"rank, {HIER_TIMED} chained ops of 8 MiB f32 SUM)")
+    runs = {True: [], False: []}
+    split = []
+    for on in (True, False, False, True):
+        with hier_knobs(sl, on=on):
+            res = run_ranks(n, fn, device_map=lambda r: devs[r],
+                            timeout=600)
+        runs[on].append(max(dt for dt, _, _ in res) / HIER_TIMED * 1e6)
+        hops = [h for _, _, h in res]
+        want = [HOP * HIER_TIMED if on and r % sl == 0 else ()
+                for r in range(n)]
+        if [tuple(sp[0] for sp in h) for h in hops] != want:
+            raise AssertionError(f"9e: leader hop spans {hops}")
+        if on:
+            split.append([sum(sp[3] for h in hops for sp in h
+                              if sp[0] == name) / (n // sl * HIER_TIMED)
+                          * 1e6 for name in HOP])
+    log(f"[hier] 9e hier against flat, {what}, 8 MiB f32 SUM: us an op "
+        f"hier {[round(u, 1) for u in runs[True]]}, flat "
+        f"{[round(u, 1) for u in runs[False]]} (turns A B B A, slowest "
+        f"rank, {HIER_TIMED} chained ops)")
+    for i, (a, b, c) in enumerate(split):
+        log(f"[hier] 9e leader hop, hier run {i + 1}: D2H {a:.1f} us, host "
+            f"allreduce {b:.1f} us, H2D enqueue {c:.1f} us a leader an op")
+    if dev.type == "cuda":
+        y = torch.randn(8 * MIB // 4, device=dev)
+        st = staging.aligned_empty(8 * MIB, dev)
+        if not pinned(st):
+            raise AssertionError("9e: the stage is not pinned")
+        sv = st.view(torch.float32)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        ms = []
+        for copy in (lambda: sv.copy_(y, non_blocking=True),
+                     lambda: y.copy_(sv, non_blocking=True)):
+            copy()
+            torch.cuda.synchronize()
+            a.record()
+            for _ in range(20):
+                copy()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b) / 20)
+        log(f"[hier] 9e pinned 8 MiB copies: D2H {ms[0]:.4f} ms "
+            f"({8 * MIB / ms[0] / 1e6:.2f} GB/s), H2D {ms[1]:.4f} ms "
+            f"({8 * MIB / ms[1] / 1e6:.2f} GB/s), CUDA events around 20")
+
+
+def phase_hier(dev) -> dict:
+    """Phase 9 on one card's 8 logical devices, slices of 4: 9a (its
+    launches, the path's count), 9b, 9c on both tiers, 9d, 9e."""
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    devs = [LogicalDevice(dev, r) for r in range(NRANKS)]
+    what = f"8 logical devices of {dev}"
+    launches = phase_hier_path(devs, 4, what)
+    phase_hier_reroute(devs, 4, what)
+    phase_hier_wedge([dev] * NRANKS, "hbm", f"8 ranks on {dev}")
+    phase_hier_wedge(devs, "tpu", what)
+    phase_hier_timing(devs, 4, what)
+    return launches
+
+
 def phase_cards() -> None:
     """One rank a card, on a host with two or more: the mesh, RMA,
     integrity and halo phases and the SHMEM workloads (7a) again, where
@@ -4653,6 +5116,12 @@ def phase_cards() -> None:
     phase_integrity(cards, "tpu", f"{nc} cards, one rank each")
     phase_halo(cards, "tpu", f"{nc} cards, one rank each")
     phase_shmem_workloads(cards, f"{nc} cards, one PE each")
+    if nc >= 4:  # two slices of two ranks at least
+        what = f"{nc} cards, one rank each"
+        phase_hier_path(cards, 2, what)
+        phase_hier_reroute(cards, 2, what)
+        phase_hier_wedge(cards, "tpu", what)
+        phase_hier_timing(cards, 2, what)
 
 
 def main(argv) -> int:
@@ -4740,6 +5209,9 @@ def main(argv) -> int:
         r["launches"] += x_launches.get(k, 0)
         if ":combined_" in r["name"]:
             r["launches_per_call"] = x_launches[k] // XS_FLUSHES
+    h_launches = phase_hier(dev)
+    for r in rows:  # and phase 9a's, the hierarchical tier's
+        r["launches"] += h_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -41,11 +41,9 @@ counts dispatch/segment spans (exact even under sampling — the
 tracer's per-category seen counters include the sampled-out
 remainder) and triggers a fold every ``coll_autotune_interval_ops``.
 
-The port's copy of the reference's ``ompi_tpu/coll/autotune.py``.  The
-port has no hierarchical tier yet (ROADMAP.md A6): a fold still moves
-``hier_min_bytes`` in the profile as the reference's does, and nothing
-reads it until that tier lands, so a window's thresholds hold the
-segmented crossover alone.
+The port's copy of the reference's ``ompi_tpu/coll/autotune.py``: a
+window's thresholds hold, a kind, the segmented crossover and the
+hierarchical tier's minimum (``hier_min_bytes``), as the reference's do.
 """
 
 from __future__ import annotations
@@ -339,8 +337,12 @@ class Autotuner:
         from ompi_tpu_torch.coll import pipeline
         tbl: Dict = {"__win": win}
         for kind in ("allreduce", "bcast", "alltoall"):
-            tbl[kind] = calibrate.segmented_crossover(
-                kind, comm.size, pipeline._min_bytes_var.value)
+            tbl[kind] = (
+                calibrate.segmented_crossover(
+                    kind, comm.size, pipeline._min_bytes_var.value),
+                calibrate.hier_min_bytes(
+                    comm.size, pipeline._hier_min_var.value),
+            )
         return tbl
 
 

@@ -48,9 +48,14 @@ tensors) deposit.
 
 Before a deposit enters the rendezvous (``meet``, ``meet_begin``) it
 passes, in the reference's order, the ft_inject ``delay`` straggler,
-the integrity gate (obs/integrity: a sampled op's deposit becomes a
+the ``host_slow`` stall of a slow host's residents, the ``rdv_sever``
+wedge (``_sever_hold``: the victim holds short of its deposit until
+the world is poisoned, bounded by the rendezvous timeout), the
+integrity gate (obs/integrity: a sampled op's deposit becomes a
 ``_Checked`` carrier, its body a checked body that verifies, bisects
 and retries) and the ft_inject ``device_sdc`` flip.
+``Rendezvous.snapshot`` is the hang doctor's view of a meeting (who
+has deposited, who is absent).
 
 Tracing (ompi_tpu_torch/trace): a traced ``meet`` records a ``meet``
 span (cat ``coll_dispatch``) and a segment's ``meet_begin`` /
@@ -71,8 +76,8 @@ which would time the other rank threads' work too); a sampled-out op
 keeps its launches asynchronous.
 
 Not ported yet (ROADMAP.md Queue A): the compiled-executable cache
-(``CompiledLRU``), the monitoring hook of ``meet``, and the other
-injectors (``rdv_sever``, ``host_slow``).
+(``CompiledLRU``) and the monitoring hook of ``meet`` (A9's pml
+monitoring).
 
 Only host buffers ever take the host-staged p2p stack (HostArrModule):
 structured pair types, which torch cannot hold, and user-defined ops,
@@ -572,6 +577,30 @@ class Rendezvous:
         gen = self.begin(rank, value, fn, abort_check, progress, ph=ph)
         return self.finish(rank, gen, abort_check, progress, ph=ph)
 
+    def snapshot(self) -> dict:
+        """The hang doctor's view of the meeting: which ranks have
+        deposited for the current generation and which are absent.
+        Cold path (a watchdog stall); tries the meeting lock for at
+        most 0.2 s, then reads without it — under the GIL a stale list
+        read is safe, and a wedged meeting is by definition not
+        changing."""
+        got = self.cv.acquire(timeout=0.2)
+        try:
+            arrived = [r for r in range(self.size)
+                       if self.slots[r] is not self._SENTINEL]
+            return {
+                "size": self.size,
+                "gen": self.gen,
+                "count": self.count,
+                "arrived": arrived,
+                "absent": [r for r in range(self.size)
+                           if self.slots[r] is self._SENTINEL],
+                "pending_gens": sorted(self.results.keys()),
+            }
+        finally:
+            if got:
+                self.cv.release()
+
 
 def _get_rendezvous(comm) -> Rendezvous:
     rv = comm.__dict__.get("_device_rv")
@@ -716,6 +745,50 @@ def _coll_delay_injector(state):
     return inj
 
 
+def _coll_sever_injector(state):
+    """ft_inject 'rdv_sever' (the hang doctor's chaos class): a one-shot
+    deterministic wedge — the victim rank stops short of depositing at
+    its Nth rendezvous, stranding every peer in ``_wait_for`` until the
+    world is poisoned (cached per rank state; False = disarmed)."""
+    inj = state.extra.get("coll_sever_inj")
+    if inj is None:
+        inj = state.extra["coll_sever_inj"] = ft_inject.rdv_sever_injector(
+            state.rank, getattr(state, "size", None)) or False
+    return inj
+
+
+def _coll_slow_injector(state):
+    """ft_inject 'host_slow' (the GRAY failure): every rank resident on
+    ft_inject_victim_host stalls a deterministic delay_ms*(factor-1)
+    before each deposit — the whole host crawls while it stays alive,
+    the shape the health plane must catch (cached per rank state;
+    False = disarmed or this rank lives elsewhere)."""
+    inj = state.extra.get("coll_slow_inj")
+    if inj is None:
+        node = getattr(getattr(state, "rte", None), "node_id", 0)
+        inj = state.extra["coll_slow_inj"] = \
+            ft_inject.host_slow_injector(node) or False
+    return inj
+
+
+def _sever_hold(abort_check) -> None:
+    """The wedge itself: hold THIS rank before it deposits, in small
+    abort-checked sleeps, so the hang doctor finds a live stall (peers
+    parked at the rendezvous, this rank absent) and the world's abort
+    still unwinds everything — ``abort_check`` raises once a peer has
+    aborted.  Bounded by the rendezvous stall timeout, so a run with no
+    doctor raises instead of hanging."""
+    deadline = time.monotonic() + _rv_timeout_var.value
+    while True:
+        if abort_check:
+            abort_check()
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                "ft_inject rdv_sever: hold outlived the rendezvous "
+                "stall timeout with no abort")
+        time.sleep(0.02)
+
+
 def _coll_sdc_injector(state):
     """ft_inject 'device_sdc' (the silent failure): the victim rank's
     operand bit-flips at the armed op count — after the integrity gate
@@ -730,17 +803,24 @@ def _coll_sdc_injector(state):
     return inj
 
 
-def _enter(comm, value, body, ck):
+def _enter(comm, value, body, abort_check, ck):
     """What a deposit passes before the rendezvous, in the reference's
-    order: the 'delay' straggler, the integrity gate (``ck``, the check
-    spec, is non-None only when the plane is armed and the op
-    checkable; every rank passes the same one) and the 'device_sdc'
-    flip.  Returns the (value, body) that meet."""
+    order: the 'delay' straggler, the 'host_slow' stall, the
+    'rdv_sever' wedge, the integrity gate (``ck``, the check spec, is
+    non-None only when the plane is armed and the op checkable; every
+    rank passes the same one) and the 'device_sdc' flip.  Returns the
+    (value, body) that meet."""
     inj = _coll_delay_injector(comm.state)
     if inj:
         d = inj.maybe_delay()
         if d:
             time.sleep(d)
+    sl = _coll_slow_injector(comm.state)
+    if sl:
+        time.sleep(sl.delay_s())
+    sv = _coll_sever_injector(comm.state)
+    if sv and sv.should_sever():
+        _sever_hold(abort_check)
     if ck is not None:
         value, body = _ig.gate(comm, value, body, ck)
     sj = _coll_sdc_injector(comm.state)
@@ -762,13 +842,13 @@ def meet(comm, value, body: Callable[[List[Any]], List[Any]],
     track_state(comm.state)
     tr = comm.state.tracer
     if tr is None:
-        value, body = _enter(comm, value, body, ck)
+        value, body = _enter(comm, value, body, abort_check, ck)
         return _collect(_get_rendezvous(comm).run(
             comm.rank, _fenced(value), _fence(body), abort_check,
             progress=comm.state.progress))
     # the payload as the caller gave it (the gate may wrap it)
     nbytes = value.nbytes if isinstance(value, torch.Tensor) else 0
-    value, body = _enter(comm, value, body, ck)
+    value, body = _enter(comm, value, body, abort_check, ck)
     rv = _get_rendezvous(comm)
     # dispatch span: entry->rendezvous-release of the device fast path
     # (cat coll_dispatch feeds the dispatch-latency histogram); the
@@ -816,7 +896,7 @@ def meet_begin(comm, value, body, abort_check, ck=None):
     tr = comm.state.tracer
     nbytes = value.nbytes if tr is not None \
         and isinstance(value, torch.Tensor) else 0
-    value, body = _enter(comm, value, body, ck)
+    value, body = _enter(comm, value, body, abort_check, ck)
     rv = _get_rendezvous(comm)
     t0 = 0
     ph = None
@@ -1032,10 +1112,17 @@ class HostArrModule(CollModule):
     def _dtype_of(self, arr):
         return self._dt.from_numpy_dtype(arr.dtype)
 
+    def allreduce_into(self, comm, a: np.ndarray, r: np.ndarray,
+                       op: Op) -> None:
+        """Allreduce the flat host array ``a`` into ``r`` (its size and
+        dtype) over the p2p stack: ``allreduce_arr``'s body, and the
+        hierarchical tier's leader hop between its pinned stages."""
+        self.p2p.allreduce(comm, a, r, a.size, self._dtype_of(a), op)
+
     def allreduce_arr(self, comm, x, op: Op):
         a = self._np(x).reshape(-1)
         r = np.empty_like(a)
-        self.p2p.allreduce(comm, a, r, a.size, self._dtype_of(a), op)
+        self.allreduce_into(comm, a, r, op)
         return self._back(comm, r.reshape(_shape_of(x)))
 
     def bcast_arr(self, comm, x, root: int):

@@ -40,24 +40,44 @@ so every segment of every size takes the same kernel arguments.
 Every segment of an op carries the op's integrity check spec to its
 meeting, where it takes its own sampling decision.
 
+**The hierarchical tier** (``hier``, ``coll_hier_enable``): on a mesh
+comm of two or more slices (``topo.slice_groups``: forced blocks of
+``coll_hier_slice_size`` ranks, else the device's slice index or the
+modex node id) of two or more ranks each, an allreduce of at least
+``coll_hier_min_bytes`` reduces inside each slice on the device (the
+intra-slice comm's own tier: K6 + K2 peer), combines the slice results
+between the slice leaders over the host path, and fans the total back
+out inside each slice (``bcast_arr``: K2 peer copies).  The leader
+hop stages explicitly, where the reference hands a jax array to its
+host module: the slice result goes D2H into a pinned stage
+(``runtime.staging.aligned_empty``) on the leader's stream, the leader
+waits on that copy's event, the leaders allreduce the stage's numpy
+view into a second pinned stage over the host p2p stack
+(``HostArrModule``'s tuned module), and the total goes H2D from that
+stage on the same stream, ahead of the bcast's deposit event.  On the
+CPU the stages are ``aligned_empty``'s numpy buffers.  A stage that
+cannot be pinned raises; nothing falls back to a pageable copy.  A
+rank on a host the health plane holds degraded biases its split key,
+so a slice's leader lands on a healthy host when the slice has one.
+An hbm comm (one card) never takes the tier.
+
 Tracing: a traced call of this tier records one ``pipeline_<kind>``
 span (cat ``coll_dispatch``, its algorithm as an arg) around the
 whole op; with ``trace_phase_enable``, the pack of each segment
 (``ph_pack``, around the segment generator's step) and the unpack
 (``ph_unpack``) are phases of it, and each segment's meeting records
 its own ``seg_meet`` span and phases (coll/device).
-
-Not ported yet (ROADMAP.md): the hierarchical tier (``hier``: it needs
-``topo.slice_groups`` and the health plane).
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ompi_tpu_torch import convert
 from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.kernels import stacked
 from ompi_tpu_torch.mca.params import registry
@@ -76,6 +96,13 @@ _PIPE_NAME = {
 _CAT_PHASE = _trace.CAT_PHASE
 _NAME_PH_PACK = _trace.NAME_PH_PACK
 _NAME_PH_UNPACK = _trace.NAME_PH_UNPACK
+# the hierarchical tier's leader hop, one span a step a leader an op:
+# ``pinned`` is 1 where the stage is page-locked host memory
+_NAME_HOP_D2H = _trace.intern_name("ph_hop_d2h",
+                                   ("cid", "nbytes", "pinned"))
+_NAME_HOP_HOST = _trace.intern_name("ph_hop_host", ("cid", "nbytes"))
+_NAME_HOP_H2D = _trace.intern_name("ph_hop_h2d",
+                                   ("cid", "nbytes", "pinned"))
 
 _seg_size_var = registry.register(
     "coll", "seg", "size", 1 << 20, int,
@@ -106,12 +133,31 @@ _rd_max_var = registry.register(
          "(power-of-two comms): above it the ring's lower bytes-on-"
          "the-wire wins (2(P-1)/P x n vs log2(P) x n)")
 
+_hier_var = registry.register(
+    "coll", "hier", "enable", False, bool,
+    help="Enable the hierarchical allreduce tier: intra-slice device "
+         "allreduce + inter-slice reduction between the slice leaders "
+         "over the host path (pinned stages) + intra-slice bcast.  "
+         "Needs >= 2 slices of >= 2 ranks (topo.slice_groups)")
+_hier_slice_var = registry.register(
+    "coll", "hier", "slice_size", 0, int,
+    help="Force hierarchical slices of this many consecutive ranks "
+         "(0 = auto: group by device slice_index, else modex node)")
+_hier_min_var = registry.register(
+    "coll", "hier", "min_bytes", 1 << 20, int,
+    help="Static minimum payload for the hierarchical tier (the "
+         "leader hop adds host-path latency that small messages "
+         "cannot amortize)")
+
 pv_segments = registry.register_pvar(
     "coll", "pipeline", "segments",
     help="Segments dispatched through the pipelined rendezvous")
 pv_ops = registry.register_pvar(
     "coll", "pipeline", "ops",
     help="Collectives routed to the segmented large-message tier")
+pv_hier = registry.register_pvar(
+    "coll", "hier", "ops",
+    help="Collectives routed to the hierarchical tier")
 
 #: returned by maybe_device_coll when the large-message tier does not
 #: apply and the caller should keep its single-dispatch path
@@ -398,6 +444,121 @@ def _mesh_seg_alltoall(module, comm, x):
 
 
 # ---------------------------------------------------------------------------
+# hierarchical tier
+# ---------------------------------------------------------------------------
+
+def hier_eligible(comm) -> bool:
+    """Comm-consistent: slice grouping depends only on modex/device
+    data every member shares.  Cached — consulted per large message."""
+    cached = comm.__dict__.get("_hier_eligible")
+    if cached is not None:
+        return cached
+    ok = False
+    if _hier_var.value and comm.size >= 4 and comm.mesh() is not None:
+        from ompi_tpu_torch.topo import topo as topomod
+        groups = topomod.slice_groups(comm, _hier_slice_var.value)
+        # need >= 2 slices of >= 2 ranks each: a 1-rank slice would
+        # make the intra tier a no-op and the leader hop pure overhead
+        ok = len(groups) >= 2 and all(len(g) >= 2 for g in groups)
+    comm.__dict__["_hier_eligible"] = ok
+    return ok
+
+
+def _hier_plan(comm) -> Tuple[Any, Optional[Any]]:
+    """(intra_slice_comm, leader_comm_or_None) — built collectively at
+    first use (the pick is comm-consistent, so every member arrives
+    together) and cached."""
+    plan = comm.__dict__.get("_hier_plan")
+    if plan is None:
+        from ompi_tpu_torch.comm.communicator import UNDEFINED
+        from ompi_tpu_torch.obs import health as _health
+        from ompi_tpu_torch.topo import topo as topomod
+        groups = topomod.slice_groups(comm, _hier_slice_var.value)
+        mine = next(i for i, g in enumerate(groups) if comm.rank in g)
+        # gray-failure reroute: a rank resident on a degraded host
+        # biases its OWN split key past every healthy rank's, so the
+        # slice leader (intra.rank 0 = smallest key) lands on a
+        # healthy host whenever the slice has one.  The split is
+        # computed from the GATHERED keys, so the result stays
+        # collectively consistent even if members read the mask at
+        # slightly different moments
+        node = getattr(getattr(comm.state, "rte", None), "node_id", 0)
+        key = comm.rank + (comm.size
+                           if _health.node_degraded(node) else 0)
+        intra = comm.split(mine, key=key)
+        lead = comm.split(0 if intra.rank == 0 else UNDEFINED,
+                          key=key)
+        plan = (intra, lead)
+        comm.__dict__["_hier_plan"] = plan
+    return plan
+
+
+def _leader_hop(lead, y: torch.Tensor, op) -> torch.Tensor:
+    """Combine the slice results ``y`` across the slice leaders.  One
+    D2H into a pinned stage on the leader's current stream, then a wait
+    on that copy's event; the leaders' host allreduce over
+    ``HostArrModule``'s p2p stack from that stage into a second pinned
+    stage (numpy views: no tensor reaches the host module); one H2D
+    into a new tensor shaped like ``y``, queued on the same stream, so
+    the intra-slice bcast's deposit event, recorded after it, orders
+    the bcast after the copy (the caching host allocator keeps the
+    stage until the copy is done).  On the CPU both stages are
+    ``aligned_empty``'s numpy buffers and the result shares the second
+    one's memory.  A stage that cannot be pinned raises.  Under phase
+    tracing each step is one span (``ph_hop_d2h``, ``ph_hop_host``,
+    ``ph_hop_h2d``)."""
+    from ompi_tpu_torch.coll import device
+    from ompi_tpu_torch.runtime import staging
+    nbytes = y.numel() * y.element_size()
+    send = staging.aligned_empty(nbytes, y.device)
+    recv = staging.aligned_empty(nbytes, y.device)
+    host = isinstance(send, np.ndarray)
+    npdt = convert.numpy_dtype(y.dtype)
+    a = (send if host else send.numpy()).view(npdt)
+    r = (recv if host else recv.numpy()).view(npdt)
+    tr = lead.state.tracer
+    ph = tr is not None and tr.phase and tr.gate_sampled(_CAT_PHASE)
+    t0 = tr.start() if ph else 0
+    if host:
+        a[...] = convert.to_numpy(y).reshape(-1)
+    else:
+        send.view(y.dtype).copy_(y.reshape(-1), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(y.device))
+        done.synchronize()
+    if ph:
+        tr.end(t0, _NAME_HOP_D2H, _CAT_PHASE, lead.cid, nbytes,
+               int(not host and send.is_pinned()))
+        t0 = tr.start()
+    device._host_arr_fallback().allreduce_into(lead, a, r, op)
+    if ph:
+        tr.end(t0, _NAME_HOP_HOST, _CAT_PHASE, lead.cid, nbytes)
+        t0 = tr.start()
+    if host:
+        out = convert.to_torch(r, y.device).reshape(y.shape)
+    else:
+        out = torch.empty_like(y)
+        out.reshape(-1).copy_(recv.view(y.dtype), non_blocking=True)
+    if ph:
+        tr.end(t0, _NAME_HOP_H2D, _CAT_PHASE, lead.cid, nbytes,
+               int(not host and recv.is_pinned()))
+    return out
+
+
+def _hier_allreduce(module, comm, x, op):
+    """Reduce inside each slice on the device, combine slice results
+    over the leaders' host path, fan the total back out on the device.
+    The inter-slice hop moves ONE slice-reduced payload per slice
+    instead of serializing the whole comm through one link."""
+    intra, lead = _hier_plan(comm)
+    y = intra.allreduce_arr(x, op)
+    if lead is not None:
+        y = _leader_hop(lead, y, op)
+    pv_hier.add(1)
+    return intra.bcast_arr(y, 0)
+
+
+# ---------------------------------------------------------------------------
 # the entry consulted by coll/device (HbmCollModule, TpuCollModule)
 # ---------------------------------------------------------------------------
 
@@ -407,7 +568,8 @@ def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
     comm-consistent: the pick depends only on knobs, the process-wide
     calibration profile, comm properties and the MPI-matched payload
     size.  On one card (hbm) a bcast is one shared-memory handoff
-    already; the mesh segments it."""
+    already; the mesh segments it.  The hbm branch comes first, so an
+    hbm comm never takes the hierarchical tier."""
     if not _enable_var.value:
         return UNHANDLED
     nbytes = x.numel() * x.element_size() \
@@ -429,6 +591,8 @@ def maybe_device_coll(module, comm, kind: str, x, op=None, root=None):
             out = _hbm_seg_alltoall(module, comm, x)
         else:
             return UNHANDLED
+    elif alg == "hier":
+        out = _hier_allreduce(module, comm, x, op)
     elif kind == "allreduce":
         out = _mesh_seg_reduce(module, comm, x, op, alg)
     elif kind == "bcast":

@@ -104,8 +104,9 @@ def device_algorithm(comm, kind: str, nbytes: int,
                      opname: Optional[str] = None) -> Optional[str]:
     """Large-message device-tier pick, the per-communicator analog of
     the reference's comm-bound module selection: None keeps the
-    single-dispatch path; "segring"/"segrd"/"segbcast"/"sega2a" route
-    to the segmented tier (coll/pipeline).  On a one-card comm every
+    single-dispatch path; "hier" routes to the hierarchical tier;
+    "segring"/"segrd"/"segbcast"/"sega2a" route to the segmented tier
+    (coll/pipeline).  On a one-card comm every
     reduction pick takes the plan or the pipelined stacked path; on a
     mesh segring and segrd pick the fold order of the K6 pulls, and
     segbcast and sega2a the segmented K2 peer copies.
@@ -119,10 +120,7 @@ def device_algorithm(comm, kind: str, nbytes: int,
     WINDOW boundaries through a put-once shared snapshot: every
     member of a given collective shares the same seq, hence the same
     window, hence identical thresholds — the online profile updates
-    can never split one collective across algorithms.
-
-    Not ported yet: the hierarchical pick (the hierarchical tier,
-    ``coll_hier_enable``, is not ported)."""
+    can never split one collective across algorithms."""
     from ompi_tpu_torch.coll import pipeline
     tbl = comm.__dict__.get("_pipeline_pick")
     at = autotune.active()
@@ -135,11 +133,18 @@ def device_algorithm(comm, kind: str, nbytes: int,
             # worlds without a shared store keep the frozen cache
     if tbl is None:
         tbl = comm.__dict__["_pipeline_pick"] = {}
-    seg_min = tbl.get(kind)
-    if seg_min is None:
-        seg_min = tbl[kind] = calibrate.segmented_crossover(
-            kind, comm.size, pipeline._min_bytes_var.value)
+    th = tbl.get(kind)
+    if th is None:
+        th = tbl[kind] = (
+            calibrate.segmented_crossover(
+                kind, comm.size, pipeline._min_bytes_var.value),
+            calibrate.hier_min_bytes(
+                comm.size, pipeline._hier_min_var.value),
+        )
+    seg_min, hier_min = th
     if kind == "allreduce":
+        if nbytes >= hier_min and pipeline.hier_eligible(comm):
+            return "hier"
         if nbytes >= seg_min:
             if _is_pow2(comm.size) and \
                     nbytes < pipeline._rd_max_var.value:

@@ -8,24 +8,32 @@ change.  Ported injection points:
 
   * the device-collective rendezvous (coll/device.py ``meet`` and
     ``meet_begin``): ``delay`` holds the depositing rank thread
-    (straggler arrival orders), ``device_sdc`` flips a bit of the
-    victim rank's operand after the integrity gate digested it (the
-    silent failure only obs/integrity can see);
+    (straggler arrival orders), ``host_slow`` stalls every deposit of
+    the ranks resident on ``ft_inject_victim_host`` (the GRAY failure
+    the health plane scores), ``rdv_sever`` wedges the victim rank
+    short of its Nth deposit until the world is poisoned (the hang
+    doctor's crime scene), ``device_sdc`` flips a bit of the victim
+    rank's operand after the integrity gate digested it (the silent
+    failure only obs/integrity can see);
   * the one-sided window's active-message apply (osc/window.py):
     ``rma_delay`` holds the target's apply loop.
 
 Determinism: a rolling injector owns a ``random.Random`` seeded from
 ``(ft_inject_seed, scope, rank)``, so a chaos run replays bit for bit
-from its seed; ``device_sdc`` uses no RNG at all (an armed op count
-and a period).  ``ft_inject_max`` bounds the injections a scope makes.
+from its seed; ``device_sdc`` and ``rdv_sever`` use no RNG at all (an
+armed op count, and for ``device_sdc`` a period), nor does
+``host_slow`` (a delay from ``ft_inject_delay_ms`` and
+``ft_inject_host_slow_factor``).  ``ft_inject_max`` bounds the
+injections a scope makes.
 
 An injection that fires leaves an ``ft_inject`` instant (cat
 ``fault``) on the injecting rank's trace when tracing is on, and an
 ``EV_FT_INJECT`` event in the flight recorder (ompi_tpu_torch/obs).
 
-Not ported (ROADMAP.md): the btl/tcp frame faults, kv, checkpoint
-I/O, dvm, node, rank, host and process kills, ``rdv_sever`` (with the
-hang doctor), ``host_slow`` and ``net_jitter`` (with the health plane).
+Not ported (ROADMAP.md): the btl/tcp frame faults and ``net_jitter``
+(their users are btl/tcp and the KV store, A8), kv, dvm, node and host
+kills and the host agent's slow beat (A8), rank and process kills
+(A7), and checkpoint I/O faults (A9).
 """
 
 from __future__ import annotations
@@ -48,7 +56,12 @@ _plan_var = registry.register(
          "one-sided AM apply), device_sdc (the SILENT failure: "
          "ft_inject_victim_rank's operand bit-flips at the armed op "
          "count, visible only to the integrity plane; the number is "
-         "that count, not a rate).  Empty = framework disabled")
+         "that count, not a rate), rdv_sever (wedges "
+         "ft_inject_victim_rank short of its Nth device-collective "
+         "deposit — the hang doctor's target; the number is that "
+         "count), host_slow (the GRAY failure: every rank resident on "
+         "ft_inject_victim_host stalls delay_ms*(factor-1) at each "
+         "deposit).  Empty = framework disabled")
 _rate_var = registry.register(
     "ft", "inject", "rate", 0.02, float,
     help="Default per-event injection probability for plan entries "
@@ -61,14 +74,25 @@ _skip_var = registry.register(
     "ft", "inject", "skip", 8, int,
     help="Skip the first N eligible events per scope so bring-up "
          "traffic establishes the job before chaos")
+_victim_host_var = registry.register(
+    "ft", "inject", "victim_host", 1, int,
+    help="Host (failure-domain) id the host_slow class slows: every "
+         "rank whose node_id it is")
 _victim_rank_var = registry.register(
     "ft", "inject", "victim_rank", "1", str,
-    help="Global rank(s) the device_sdc class corrupts: a single "
-         "rank, a comma list ('1,3'), or 'random' for a "
-         "seed-deterministic pick")
+    help="Global rank(s) the device_sdc class corrupts and the "
+         "rdv_sever class wedges: a single rank, a comma list ('1,3'), "
+         "or 'random' for a seed-deterministic pick")
 _delay_ms_var = registry.register(
     "ft", "inject", "delay_ms", 20, int,
     help="How long a 'delay' or 'rma_delay' hit holds its thread")
+_slow_factor_var = registry.register(
+    "ft", "inject", "host_slow_factor", 10, int,
+    help="Slowdown multiplier the host_slow gray-failure scenario "
+         "applies to ft_inject_victim_host: resident ranks stall "
+         "delay_ms*(factor-1) at every device-collective deposit (and "
+         "a host agent would beat factor times slower) — alive, never "
+         "silent")
 _sdc_period_var = registry.register(
     "ft", "inject", "sdc_period", 0, int,
     help="device_sdc repeat period after the first armed flip (every "
@@ -155,6 +179,106 @@ def coll_injector(rank: int) -> Optional[CollInjector]:
     if not p:
         return None
     return CollInjector("coll", rank, p)
+
+
+class RdvSeverInjector:
+    """One-shot deterministic rendezvous sever: ``should_sever()``
+    counts the victim rank's meetings and returns True exactly once, at
+    the armed count — no RNG, so the wedge replays bit for bit.  The
+    caller then holds the rank BEFORE it deposits, in small
+    abort-checked sleeps, until the world is poisoned — its peers wedge
+    at the rendezvous and the hang doctor gets a live crime scene
+    (coll/device ``_sever_hold``)."""
+
+    def __init__(self, rank: int, after_ops: float) -> None:
+        self.rank = rank
+        # a rate below 1 (including the bare-class default) means "no
+        # explicit count": arm a post-bring-up default
+        self.after_ops = int(after_ops) if after_ops >= 1 else 8
+        self._count = 0
+        self._fired = False
+
+    def should_sever(self) -> bool:
+        if self._fired:
+            return False
+        self._count += 1
+        if self._count < self.after_ops:
+            return False
+        self._fired = True
+        from ompi_tpu_torch import obs as _obs
+        from ompi_tpu_torch import trace
+        tr = trace.current_tracer()
+        if tr is not None:
+            tr.instant("ft_inject", "fault", cls="rdv_sever",
+                       scope="coll", rank=self.rank)
+        _obs.record_event(_obs.EV_FT_INJECT,
+                          _obs.intern("rdv_sever"),
+                          _obs.intern("coll"), rank=self.rank)
+        return True
+
+
+def rdv_sever_injector(rank: int,
+                       size: Optional[int] = None
+                       ) -> Optional[RdvSeverInjector]:
+    p = plan()
+    if "rdv_sever" not in p or rank not in victim_ranks(size):
+        return None
+    return RdvSeverInjector(rank, p["rdv_sever"])
+
+
+class HostSlowInjector:
+    """Deterministic gray-failure slowdown for one host's residents.
+    No RNG, no op counting: the victim is simply SLOW, everywhere,
+    from the first op — ``delay_s()`` is the stall a resident rank
+    adds at every device-collective deposit, ``beat_interval_s(iv)``
+    the inflated heartbeat pacing of a host agent (the pool's, A8).
+    Both derive from delay_ms and host_slow_factor, so a 10x-slow
+    chaos run replays bit for bit with no seed involved."""
+
+    def __init__(self, host: int) -> None:
+        self.host = host
+        self._announced = False
+
+    @property
+    def factor(self) -> int:
+        return max(2, _slow_factor_var.value)
+
+    def delay_s(self) -> float:
+        """Per-deposit stall of a resident rank: delay_ms scaled so
+        the victim runs ~factor times slower than a clean rank whose
+        per-op cost is about one delay_ms."""
+        self._announce()
+        return max(0, _delay_ms_var.value) * (self.factor - 1) / 1000.0
+
+    def beat_interval_s(self, iv: float, grace: float = 0.0) -> float:
+        """A host agent's inflated beat pacing: alive, never silent —
+        the beat EWMA drifts up instead of the grace tripping.  Capped
+        at 3/4 of the liveness grace when the caller knows it: a gray
+        host delays its heartbeats, it does not stop them."""
+        self._announce()
+        slow = iv * self.factor
+        if grace > 0:
+            cap = grace * 0.75
+            if slow > cap:
+                slow = max(iv, cap)
+        return slow
+
+    def _announce(self) -> None:
+        if self._announced:
+            return
+        self._announced = True
+        from ompi_tpu_torch import obs as _obs
+        _obs.record_event(_obs.EV_FT_INJECT,
+                          _obs.intern("host_slow"),
+                          _obs.intern("host"))
+
+
+def host_slow_injector(host: int) -> Optional[HostSlowInjector]:
+    """Armed only on ft_inject_victim_host's residents (rank threads
+    consult it with their node_id)."""
+    if "host_slow" not in plan() or host != _victim_host_var.value:
+        return None
+    return HostSlowInjector(host)
 
 
 class SdcInjector:

@@ -59,6 +59,9 @@ class InprocWorld:
         self.modex_cv = threading.Condition()
         self.states: List[Any] = [None] * size  # ProcState per rank
         self.aborted: Optional[tuple] = None
+        # the world's rank threads, set by whoever starts them
+        # (testing.run_ranks): the hang doctor reads their stacks
+        self.threads: List[threading.Thread] = []
         # shared rendezvous objects for device collectives (coll/hbm),
         # keyed by communicator cid
         self.shared: Dict[Any, Any] = {}

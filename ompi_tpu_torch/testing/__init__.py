@@ -105,6 +105,7 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
 
     threads = [threading.Thread(target=runner, args=(r,), daemon=True,
                                 name=f"mpi-rank-{r}") for r in range(n)]
+    world.threads = threads
     for t in threads:
         t.start()
     for t in threads:

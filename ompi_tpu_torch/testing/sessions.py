@@ -10,6 +10,13 @@ attach and detach, so that their fused batches may ride combined
 dispatches (``dvm_batch_window_us``).  The pool's socket plane, when it
 is ported, sits on top of this.
 
+The hang doctor's half of the pool lives here too: ``doctor_capture``
+builds the capture ``tools/doctor.py`` reduces from a live thread world
+(the part of the reference pool's ``_doctor_capture`` that reads a
+world), and ``poison`` unwinds a wedged world from outside it (the
+thread-world part of the pool's ``_poison_session``).  The pool's
+watchdog, when it is ported, calls both.
+
 On the CPU: ``device_map=lambda r: torch.device("cpu")`` (coll/hbm) or
 ``device_map=logical_devices("cpu")`` (the mesh tier), with the
 kernels' plain versions.  On the card: the default (``devices=True``:
@@ -19,9 +26,12 @@ rank r of every session on ``cuda:(r % cards)``), or
 
 from __future__ import annotations
 
+import sys
 import threading
-from typing import Any, Callable, List, Optional
+import traceback
+from typing import Any, Callable, Dict, List, Optional
 
+from ompi_tpu_torch import obs
 from ompi_tpu_torch.coll import fusion
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.testing import _card_map, run_ranks
@@ -72,3 +82,71 @@ def run_sessions(k: int, n: int, fn: Callable, devices: bool = True,
         if e is not None:
             raise e
     return results
+
+
+def doctor_capture(world, sid: int = 0, tid: int = 0, run_ms: int = 0,
+                   est_ms: int = 0, factor_pct: int = 0,
+                   health=None) -> Dict[str, Any]:
+    """A hang-doctor capture of the thread world ``world`` (an
+    ``InprocWorld`` whose rank threads ``run_ranks`` started), in the
+    reference pool's document shape (``ompi_tpu/tools/dvm.py``
+    ``_doctor_capture``): the stacks of this world's rank threads
+    (``world.threads``, keyed by thread name; the threads of other
+    worlds running at the same time are not read); every
+    ``("coll_rv", cid, group)`` rendezvous of ``world.shared`` someone
+    has arrived at, with its arrivals (``Rendezvous.snapshot``), cid
+    and group; the aborted ranks; the flight recorder's last 64 events;
+    ``host_health`` from ``health`` (a ``obs.health.HealthPlane``, or
+    None); the integrity plane's conviction rows; and the placement,
+    each rank's host (its ``rte.node_id``, 0 where none).  The
+    session's id, request trace id and timing are the caller's (a
+    thread world has no pool estimate); its namespace is ``s<sid>``.
+    The KV fences stay empty (no KV store before A8).  Cold path: run
+    it off the ranks' threads, while they are wedged."""
+    from ompi_tpu_torch.obs import integrity
+    stacks: Dict[str, List[str]] = {}
+    frames = sys._current_frames()
+    for t in world.threads:
+        fr = frames.get(t.ident)
+        if fr is not None:
+            stacks[t.name] = traceback.format_stack(fr)
+    with world.shared_lock:
+        rvs = [(k, v) for k, v in world.shared.items()
+               if isinstance(k, tuple) and k and k[0] == "coll_rv"]
+    rdvs: List[dict] = []
+    for k, rv in rvs:
+        snap = rv.snapshot()
+        if snap["count"]:
+            # only meetings someone has arrived at: an idle rendezvous
+            # names every rank absent and would drown the verdict
+            snap["cid"] = k[1]
+            snap["group"] = list(k[2])
+            rdvs.append(snap)
+    placement = [int(getattr(getattr(st, "rte", None), "node_id", 0) or 0)
+                 if st is not None else 0 for st in world.states]
+    return {
+        "sid": sid, "tid": tid, "span": 0, "ns": f"s{sid}",
+        "np": world.size, "run_ms": run_ms, "est_ms": est_ms,
+        "factor_pct": factor_pct, "mttd_ms": 0.0,
+        "aborted": list(world.aborted) if world.aborted else None,
+        "stacks": stacks,
+        "rendezvous": rdvs,
+        "fences": {},
+        "events": obs.recorder().snapshot(64),
+        "host_health": health.snapshot() if health is not None else None,
+        "sdc": integrity.convicted_snapshot(),
+        "placement": placement,
+    }
+
+
+def poison(world, code: int = 1, why: str = "poisoned") -> None:
+    """Abort the thread world ``world`` from outside its rank threads:
+    every blocking fence and rendezvous of that world raises at its
+    next abort check, the ``rdv_sever`` wedge included, and ranks parked
+    on their progress engines are woken.  The aborter is rank -1, so no
+    rank of the world is exempt from its own check."""
+    if world.aborted is None:
+        world.aborted = (-1, code, why)
+    for st in world.states:
+        if st is not None and getattr(st, "progress", None) is not None:
+            st.progress.wakeup()

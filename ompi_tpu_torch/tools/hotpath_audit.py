@@ -34,8 +34,8 @@ from typing import Dict, List, Tuple
 # (module path relative to the package root, {qualified function: ...})
 # Qualified names are "Class.method" or bare "function".  The port's
 # copy declares the hot functions the port has: the reference's
-# checkpoint drain, fleet controller, DVM and health ticks have no
-# counterpart here yet (ROADMAP.md A6-A9).
+# checkpoint drain, fleet controller and DVM ticks have no counterpart
+# here yet (ROADMAP.md A7-A9).
 HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     "ompi_tpu_torch/trace/__init__.py": (
         "Tracer.start",
@@ -94,6 +94,14 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     # interval elapses, never an allocation
     "ompi_tpu_torch/obs/__init__.py": (
         "Scraper.tick",
+    ),
+    # the gray-failure health scoring tick rides a pool's heartbeat
+    # sweep whenever health_enable is on: integer EWMA reads,
+    # threshold compares and streak counters over preallocated
+    # per-host lists.  Transitions only LATCH here (pending[h] = 1);
+    # the pvars and the degraded mask follow off-path, in collect
+    "ompi_tpu_torch/obs/health.py": (
+        "HealthPlane.tick",
     ),
 }
 
