@@ -294,6 +294,33 @@ Phases, each fatal on failure (nothing is caught and carried on):
              hop's D2H, host allreduce and H2D host time, and one pinned
              8 MiB copy each way.  9a's launches join the kernels
              line's counts.
+10. ft      — fault tolerance (ompi_tpu_torch/ft, cr) at the headline's
+             width, 8 ranks x 8 MiB float32, 12 allreduce_arr SUM steps.
+             10a on the card (coll/hbm, K1), 10b on its 8 logical
+             devices (the mesh tier, K6 + K2 peer): rank 3 dies
+             (ulfm.kill_now) at step 5, the survivors catch
+             PROC_FAILED / REVOKED, shrink and finish on 7 (a mesh of 7:
+             not a power of two); every survivor's last output equals a
+             fresh 7-rank world's byte for byte, and the run's launches
+             are exactly 5 ops of a fresh 8-rank world plus 7 of a
+             7-rank one.  10c: cr_buddy_degree 1, a buddy checkpoint of
+             {"i", "acc"} every step (acc 8 MiB on the card), rank 1
+             dies at step 5 right after its checkpoint, run_ranks
+             starts its replacement on the same card, which rejoins and
+             restores its tensor there from its partner's copy: every
+             rank's acc equals the fault-free run's byte for byte, the
+             launches equal it.  10d: the counter workload (tensor
+             origins) on the 7 survivors of a kill on the 8 logical
+             devices equals a fresh 7-rank world's, K9 35 and K10 7.
+             10e: the finish race, 50 worlds (half coll/hbm, half the
+             mesh), rank 0 dying right after each 1 MiB allreduce: no
+             survivor raises (1 K1, or 1 K6 + 1 K2 peer, a meeting).
+             10f (printed, host clock, slowest rank, with the card's
+             name and power limit): kill to the last survivor's raise,
+             shrink us, step us on 8 and on 7 ranks; rejoin us,
+             restore ms, a buddy checkpoint's ms and its D2H, CRC and
+             ring exchange alone; the ulfm/respawn/buddy pvars.  The
+             phase's launches join the kernels line's counts.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -302,7 +329,8 @@ on a host with two or more cards builds the kernels and runs only the
 one-rank-a-card branch (K8's shift cases with the source on a peer
 card, then the mesh, RMA, integrity and halo phases and the SHMEM
 workloads over peer access, and with four or more cards phase 9 in
-slices of two: 9a, 9b, 9c on the mesh, 9d and 9e).
+slices of two: 9a, 9b, 9c on the mesh, 9d and 9e, and phase 10's
+shrink on the mesh across the cards (10b's checks) and 10d).
 """
 
 from __future__ import annotations
@@ -5097,6 +5125,428 @@ def phase_hier(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10. fault tolerance: ULFM, respawn, buddy checkpoints
+# ---------------------------------------------------------------------------
+
+FT_N = 1 << 21        # elements: the headline's 8 MiB float32 a rank
+FT_STEPS = 12         # allreduce steps a run
+FT_KILL_STEP = 5      # the step at which the victim dies
+FT_VICTIM = 3         # 10a, 10b and 10d's victim
+FT_RESPAWNED = 1      # 10c's victim
+FT_RACE = 50          # 10e's meetings, one world each
+FT_RACE_N = 1 << 18   # 10e's allreduce: 1 MiB float32
+FT_CODES = (75, 76, 77)  # MPI_ERR_PROC_FAILED, _PENDING, MPI_ERR_REVOKED
+
+
+def _card(d):
+    """The torch device of a device_map entry (a LogicalDevice's card)."""
+    return getattr(d, "device", d)
+
+
+def ft_input(rank: int, step: int, dev):
+    """Rank ``rank``'s operand at ``step``: 8 MiB float32 from the seed
+    (a function of the rank in the comm the step runs on, so the
+    survivors' steps after a shrink are a fresh world's)."""
+    return rank_elems(rank, FT_N, torch.float32, dev, 50 + step)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Byte identity (``b`` brought to ``a``'s card: one rank a card
+    compares outputs of different cards)."""
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.reshape(-1).view(torch.uint8),
+                    b.to(a.device).reshape(-1).view(torch.uint8))
+
+
+def ft_fresh(devs):
+    """A fault-free run of FT_STEPS allreduce_arr SUM steps; returns
+    each rank's last output."""
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        d = _card(devs[comm.rank])
+        for step in range(FT_STEPS):
+            out = comm.allreduce_arr(ft_input(comm.rank, step, d), SUM)
+        torch.cuda.synchronize()
+        return out
+    return fn
+
+
+def ft_shrink_program(devs, times: dict):
+    """10a/10b's rank program: FT_STEPS allreduce_arr SUM steps; rank
+    FT_VICTIM dies (``kill_now``) at FT_KILL_STEP; each survivor
+    catches the ULFM error, shrinks and finishes on the survivors.
+    Returns (its last output, the size of the comm it finished on, the
+    host time of its raise, its shrink's seconds, (comm size, seconds)
+    of each completed step)."""
+    from ompi_tpu_torch import errhandler as eh
+    from ompi_tpu_torch.ft import ulfm
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        d = _card(devs[comm.rank])
+        work, out, step = comm, None, 0
+        raised = shrink_s = None
+        steps = []
+        while step < FT_STEPS:
+            if work is comm and comm.rank == FT_VICTIM and \
+                    step == FT_KILL_STEP:
+                times["kill"] = time.perf_counter()
+                ulfm.kill_now(comm.state)
+            x = ft_input(work.rank, step, d)
+            torch.cuda.synchronize()
+            try:
+                t0 = time.perf_counter()
+                out = work.allreduce_arr(x, SUM)
+                torch.cuda.synchronize()
+                steps.append((work.size, time.perf_counter() - t0))
+                step += 1
+            except eh.MPIException as e:
+                raised = time.perf_counter()
+                if e.code not in FT_CODES:
+                    raise
+                t0 = time.perf_counter()
+                work = work.shrink(name="survivors")
+                shrink_s = time.perf_counter() - t0
+        return out, work.size, raised, shrink_s, steps
+    return fn
+
+
+def _ft_counted(launches: dict) -> dict:
+    """The kernels that launched, for the log."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def _ft_launch_run(fn, n: int, device_map, **kw):
+    """run_ranks with every kernel counter zeroed just before and read
+    just after: (results, launches)."""
+    from ompi_tpu_torch.testing import run_ranks
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    res = run_ranks(n, fn, device_map=device_map, timeout=600, **kw)
+    torch.cuda.synchronize()
+    return res, {k: c.value for k, c in counters.items()}
+
+
+def _per_op(launches: dict, nops: int, what: str) -> dict:
+    if any(v % nops for v in launches.values()):
+        raise AssertionError(f"{what}: launches {launches} are not a "
+                             f"multiple of its {nops} ops")
+    return {k: v // nops for k, v in launches.items()}
+
+
+def phase_ft_shrink(devs, tier: str, what: str) -> dict:
+    """10a (coll/hbm, every rank on the card) or 10b (the mesh tier,
+    logical devices of the card; 7 survivors, not a power of two):
+    the ULFM run against fault-free runs of N and N - 1 ranks on the
+    same kernels.  Every survivor finishes on N - 1 ranks with the
+    fresh (N - 1)-rank world's bytes; the run's launches are exactly
+    FT_KILL_STEP ops of the N-rank world plus FT_STEPS - FT_KILL_STEP
+    of the (N - 1)-rank one (the meeting the victim never joined
+    launches nothing).  Returns (the run's launches, timings)."""
+    n = len(devs)
+    times = {}
+    fresh_n, ln = _ft_launch_run(ft_fresh(devs), n, lambda r: devs[r])
+    fresh_m, lm = _ft_launch_run(ft_fresh(devs[:n - 1]), n - 1,
+                                 lambda r: devs[r])
+    per_n = _per_op(ln, FT_STEPS, f"{tier} fresh {n}")
+    per_m = _per_op(lm, FT_STEPS, f"{tier} fresh {n - 1}")
+    res, launches = _ft_launch_run(ft_shrink_program(devs, times), n,
+                                   lambda r: devs[r], allow_failures=True)
+    want = {k: FT_KILL_STEP * per_n[k]
+            + (FT_STEPS - FT_KILL_STEP) * per_m[k] for k in launches}
+    if launches != want:
+        raise AssertionError(f"{tier} ULFM run: launches {launches}, "
+                             f"expected {want}")
+    if res[FT_VICTIM] is not None:
+        raise AssertionError(f"{tier}: the victim survived")
+    live = [r for r in res if r is not None]
+    for i, (out, size, _, _, _) in enumerate(live):
+        if size != n - 1 or not _same(out, fresh_m[i]):
+            raise AssertionError(f"{tier}: survivor {i} (size {size}) "
+                                 "differs from the fresh world's bytes")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{tier}: survivor {i} non-finite")
+    if any(not _same(fresh_n[0], o) for o in fresh_n) or \
+            any(not _same(fresh_m[0], o) for o in fresh_m):
+        raise AssertionError(f"{tier}: a fresh world's ranks differ")
+    detect = max(r[2] for r in live) - times["kill"]
+    shrink = max(r[3] for r in live)
+    before = max(sum(t for s, t in r[4] if s == n) /
+                 max(1, sum(1 for s, _ in r[4] if s == n)) for r in live)
+    after = max(sum(t for s, t in r[4] if s == n - 1) /
+                max(1, sum(1 for s, _ in r[4] if s == n - 1))
+                for r in live)
+    log(f"[ft] 10{'a' if tier == 'hbm' else 'b'} ULFM on {tier}, {what}: "
+        f"rank {FT_VICTIM} killed at step {FT_KILL_STEP}; {n - 1} "
+        f"survivors shrank and finished {FT_STEPS} steps of 8 MiB f32 SUM "
+        f"with the fresh {n - 1}-rank world's bytes; launches "
+        f"{_ft_counted(launches)} = {FT_KILL_STEP} x {_ft_counted(per_n)} "
+        f"+ {FT_STEPS - FT_KILL_STEP} x {_ft_counted(per_m)}")
+    return launches, {"detect_ms": detect * 1e3, "shrink_us": shrink * 1e6,
+                      "step_before_us": before * 1e6,
+                      "step_after_us": after * 1e6}
+
+
+def ft_respawn_program(devs, victims: dict):
+    """10c's rank program: FT_STEPS steps, each a buddy checkpoint of
+    {"i", "acc"} (acc an 8 MiB float32 tensor on the rank's card) then
+    acc += allreduce_arr(step input); ``victims`` maps rank -> the step
+    at which its ORIGINAL incarnation dies.  A survivor catching the
+    ULFM error and a replacement alike rejoin and restore.  Returns
+    (acc, [checkpoint seconds], [rejoin seconds], [restore seconds],
+    the D2H, CRC and ring exchange seconds of one more 8 MiB
+    snapshot)."""
+    import zlib
+    import numpy as np
+    from ompi_tpu_torch import errhandler as eh
+    from ompi_tpu_torch.cr import buddy, shard
+    from ompi_tpu_torch.ft import respawn, ulfm
+    from ompi_tpu_torch.op.op import SUM
+
+    def recover(comm, rec):
+        t0 = time.perf_counter()
+        comm = respawn.rejoin(comm)
+        t1 = time.perf_counter()
+        st = buddy.restore(comm)
+        rec[1].append(t1 - t0)
+        rec[2].append(time.perf_counter() - t1)
+        return comm, int(st["i"]), st["acc"]
+
+    def fn(comm):
+        state = comm.state
+        d = _card(devs[comm.rank])
+        rec = ([], [], [])
+        joining = respawn.joining(state)
+        if joining:
+            comm, i, acc = recover(comm, rec)
+            if acc.device != torch.device(d) and d.type == "cuda":
+                raise AssertionError(f"restored onto {acc.device}")
+        else:
+            i, acc = 0, torch.zeros(FT_N, device=d)
+        killed = False
+        while i < FT_STEPS:
+            try:
+                t0 = time.perf_counter()
+                buddy.checkpoint(comm, {"i": i, "acc": acc})
+                rec[0].append(time.perf_counter() - t0)
+                if not joining and not killed and \
+                        victims.get(comm.rank) == i:
+                    killed = True
+                    ulfm.kill_now(state)
+                acc = acc + comm.allreduce_arr(ft_input(comm.rank, i, d),
+                                               SUM)
+                i += 1
+            except eh.MPIException as e:
+                if e.code not in FT_CODES:
+                    raise
+                comm, i, acc = recover(comm, rec)
+        torch.cuda.synchronize()
+        # one more checkpoint's parts on their own: the D2H into the
+        # pinned stage, the host CRC and the ring's two Sendrecvs
+        t0 = time.perf_counter()
+        host = shard.host_bytes(*shard.snapshot(acc))
+        t1 = time.perf_counter()
+        zlib.crc32(host)
+        t2 = time.perf_counter()
+        blob = np.frombuffer(shard.dumps({"i": i, "acc": acc}),
+                             dtype=np.uint8)
+        rbuf = np.empty_like(blob)
+        nb, pn = np.array([blob.size], dtype=np.int64), np.zeros(1, np.int64)
+        comm.Barrier()
+        t3 = time.perf_counter()
+        comm.Sendrecv(nb, (comm.rank + 1) % comm.size, 7,
+                      pn, (comm.rank - 1) % comm.size, 7)
+        comm.Sendrecv(blob, (comm.rank + 1) % comm.size, 8,
+                      rbuf, (comm.rank - 1) % comm.size, 8)
+        t4 = time.perf_counter()
+        return acc, rec, (t1 - t0, t2 - t1, t4 - t3)
+    return fn
+
+
+def phase_ft_respawn(devs, what: str):
+    """10c: 8 ranks, cr_buddy_degree 1, a buddy checkpoint of
+    {"i", "acc"} every step (acc 8 MiB on the card); rank FT_RESPAWNED
+    dies at FT_KILL_STEP right after its checkpoint; its replacement
+    (run_ranks' new thread on the dead rank's device) rejoins and
+    restores onto that device from its partner's copy, the survivors
+    rejoin and restore: every rank's final acc equals the fault-free
+    run's byte for byte, and the launches equal it (the restored run
+    repeats no completed step).  Returns (launches, timings)."""
+    n = len(devs)
+    with _knobs(cr_buddy_degree=1):
+        clean, lc = _ft_launch_run(ft_respawn_program(devs, {}), n,
+                                   lambda r: devs[r])
+        faulty, lf = _ft_launch_run(
+            ft_respawn_program(devs, {FT_RESPAWNED: FT_KILL_STEP}), n,
+            lambda r: devs[r], respawn=True)
+    if lf != lc:
+        raise AssertionError(f"respawn: launches {lf}, the fault-free "
+                             f"run's {lc}")
+    for r in range(n):
+        if faulty[r] is None or not _same(faulty[r][0], clean[r][0]):
+            raise AssertionError(f"respawn: rank {r} differs from the "
+                                 "fault-free run")
+        if not torch.isfinite(clean[r][0]).all():
+            raise AssertionError(f"respawn: rank {r} non-finite")
+    rejoins = [t for r in faulty for t in r[1][1]]
+    if len(rejoins) != n:
+        raise AssertionError(f"respawn: {len(rejoins)} rejoins, "
+                             f"expected {n}")
+    ckpt = max(sum(r[1][0]) / len(r[1][0]) for r in clean)
+    parts = [max(r[2][k] for r in clean) for k in range(3)]
+    log(f"[ft] 10c respawn, {what}: rank {FT_RESPAWNED} killed at step "
+        f"{FT_KILL_STEP}, replaced and restored from its buddy onto "
+        f"{_card(devs[FT_RESPAWNED])}; every rank's acc equals the "
+        f"fault-free run's bytes; launches {_ft_counted(lf)} (the "
+        "fault-free run's)")
+    return lf, {"rejoin_us": max(rejoins) * 1e6,
+                "restore_ms": max(t for r in faulty for t in r[1][2]) * 1e3,
+                "ckpt_ms": ckpt * 1e3, "d2h_ms": parts[0] * 1e3,
+                "crc_ms": parts[1] * 1e3, "exchange_ms": parts[2] * 1e3}
+
+
+def phase_ft_window(devs, what: str) -> dict:
+    """10d: the counter workload (testing.rma, tensor origins on the
+    card) on the survivors of a kill, after a shrink, against a fresh
+    (N - 1)-rank world: byte for byte, every launch count equal (K9
+    rma_acc 5 a rank, K10 rma_cas 1 a rank; the Barrier loop before
+    the shrink launches nothing).  Returns the run's launches."""
+    from ompi_tpu_torch import errhandler as eh
+    from ompi_tpu_torch import osc
+    from ompi_tpu_torch.ft import ulfm
+    from ompi_tpu_torch.op import op as ops
+    from ompi_tpu_torch.testing.rma import Buffers, counter_workload
+    n = len(devs)
+    wl = counter_workload(osc, ops, Buffers(True))
+
+    def chaos(comm):
+        comm.agree(True)  # a sync point that cannot half-complete
+        if comm.rank == FT_VICTIM:
+            ulfm.kill_now(comm.state)
+        work = comm
+        while work is comm:
+            try:
+                work.Barrier()
+            except eh.MPIException as e:
+                if e.code not in FT_CODES:
+                    raise
+                work = work.shrink(name="survivors")
+        return wl(work)
+
+    fresh, lw = _ft_launch_run(wl, n - 1, lambda r: devs[r])
+    got, lg = _ft_launch_run(chaos, n, lambda r: devs[r],
+                             allow_failures=True)
+    if lg != lw or lw["rma_acc"] != 5 * (n - 1) or \
+            lw["rma_cas"] != n - 1:
+        raise AssertionError(f"window across a shrink: launches {lg}, a "
+                             f"fresh world's {lw}")
+    live = [g for g in got if g is not None]
+    if got[FT_VICTIM] is not None or live != fresh:
+        raise AssertionError("window across a shrink: survivors differ "
+                             "from a fresh world's bytes")
+    if {g["component"] for g in live} != {"DeviceWindow"}:
+        raise AssertionError("window across a shrink: not a device window")
+    log(f"[ft] 10d counter workload on the {n - 1} survivors, {what}: the "
+        f"fresh {n - 1}-rank world's bytes; launches {_ft_counted(lg)}")
+    return lg
+
+
+def phase_ft_race(dev) -> dict:
+    """10e: the finish race.  FT_RACE worlds of 8 ranks, alternately on
+    the card (coll/hbm) and on its 8 logical devices (the mesh tier):
+    one 1 MiB allreduce_arr SUM, then rank 0 dies right after leaving
+    the meeting; no survivor may raise for the op that completed (each
+    returns the sum).  Launches: 1 K1 a coll/hbm meeting, 1 K6 + 1 K2
+    peer a mesh one.  Returns the launches."""
+    from ompi_tpu_torch.ft import ulfm
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+
+    def fn(comm):
+        x = torch.full((FT_RACE_N,), comm.rank + 1.0,
+                       device=comm.state.device)
+        out = comm.allreduce_arr(x, SUM)
+        if comm.rank == 0:
+            ulfm.kill_now(comm.state)
+        return float(out[-1])
+
+    total = {}
+    want_sum = float(NRANKS * (NRANKS + 1) // 2)
+    for i in range(FT_RACE):
+        mesh = i % 2 == 1
+        devs = ([LogicalDevice(dev, r) for r in range(NRANKS)] if mesh
+                else [dev] * NRANKS)
+        res, ln = _ft_launch_run(fn, NRANKS, lambda r: devs[r],
+                                 allow_failures=True)
+        want = ({"mesh_fold": 1, "peer_copy": 1} if mesh
+                else {"stacked_reduce": 1})
+        if res != [None] + [want_sum] * (NRANKS - 1) or \
+                _ft_counted(ln) != want:
+            raise AssertionError(f"finish race, meeting {i}: results {res}"
+                                 f", launches {_ft_counted(ln)}")
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+    log(f"[ft] 10e finish race: {FT_RACE} meetings (half coll/hbm, half "
+        f"the mesh), rank 0 dying right after each: no survivor raised; "
+        f"launches {_ft_counted(total)}")
+    return total
+
+
+def phase_ft(dev) -> dict:
+    """Phase 10 on one card: 10a (coll/hbm), 10b (the mesh tier on 8
+    logical devices), 10c (respawn + buddy on coll/hbm), 10d (the
+    device window across a shrink), 10e (the finish race), 10f (the
+    timings, printed with the card's name and power limit).  Returns
+    the phase's launches (they join the kernels line)."""
+    from ompi_tpu_torch.cr import buddy
+    from ompi_tpu_torch.ft import respawn, ulfm
+    from ompi_tpu_torch.runtime.state import LogicalDevice
+    hbm = [dev] * NRANKS
+    mesh = [LogicalDevice(dev, r) for r in range(NRANKS)]
+    total = {}
+
+    def add(ln):
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+
+    la, ta = phase_ft_shrink(hbm, "hbm", f"8 ranks on {dev}")
+    lb, tb = phase_ft_shrink(mesh, "tpu", f"8 logical devices of {dev}")
+    lc, tc = phase_ft_respawn(hbm, f"8 ranks on {dev}")
+    ld = phase_ft_window(mesh, f"8 logical devices of {dev}")
+    le = phase_ft_race(dev)
+    for ln in (la, lb, lc, ld, le):
+        add(ln)
+    card = card_line()
+    for k, t in (("10a coll/hbm", ta), ("10b mesh", tb)):
+        log(f"[ft] 10f {k}: kill to the last survivor's raise "
+            f"{t['detect_ms']:.3f} ms; shrink {t['shrink_us']:.1f} us "
+            f"(slowest rank); step {t['step_before_us']:.1f} us on 8 "
+            f"ranks, {t['step_after_us']:.1f} us on 7 (slowest rank's "
+            f"mean, 8 MiB f32 SUM, host clock) [{card}]")
+    log(f"[ft] 10f 10c respawn: rejoin {tc['rejoin_us']:.1f} us, restore "
+        f"{tc['restore_ms']:.3f} ms (slowest rank); buddy checkpoint of "
+        f"8 MiB a rank {tc['ckpt_ms']:.3f} ms (slowest rank's mean); its "
+        f"parts alone: D2H into the pinned stage {tc['d2h_ms']:.3f} ms, "
+        f"CRC {tc['crc_ms']:.3f} ms, the ring's two Sendrecvs "
+        f"{tc['exchange_ms']:.3f} ms (slowest rank) [{card}]")
+    log(f"[ft] 10f pvars: ulfm_shrink_rebuild_us "
+        f"{ulfm._pv_shrink_us.read()}, respawn_rejoin_us "
+        f"{respawn._pv_rejoin_us.read()}, cr_buddy_replicate_us "
+        f"{buddy._pv_us.read():.1f} (process high-water marks) [{card}]")
+    return total
+
+
+def phase_ft_cards(cards) -> None:
+    """Phase 10 one rank a card, with four or more: 10a/10b's ULFM run
+    on the mesh across cards (N cards -> N - 1 survivors) and 10d."""
+    what = f"{len(cards)} cards, one rank each"
+    phase_ft_shrink(cards, "tpu", what)
+    phase_ft_window(cards, what)
+
+
 def phase_cards() -> None:
     """One rank a card, on a host with two or more: the mesh, RMA,
     integrity and halo phases and the SHMEM workloads (7a) again, where
@@ -5122,6 +5572,7 @@ def phase_cards() -> None:
         phase_hier_reroute(cards, 2, what)
         phase_hier_wedge(cards, "tpu", what)
         phase_hier_timing(cards, 2, what)
+        phase_ft_cards(cards)
 
 
 def main(argv) -> int:
@@ -5212,6 +5663,9 @@ def main(argv) -> int:
     h_launches = phase_hier(dev)
     for r in rows:  # and phase 9a's, the hierarchical tier's
         r["launches"] += h_launches.get(r["name"].split(":")[0], 0)
+    f_launches = phase_ft(dev)
+    for r in rows:  # and phase 10's, the fault-tolerance runs'
+        r["launches"] += f_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,8 @@ device_algorithm document).  The discipline here:
 
   * Folding only rewrites the PROCESS-WIDE profile (all rank-threads
     of a process see one decision surface) and purges the per-comm
-    selection caches (``SELECTION_CACHE_KEYS``: the port's copy of the
-    reference's ulfm subset, since the port has no ULFM yet).
+    selection caches (``ft.ulfm.SELECTION_CACHE_KEYS``: the subset of
+    the epoch purge that is safe on a live comm).
   * Picks are re-resolved at WINDOW boundaries of the per-comm
     collective sequence counter (``w = _coll_seq // window_ops``).
     The first member entering window ``w`` publishes a thresholds
@@ -54,6 +54,7 @@ from typing import Dict, List, Optional
 
 from ompi_tpu_torch import trace
 from ompi_tpu_torch.coll import calibrate
+from ompi_tpu_torch.ft.ulfm import SELECTION_CACHE_KEYS
 from ompi_tpu_torch.mca.params import registry
 
 enable_var = registry.register(
@@ -90,10 +91,6 @@ fusion_var = registry.register(
          "small ops per flush when the measured dispatch constant "
          "grows)")
 
-#: the per-comm caches a fold purges on a live comm (the reference's
-#: ``ulfm.SELECTION_CACHE_KEYS``): the tier picks, the osc component
-#: pick and the resolved plans
-SELECTION_CACHE_KEYS = ("_pipeline_pick", "_osc_pick", "_coll_plans")
 
 _CAND_MIN = 1 << 16          # 64 KiB: crossover floor
 _CAND_MAX = 64 << 20         # 64 MiB: crossover ceiling

@@ -268,13 +268,13 @@ _live_lock = threading.Lock()
 
 def _prune_dead_locked() -> bool:
     """Drop tracked states that can never finalize — their world
-    aborted, or they already finalized — and report whether any live
-    state remains.  Without the prune a rank killed mid-abort would
-    hold the dispatcher open for the rest of the process.  Caller
-    holds _live_lock."""
+    aborted, they were killed (``ulfm_dead``), or they already
+    finalized — and report whether any live state remains.  Without
+    the prune a killed rank would hold the dispatcher open for the
+    rest of the process.  Caller holds _live_lock."""
     for s in list(_live_states):
         w = getattr(s.rte, "world", None)
-        if s.finalized or getattr(w, "aborted", None):
+        if s.finalized or s.ulfm_dead or getattr(w, "aborted", None):
             _live_states.discard(s)
     return bool(_live_states)
 
@@ -426,7 +426,15 @@ class Rendezvous:
         again under the lock before the waiter parks.  The reference's
         loop parks for its 2 ms timeout without that check
         (``ompi_tpu/coll/device.py`` ``_wait_for``), a lost wake-up the
-        port repairs."""
+        port repairs.
+
+        ``cond()`` is also read under the lock before every abort
+        check, so a posted result wins over a failure that arrived
+        later: a member that dies right after leaving a meeting must
+        not make a survivor still inside ``finish`` raise
+        MPI_ERR_PROC_FAILED for an op that completed.  The reference
+        runs the check first (its unsteady
+        ``test_plan_across_shrink_epoch``), a race the port repairs."""
         poll = _rv_poll_var.value
         stall = _rv_timeout_var.value
 
@@ -442,7 +450,7 @@ class Rendezvous:
         t0 = time.monotonic()
         if progress is None:
             while not cond():
-                if not self.cv.wait(timeout=poll):
+                if not self.cv.wait(timeout=poll) and not cond():
                     tick(t0)
             return
         park = min(poll, 0.05)
@@ -463,8 +471,12 @@ class Rendezvous:
                     progress.idle_wait(park)
             finally:
                 self.cv.acquire()
-            if events == 0 and not progress.has_idle_fds and not cond():
+            if cond():
+                return
+            if events == 0 and not progress.has_idle_fds:
                 self.cv.wait(timeout=0.002)
+                if cond():
+                    return
             tick(t0)
 
     def begin(self, rank: int, value: Any,
@@ -936,6 +948,7 @@ def _abort_check(comm):
     if cached is not None:
         return cached
     world = getattr(comm.state.rte, "world", None)
+    ulfm = comm.state.ulfm  # None when mpi_ft_ulfm is off
 
     def check():
         if world is not None and world.aborted and \
@@ -943,6 +956,12 @@ def _abort_check(comm):
             raise RuntimeError(
                 f"peer rank {world.aborted[0]} aborted during "
                 "device collective")
+        if ulfm is not None and ulfm.active:
+            # a peer died while we were parked in the rendezvous:
+            # surface ERR_PROC_FAILED/ERR_REVOKED out of the wait
+            # instead of spinning until the meet timeout
+            ulfm.poll()
+            ulfm.check_comm(comm)
     comm.__dict__["_device_abort_check"] = check
     return check
 

@@ -85,10 +85,8 @@ def _instrumented(fname: str, fn):
     systems are off, coll_begin returns None after one flag check and
     the shim is a bare pass-through — nonblocking collectives are not
     shimmed (their lifecycle is observed by the nbc hooks instead).
-
-    The reference's shim also runs the ULFM entry check (a collective
-    on a revoked comm, or one naming a failed member, raises); the port
-    has no ULFM yet (ROADMAP.md A7), so that check comes with it."""
+    The shim also runs the ULFM entry check: a collective on a revoked
+    comm, or one naming a failed member, raises before it deposits."""
     from ompi_tpu_torch import trace
 
     # intern once at wrap time: the shim passes a small int on the
@@ -107,6 +105,15 @@ def _instrumented(fname: str, fn):
             # over collectives would otherwise never consume its
             # pending interrupt
             pr.progress()
+        u = comm.state.ulfm
+        if u is not None and u.active:
+            # ULFM entry check: a collective on a revoked comm raises
+            # ERR_REVOKED, one naming a failed member ERR_PROC_FAILED
+            # (instead of hanging on the dead rank).  Healthy-path
+            # cost is the is-None check above — `active` only flips
+            # once a failure record has actually arrived.
+            u.poll()
+            u.check_comm(comm)
         tok = _begin(comm, fid)
         if tok is None:
             return fn(comm, *args, **kwargs)

@@ -112,6 +112,10 @@ class Communicator:
     # attributes — no dict.get() call
     _coll_seq = 0
     _dev_seq = 0
+    # the comm's error handler (None: dispatch resolves through the
+    # world communicator's, then ERRORS_RETURN); shrink and rejoin
+    # hand it on to the communicator they build
+    errhandler: Any = None
 
     def __init__(self, state, cid: int, group: Group, name: str = "") -> None:
         self.state = state
@@ -340,6 +344,56 @@ class Communicator:
 
     def abort(self, errorcode: int = 1) -> None:
         self.state.rte.abort(errorcode, f"abort on {self.name}")
+
+    # -- ULFM fault tolerance (ompi_tpu_torch/ft/ulfm; the MPIX_Comm_*
+    # surface of the MPI-4 FT proposal) ---------------------------------
+    def revoke(self) -> None:
+        """MPIX_Comm_revoke: poison this communicator on every member
+        (NOT collective — any member may call it).  In-flight and
+        future operations drain with ERR_REVOKED; agree/shrink keep
+        working — they are the escape hatch."""
+        from ompi_tpu_torch.ft import ulfm as _ulfm
+        _ulfm.publish_revoke(self)
+
+    def is_revoked(self) -> bool:
+        u = self.state.ulfm
+        if u is None:
+            return False
+        u.poll()
+        return (self.cid, tuple(self.group)) in u.revoked
+
+    def get_failed(self) -> List[int]:
+        """MPIX_Comm_get_failed analog: comm ranks known failed."""
+        u = self.state.ulfm
+        if u is None:
+            return []
+        u.poll()
+        return [r for r, g in enumerate(self.group) if g in u.failed]
+
+    def ack_failed(self) -> int:
+        """MPIX_Comm_ack_failed: acknowledge the current failure set
+        (re-arms ANY_SOURCE receives); returns how many are acked."""
+        u = self.state.ulfm
+        if u is None:
+            return 0
+        u.poll()
+        u.acked |= u.failed.intersection(self.group)
+        return sum(1 for g in self.group if g in u.acked)
+
+    def agree(self, flag=True) -> bool:
+        """MPIX_Comm_agree: fault-tolerant agreement — every survivor
+        returns the same AND of the contributed flags, no matter when
+        members die (see ompi_tpu_torch/ft/ulfm.agree)."""
+        from ompi_tpu_torch.ft import ulfm as _ulfm
+        return _ulfm.agree(self, flag)
+
+    def shrink(self, name: str = "") -> "Communicator":
+        """MPIX_Comm_shrink: a new communicator of the survivors (its
+        device mesh rebuilt from their devices on first use, the old
+        comm's per-group caches dropped).  Collective over the
+        survivors."""
+        from ompi_tpu_torch.ft import ulfm as _ulfm
+        return _ulfm.shrink(self, name)
 
     # ------------------------------------------------------------------
     # Public MPI API (mpi4py-flavored buffer methods).  Buffer specs:

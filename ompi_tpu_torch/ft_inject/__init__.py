@@ -16,7 +16,11 @@ change.  Ported injection points:
     rank's operand after the integrity gate digested it (the silent
     failure only obs/integrity can see);
   * the one-sided window's active-message apply (osc/window.py):
-    ``rma_delay`` holds the target's apply loop.
+    ``rma_delay`` holds the target's apply loop;
+  * MPI_Init (runtime/init.py): ``rank_kill`` arms a one-shot timer on
+    each of ``ft_inject_victim_rank``'s ranks that kills it
+    ``ft_inject_after`` seconds later (a RankKilled out of its next
+    progress sweep — the ULFM detect/shrink/respawn target).
 
 Determinism: a rolling injector owns a ``random.Random`` seeded from
 ``(ft_inject_seed, scope, rank)``, so a chaos run replays bit for bit
@@ -32,8 +36,8 @@ An injection that fires leaves an ``ft_inject`` instant (cat
 
 Not ported (ROADMAP.md): the btl/tcp frame faults and ``net_jitter``
 (their users are btl/tcp and the KV store, A8), kv, dvm, node and host
-kills and the host agent's slow beat (A8), rank and process kills
-(A7), and checkpoint I/O faults (A9).
+kills, the ``KillInjector`` and ``node_faults`` that arm them and the
+host agent's slow beat (A8), and checkpoint I/O faults (A9).
 """
 
 from __future__ import annotations
@@ -61,7 +65,9 @@ _plan_var = registry.register(
          "deposit — the hang doctor's target; the number is that "
          "count), host_slow (the GRAY failure: every rank resident on "
          "ft_inject_victim_host stalls delay_ms*(factor-1) at each "
-         "deposit).  Empty = framework disabled")
+         "deposit), rank_kill (ft_inject_victim_rank's ranks die "
+         "ft_inject_after seconds after MPI_Init; the number is "
+         "ignored).  Empty = framework disabled")
 _rate_var = registry.register(
     "ft", "inject", "rate", 0.02, float,
     help="Default per-event injection probability for plan entries "
@@ -80,9 +86,14 @@ _victim_host_var = registry.register(
          "rank whose node_id it is")
 _victim_rank_var = registry.register(
     "ft", "inject", "victim_rank", "1", str,
-    help="Global rank(s) the device_sdc class corrupts and the "
-         "rdv_sever class wedges: a single rank, a comma list ('1,3'), "
-         "or 'random' for a seed-deterministic pick")
+    help="Global rank(s) the rank_kill class kills, the device_sdc "
+         "class corrupts and the rdv_sever class wedges: a single "
+         "rank, a comma list ('1,3'), or 'random' for a seed-"
+         "deterministic pick")
+_after_var = registry.register(
+    "ft", "inject", "after", 1.0, float,
+    help="Seconds after MPI_Init at which the rank_kill class kills "
+         "its victims")
 _delay_ms_var = registry.register(
     "ft", "inject", "delay_ms", 20, int,
     help="How long a 'delay' or 'rma_delay' hit holds its thread")
@@ -348,6 +359,10 @@ def rma_injector(rank: int) -> Optional[RmaInjector]:
     return RmaInjector("rma", rank, p)
 
 
+#: permanent rank-level scenario classes (armed once at MPI_Init)
+RANK_CLASSES = ("rank_kill",)
+
+
 def victim_ranks(size: Optional[int] = None) -> List[int]:
     """Parse ft_inject_victim_rank into the concrete victim list.
 
@@ -373,3 +388,22 @@ def victim_ranks(size: Optional[int] = None) -> List[int]:
         if item:
             out.append(int(item))
     return out
+
+
+def rank_faults(rank: int, size: Optional[int] = None) -> List[str]:
+    """Permanent rank-level scenario classes armed on THIS global
+    rank (mpi_init consults this once and arms a one-shot timer)."""
+    if rank not in victim_ranks(size):
+        return []
+    p = plan()
+    return [c for c in RANK_CLASSES if c in p]
+
+
+def rank_kill_victim() -> int:
+    """First armed victim (compat shim for single-victim callers)."""
+    v = victim_ranks()
+    return v[0] if v else -1
+
+
+def after_s() -> float:
+    return max(0.0, _after_var.value)

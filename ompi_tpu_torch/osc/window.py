@@ -235,6 +235,14 @@ class Window:
                 continue
             if self._hdr_req is None or not self._hdr_req.complete:
                 return events
+            if self._hdr_req.status.error:
+                # a peer died while the wildcard header receive was
+                # parked (ulfm_sweep error-completes it, buffer
+                # untouched): the window cannot make progress until
+                # recovery frees or abandons it — park instead of
+                # parsing a zeroed header as an RMA message
+                self._hdr_req = None
+                return events
             hdr = self._hdr_buf.copy()
             src = self._hdr_req.status.source
             self._hdr_req = None
@@ -512,23 +520,34 @@ class Window:
     # -- synchronization -------------------------------------------------
 
     def _check_alive(self) -> None:
-        """Raise instead of spinning when the job aborted: every
-        blocking RMA wait loop polls this (the port has no ULFM, so a
-        peer's abort is the one failure a window can see)."""
+        """Raise instead of spinning when the job aborted, a peer of
+        the window's comm died, or the epoch was revoked
+        (ERR_PROC_FAILED / ERR_REVOKED): every blocking RMA wait loop
+        polls this, so a window on a dead comm raises rather than
+        hangs."""
         world = getattr(self.state.rte, "world", None)
         aborted = getattr(world, "aborted", None)
         if aborted is not None and aborted[0] != self.state.rank:
             raise _eh.MPIException(
                 _eh.ERR_OTHER, f"peer rank {aborted[0]} aborted: "
                 f"{aborted[2]}")
+        ulfm = self.state.ulfm
+        if ulfm is not None and ulfm.active:
+            ulfm.poll()
+            ulfm.check_comm(self.comm)
 
     def _wait_req(self, req) -> None:
-        """Reply/ack wait that stays abort-aware: the caller gets an
-        exception, never a hang."""
+        """Reply/ack wait that stays failure-aware: a peer death
+        error-completes the request (or surfaces via check_comm), and
+        either way the caller gets an exception, never a hang."""
         while not req.complete:
             self._check_alive()
             if self._progress.progress() == 0:
                 self._progress.idle_tick()
+        if req.status.error:
+            raise _eh.MPIException(
+                _eh.ERR_PROC_FAILED,
+                "RMA peer failed while a reply was outstanding")
 
     def _drain_out(self) -> None:
         for r in self._out_reqs:

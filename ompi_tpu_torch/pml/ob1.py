@@ -141,6 +141,12 @@ class PmlOb1:
         self._send_seq: Dict[Tuple[int, int], int] = {}     # (cid,dst)->seq
         self._next_seq: Dict[Tuple[int, int], int] = {}     # (cid,src)->seq
         self._cant_match: Dict[Tuple[int, int], Dict[int, UnexpectedMsg]] = {}
+        # checkpoint/restart bookmark counters (crcp/bkmrk analog,
+        # ref: ompi/mca/crcp/bkmrk/crcp_bkmrk_pml.c): user-tag message
+        # envelopes sent to / arrived from each GLOBAL rank.  Quiesce
+        # drains until every pair's counts match (see ompi_tpu_torch/cr).
+        self.cr_sent: Dict[int, int] = {}
+        self.cr_arrived: Dict[int, int] = {}
         self.pvar_sent = registry.register_pvar(
             "pml", "ob1", f"bytes_sent_r{state.rank}")
         self.pvar_recv = registry.register_pvar(
@@ -149,6 +155,10 @@ class PmlOb1:
         # selection): the p2p hot paths pay one is-None check when
         # tracing is off — the peruse-flag discipline
         self._tracer = getattr(state, "tracer", None)
+        # ULFM state, same caching discipline; u.active only flips
+        # once the first failure/revoke record arrives, so the
+        # healthy-path cost is one attribute fetch + one falsy check
+        self._ulfm = getattr(state, "ulfm", None)
         state.progress.register(self.progress)
 
     # -- wiring ----------------------------------------------------------
@@ -164,7 +174,7 @@ class PmlOb1:
     # -- send ------------------------------------------------------------
     def _envelope(self, dst, tag, comm):
         """Shared send-side bookkeeping: rank check + translation,
-        per-(cid,dst) sequencing.  Returns
+        per-(cid,dst) sequencing, C/R sent counting.  Returns
         (gdst, endpoint, seq)."""
         if not 0 <= dst < len(comm.group):
             # comm.group is the p2p translation table: the membership
@@ -177,12 +187,18 @@ class PmlOb1:
         key = (comm.cid, dst)
         seq = self._send_seq.get(key, 0)
         self._send_seq[key] = seq + 1
+        if tag >= 0:
+            self.cr_sent[gdst] = self.cr_sent.get(gdst, 0) + 1
         return gdst, ep, seq
 
     def isend(self, buf, count, datatype, dst, tag, comm,
               mode=MODE_STANDARD, offset: int = 0) -> Request:
         if dst == PROC_NULL:
             return CompletedRequest(self.state.progress)
+        u = self._ulfm
+        if u is not None and u.active:
+            u.poll()
+            u.check_peer(comm, dst)
         # convertor construction FIRST: an argument error must not
         # consume the (cid,dst) sequence number (a burned seq wedges
         # the channel — the receiver can never match past the hole)
@@ -281,6 +297,10 @@ class PmlOb1:
             r.status.source = PROC_NULL
             r.status.tag = ANY_TAG
             return r
+        u = self._ulfm
+        if u is not None and u.active:
+            u.poll()
+            u.check_peer(comm, src)
         conv = make_convertor(datatype, count, buf, offset=offset,
                               writable=True) \
             if buf is not None else Convertor(datatype, 0, b"")
@@ -480,7 +500,12 @@ class PmlOb1:
                 _, cid, src, tag, seq, gsrc, total, sreq_id, payload = frag
                 msg = UnexpectedMsg(kind, cid, src, tag, seq, total,
                                     sreq_id, payload)
-            self._dispatch_arrival(msg)
+            # the envelope carries the sender's GLOBAL rank so C/R
+            # bookkeeping never depends on resolving the cid locally.
+            # Count AFTER the sequence gate: transport-duplicate
+            # envelopes must not inflate arrived.
+            if self._dispatch_arrival(msg) and tag >= 0:
+                self.cr_arrived[gsrc] = self.cr_arrived.get(gsrc, 0) + 1
         elif kind == ACK:
             _, sreq_id, rreq_id = frag
             self._send_rest(sreq_id, rreq_id)
@@ -498,11 +523,13 @@ class PmlOb1:
             _, rreq_id, pos, payload = frag
             self._recv_segment(rreq_id, pos, payload)
 
-    def _dispatch_arrival(self, msg: UnexpectedMsg) -> None:
+    def _dispatch_arrival(self, msg: UnexpectedMsg) -> bool:
         """Sequence-gate an arrived envelope into matching.  A
         message whose sequence slot was already consumed is a
         transport duplicate and is dropped; one that arrives ahead of
-        its turn is held until the gap fills."""
+        its turn is held until the gap fills.  Returns False for a
+        duplicate that will never reach matching — callers must NOT
+        count such arrivals in the C/R bookmark."""
         key = (msg.cid, msg.src)
         if not self._matchable(msg.cid, msg.src, msg.seq):
             if msg.seq < self._next_seq.get(key, 0):
@@ -510,11 +537,14 @@ class PmlOb1:
                 # duplicate envelope.  Drop it — parking it in
                 # _cant_match would leak it forever (its seq can
                 # never become next)
-                return
-            self._cant_match.setdefault(key, {})[msg.seq] = msg
-            return
+                return False
+            held = self._cant_match.setdefault(key, {})
+            dup = msg.seq in held
+            held[msg.seq] = msg
+            return not dup
         self._advance_seq(msg.cid, msg.src)
         self._match_or_buffer(msg)
+        return True
 
     def _match_or_buffer(self, msg: UnexpectedMsg) -> None:
         if msg.kind == MATCH_OBJ:
@@ -605,6 +635,191 @@ class PmlOb1:
             req.status.count = min(req.incoming, capacity)
             self._finish_recv(req)
 
+    # -- checkpoint/restart hooks (ompi_tpu_torch/cr; crcp/bkmrk) ------
+    def cr_pending_sends(self) -> int:
+        """Send requests whose payload is not fully on the wire yet
+        (rendezvous streams, sync-eager awaiting ACK)."""
+        return len(self._send_reqs)
+
+    def cr_capture(self) -> List[tuple]:
+        """Snapshot the in-flight state a quiesced rank may legally
+        hold: buffered-eager user messages in the unexpected queues.
+        Everything else must be drained — a stuck rendezvous or
+        out-of-order hold at quiesce is a protocol violation worth a
+        loud failure, not a silent bad snapshot."""
+        if self._send_reqs:
+            raise RuntimeError(
+                "cr_capture with pending send requests (quiesce bug)")
+        if any(self._cant_match.values()):
+            raise RuntimeError(
+                "cr_capture with out-of-order frags held (messages "
+                "still in flight)")
+        msgs = []
+        for cid, lst in self._unexpected.items():
+            for m in sorted(lst, key=lambda u: u.arrival):
+                if m.tag < 0:
+                    # post-quiesce traffic from the checkpoint's own
+                    # machinery (a faster rank's seq-Bcast fan-out can
+                    # land here before we capture): consumed by OUR
+                    # upcoming phase, never snapshotted
+                    continue
+                if m.kind == MATCH_OBJ:
+                    # in-flight device payload (send_arr completed,
+                    # recv_arr pending): a host copy of the receiver's
+                    # tensor, taken once the sender's copy into it has
+                    # finished; restore re-places it on the device
+                    msgs.append((cid, m.src, m.tag, m.total, "obj",
+                                 _host_copy(m.payload)))
+                    continue
+                if m.kind != MATCH:
+                    raise RuntimeError(
+                        f"cr_capture: {m.kind} message unmatched at "
+                        "quiesce (sender's request could not have "
+                        "completed — user requests must complete "
+                        "before checkpoint)")
+                msgs.append((cid, m.src, m.tag, m.total, "bytes",
+                             bytes(m.payload)))
+        return msgs
+
+    def cr_capture_lenient(self) -> List[tuple]:
+        """Uncoordinated snapshot: the (cid, src, seq) of every
+        arrived-but-unconsumed message instead of its payload (a
+        sender-side log redelivers them after restart).  Out-of-order
+        holds are recorded too.  Locally-incomplete requests are an
+        app-contract violation either way."""
+        if self._send_reqs:
+            raise RuntimeError(
+                "uncoordinated checkpoint with locally-incomplete "
+                "send requests (wait/test them first)")
+        for req in self._recv_reqs.values():
+            if req.matched and not req.complete:
+                raise RuntimeError(
+                    "uncoordinated checkpoint with a matched, "
+                    "partially-received request (wait it first)")
+        want = []
+        for cid, lst in self._unexpected.items():
+            for m in lst:
+                want.append((cid, m.src, m.seq))
+        for (cid, src), held in self._cant_match.items():
+            for seq in held:
+                want.append((cid, src, seq))
+        return want
+
+    def cr_restore(self, msgs: List[tuple]) -> None:
+        """Reinject snapshot-carried eager messages as fresh arrivals.
+        Sequence numbers restart from zero on both sides after a
+        restart, so reinjection bypasses sequencing (these envelopes
+        already consumed their pre-checkpoint sequence slots)."""
+        for cid, src, tag, total, kind, payload in msgs:
+            if kind == "obj":
+                from ompi_tpu_torch.btl.tpu import DeviceArrayPayload
+                dev = self.state.device
+                arr = payload.to(dev) if dev is not None else payload
+                m = UnexpectedMsg(MATCH_OBJ, cid, src, tag, 0, total,
+                                  None, DeviceArrayPayload(arr))
+            else:
+                m = UnexpectedMsg(MATCH, cid, src, tag, 0, total,
+                                  None, payload)
+            self._unexpected.setdefault(cid, []).append(m)
+
+    # -- recovery epochs (ompi_tpu_torch/ft/respawn) ---------------------
+    def ft_reset(self) -> None:
+        """Epoch reset: drop every piece of matching and sequence
+        state.  Both ends of every channel restart at zero — the
+        snapshot all ranks reload has no in-flight traffic by quiesce
+        construction."""
+        self.inbox.clear()
+        self._send_reqs.clear()
+        self._recv_reqs.clear()
+        self._posted.clear()
+        self._unexpected.clear()
+        self._send_seq.clear()
+        self._next_seq.clear()
+        self._cant_match.clear()
+        self.cr_sent.clear()
+        self.cr_arrived.clear()
+
+    def ft_reset_peer(self, granks, comms) -> None:
+        """Respawn rejoin (ft/respawn): a replaced rank restarts its
+        pml at zero, so BOTH directions of every channel naming it
+        must forget their sequence state — the survivor's next send
+        to it carries seq 0 again, and seq 0 from it matches instead
+        of parking in _cant_match behind the dead predecessor's
+        counters.  Survivor<->survivor channels keep their live
+        sequences."""
+        granks = set(granks)
+        for comm in comms.values():
+            if comm is None:
+                continue
+            group = list(comm.group)
+            for r, g in enumerate(group):
+                if g not in granks:
+                    continue
+                self._send_seq.pop((comm.cid, r), None)
+                self._next_seq.pop((comm.cid, r), None)
+                self._cant_match.pop((comm.cid, r), None)
+                pend = self._unexpected.get(comm.cid)
+                if pend:
+                    self._unexpected[comm.cid] = [
+                        m for m in pend if m.src != r]
+        for g in granks:
+            self.cr_sent.pop(g, None)
+            self.cr_arrived.pop(g, None)
+
+    # -- ULFM drain (ompi_tpu_torch/ft/ulfm) -----------------------------
+    def ulfm_sweep(self, failed, revoked) -> int:
+        """Complete every parked request naming a failed peer or a
+        revoked communicator with the matching ULFM error class
+        (Request.wait raises it) instead of hanging forever.  Called
+        from UlfmState._ingest whenever a failure/revoke record is
+        ingested — the drain half of detect → report."""
+        from ompi_tpu_torch import errhandler as _eh
+        n = 0
+        for req in list(self._send_reqs.values()):
+            err = 0
+            group = self._ulfm_group(req.cid)
+            if group is not None and (req.cid, group) in revoked:
+                err = _eh.ERR_REVOKED
+            elif req.dst in failed:
+                err = _eh.ERR_PROC_FAILED
+            if err:
+                self._send_reqs.pop(req.req_id, None)
+                req.status.error = err
+                req._complete()
+                if req.tr is not None:
+                    self._trace_p2p_end(req, _NAME_SEND, 0)
+                n += 1
+        for req in list(self._recv_reqs.values()):
+            err = 0
+            group = self._ulfm_group(req.cid)
+            if group is not None:
+                src = req.status.source if req.matched else req.src
+                if (req.cid, group) in revoked:
+                    err = _eh.ERR_REVOKED
+                elif src == ANY_SOURCE:
+                    # as the reference: a parked wildcard receive
+                    # completes with the PENDING class rather than
+                    # staying pending until failure_ack
+                    if any(g in failed for g in group):
+                        err = _eh.ERR_PROC_FAILED_PENDING
+                elif 0 <= src < len(group) and group[src] in failed:
+                    err = _eh.ERR_PROC_FAILED
+            if err:
+                posted = self._posted.get(req.cid, [])
+                if req in posted:
+                    posted.remove(req)
+                self._recv_reqs.pop(req.req_id, None)
+                req.status.error = err
+                req._complete()
+                if req.tr is not None:
+                    self._trace_p2p_end(req, _NAME_RECV, 0)
+                n += 1
+        return n
+
+    def _ulfm_group(self, cid: int):
+        comm = self.state.comms.get(cid)
+        return None if comm is None else tuple(comm.group)
+
     # -- cancel ----------------------------------------------------------
     def cancel_recv(self, req: RecvRequest) -> bool:
         posted = self._posted.get(req.cid, [])
@@ -616,6 +831,19 @@ class PmlOb1:
             req._complete()
             return True
         return False
+
+
+def _host_copy(payload):
+    """A host copy of a parked device payload (cr_capture): a CPU
+    tensor once the sender's copy into the receiver's tensor has
+    finished, or a numpy copy for a rank with no device."""
+    arr = payload.arr
+    if getattr(payload, "event", None) is not None:
+        payload.event.synchronize()
+    if hasattr(arr, "detach"):
+        return arr.detach().to("cpu", copy=True)
+    import numpy as np
+    return np.array(arr, copy=True)
 
 
 class Ob1Component(Component):

@@ -18,6 +18,11 @@ SUCCESS = 0
 ERR_TRUNCATE = 15
 ERR_PENDING = 19
 
+# ULFM classes: a request drained with one of these must RAISE from
+# wait (the op cannot have delivered data; silently returning a
+# status would let the app consume garbage from a dead peer)
+_ULFM_CODES = (75, 76, 77)  # PROC_FAILED, PROC_FAILED_PENDING, REVOKED
+
 
 class Status:
     __slots__ = ("source", "tag", "error", "count", "cancelled")
@@ -64,14 +69,17 @@ class Request:
 
     def wait(self, timeout: Optional[float] = None) -> Status:
         if self._progress.interrupt is not None:
-            # armed interrupts must fire even when the request
-            # completed inline: a rank that never runs progress can
-            # never be interrupted
+            # armed interrupts (ulfm rank_kill) must fire even when
+            # the request completed inline: a rank that never runs
+            # progress can never be killed
             self._progress.progress()
         if not self.complete:
             self._sync.wait(self._progress, timeout)
         if not self.complete:
             raise TimeoutError("request wait timed out")
+        if self.status.error in _ULFM_CODES:
+            from ompi_tpu_torch import errhandler as _eh
+            raise _eh.MPIException(self.status.error)
         return self.status
 
     def cancel(self) -> None:

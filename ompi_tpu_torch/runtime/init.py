@@ -12,9 +12,12 @@ finalize fence, the per-rank dump written last), the online autotuner
 (attached right after the tracer), the telemetry plane (obs.attach:
 its gauges, the flight recorder, the scrape tick, and the integrity
 plane's knobs; obs.detach at finalize), the session cid band (the
-predefined communicators at the band base) and the fault injectors of
-the rendezvous and the RMA AM apply; pstat, binding, ULFM, vprotocol
-and live recovery are listed in ROADMAP.md as still to port.
+predefined communicators at the band base), the fault injectors of
+the rendezvous and the RMA AM apply, and ULFM (attached before pml
+selection; the ``rank_kill`` arm after the final fence, never on a
+respawned replacement; its store purged at finalize); pstat, binding,
+vprotocol, the KV note watchers and live recovery are listed in
+ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -58,6 +61,16 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     # auto-enables yield_when_idle when ranks exceed cores)
     world = state.rte.world
     state.progress.oversubscribed = world.size > (os.cpu_count() or 1)
+    # ULFM failure-mitigation state BEFORE pml selection so the pml
+    # can cache state.ulfm (None when mpi_ft_ulfm is off — the same
+    # one-is-None-check contract as the tracer)
+    from ompi_tpu_torch.ft import ulfm as _ulfm
+    _ulfm.attach(state)
+    # the recovery epoch a launcher starts this rank in (0 for a
+    # fresh job).  A thread-world replacement gets respawn_joining
+    # and respawn_epoch from run_ranks before mpi_init (threads share
+    # the environment, so an env flag cannot mark one of them)
+    state.ft_epoch = int(os.environ.get("TPUMPI_FT_EPOCH", "0"))
     # 1. select the single pml engine (ref: ompi_mpi_init.c:640)
     comp, pml_cls = _pml_ob1.pml_framework.select_one(state)
     state.pml = pml_cls(state)
@@ -94,6 +107,16 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     # 5. final fence before returning (sync #2, ref: :833-838)
     state.rte.fence()
     state.initialized = True
+    if state.ulfm is not None:
+        # ft_inject rank_kill: this rank is the victim — arm the
+        # one-shot death timer (fires as a RankKilled interrupt out
+        # of the next progress sweep)
+        from ompi_tpu_torch import ft_inject as _fi
+        if ("rank_kill" in _fi.rank_faults(state.rank, state.size)
+                and not state.respawn_joining):
+            # a respawned replacement never re-arms its predecessor's
+            # death — that would be an infinite kill/respawn loop
+            _ulfm.arm_rank_kill(state, _fi.after_s())
     return state
 
 
@@ -125,6 +148,13 @@ def mpi_finalize(state: ProcState) -> None:
     _trace.sync_state(state)
     # barrier, then teardown in reverse (ref: ompi_mpi_finalize.c:101)
     state.rte.fence()
+    if state.ulfm is not None:
+        # store hygiene: drop this world's ULFM tickets so looped
+        # worlds never replay a finished run's records.  After the
+        # fence (nobody agrees anymore); idempotent, so every rank
+        # calling it is fine
+        from ompi_tpu_torch.ft import ulfm as _ulfm
+        _ulfm.purge_store(state)
     for m in state.btls:
         m.finalize()
     # autotune deregistration before the tracer dump: the process

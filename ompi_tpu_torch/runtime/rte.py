@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set
 
 from ompi_tpu_torch.mca.params import registry
 
@@ -66,15 +66,21 @@ class InprocWorld:
         # keyed by communicator cid
         self.shared: Dict[Any, Any] = {}
         self.shared_lock = threading.Lock()
+        # ULFM (ompi_tpu_torch/ft/ulfm): global ranks declared
+        # permanently dead.  Fences count survivors only, so a kill
+        # shrinks the quorum instead of hanging every later fence
+        self.ulfm_failed: Set[int] = set()
         self._f_cv = threading.Condition()
         self._f_count = 0
         self._f_gen = 0
 
     def fence(self, rank: int, timeout: float) -> None:
-        """Generation-counting barrier over all ranks.  The short wait
-        slices double as an abort poll: a peer that errors out
-        releases everyone (a threading.Barrier would need every
-        waiter to know about the abort)."""
+        """Generation-counting barrier over the SURVIVORS: the quorum
+        is recomputed on every wake, so a rank dying while others are
+        parked here shrinks it and releases them (a threading.Barrier's
+        party count is frozen at construction).  The short wait slices
+        double as an abort poll: a peer that errors out releases
+        everyone."""
         with self._f_cv:
             gen = self._f_gen
             self._f_count += 1
@@ -84,7 +90,7 @@ class InprocWorld:
                     raise RuntimeError(
                         f"peer rank {self.aborted[0]} aborted: "
                         f"{self.aborted[2]}")
-                if self._f_count >= self.size:
+                if self._f_count >= self.size - len(self.ulfm_failed):
                     self._f_count = 0
                     self._f_gen += 1
                     self._f_cv.notify_all()

@@ -46,12 +46,24 @@ class ProcState:
         # span tracer (ompi_tpu_torch/trace); None unless trace_enable —
         # hot paths pay exactly one is-None check when tracing is off
         self.tracer: Any = None
-        # respawn recovery epochs (the reference's ft/respawn; stays 0
-        # until it is ported) and the session cid band: both shift this
-        # rank's communicator-id space (comm/communicator.py
-        # EPOCH_CID_STRIDE, SESSION_CID_STRIDE), so concurrently
-        # resident sessions in one process never share a cid (trace
-        # spans, pvar bands and meeting keys stay unambiguous)
+        # ULFM failure-mitigation state (ompi_tpu_torch/ft/ulfm),
+        # attached by mpi_init before pml selection; None when
+        # mpi_ft_ulfm is off — hot paths pay one is-None check
+        self.ulfm: Any = None
+        # set when this incarnation can never finalize (an injected
+        # kill): process-wide last-rank accounting stops waiting on it
+        self.ulfm_dead = False
+        # respawn (ompi_tpu_torch/ft/respawn): a replacement rank that
+        # has not rejoined yet, and the recovery epoch it runs in
+        self.respawn_joining = False
+        self.ft_epoch = 0
+        # respawn recovery epochs and the session cid band: both shift
+        # this rank's communicator-id space (comm/communicator.py
+        # EPOCH_CID_STRIDE, SESSION_CID_STRIDE), so a communicator
+        # built after an in-job rank replacement never aliases a
+        # pre-failure cid, and concurrently resident sessions in one
+        # process never share one (trace spans, pvar bands and meeting
+        # keys stay unambiguous)
         self.respawn_epoch = 0
         self.cid_band = 0
         self.finalized = False

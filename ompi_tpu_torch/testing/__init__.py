@@ -11,6 +11,7 @@ mapping logic without a cluster via ras/simulator
 from __future__ import annotations
 
 import threading
+import time
 import traceback
 from typing import Any, Callable, List, Optional
 
@@ -55,7 +56,8 @@ def logical_devices(device) -> Callable:
 
 def run_ranks(n: int, fn: Callable, devices: bool = False,
               timeout: float = 120.0, device_map=None,
-              cid_band: int = 0) -> List[Any]:
+              cid_band: int = 0, allow_failures: bool = False,
+              respawn: bool = False) -> List[Any]:
     """Run fn(comm_world) on n thread-ranks; returns per-rank results.
 
     devices=True maps rank i to torch.device("cuda", i % ncards): with
@@ -67,18 +69,46 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
     CPU with the kernels' plain versions, or logical_devices("cpu") /
     logical_devices("cuda:0") for a mesh of logical devices).
     ``cid_band``: the world's session cid band (its communicators' ids
-    start at cid_band * SESSION_CID_STRIDE; see testing.sessions)."""
+    start at cid_band * SESSION_CID_STRIDE; see testing.sessions).
+
+    allow_failures=True treats a rank dying with ulfm.RankKilled as
+    the scenario, not an error: its failure is published ULFM-style
+    (survivors get ERR_PROC_FAILED and may revoke/agree/shrink), its
+    result slot stays None, and only survivor errors raise.
+
+    respawn=True is the thread-world analog of mpirun's respawn
+    policy (ft/respawn): a RankKilled death is published like
+    allow_failures, then its supervision loop waits for the survivors' rejoin
+    decision (respawn.thread_decision) and starts a REPLACEMENT
+    thread under the same world rank, bound to the dead rank's device
+    (``device_map(rank)``) — a fresh ProcState flagged
+    respawn_joining at the failure's epoch, with its own thread and
+    so its own current streams.  fn runs again on the replacement
+    (applications branch on respawn.joining(state) to rejoin +
+    restore instead of starting over) and its return value fills the
+    rank's result slot.  Kills reaped in the same window are replaced
+    in ONE rejoin epoch (the decision's failed set); kills that land
+    later take sequential epochs."""
     world = InprocWorld(n)
     results: List[Any] = [None] * n
     errors: List[Optional[RankError]] = [None] * n
     if device_map is None and devices:
         device_map = _card_map()
+    respawn_cv = threading.Condition()
+    respawn_q: List[int] = []  # killed ranks awaiting replacement
 
-    def runner(rank: int) -> None:
+    def runner(rank: int, joining_epoch: Optional[int] = None) -> None:
+        state = None
         try:
             rte = world.make_rte(rank)
             state = ProcState(rank, n, rte)
             state.cid_band = cid_band
+            if joining_epoch is not None:
+                # replacement rank: mpi_init must not re-arm the fault
+                # that killed the predecessor, and the app must see
+                # respawn.joining(state) truthy
+                state.respawn_joining = True
+                state.respawn_epoch = joining_epoch - 1
             world.states[rank] = state
             dev = device_map(rank) if device_map is not None else None
             mpi_init(state, device=dev)
@@ -96,6 +126,23 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
             # against peers that died before reaching it
             mpi_finalize(state)
         except BaseException as e:  # noqa: BLE001
+            if allow_failures or respawn:
+                from ompi_tpu_torch.ft import ulfm as _ulfm
+                if isinstance(e, _ulfm.RankKilled):
+                    # the injected death IS the test scenario: the
+                    # rank is gone, survivors mitigate via ULFM.  Mark
+                    # the corpse for process-wide accounting (the
+                    # coll.device dispatcher's last-rank drain):
+                    # whatever raised RankKilled, this incarnation
+                    # will never run mpi_finalize
+                    if state is not None:
+                        state.ulfm_dead = True
+                    _ulfm.publish_world_failure(world, rank)
+                    if respawn:
+                        with respawn_cv:
+                            respawn_q.append(rank)
+                            respawn_cv.notify_all()
+                    return
             errors[rank] = RankError(rank, e, traceback.format_exc())
             if world.aborted is None:
                 world.aborted = (rank, 1, str(e))
@@ -103,12 +150,59 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
                 if st is not None:
                     st.progress.wakeup()
 
-    threads = [threading.Thread(target=runner, args=(r,), daemon=True,
-                                name=f"mpi-rank-{r}") for r in range(n)]
-    world.threads = threads
-    for t in threads:
+    def _spawn(rank: int,
+               joining_epoch: Optional[int] = None) -> threading.Thread:
+        t = threading.Thread(
+            target=runner, args=(rank, joining_epoch), daemon=True,
+            name=f"mpi-rank-{rank}" if joining_epoch is None
+            else f"mpi-rank-{rank}-e{joining_epoch}")
+        world.threads.append(t)
         t.start()
-    for t in threads:
+        return t
+
+    live = {r: _spawn(r) for r in range(n)}
+
+    if respawn:
+        # supervision loop (the inproc analog of mpirun's respawn
+        # branch): reap kills, wait out each epoch's rejoin decision,
+        # start the replacements, until every rank thread has finished.
+        # Kills that land in the same reap window ride ONE epoch.  The
+        # survivors' union can also decide ranks whose kill has not
+        # reached this loop yet; those are remembered in `owed` so
+        # the late queue entry does not double-respawn them.
+        from ompi_tpu_torch.ft import respawn as _respawn
+        deadline = time.monotonic() + timeout
+        epoch = 0
+        owed: set = set()
+        while True:
+            alive = any(t.is_alive() for t in live.values())
+            with respawn_cv:
+                pending, respawn_q[:] = list(respawn_q), []
+            batch = [r for r in pending if r not in owed]
+            owed.difference_update(pending)
+            if batch:
+                epoch += 1
+                d = _respawn.thread_decision(
+                    world, epoch,
+                    timeout=max(1.0, deadline - time.monotonic()))
+                decided = sorted(int(x) for x in d["failed"])
+                owed.update(r for r in decided if r not in batch)
+                for rank in decided:
+                    live[rank] = _spawn(rank, joining_epoch=epoch)
+            if not alive and not batch:
+                break
+            if world.aborted is not None and not pending:
+                # a real error (not a kill): let the join path below
+                # surface it instead of spinning to the deadline
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"respawn world did not finish within {timeout}s "
+                    f"(epoch {epoch}); errors so far: "
+                    f"{[e for e in errors if e]}")
+            time.sleep(0.002)
+
+    for t in live.values():
         t.join(timeout)
         if t.is_alive():
             raise TimeoutError(

@@ -35,7 +35,7 @@ from typing import Dict, List, Tuple
 # Qualified names are "Class.method" or bare "function".  The port's
 # copy declares the hot functions the port has: the reference's
 # checkpoint drain, fleet controller and DVM ticks have no counterpart
-# here yet (ROADMAP.md A7-A9).
+# here yet (ROADMAP.md A8-A9).
 HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     "ompi_tpu_torch/trace/__init__.py": (
         "Tracer.start",

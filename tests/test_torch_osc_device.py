@@ -22,7 +22,7 @@ Known divergences, pinned by the tests named after them:
     for some (LAND on float, MAX on complex);
   * complex PROD rounds each product and sum on its own, where numpy
     (the reference's accumulate) may fuse one product into the sum;
-  * the ULFM cases (death, shrink) wait for ULFM, which the port lacks.
+  * the ULFM cases (death, shrink) are in tests/test_torch_osc_ft.py.
 """
 
 import numpy as np

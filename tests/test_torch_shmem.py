@@ -16,8 +16,7 @@ Left out, each waiting for a slice of ROADMAP Queue A:
   * test_shmem_ring_example_procs, test_shmem_atomics_example_procs and
     test_lock_mutual_exclusion_procs run under mpirun (process ranks):
     A8, the launcher; their workloads run here on thread ranks
-    (``ompi_tpu_torch.testing.shmem``);
-  * test_ring_byte_identity_across_shrink needs ULFM's shrink: A7.
+    (``ompi_tpu_torch.testing.shmem``).
 
 The divergences of the layer (a context needs a communicator; the
 device window holds no pool and no host mirror) are pinned in
@@ -625,3 +624,42 @@ def test_workload_launch_counts(name, dma, monkeypatch):
         assert got["rma_copy"] >= want["rma_copy"]
     else:
         assert got["rma_copy"] == want["rma_copy"]
+
+
+def test_ring_byte_identity_across_shrink():
+    """Survivors of a ULFM shrink rebuild a device-heap context on the
+    shrunken comm and the ring workload is byte-identical to a fresh
+    3-rank world's, in the port and in the reference (the kill follows
+    a ``comm.agree(True)``, a sync point that cannot half-complete)."""
+    from ompi_tpu_torch import errhandler as eh
+    from ompi_tpu_torch.ft import ulfm
+
+    codes = (eh.ERR_PROC_FAILED, eh.ERR_PROC_FAILED_PENDING,
+             eh.ERR_REVOKED)
+
+    def chaos(comm):
+        comm.agree(True)
+        if comm.rank == 0:
+            ulfm.kill_now(comm.state)
+        work = comm
+        while work is comm:
+            try:
+                work.Barrier()
+            except eh.MPIException as e:
+                assert e.code in codes, e.code
+                work = work.shrink(name="survivors")
+        ctx = port_shmem.ShmemCtx(work, HEAP_SIZE)
+        out = wl.ring(ctx, work)
+        ctx.finalize()
+        return out
+
+    got = port_run_ranks(4, chaos, device_map=logical_devices("cpu"),
+                         allow_failures=True)
+    fresh = port_run_ranks(3, pe_program(port_shmem, wl.ring, HEAP_SIZE),
+                           device_map=logical_devices("cpu"))
+    ref = ref_run_ranks(3, pe_program(ref_shmem, wl.ring, HEAP_SIZE),
+                        devices=True)
+    assert got[0] is None
+    for i in range(1, 4):
+        assert got[i] == fresh[i - 1] == ref[i - 1], i
+        assert got[i]["device"] is True
