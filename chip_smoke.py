@@ -322,6 +322,36 @@ Phases, each fatal on failure (nothing is caught and carried on):
              ring exchange alone; the ulfm/respawn/buddy pvars.  The
              phase's launches join the kernels line's counts.
 
+11. procs   — the process world (ompi_tpu_torch/tools/mpirun.py, the app
+             shells of tools/hostrun.py, btl shm and tcp, B14's process
+             half), each job a ``python -m ompi_tpu_torch.tools.mpirun``
+             subprocess with --timeout, run after the build so the
+             shells load the built kernels.  11a: ``-np 8
+             --ranks-per-proc all`` running examples/device_allreduce.py
+             at 8 MiB float32, 20 chained allreduce_arr: one shell, coll/
+             hbm, exactly one K1 an op, the bytes within the float SUM
+             band of a float64 sum; its us an op beside phase 5's.  11b:
+             ``-np 8 --ranks-per-proc 4``, two shells on the card, the
+             rank program ``procs`` of this file: each shell's 4-rank
+             sub-communicator allreduce_arr 8 MiB (K1, SUB_OPS times),
+             the sub leaders' host Allreduce of the partial across the
+             shells, the world's allreduce_arr of a card tensor (staged
+             through pinned stages), and rank 0's send_arr of 48 MiB of
+             torch.arange to rank 4, overwritten right after the call:
+             exact on arrival, max_staged_bytes <= (depth + 2) x chunk;
+             each shell's K1 launches equal its sub ops, no K6 or K2;
+             once with the default btl (shm between the shells) and
+             once with ``btl self,tcp``; us of the pull (and GB/s),
+             the staged world allreduce and the leaders' host allreduce,
+             host clock, slowest rank; one pinned 4 MiB copy each way
+             timed with CUDA events bounds the pull.  11c: abort_test.py
+             under -np 3 exits 42 with MPI_Abort on stderr; a rank-
+             thread raising in a two-shell job ends it non-zero before
+             its timeout.  The shells' K1 launches join the kernels
+             line's counts.  ``--cards`` runs 11b with ``-np 2C
+             --ranks-per-proc C`` (C cards: the mesh tier inside each
+             shell, one K6 and one K2 peer a card an op).
+
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
@@ -330,7 +360,8 @@ one-rank-a-card branch (K8's shift cases with the source on a peer
 card, then the mesh, RMA, integrity and halo phases and the SHMEM
 workloads over peer access, and with four or more cards phase 9 in
 slices of two: 9a, 9b, 9c on the mesh, 9d and 9e, and phase 10's
-shrink on the mesh across the cards (10b's checks) and 10d).
+shrink on the mesh across the cards (10b's checks) and 10d), then
+11b one rank a card in two shells.
 """
 
 from __future__ import annotations
@@ -3310,13 +3341,14 @@ def chained_allreduce(dev, nbytes: int, iters: int):
     return fn
 
 
-def phase_e2e(dev, kernel_ms: float) -> None:
+def phase_e2e(dev, kernel_ms: float) -> list:
     """Host clock around chained comm.allreduce_arr calls ending in
     torch.cuda.synchronize().  ``kernel_ms`` is the stacked kernel's
     device time at this shape, for the device's busy share of an op.
     The first run is the headline; then the large-message tier off and
     on in turns (off, off, on), so the plan tier's cost shows against
-    the single dispatch in one process."""
+    the single dispatch in one process.  Returns the plan tier's us an
+    op by run (the headline's)."""
     from ompi_tpu_torch.mca.params import registry
     from ompi_tpu_torch.testing import run_ranks
     nbytes, iters = 8 * MIB, 20
@@ -3341,6 +3373,7 @@ def phase_e2e(dev, kernel_ms: float) -> None:
     log(f"[e2e] the same, us/op by run: plan tier on "
         f"{[round(u, 1) for u in runs[True]]}, off (single dispatch) "
         f"{[round(u, 1) for u in runs[False]]}")
+    return runs[True]
 
 
 class _HostTimer:
@@ -5041,7 +5074,6 @@ def phase_hier_timing(devs, sl: int, what: str) -> None:
     the timed ops; and one 8 MiB copy each way between a pinned stage
     and the card, CUDA events around 20.  Every turn of 9d and 9e runs
     with phase tracing on (``hier_knobs``)."""
-    from ompi_tpu_torch.runtime import staging
     from ompi_tpu_torch.testing import run_ranks
     from ompi_tpu_torch.runtime.state import LogicalDevice
     n = len(devs)
@@ -5088,27 +5120,35 @@ def phase_hier_timing(devs, sl: int, what: str) -> None:
         log(f"[hier] 9e leader hop, hier run {i + 1}: D2H {a:.1f} us, host "
             f"allreduce {b:.1f} us, H2D enqueue {c:.1f} us a leader an op")
     if dev.type == "cuda":
-        y = torch.randn(8 * MIB // 4, device=dev)
-        st = staging.aligned_empty(8 * MIB, dev)
-        if not pinned(st):
-            raise AssertionError("9e: the stage is not pinned")
-        sv = st.view(torch.float32)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        ms = []
-        for copy in (lambda: sv.copy_(y, non_blocking=True),
-                     lambda: y.copy_(sv, non_blocking=True)):
-            copy()
-            torch.cuda.synchronize()
-            a.record()
-            for _ in range(20):
-                copy()
-            b.record()
-            b.synchronize()
-            ms.append(a.elapsed_time(b) / 20)
+        ms = pinned_copy_ms(dev, 8 * MIB)
         log(f"[hier] 9e pinned 8 MiB copies: D2H {ms[0]:.4f} ms "
             f"({8 * MIB / ms[0] / 1e6:.2f} GB/s), H2D {ms[1]:.4f} ms "
             f"({8 * MIB / ms[1] / 1e6:.2f} GB/s), CUDA events around 20")
+
+
+def pinned_copy_ms(dev, nbytes: int, reps: int = 20):
+    """(D2H ms, H2D ms) of one ``nbytes`` copy between the card and a
+    pinned stage: CUDA events around ``reps`` queued copies."""
+    from ompi_tpu_torch.runtime import staging
+    y = torch.randn(nbytes // 4, device=dev)
+    st = staging.aligned_empty(nbytes, dev)
+    if not pinned(st):
+        raise AssertionError("the stage is not pinned")
+    sv = st.view(torch.float32)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for copy in (lambda: sv.copy_(y, non_blocking=True),
+                 lambda: y.copy_(sv, non_blocking=True)):
+        copy()
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(reps):
+            copy()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b) / reps)
+    return ms
 
 
 def phase_hier(dev) -> dict:
@@ -5575,9 +5615,430 @@ def phase_cards() -> None:
         phase_ft_cards(cards)
 
 
+# ---------------------------------------------------------------------------
+# 11. the process world: mpirun, app shells, B14's process half
+# ---------------------------------------------------------------------------
+
+PROC_MIB = 8        # the headline's width: 8 MiB float32 a rank
+PULL_MIB = 48       # the cross-process send_arr of 11b
+PROC_ITERS = 20     # 11a's chained allreduce_arr calls
+SUB_OPS = 3         # 11b's sub-communicator allreduce_arr ops a shell
+PROC_REPS = 3       # 11b's timed repetitions (host allreduce, staged
+#                     world allreduce, pull)
+PROC_JOB_S = 240    # mpirun --timeout of each job (the subprocess gets
+#                     60 s more)
+
+
+def _sync(dev) -> None:
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _in_band(y: torch.Tensor, ref: torch.Tensor, nterms: int,
+             what: str) -> float:
+    """The float SUM band: |y - sum x_i| <= N * 2**-24 * sum |x_i|
+    element by element, ``ref`` = (sum x_i, sum |x_i|) in float64 over
+    the N terms.  Returns the largest error."""
+    err = (y.double() - ref[0]).abs()
+    bad = err > nterms * 2.0 ** -24 * ref[1]
+    if not torch.isfinite(y).all() or bool(bad.any()):
+        raise AssertionError(f"{what}: outside the float SUM band "
+                             f"(max error {float(err.max())})")
+    return float(err.max())
+
+
+def _sum_ref(ranks, n: int, dev, salt: int):
+    """(sum x_r, sum |x_r|) in float64 over ``ranks``' rank_elems."""
+    tot = torch.zeros(n, dtype=torch.float64, device=dev)
+    mag = torch.zeros(n, dtype=torch.float64, device=dev)
+    for r in ranks:
+        x = rank_elems(r, n, torch.float32, dev, salt).double()
+        tot += x
+        mag += x.abs()
+    return tot, mag
+
+
+def rank_program_procs(mib: int, pull_mib: int, devarg=None) -> int:
+    """11b's rank program, run by every rank-thread of every app shell
+    (``chip_smoke.py --rank-program procs MIB PULL_MIB`` under mpirun)
+    or by every process rank (``... procs MIB PULL_MIB auto|cpu``:
+    rank r on card r % count, or on the CPU; each process is then a
+    "shell" of one rank).  In a shell of several ranks, the shell's
+    sub-communicator allreduce_arr on the device tier and the leaders'
+    host Allreduce of the partial across the shells; with process
+    ranks every rank leads, with its own tensor as its partial.  Then
+    the world's allreduce_arr of a card tensor (staged through pinned
+    stages: the world spans processes) and rank 0's send_arr of
+    PULL_MIB of torch.arange to rank size // 2, the first rank of the
+    other shell (B14's process half), overwritten right after the
+    call.  The lowest rank of each shell prints one ``PROCS`` JSON
+    line: its launch counts, the btl that carries its traffic to the
+    other shell's lowest rank, the checks, and the timings (host
+    clock, slowest rank)."""
+    import numpy as np
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.btl import tpu
+    from ompi_tpu_torch.mca.params import registry
+    from ompi_tpu_torch.op.op import MAX, SUM
+    from ompi_tpu_torch.runtime import staging
+    dev = None
+    if devarg == "cpu":
+        dev = torch.device("cpu")
+    elif devarg == "auto":
+        if not torch.cuda.is_available():
+            raise RuntimeError("11b: --rank-program procs auto needs a "
+                               "CUDA card")
+        dev = torch.device("cuda", int(os.environ["TPUMPI_RANK"])
+                           % torch.cuda.device_count())
+    comm = ompi_tpu_torch.init(device=dev)
+    rank, size, dev = comm.rank, comm.size, comm.device
+    world = getattr(comm.state.rte, "world", None)
+    base, nl = (world.rank_base, world.nlocal) if world is not None \
+        else (rank, 1)
+    shell = list(range(base, base + nl))
+    n = mib * MIB // 4
+    dst = size // 2
+    other = comm.state.pml.endpoints[dst if base == 0 else 0]
+    out = {"shell": base, "ranks": nl, "device": str(dev),
+           "btl": other.btl.name}
+
+    def slowest(dt: float) -> float:
+        a = np.array([dt])
+        r = np.empty_like(a)
+        comm.Allreduce(a, r, MAX)
+        return float(r[0])
+
+    # (1) the shell's ranks: the device tier (K1 on coll/hbm; the mesh
+    # tier with one rank a card)
+    x = rank_elems(rank, n, torch.float32, dev, 71)
+    y, lead, err_sub = x, comm, 0.0
+    if nl > 1:
+        sub = comm.split(rank // nl)
+        lead = comm.split(0 if sub.rank == 0 else 1)
+        for _ in range(SUB_OPS):
+            y = sub.allreduce_arr(x, SUM)
+        err_sub = _in_band(y, _sum_ref(shell, n, dev, 71), nl,
+                           "11b sub-communicator allreduce_arr")
+        out["sub_provider"] = sub.coll.providers["allreduce_arr"]
+    # (2) the leaders' host allreduce of the partial, across the shells
+    lead_us = []
+    if rank == base:
+        stage = staging.aligned_empty(n * 4, dev)
+        staging.d2h(y, stage)
+        buf = staging.host_view(stage).view(np.float32)
+        tot = np.empty_like(buf)
+        lead.Allreduce(buf, tot, SUM)
+        ref = _sum_ref(range(size), n, dev, 71)
+        out["leaders_max_err"] = _in_band(
+            torch.from_numpy(tot).to(dev), ref, size,
+            "11b leaders' host allreduce")
+        for _ in range(PROC_REPS):
+            lead.Barrier()
+            t0 = time.perf_counter()
+            lead.Allreduce(buf, tot, SUM)
+            dt = np.array([time.perf_counter() - t0])
+            worst = np.empty_like(dt)
+            lead.Allreduce(dt, worst, MAX)
+            lead_us.append(float(worst[0]) * 1e6)
+    out["leaders_us"] = lead_us
+    # (3) the world's allreduce_arr of a card tensor: HostArrModule,
+    # staged through pinned stages (the world spans processes)
+    w = comm.allreduce_arr(x, SUM)
+    out["world_provider"] = comm.coll.providers["allreduce_arr"]
+    out["world_max_err"] = _in_band(w, _sum_ref(range(size), n, dev, 71),
+                                    size, "11b staged world allreduce_arr")
+    out["world_us"] = []
+    for _ in range(PROC_REPS):
+        _sync(dev)
+        comm.Barrier()
+        t0 = time.perf_counter()
+        w = comm.allreduce_arr(x, SUM)
+        _sync(dev)
+        out["world_us"].append(slowest(time.perf_counter() - t0) * 1e6)
+    # (4) B14's process half: rank 0 -> the other shell's first rank
+    m = pull_mib * MIB // 4
+    want = torch.arange(m, dtype=torch.float32, device=dev) \
+        if rank in (0, dst) else None
+    out["pull_us"], exact = [], True
+    for _ in range(PROC_REPS):
+        dt = 0.0
+        if rank == 0:
+            big = want.clone()
+            _sync(dev)
+        comm.Barrier()
+        if rank == 0:
+            eng = tpu._engine(comm.state)
+            t0 = time.perf_counter()
+            comm.send_arr(big, dst, tag=11)
+            big.fill_(-1.0)  # after the call: must not reach dst
+            while eng.pending or eng._inflight:
+                comm.state.progress.progress()
+                comm.state.progress.idle_tick()
+            dt = time.perf_counter() - t0
+        elif rank == dst:
+            t0 = time.perf_counter()
+            got = comm.recv_arr(0, tag=11)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            exact &= bool(torch.equal(got, want)) and \
+                got.device == want.device
+            del got
+        out["pull_us"].append(slowest(dt) * 1e6)
+    if rank == dst:
+        out["pull_exact"] = exact
+    if rank == 0:
+        eng = tpu._engine(comm.state)
+        out["max_staged_bytes"] = eng.max_staged_bytes
+        out["staged_bound"] = (registry.get("btl_tpu_pipeline_depth")
+                               + 2) * registry.get("btl_tpu_chunk_bytes")
+    _sync(dev)
+    comm.Barrier()
+    if rank == base:
+        # the traffic to the other shell went where the endpoint said
+        # at the start (no failover)
+        if other.btl.name != out["btl"]:
+            out["btl"] += f" -> {other.btl.name}"
+        out["launches"] = {k: c.value for k, c in launch_counters().items()}
+        out["sub_ops"] = SUB_OPS if nl > 1 else 0
+        out["sub_max_err"] = err_sub
+        sys.stdout.write("PROCS " + json.dumps(out) + "\n")
+        sys.stdout.flush()
+    comm.Barrier()
+    ompi_tpu_torch.finalize()
+    return 0
+
+
+def rank_program_fail() -> int:
+    """11c's failing job: rank 1 raises, the others wait in an
+    Allreduce that can never complete."""
+    import numpy as np
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.op.op import SUM
+    comm = ompi_tpu_torch.init()
+    if comm.rank == 1:
+        raise RuntimeError("boom on rank 1")
+    x = np.zeros(1, np.int32)
+    comm.Allreduce(x, x.copy(), SUM)
+    ompi_tpu_torch.finalize()
+    return 0
+
+
+RANK_PROGRAMS = {"procs": lambda a: rank_program_procs(int(a[0]),
+                                                      int(a[1]), *a[2:]),
+                 "fail": lambda a: rank_program_fail()}
+
+
+def mpirun_job(np_: int, rpp, args, devices: str = "auto", mca=()):
+    """Run ``args`` (a program and its arguments) under ``python -m
+    ompi_tpu_torch.tools.mpirun`` from this checkout, with --timeout on
+    the job and a subprocess timeout past it; the whole process group
+    is killed if that runs out.  Returns (exit code, stdout, stderr,
+    seconds)."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.mpirun",
+           "-np", str(np_), "--timeout", str(PROC_JOB_S)]
+    if rpp is not None:
+        cmd += ["--ranks-per-proc", str(rpp), "--devices", devices]
+    for k, v in mca:
+        cmd += ["--mca", k, str(v)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd + list(args), cwd=root, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=PROC_JOB_S + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise AssertionError(f"mpirun {args} outlived its timeout:\n"
+                             f"{err[-3000:]}")
+    return p.returncode, out, err, time.perf_counter() - t0
+
+
+def _json_lines(out: str, prefix: str = ""):
+    return [json.loads(ln[len(prefix):]) for ln in out.splitlines()
+            if ln.startswith(prefix + "{")]
+
+
+def phase_procs_headline(devices: str, headline_us) -> int:
+    """11a: the headline under the launcher — ``-np 8
+    --ranks-per-proc all``, examples/device_allreduce.py at 8 MiB
+    float32, PROC_ITERS chained allreduce_arr calls: one shell, its
+    provider coll/hbm, exactly one K1 launch an op (plus the check op),
+    the bytes within the band.  Returns the shell's K1 launches."""
+    prog = os.path.join("ompi_tpu_torch", "examples", "device_allreduce.py")
+    rc, out, err, secs = mpirun_job(
+        NRANKS, "all", [prog, "--bytes", str(PROC_MIB * MIB), "--iters",
+                        str(PROC_ITERS)], devices)
+    if rc != 0:
+        raise AssertionError(f"11a: mpirun exited {rc}:\n{err[-3000:]}")
+    docs = _json_lines(out)
+    if len(docs) != 1 or docs[0]["ranks"] != NRANKS:
+        raise AssertionError(f"11a: expected one shell line of "
+                             f"{NRANKS} ranks, got {docs}")
+    d = docs[0]
+    card = devices == "auto"
+    if d["provider"] != "hbm" or (card and (
+            d["k1"] != PROC_ITERS or d["k1_total"] != PROC_ITERS + 1)):
+        raise AssertionError(f"11a: provider {d['provider']}, K1 {d['k1']} "
+                             f"over {PROC_ITERS} ops, {d['k1_total']} in "
+                             f"all (expected {PROC_ITERS} and "
+                             f"{PROC_ITERS + 1} on coll/hbm)")
+    us = d["us_per_op"]
+    busbw = 2 * (NRANKS - 1) / NRANKS * PROC_MIB * MIB / (us * 1e-6) / 1e9
+    log(f"[procs] 11a headline under mpirun -np 8 --ranks-per-proc all "
+        f"({d['device']}): {us:.1f} us/op, busbw {busbw:.2f} GB/s "
+        f"(slowest rank, {PROC_ITERS} chained ops; in-process phase 5 "
+        f"{[round(u, 1) for u in headline_us]}); K1 {d['k1']} over the "
+        f"ops, {d['k1_total']} in the job; bytes within the band (max "
+        f"error {d['max_err']:.3g}); job {secs:.1f} s")
+    return d["k1_total"]
+
+
+def phase_procs_shells(devices: str, ncards: int, btl,
+                       pair: bool = False) -> int:
+    """11b on one layout and one btl selection: two app shells of
+    NRANKS // 2 ranks (or, with ``ncards``, of ncards ranks each owning
+    a card), or (``pair``) two process ranks, both on card 0 (rank r on
+    card r % count); the rank program ``procs``.  Checks the btl that
+    carries the traffic between the two halves — tcp between app
+    shells, each a node of its own as in the reference (mpirun gives
+    each its TPUMPI_NODE); shm between process ranks of the one host,
+    unless ``btl`` names tcp alone — every shell's counts (the
+    sub-communicator ops on the device tier: K1 each on one card, one
+    K6 and one K2 peer a card each on the mesh; nothing else, and
+    nothing at all for process ranks), the bytes, the pull's exact
+    arrival and its staging bound.  Returns the shells' K1 launches."""
+    prog = [os.path.abspath(__file__), "--rank-program", "procs",
+            str(PROC_MIB), str(PULL_MIB)]
+    if pair:
+        np_, rpp, layout = 2, None, "2 process ranks"
+        prog.append("auto" if devices == "auto" else "cpu")
+    else:
+        np_ = 2 * ncards if ncards else NRANKS
+        rpp, layout = np_ // 2, f"{np_} ranks in 2 app shells"
+    half = np_ // 2
+    carrier = "shm" if pair and btl is None else "tcp"
+    mca = [("btl", btl)] if btl else []
+    rc, out, err, secs = mpirun_job(np_, rpp, prog, devices, mca)
+    what = f"11b {layout}, btl {btl or 'default'}"
+    if rc != 0:
+        raise AssertionError(f"{what}: mpirun exited {rc}:\n{err[-4000:]}")
+    docs = sorted(_json_lines(out, "PROCS "), key=lambda d: d["shell"])
+    if [d["shell"] for d in docs] != [0, half]:
+        raise AssertionError(f"{what}: shell lines {docs}")
+    card = devices == "auto"
+    k1 = 0
+    for d in docs:
+        if d["btl"] != carrier:
+            raise AssertionError(f"{what}: shell {d['shell']}'s traffic "
+                                 f"to the other half went over "
+                                 f"{d['btl']}, expected {carrier}")
+        la = d["launches"]
+        if pair:
+            want = {}
+        elif ncards:
+            want = {"mesh_fold": SUB_OPS * ncards,
+                    "peer_copy": SUB_OPS * ncards}
+        else:
+            want = {"stacked_reduce": SUB_OPS}
+        want = {k: want.get(k, 0) if card else 0 for k in la}
+        if la != want:
+            raise AssertionError(f"{what}: shell {d['shell']} launches "
+                                 f"{la}, expected {want}")
+        sub = None if pair else ("tpu" if ncards else "hbm")
+        if d["world_provider"] != "arr_host" or \
+                d.get("sub_provider") != sub:
+            raise AssertionError(f"{what}: providers sub "
+                                 f"{d.get('sub_provider')}, world "
+                                 f"{d['world_provider']}")
+        k1 += la["stacked_reduce"]
+    s, r = docs[0], docs[1]
+    if not r.get("pull_exact"):
+        raise AssertionError(f"{what}: the {PULL_MIB} MiB pull was not "
+                             "exact (or the sender's overwrite reached it)")
+    if not 0 < s["max_staged_bytes"] <= s["staged_bound"]:
+        raise AssertionError(f"{what}: max_staged_bytes "
+                             f"{s['max_staged_bytes']} over the bound "
+                             f"{s['staged_bound']}")
+    nb = PULL_MIB * MIB
+    shells = "" if pair else (
+        f"launches a shell "
+        f"{[d['launches']['stacked_reduce'] for d in docs]} K1, "
+        f"{[d['launches']['mesh_fold'] for d in docs]} K6, "
+        f"{[d['launches']['peer_copy'] for d in docs]} K2 peer over "
+        f"{SUB_OPS} sub ops (error {s['sub_max_err']:.3g}); ")
+    log(f"[procs] {what} ({s['device']}), {carrier} between the halves: "
+        f"pull of {PULL_MIB} MiB float32 rank 0 -> {half}: us "
+        f"{[round(u, 1) for u in s['pull_us']]} (GB/s "
+        f"{[round(nb / (u * 1e-6) / 1e9, 3) for u in s['pull_us']]}), "
+        f"exact, max_staged_bytes {s['max_staged_bytes']} <= "
+        f"{s['staged_bound']}; staged world allreduce_arr {PROC_MIB} MiB "
+        f"us {[round(u, 1) for u in s['world_us']]}; the "
+        f"{'ranks' if pair else 'leaders'}' {PROC_MIB} MiB host "
+        f"Allreduce us {[round(u, 1) for u in s['leaders_us']]}; "
+        f"{shells}errors leaders {s['leaders_max_err']:.3g}, world "
+        f"{s['world_max_err']:.3g}; job {secs:.1f} s")
+    return k1
+
+
+def phase_procs_failures(devices: str) -> None:
+    """11c: abort_test.py under -np 3 exits 42 with MPI_Abort on
+    stderr; a rank-thread raising in a two-shell job ends the job
+    non-zero before its timeout."""
+    prog = os.path.join("ompi_tpu_torch", "examples", "abort_test.py")
+    rc, out, err, secs = mpirun_job(3, None, [prog])
+    if rc != 42 or "MPI_Abort" not in err or "should not reach" in out:
+        raise AssertionError(f"11c abort: exit {rc}:\n{err[-2000:]}")
+    rc2, _, err2, secs2 = mpirun_job(
+        4, 2, [os.path.abspath(__file__), "--rank-program", "fail"],
+        devices)
+    if rc2 in (0, 124) or "boom on rank 1" not in err2:
+        raise AssertionError(f"11c failing rank: exit {rc2}:\n"
+                             f"{err2[-2000:]}")
+    log(f"[procs] 11c abort_test -np 3: exit {rc}, MPI_Abort on stderr "
+        f"({secs:.1f} s); a raising rank-thread in 2 shells: exit {rc2} "
+        f"({secs2:.1f} s, job timeout {PROC_JOB_S} s)")
+
+
+def phase_procs(dev, headline_us, devices: str = "auto") -> int:
+    """Phase 11 on one card: 11a; 11b across two app shells (tcp), and
+    between two process ranks over shm and over tcp; 11c; and the
+    pinned copy rates that bound the pull; the phase's time.  Returns
+    the shells' K1 launches (they join the kernels line)."""
+    t0 = time.perf_counter()
+    k1 = phase_procs_headline(devices, headline_us)
+    k1 += phase_procs_shells(devices, 0, None)
+    for btl in (None, "self,tcp"):
+        k1 += phase_procs_shells(devices, 0, btl, pair=True)
+    phase_procs_failures(devices)
+    if devices == "auto":
+        d2h, h2d = pinned_copy_ms(dev, 4 * MIB)
+        nb = PULL_MIB * MIB
+        bound_ms = nb / (4 * MIB / d2h) + nb / (4 * MIB / h2d)
+        log(f"[procs] pinned 4 MiB copies (the pull's chunk): D2H "
+            f"{d2h:.4f} ms ({4 * MIB / d2h / 1e6:.2f} GB/s), H2D "
+            f"{h2d:.4f} ms ({4 * MIB / h2d / 1e6:.2f} GB/s); the {PULL_MIB} "
+            f"MiB pull's bound on its two copies {bound_ms:.3f} ms "
+            f"({nb / bound_ms / 1e6:.2f} GB/s)")
+    log(f"[procs] phase 11: {time.perf_counter() - t0:.1f} s, the shells' "
+        f"K1 launches {k1}")
+    return k1
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
-    host with two or more cards); no argument: every phase."""
+    host with two or more cards); no argument: every phase.
+    ``--rank-program NAME ARGS``: a rank program of phase 11, run by
+    the rank-threads of an app shell under mpirun."""
+    if argv[:1] == ["--rank-program"]:
+        return RANK_PROGRAMS[argv[1]](argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
@@ -5598,6 +6059,7 @@ def main(argv) -> int:
                   file=sys.stderr)
             return 2
         phase_cards()
+        phase_procs_shells("auto", torch.cuda.device_count(), None)
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5639,7 +6101,7 @@ def main(argv) -> int:
     if torch.cuda.device_count() >= 2:
         phase_cards()
     rows = phase_timing(dev, launches, per_call)
-    phase_e2e(dev, rows[0]["ms"])
+    headline_us = phase_e2e(dev, rows[0]["ms"])
     phase_e2e_fused(dev, next(r["ms"] for r in rows
                               if r["name"].startswith("fused_batch")))
     phase_e2e_config5(dev)
@@ -5666,6 +6128,10 @@ def main(argv) -> int:
     f_launches = phase_ft(dev)
     for r in rows:  # and phase 10's, the fault-tolerance runs'
         r["launches"] += f_launches.get(r["name"].split(":")[0], 0)
+    p_k1 = phase_procs(dev, headline_us)
+    for r in rows:  # and phase 11's, the app shells' (K1 only)
+        if r["name"].split(":")[0] == "stacked_reduce":
+            r["launches"] += p_k1
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,26 @@
 
 It sits beside the reference package ``ompi_tpu`` (JAX), keeps its
 module paths, names and MCA parameter names, and imports nothing of
-it.  This slice carries the thread-rank world and the coll/hbm device
-path: ranks that share one card meet at a rendezvous and one
+it.  Ranks that share one card meet at a rendezvous and one
 hand-written kernel (kernels/csrc/stacked.cu) computes the whole
 collective.
+
+Process ranks, launched by the port's mpirun:
+
+    # prog.py
+    import ompi_tpu_torch
+    comm = ompi_tpu_torch.init()
+    ...
+    ompi_tpu_torch.finalize()
+
+    $ python -m ompi_tpu_torch.tools.mpirun -np 4 prog.py
+
+``--ranks-per-proc N|all`` runs N ranks as threads of one app shell
+(tools/hostrun.py); ``--devices auto`` (the default) gives rank r the
+card r % count and fails when there is none, ``--devices cpu`` runs
+the ranks on the CPU, ``--devices none`` gives them no device.
+
+Thread ranks in one process:
 
     import torch
     from ompi_tpu_torch.op.op import SUM
@@ -22,4 +38,98 @@ raises when there is no card; the CPU is used only when the caller
 asks for it with ``device_map=lambda r: torch.device("cpu")``.
 """
 
+from __future__ import annotations
+
 __version__ = "0.1.0"
+
+_finalized_once = False
+
+
+def init(device=None):
+    """MPI_Init analog: bootstrap this process's rank and return
+    COMM_WORLD (ref: ompi/mpi/c/init.c → ompi_mpi_init.c).  Without a
+    launcher it is a 1-rank world with no device unless ``device`` (a
+    ``torch.device``) is given; a rank of an app shell gets the device
+    the shell assigned it."""
+    from ompi_tpu_torch.runtime import state as statemod
+    from ompi_tpu_torch.runtime.init import mpi_init
+    from ompi_tpu_torch.runtime.rte import HybridRTE, make_rte
+
+    existing = statemod.maybe_current()
+    if existing is not None and existing.initialized \
+            and not existing.finalized:
+        return existing.comm_world
+    rte = make_rte()
+    st = statemod.ProcState(rte.rank, rte.size, rte)
+    if device is None:
+        # hybrid launch: the app shell pre-assigned this rank-thread a
+        # device (mpirun --ranks-per-proc, see tools/hostrun.py)
+        device = getattr(rte, "default_device", None)
+    mpi_init(st, device=device)
+    # process-wide publication is a convenience for single-rank
+    # processes only; with co-resident rank-threads it would hand an
+    # arbitrary rank's state to non-rank threads (last writer wins)
+    # instead of the clean not-initialized error
+    statemod.set_current(st, process_wide=not isinstance(rte, HybridRTE))
+    return st.comm_world
+
+
+def finalize() -> None:
+    """MPI_Finalize analog (ref: ompi_mpi_finalize.c:101)."""
+    from ompi_tpu_torch.runtime import state as statemod
+    from ompi_tpu_torch.runtime.init import mpi_finalize
+
+    global _finalized_once
+    st = statemod.maybe_current()
+    if st is not None and st.initialized and not st.finalized:
+        if getattr(st, "serve_resident", False):
+            raise NotImplementedError(
+                "finalize of a pool-resident session (a run boundary in "
+                "the reference) needs the resident pool, ROADMAP.md A8b")
+        mpi_finalize(st)
+        _finalized_once = True
+
+
+def _not_ported(call: str, item: str):
+    raise NotImplementedError(
+        f"{call} is not ported yet (ROADMAP.md {item})")
+
+
+def attach_buffer(size_or_buf) -> None:
+    """MPI_Buffer_attach: needs pml/persistent (ROADMAP.md A9)."""
+    _not_ported("attach_buffer", "A9: pml/persistent")
+
+
+def detach_buffer() -> int:
+    """MPI_Buffer_detach: needs pml/persistent (ROADMAP.md A9)."""
+    _not_ported("detach_buffer", "A9: pml/persistent")
+
+
+def get_parent():
+    """MPI_Comm_get_parent: needs comm/dpm (ROADMAP.md A9)."""
+    _not_ported("get_parent", "A9: comm/dpm")
+
+
+def open_port() -> str:
+    _not_ported("open_port", "A9: comm/dpm")
+
+
+def publish_name(service: str, port: str) -> None:
+    _not_ported("publish_name", "A9: comm/dpm")
+
+
+def lookup_name(service: str) -> str:
+    _not_ported("lookup_name", "A9: comm/dpm")
+
+
+def initialized() -> bool:
+    from ompi_tpu_torch.runtime import state as statemod
+
+    st = statemod.maybe_current()
+    return st is not None and st.initialized
+
+
+def finalized() -> bool:
+    """MPI_Finalized: True once finalize() has completed (the state
+    itself is dropped from current() at finalize, so track it here)."""
+    return _finalized_once

@@ -1096,12 +1096,98 @@ class HbmCollModule(CollModule):
         return self._stacked(comm, x, lambda s: _neighbor_gather(s, srcs))
 
 
+def _spans_processes(comm) -> bool:
+    """Whether some member of ``comm`` lives in another process (a
+    process rank, or a rank-thread of another app shell)."""
+    v = comm.__dict__.get("_spans_procs")
+    if v is None:
+        world = getattr(comm.state.rte, "world", None)
+        v = any(g != comm.state.rank if world is None
+                else not world.is_local(g) for g in comm.group)
+        comm.__dict__["_spans_procs"] = v
+    return v
+
+
+class _HostIO:
+    """The host buffers of one ``HostArrModule`` call: ``a`` the input
+    as numpy, ``empty``/``zeros`` its outputs, ``back`` the result in
+    the caller's kind.
+
+    Plain (host buffers, a communicator within this process, or a rank
+    that owns no device): ``a`` is the buffer itself; a tensor on a
+    card is refused there.  Staged (a tensor of a rank that owns a
+    device, on a communicator with members in another process): the
+    input is copied D2H into a stage of the shared pool
+    (``runtime/staging.py``: pinned for a card, and raising where it
+    cannot be pinned); outputs are stages too, and ``back`` copies the
+    result H2D from its stage into a new tensor on the rank's device.
+    Each copy is waited on, so the stages go back to the pool at the
+    end of the call — never a pageable copy of device data."""
+
+    __slots__ = ("module", "comm", "x", "a", "staged", "_stages", "_pool")
+
+    def __init__(self, module, comm, x) -> None:
+        self.module, self.comm, self.x = module, comm, x
+        self.staged = isinstance(x, torch.Tensor) \
+            and comm.state.device is not None and _spans_processes(comm)
+        #: the data pointer of each staged buffer -> its stage
+        self._stages: dict = {}
+        if not self.staged:
+            self.a = module._np(x)
+            return
+        from ompi_tpu_torch.runtime import staging
+        self._pool = staging.pool(x.device)
+        src = x.detach().contiguous()
+        a = self.empty(_shape_of(x), convert.numpy_dtype(src.dtype))
+        staging.d2h(src, self._stages[a.ctypes.data])
+        self.a = a
+
+    def empty(self, shape, dtype) -> np.ndarray:
+        """An output buffer: a stage's numpy view when staged (``back``
+        takes any reshape of it)."""
+        if not self.staged:
+            return np.empty(shape, dtype=dtype)
+        from ompi_tpu_torch.runtime import staging
+        dtype = np.dtype(dtype)
+        stage = self._pool.take(int(np.prod(shape)) * dtype.itemsize)
+        arr = staging.host_view(stage).view(dtype).reshape(shape)
+        self._stages[arr.ctypes.data] = stage
+        return arr
+
+    def zeros(self, shape, dtype) -> np.ndarray:
+        out = self.empty(shape, dtype)
+        out[...] = 0
+        return out
+
+    def back(self, arr: np.ndarray):
+        if not self.staged:
+            return self.module._back(self.comm, arr)
+        from ompi_tpu_torch.runtime import staging
+        out = torch.empty(arr.shape, dtype=convert.torch_dtype(arr.dtype),
+                          device=self.comm.state.device)
+        if arr.nbytes:
+            staging.h2d(self._stages[arr.ctypes.data], out, wait=True)
+        return out
+
+    def __enter__(self) -> "_HostIO":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        # every copy from or to a stage has completed by now (the D2H
+        # and H2D were each waited on): the stages may be reused
+        for stage in self._stages.values():
+            self._pool.park(stage)
+        self._stages = {}
+
+
 class HostArrModule(CollModule):
-    """The *_arr surface over the host p2p collective stack, for host
-    buffers: numpy arrays and CPU tensors (the 'coll/cuda staging
-    wrapper' analog, ref: ompi/mca/coll/cuda, without the staging).  A
-    tensor on a card is refused: copying it to the host and back would
-    hide the device, and the port has no kernel for the call."""
+    """The *_arr surface over the host p2p collective stack (the
+    'coll/cuda staging wrapper' analog, ref: ompi/mca/coll/cuda) for
+    host buffers — numpy arrays and CPU tensors — and for tensors on a
+    communicator that spans processes, which stage through pinned
+    memory (``_HostIO``).  A card tensor on a communicator within this
+    process is refused: copying it to the host and back would hide the
+    device, and the port has no kernel for the call."""
 
     name = "arr_host"
 
@@ -1139,66 +1225,78 @@ class HostArrModule(CollModule):
         self.p2p.allreduce(comm, a, r, a.size, self._dtype_of(a), op)
 
     def allreduce_arr(self, comm, x, op: Op):
-        a = self._np(x).reshape(-1)
-        r = np.empty_like(a)
-        self.allreduce_into(comm, a, r, op)
-        return self._back(comm, r.reshape(_shape_of(x)))
+        with _HostIO(self, comm, x) as io:
+            a = io.a.reshape(-1)
+            r = io.empty(a.size, a.dtype)
+            self.allreduce_into(comm, a, r, op)
+            return io.back(r.reshape(_shape_of(x)))
 
     def bcast_arr(self, comm, x, root: int):
-        a = self._np(x).reshape(-1).copy()
-        self.p2p.bcast(comm, a, a.size, self._dtype_of(a), root)
-        return self._back(comm, a.reshape(_shape_of(x)))
+        with _HostIO(self, comm, x) as io:
+            a = io.a.reshape(-1)
+            if not io.staged:
+                a = a.copy()
+            self.p2p.bcast(comm, a, a.size, self._dtype_of(a), root)
+            return io.back(a.reshape(_shape_of(x)))
 
     def reduce_arr(self, comm, x, op: Op, root: int):
-        a = self._np(x).reshape(-1)
-        r = np.empty_like(a) if comm.rank == root else None
-        self.p2p.reduce(comm, a, r, a.size, self._dtype_of(a), op, root)
-        return self._back(comm, r.reshape(_shape_of(x))) \
-            if comm.rank == root else None
+        with _HostIO(self, comm, x) as io:
+            a = io.a.reshape(-1)
+            r = io.empty(a.size, a.dtype) if comm.rank == root else None
+            self.p2p.reduce(comm, a, r, a.size, self._dtype_of(a), op,
+                            root)
+            return io.back(r.reshape(_shape_of(x))) \
+                if comm.rank == root else None
 
     def allgather_arr(self, comm, x):
         shp = _shape_of(x)
-        a = self._np(x).reshape(-1)
-        r = np.empty(a.size * comm.size, dtype=a.dtype)
-        self.p2p.allgather(comm, a, a.size, self._dtype_of(a), r, a.size,
-                           self._dtype_of(a))
-        out_shape = (comm.size,) if not shp else \
-            (comm.size * shp[0],) + tuple(shp[1:])
-        return self._back(comm, r.reshape(out_shape))
+        with _HostIO(self, comm, x) as io:
+            a = io.a.reshape(-1)
+            r = io.empty(a.size * comm.size, a.dtype)
+            self.p2p.allgather(comm, a, a.size, self._dtype_of(a), r,
+                               a.size, self._dtype_of(a))
+            out_shape = (comm.size,) if not shp else \
+                (comm.size * shp[0],) + tuple(shp[1:])
+            return io.back(r.reshape(out_shape))
 
     def alltoall_arr(self, comm, x):
         shp = _shape_of(x)
-        a = self._np(x).reshape(-1)
-        n = a.size // comm.size
-        r = np.empty_like(a)
-        self.p2p.alltoall(comm, a, n, self._dtype_of(a), r, n,
-                          self._dtype_of(a))
-        return self._back(comm, r.reshape(shp))
+        with _HostIO(self, comm, x) as io:
+            a = io.a.reshape(-1)
+            n = a.size // comm.size
+            r = io.empty(a.size, a.dtype)
+            self.p2p.alltoall(comm, a, n, self._dtype_of(a), r, n,
+                              self._dtype_of(a))
+            return io.back(r.reshape(shp))
 
     def reduce_scatter_block_arr(self, comm, x, op: Op):
         shp = _shape_of(x)
-        a = self._np(x).reshape(-1)
-        n = a.size // comm.size
-        r = np.empty(n, dtype=a.dtype)
-        self.p2p.reduce_scatter_block(comm, a, r, n, self._dtype_of(a), op)
-        out_shape = (shp[0] // comm.size,) + tuple(shp[1:]) if shp else (n,)
-        return self._back(comm, r.reshape(out_shape))
+        with _HostIO(self, comm, x) as io:
+            a = io.a.reshape(-1)
+            n = a.size // comm.size
+            r = io.empty(n, a.dtype)
+            self.p2p.reduce_scatter_block(comm, a, r, n, self._dtype_of(a),
+                                          op)
+            out_shape = (shp[0] // comm.size,) + tuple(shp[1:]) if shp \
+                else (n,)
+            return io.back(r.reshape(out_shape))
 
     def ppermute_arr(self, comm, x, perm):
         from ompi_tpu_torch.coll.base import _irecv_into, _isend
-        a = np.ascontiguousarray(self._np(x))
-        out = np.zeros_like(a)
-        reqs = []
-        for src, dst in perm:
-            if int(dst) == comm.rank:
-                reqs.append(_irecv_into(comm, out.reshape(-1), int(src),
-                                        -115))
-        for src, dst in perm:
-            if int(src) == comm.rank:
-                reqs.append(_isend(comm, a.reshape(-1), int(dst), -115))
-        for q in reqs:
-            q.wait()
-        return self._back(comm, out)
+        with _HostIO(self, comm, x) as io:
+            a = np.ascontiguousarray(io.a)
+            out = io.zeros(a.shape, a.dtype)
+            reqs = []
+            for src, dst in perm:
+                if int(dst) == comm.rank:
+                    reqs.append(_irecv_into(comm, out.reshape(-1),
+                                            int(src), -115))
+            for src, dst in perm:
+                if int(src) == comm.rank:
+                    reqs.append(_isend(comm, a.reshape(-1), int(dst), -115))
+            for q in reqs:
+                q.wait()
+            return io.back(out)
 
     def neighbor_allgather_arr(self, comm, x, srcs):
         """Host p2p: one message from each distinct source to each
@@ -1206,20 +1304,21 @@ class HostArrModule(CollModule):
         same bytes), zeros for a PROC_NULL source."""
         from ompi_tpu_torch.coll.base import _irecv_into, _isend
         from ompi_tpu_torch.pml.request import PROC_NULL
-        a = np.ascontiguousarray(self._np(x))
-        mine = srcs[comm.rank]
-        out = np.zeros((len(mine),) + a.shape, dtype=a.dtype)
-        got = {s: np.empty_like(a) for s in mine if s != PROC_NULL}
-        reqs = [_irecv_into(comm, buf.reshape(-1), s, T_NEIGHBOR_ARR)
-                for s, buf in got.items()]
-        reqs += [_isend(comm, a.reshape(-1), m, T_NEIGHBOR_ARR)
-                 for m in range(comm.size) if comm.rank in srcs[m]]
-        for q in reqs:
-            q.wait()
-        for i, s in enumerate(mine):
-            if s != PROC_NULL:
-                out[i] = got[s]
-        return self._back(comm, out)
+        with _HostIO(self, comm, x) as io:
+            a = np.ascontiguousarray(io.a)
+            mine = srcs[comm.rank]
+            out = io.zeros((len(mine),) + a.shape, a.dtype)
+            got = {s: np.empty_like(a) for s in mine if s != PROC_NULL}
+            reqs = [_irecv_into(comm, buf.reshape(-1), s, T_NEIGHBOR_ARR)
+                    for s, buf in got.items()]
+            reqs += [_isend(comm, a.reshape(-1), m, T_NEIGHBOR_ARR)
+                     for m in range(comm.size) if comm.rank in srcs[m]]
+            for q in reqs:
+                q.wait()
+            for i, s in enumerate(mine):
+                if s != PROC_NULL:
+                    out[i] = got[s]
+            return io.back(out)
 
 
 # ---------------------------------------------------------------------------

@@ -519,13 +519,7 @@ def _leader_hop(lead, y: torch.Tensor, op) -> torch.Tensor:
     tr = lead.state.tracer
     ph = tr is not None and tr.phase and tr.gate_sampled(_CAT_PHASE)
     t0 = tr.start() if ph else 0
-    if host:
-        a[...] = convert.to_numpy(y).reshape(-1)
-    else:
-        send.view(y.dtype).copy_(y.reshape(-1), non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(y.device))
-        done.synchronize()
+    staging.d2h(y.contiguous(), send)
     if ph:
         tr.end(t0, _NAME_HOP_D2H, _CAT_PHASE, lead.cid, nbytes,
                int(not host and send.is_pinned()))
@@ -537,8 +531,8 @@ def _leader_hop(lead, y: torch.Tensor, op) -> torch.Tensor:
     if host:
         out = convert.to_torch(r, y.device).reshape(y.shape)
     else:
-        out = torch.empty_like(y)
-        out.reshape(-1).copy_(recv.view(y.dtype), non_blocking=True)
+        out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
+        staging.h2d(recv, out)
     if ph:
         tr.end(t0, _NAME_HOP_H2D, _CAT_PHASE, lead.cid, nbytes,
                int(not host and recv.is_pinned()))

@@ -42,7 +42,11 @@ devices (``compile_cache.drop_device``); the port has no process-wide
 compiled-program cache (see ft/ulfm).  And the port's survivors revoke
 the communicator they replace before they agree, as the port's shrink
 does (see ``ulfm.shrink``): a survivor still parked on it, waiting on
-a member that raised and left, would otherwise never arrive.
+a member that raised and left, would otherwise never arrive.  The
+survivors also un-fail the replaced ranks under the world's fence cv,
+under which the port delivers failure records, so a record that
+reaches a survivor late cannot fail the replacement again (see
+``ulfm.publish_world_failures``).
 
 Limitations, as the reference's: failures are handled one rejoin at a
 time — a second rank must not die before the previous recovery
@@ -237,12 +241,14 @@ def rejoin(comm, name: str = ""):
 
     if not am_joining:
         # un-fail: the decided ranks are being replaced in place.
-        # World bookkeeping under the fence cv — a concurrent fence
-        # recomputes its quorum on every wake and must see the
-        # discard atomically
-        for g in sorted(decided):
-            u.unfail(g)
+        # Under the fence cv — a concurrent fence recomputes its
+        # quorum on every wake and must see the discard atomically,
+        # and the failure records are delivered under it, so every
+        # record of the dead incarnation has reached this rank before
+        # it un-fails (see ulfm.publish_world_failures)
         with world._f_cv:
+            for g in sorted(decided):
+                u.unfail(g)
             for g in decided:
                 world.ulfm_failed.discard(g)
             world._f_cv.notify_all()

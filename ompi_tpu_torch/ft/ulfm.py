@@ -29,10 +29,13 @@ p2p: the control plane must stay usable on a communicator whose data
 plane is already revoked or holed.
 
 Not ported: the process-rank half — the KV-store backend of the store
-and its note watcher (``_KvStore``, ``start_watcher``) wait for the
-launcher RTEs (ROADMAP.md A8); ``_store`` raises for a world without
-a shared table.  The reference's shrink also drops compiled
-executables keyed on the old mesh (``compile_cache.drop_mesh``); the
+and its note watcher (``_KvStore``, ``start_watcher``) wait for
+ROADMAP.md A8b; ``_store`` raises for a world without a shared table
+or whose ranks live in more than one process, and ``init()`` refuses a
+process rank launched under the ulfm or respawn errmgr policy
+(``TPUMPI_ULFM=1``), so no rank runs on without failure detection.
+The reference's shrink also drops compiled executables keyed on the
+old mesh (``compile_cache.drop_mesh``); the
 port has no process-wide compiled-program cache — its kernel libraries
 do not depend on the device set, and the per-comm plan and pick
 caches below are the whole purge.
@@ -267,17 +270,25 @@ def publish_world_failures(world, granks) -> None:
     """Atomic failure-DOMAIN delivery: mark EVERY rank in ``granks``
     failed before any waiter wakes, so several deaths surface as one
     consistent failure set, never racing single-rank detections with
-    fences recounting quorum between them."""
+    fences recounting quorum between them.
+
+    The records are delivered under the fence cv, which respawn's
+    rejoin also holds while it un-fails a replaced rank: a survivor
+    can reach rejoin through another survivor's revoke before its own
+    record of the death arrived, and a record landing after its
+    un-fail would fail the replacement again on the new communicator.
+    (The reference delivers after releasing the cv and has that
+    race.)"""
     cv = world._f_cv
     with cv:  # release anyone parked in a fence: its quorum shrank
         for grank in granks:
             world.ulfm_failed.add(int(grank))
+        for st in list(world.states):
+            u = getattr(st, "ulfm", None)
+            if u is not None:
+                for grank in granks:
+                    u.deliver(("fail", int(grank)))
         cv.notify_all()
-    for st in list(world.states):
-        u = getattr(st, "ulfm", None)
-        if u is not None:
-            for grank in granks:
-                u.deliver(("fail", int(grank)))
 
 
 def publish_failure(state, grank: int) -> None:
@@ -374,11 +385,12 @@ class _InprocStore:
 
 def _store(state) -> _InprocStore:
     world = getattr(state.rte, "world", None)
-    if world is None or not hasattr(world, "shared"):
+    if world is None or not hasattr(world, "shared") \
+            or getattr(world, "nlocal", world.size) < world.size:
         raise RuntimeError(
             "ULFM agreement needs the world-shared table of a thread-"
-            "rank world; the KV-store backend of process-rank jobs is "
-            "not ported (ROADMAP.md A8)")
+            "rank world holding every rank; the KV-store backend of "
+            "process-rank jobs is not ported (ROADMAP.md A8b)")
     return _InprocStore(world)
 
 

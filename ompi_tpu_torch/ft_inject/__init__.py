@@ -34,10 +34,22 @@ An injection that fires leaves an ``ft_inject`` instant (cat
 ``fault``) on the injecting rank's trace when tracing is on, and an
 ``EV_FT_INJECT`` event in the flight recorder (ompi_tpu_torch/obs).
 
-Not ported (ROADMAP.md): the btl/tcp frame faults and ``net_jitter``
-(their users are btl/tcp and the KV store, A8), kv, dvm, node and host
-kills, the ``KillInjector`` and ``node_faults`` that arm them and the
-host agent's slow beat (A8), and checkpoint I/O faults (A9).
+The process world's network paths (btl/tcp frames, KV client ops and
+the KV primary):
+
+  * btl/tcp (btl/tcp.py ``send``): the frame faults ``drop``,
+    ``delay``, ``dup``, ``reorder``, ``corrupt``, ``sever`` and
+    ``corrupt_payload`` (``BtlInjector``), and ``net_jitter`` —
+    seeded added latency, and with ``ft_inject_net_jitter_loss`` a
+    drop the reliable sublayer replays;
+  * the KV client (runtime/kvstore.py ``KVClient._request``):
+    ``kv_partition`` severs the socket before an op (``KvInjector``),
+    ``net_jitter`` delays it;
+  * the KV primary (runtime/kvstore.py ``KVServer``): ``kv_kill``
+    crashes it at its Nth served op (``KillInjector``).
+
+Not ported (ROADMAP.md): dvm, node and host kills, ``node_faults`` and
+the host agent's slow beat (A8b), and checkpoint I/O faults (A9).
 """
 
 from __future__ import annotations
@@ -67,7 +79,12 @@ _plan_var = registry.register(
          "ft_inject_victim_host stalls delay_ms*(factor-1) at each "
          "deposit), rank_kill (ft_inject_victim_rank's ranks die "
          "ft_inject_after seconds after MPI_Init; the number is "
-         "ignored).  Empty = framework disabled")
+         "ignored), the btl/tcp frame faults (drop, delay, dup, "
+         "reorder, corrupt, sever, corrupt_payload), kv_partition (a "
+         "KV client op severs its socket first), kv_kill (the KV "
+         "primary dies serving its Nth op; the number is that count) "
+         "and net_jitter (seeded latency on tcp frames and KV ops).  "
+         "Empty = framework disabled")
 _rate_var = registry.register(
     "ft", "inject", "rate", 0.02, float,
     help="Default per-event injection probability for plan entries "
@@ -104,12 +121,31 @@ _slow_factor_var = registry.register(
          "delay_ms*(factor-1) at every device-collective deposit (and "
          "a host agent would beat factor times slower) — alive, never "
          "silent")
+_jitter_ms_var = registry.register(
+    "ft", "inject", "net_jitter_ms", 5, int,
+    help="Mean added latency (milliseconds) of the net_jitter class; "
+         "each hit sleeps a seeded uniform draw in [0, 2*mean]")
+_jitter_loss_var = registry.register(
+    "ft", "inject", "net_jitter_loss", 0.0, float,
+    help="Per-event probability a net_jitter hit also DROPS the "
+         "frame (tcp path only — the reliable sublayer retransmits; "
+         "KV ops are never dropped, only delayed)")
 _sdc_period_var = registry.register(
     "ft", "inject", "sdc_period", 0, int,
     help="device_sdc repeat period after the first armed flip (every "
          "Nth subsequent collective on the victim also flips); 0 = "
          "one-shot — probes measuring detection RATE arm a period so "
          "one run carries many independent flips")
+
+# corrupt_payload flips frame bytes OUTSIDE the header-CRC span (the
+# header CRC stays valid by construction — equivalent to recomputing
+# it after the flip), so only the reliable layer's payload digest
+# (btl_tcp_payload_digest) can catch it
+BTL_CLASSES = ("drop", "delay", "dup", "reorder", "corrupt", "sever",
+               "corrupt_payload")
+# seeded latency/loss shaping on the tcp + KV client paths — the
+# network-flakiness half of gray failure
+NET_CLASSES = ("net_jitter",)
 
 
 def plan() -> Dict[str, float]:
@@ -170,6 +206,107 @@ class _Scoped:
                                   _obs.intern(str(self.scope)))
                 return cls
         return None
+
+
+class BtlInjector(_Scoped):
+    @property
+    def delay_s(self) -> float:
+        return max(0, _delay_ms_var.value) / 1000.0
+
+    def pick(self, rail: int, peer: int) -> Optional[str]:
+        """One frame is about to be sent; return a fault class to
+        apply to it, or None to let it through clean."""
+        return self._roll()
+
+
+def btl_injector(rank: int) -> Optional[BtlInjector]:
+    p = {c: r for c, r in plan().items() if c in BTL_CLASSES}
+    if not p:
+        return None
+    return BtlInjector("btl", rank, p)
+
+
+class KvInjector(_Scoped):
+    def sever(self) -> bool:
+        """About to issue a KV op: True = partition first (close the
+        socket under the client's feet)."""
+        return self._roll() == "kv_partition"
+
+
+def kv_injector(rank: int) -> Optional[KvInjector]:
+    p = {c: r for c, r in plan().items() if c == "kv_partition"}
+    if not p:
+        return None
+    return KvInjector("kv", rank, p)
+
+
+class KillInjector:
+    """One-shot deterministic control-plane death: ``op()`` counts the
+    victim's served ops and returns True exactly once, when the armed
+    count is reached.  No RNG — death at op N replays bit-for-bit."""
+
+    def __init__(self, scope: str, after_ops: float) -> None:
+        self.scope = scope
+        # plan rates below 1 (including the 0.02 default applied to a
+        # bare class name) mean "no explicit count": arm a mid-run
+        # default instead of dying on the first op
+        self.after_ops = int(after_ops) if after_ops >= 1 else 64
+        self._count = 0
+        self._fired = False
+
+    def op(self) -> bool:
+        if self._fired:
+            return False
+        self._count += 1
+        if self._count < self.after_ops:
+            return False
+        self._fired = True
+        from ompi_tpu_torch import obs as _obs
+        from ompi_tpu_torch import trace
+        tr = trace.current_tracer()
+        if tr is not None:
+            tr.instant("ft_inject", "fault", cls=self.scope + "_kill",
+                       scope=self.scope)
+        _obs.record_event(_obs.EV_FT_INJECT,
+                          _obs.intern(self.scope + "_kill"),
+                          _obs.intern(self.scope))
+        return True
+
+
+def kv_kill_injector() -> Optional[KillInjector]:
+    p = plan()
+    if "kv_kill" not in p:
+        return None
+    return KillInjector("kv", p["kv_kill"])
+
+
+class NetJitterInjector(_Scoped):
+    """Seeded latency/loss shaping on the network client paths (btl
+    tcp frames, KV ops).  A 'net_jitter' roll sleeps a uniform draw
+    in [0, 2*net_jitter_ms]; on the tcp path it may also drop the
+    frame with net_jitter_loss probability (the reliable sublayer
+    retransmits — KV callers never see a drop, only added RTT)."""
+
+    def maybe_delay_s(self) -> float:
+        """Returns seconds to hold the op/frame (0 = clean)."""
+        if self._roll() == "net_jitter":
+            ms = max(0, _jitter_ms_var.value)
+            return self._rng.uniform(0.0, 2.0 * ms) / 1000.0
+        return 0.0
+
+    def should_drop(self) -> bool:
+        """tcp frames only: a seeded loss decision taken AFTER a
+        jitter hit (callers pair it with maybe_delay_s)."""
+        loss = _jitter_loss_var.value
+        return loss > 0 and self._rng.random() < loss
+
+
+def net_jitter_injector(rank: int,
+                        scope: str = "net") -> Optional[NetJitterInjector]:
+    p = {c: r for c, r in plan().items() if c in NET_CLASSES}
+    if not p:
+        return None
+    return NetJitterInjector(scope, rank, p)
 
 
 class CollInjector(_Scoped):

@@ -664,6 +664,18 @@ class PmlOb1:
                     # upcoming phase, never snapshotted
                     continue
                 if m.kind == MATCH_OBJ:
+                    from ompi_tpu_torch.btl.tpu import _XferHdr
+                    if isinstance(m.payload, _XferHdr):
+                        # chunked-transfer header whose DATA is parked
+                        # on the sender (captured there by the rndv
+                        # engine's cr_capture); snapshot the metadata
+                        # so the pull protocol resumes after restart
+                        h = m.payload
+                        msgs.append((cid, m.src, m.tag, m.total,
+                                     "xferhdr",
+                                     (h.xfer_id, tuple(h.shape),
+                                      h.dtype, h.nbytes, h.chunk)))
+                        continue
                     # in-flight device payload (send_arr completed,
                     # recv_arr pending): a host copy of the receiver's
                     # tensor, taken once the sender's copy into it has
@@ -711,10 +723,21 @@ class PmlOb1:
         restart, so reinjection bypasses sequencing (these envelopes
         already consumed their pre-checkpoint sequence slots)."""
         for cid, src, tag, total, kind, payload in msgs:
-            if kind == "obj":
+            if kind == "xferhdr":
+                from ompi_tpu_torch.btl.tpu import _XferHdr
+                xid, shape, dtype, nbytes, chunk = payload
+                m = UnexpectedMsg(MATCH_OBJ, cid, src, tag, 0, total,
+                                  None,
+                                  _XferHdr(xid, shape, dtype, nbytes,
+                                           chunk))
+            elif kind == "obj":
                 from ompi_tpu_torch.btl.tpu import DeviceArrayPayload
+                from ompi_tpu_torch import convert
                 dev = self.state.device
-                arr = payload.to(dev) if dev is not None else payload
+                arr = payload
+                if dev is not None:
+                    arr = payload.to(dev) if hasattr(payload, "to") \
+                        else convert.to_torch(payload, dev)
                 m = UnexpectedMsg(MATCH_OBJ, cid, src, tag, 0, total,
                                   None, DeviceArrayPayload(arr))
             else:

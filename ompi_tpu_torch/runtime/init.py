@@ -5,8 +5,11 @@ rte init → frameworks open → pml select → modex fence → add_procs →
 comm_world/self → coll select → final fence) and ompi_mpi_finalize.c's
 reverse teardown.
 
-The port carries the in-process transports only (btl/inproc and
-btl/self).  Of the reference's optional planes it has the span tracer
+Transports: btl/inproc and btl/self for thread-ranks, btl/shm and
+btl/tcp between processes (a launched job's process ranks, or the app
+shells of a hybrid launch).  Of the reference's optional planes it has
+pstat's pvars and the binding of ``mpirun --bind-to`` (both before
+pml selection), the span tracer
 (attached before pml selection, clock offsets measured before the
 finalize fence, the per-rank dump written last), the online autotuner
 (attached right after the tracer), the telemetry plane (obs.attach:
@@ -15,9 +18,11 @@ plane's knobs; obs.detach at finalize), the session cid band (the
 predefined communicators at the band base), the fault injectors of
 the rendezvous and the RMA AM apply, and ULFM (attached before pml
 selection; the ``rank_kill`` arm after the final fence, never on a
-respawned replacement; its store purged at finalize); pstat, binding,
-vprotocol, the KV note watchers and live recovery are listed in
-ROADMAP.md as still to port.
+respawned replacement; its store purged at finalize).  vprotocol,
+the KV note watchers and live recovery are listed in ROADMAP.md as
+still to port: a process rank launched under the ulfm or respawn
+errmgr policy (``TPUMPI_ULFM=1``) is refused here, because it would
+run on without the KV note watcher that detects its peers' deaths.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import os
 from ompi_tpu_torch.btl import base as btl_base
 from ompi_tpu_torch.btl import inproc as _btl_inproc  # noqa: F401 (registers)
 from ompi_tpu_torch.btl import self_btl as _btl_self  # noqa: F401
+from ompi_tpu_torch.btl import shm as _btl_shm  # noqa: F401
+from ompi_tpu_torch.btl import tcp as _btl_tcp  # noqa: F401
 from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.comm.communicator import (SESSION_CID_STRIDE,
                                               Communicator, Group)
@@ -38,6 +45,13 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     """``device`` is the ``torch.device`` this rank owns (None in a
     host-only world), or a ``LogicalDevice``: a torch device and this
     rank's logical slot on it."""
+    if os.environ.get("TPUMPI_ULFM") and getattr(state.rte, "kv",
+                                                   None) is not None:
+        raise NotImplementedError(
+            "mpirun's ulfm and respawn errmgr policies need the KV note "
+            "watcher on every process rank (ft/ulfm.py start_watcher), "
+            "which is not ported yet (ROADMAP.md A8b); without it this "
+            "rank would not detect a peer's death")
     set_current(state)
     # span tracer attach BEFORE pml/coll selection so every layer
     # constructed below can cache state.tracer (None when trace_enable
@@ -56,11 +70,46 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     if isinstance(device, LogicalDevice):
         device, state.device_slot = device.device, device.slot
     state.device = device
-    # refine the oversubscription hint with the true local-rank count
-    # (thread-rank worlds know it exactly; ref: the reference
-    # auto-enables yield_when_idle when ranks exceed cores)
-    world = state.rte.world
-    state.progress.oversubscribed = world.size > (os.cpu_count() or 1)
+    # debugger attach support (MPIR analog): SIGUSR1 dumps every
+    # thread's stack to stderr; crash backtraces (SIGSEGV/SIGFPE/
+    # SIGABRT -> all-thread dumps) for native-code faults
+    try:
+        import faulthandler
+        import signal as _signal
+        faulthandler.register(_signal.SIGUSR1, all_threads=True,
+                              chain=True)
+        faulthandler.enable(all_threads=True)
+    except (ImportError, AttributeError, ValueError, OSError):
+        pass  # non-main thread or unsupported platform
+    from ompi_tpu_torch.runtime import pstat as _pstat
+    _pstat.register_pvars(state.rank)
+    from ompi_tpu_torch.runtime import topology as _topo
+    world = getattr(state.rte, "world", None)
+    if world is not None:
+        # thread-rank: sched_setaffinity(0) binds the calling THREAD.
+        # The binding index is the rank's position within its NODE
+        # (TPUMPI_NODE_RANK_BASE), not within its shell — two shells
+        # on one node must not overlap their core assignments
+        node_base = int(os.environ.get(
+            "TPUMPI_NODE_RANK_BASE",
+            str(getattr(world, "rank_base", 0))))
+        local_rank = state.rank - node_base
+    else:
+        # process-rank: the launcher exports the rank's index WITHIN
+        # its node
+        local_rank = int(os.environ.get("TPUMPI_LOCAL_RANK", "0"))
+    try:
+        _topo.apply_binding(local_rank)
+    except (ValueError, OSError):
+        pass
+    # refine the oversubscription hint with the true local-rank count:
+    # thread-rank worlds know it exactly; process-ranks read the
+    # launcher's TPUMPI_LOCAL_SIZE (ref: the reference auto-enables
+    # yield_when_idle when ranks exceed cores)
+    nlocal = getattr(world, "nlocal", None) or (
+        world.size if world is not None
+        else int(os.environ.get("TPUMPI_LOCAL_SIZE", "1")))
+    state.progress.oversubscribed = nlocal > (os.cpu_count() or 1)
     # ULFM failure-mitigation state BEFORE pml selection so the pml
     # can cache state.ulfm (None when mpi_ft_ulfm is off — the same
     # one-is-None-check contract as the tracer)
@@ -83,7 +132,8 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     # the job (device ids ride the modex so a later cross-host device
     # plane can see the card map), then fence (modex sync #1, ref:
     # ompi_mpi_init.c:654-661)
-    world.states[state.rank] = state
+    if world is not None:
+        world.states[state.rank] = state
     if device is not None:
         state.rte.modex_put("device_id", device_index(device))
     # node + cores ride the modex so collective algorithm selection
@@ -96,9 +146,14 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     state.pml.add_procs(endpoints)
     # 3. predefined communicators at the band base: world cid 0, self
     # cid 1 for an ordinary job; a resident session's band shifts them
-    # (next_cid floors derived comms into the same band)
+    # (next_cid floors derived comms into the same band).  The world
+    # group is this JOB's rank block (world_base/world_size of a
+    # launcher RTE; the whole world otherwise)
+    wbase = getattr(state.rte, "world_base", 0)
+    wsize = getattr(state.rte, "world_size", state.size)
     band = state.cid_band * SESSION_CID_STRIDE
-    state.comm_world = Communicator(state, band, Group(range(state.size)),
+    state.comm_world = Communicator(state, band,
+                                    Group(range(wbase, wbase + wsize)),
                                     name="MPI_COMM_WORLD")
     state.comm_self = Communicator(state, band + 1, Group([state.rank]),
                                    name="MPI_COMM_SELF")

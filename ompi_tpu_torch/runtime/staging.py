@@ -4,7 +4,7 @@ Port of the reference's runtime/staging.py: one alignment rule, one
 aliasing answer and one pool for whatever stages host memory into
 device buffers, instead of private copies that drift.
 
-Three pieces:
+The pieces:
 
 * ``STAGE_ALIGN`` / ``aligned_empty(nbytes, device)``: a staging
   buffer for an upload to ``device``.  For the CPU, the reference's
@@ -23,11 +23,19 @@ Three pieces:
   process holds CPU and card ranks alike.
 * ``MirrorPool``: a bounded free list of staging buffers, so steady-
   state staging never pays fresh pages or a fresh pinned allocation.
+* ``d2h`` / ``h2d``: a tensor's bytes into a stage and back, queued on
+  the current stream, with the event wait a pooled stage needs.
 
-The port's plan tier and device window do not stage through this
-module: ``torch.cat`` already makes the pack's one copy, and a
-window's numpy buffer goes to and from the card in one pageable copy,
-which a pinned stage plus its host memcpy did not beat (PERF.md §5).
+Its users: the hierarchical tier's leader hop (fresh stages a call),
+and through ``pool(device)`` — one shared ``MirrorPool`` a device type
+in the process — the cross-process device paths: btl/tpu's chunked
+pull (every chunk D2H into a stage on the sender, into a stage and
+H2D on the receiver) and ``HostArrModule``'s collectives on
+communicators that span processes.  The port's plan tier and device
+window do not stage through this module: ``torch.cat`` already makes
+the pack's one copy, and a window's numpy buffer goes to and from the
+card in one pageable copy, which a pinned stage plus its host memcpy
+did not beat (PERF.md §5).
 
 A pooled card stage must not be handed out again while a queued copy
 still reads or writes it: PyTorch's caching host allocator waits on a
@@ -145,3 +153,71 @@ def _whole(buf: Stage) -> Stage:
             and buf.flags.c_contiguous):
         return raw[buf.ctypes.data - raw.ctypes.data:]
     return buf
+
+
+def host_view(stage: Stage) -> np.ndarray:
+    """The stage's bytes as a numpy uint8 array (its own memory)."""
+    return stage if isinstance(stage, np.ndarray) else stage.numpy()
+
+
+def tensor_view(stage: Stage) -> torch.Tensor:
+    """The stage's bytes as a uint8 tensor (its own memory)."""
+    return torch.from_numpy(stage) if isinstance(stage, np.ndarray) \
+        else stage
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat uint8 view."""
+    t = t.reshape(-1)
+    return t.view(torch.uint8) if t.numel() else \
+        torch.empty(0, dtype=torch.uint8, device=t.device)
+
+
+def d2h(src: torch.Tensor, stage: Stage) -> None:
+    """Copy the bytes of the contiguous tensor ``src`` into the start of
+    ``stage`` and return once they are there: for a card, a copy queued
+    on the current stream and a wait on its event."""
+    src = _bytes(src)
+    dst = tensor_view(stage)[:src.numel()]
+    if not src.is_cuda:
+        dst.copy_(src)
+        return
+    dst.copy_(src, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(src.device))
+    done.synchronize()
+
+
+def h2d(stage: Stage, dst: torch.Tensor, wait: bool = False):
+    """Copy the first bytes of ``stage`` into the contiguous tensor
+    ``dst``.  For a card the copy is queued on the current stream and
+    the event recorded after it is returned, waited on first when
+    ``wait`` (a pooled stage may be parked only once that event is
+    done); None off the card, where the copy is done on return."""
+    dst = _bytes(dst)
+    src = tensor_view(stage)[:dst.numel()]
+    if not dst.is_cuda:
+        dst.copy_(src)
+        return None
+    dst.copy_(src, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dst.device))
+    if wait:
+        done.synchronize()
+    return done
+
+
+_pools = {}
+_pools_lock = threading.Lock()
+
+
+def pool(device) -> MirrorPool:
+    """The process's shared pool of stages for ``device``'s type (one
+    for the CPU, one of pinned memory for the cards): every rank
+    thread of a process takes from and parks into it."""
+    kind = _type(device)
+    with _pools_lock:
+        p = _pools.get(kind)
+        if p is None:
+            p = _pools[kind] = MirrorPool(16, kind)
+        return p

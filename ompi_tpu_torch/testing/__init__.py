@@ -217,3 +217,38 @@ def run_ranks(n: int, fn: Callable, devices: bool = False,
         if e is not None:
             raise e
     return results
+
+
+def mpirun_run(np_, prog, *args, devices=None, rpp=None, mca=(),
+               extra=(), timeout=120, job_timeout=90, cwd=None, env=None):
+    """Run ``prog`` under the port's mpirun
+    (``python -m ompi_tpu_torch.tools.mpirun``) as a subprocess and
+    return the CompletedProcess — the shared recipe for launcher tests
+    (PYTHONPATH for the children, a job timeout inside a subprocess
+    timeout).  ``devices`` is mpirun's ``--devices`` (auto, cpu or
+    none; None leaves mpirun's default, auto) and ``rpp`` its
+    ``--ranks-per-proc``; the caller chooses both, nothing here picks
+    the CPU.  ``prog`` is absolute or relative to the checkout."""
+    import os
+    import subprocess
+    import sys
+
+    import ompi_tpu_torch as _pkg
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(
+        _pkg.__file__)))
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.mpirun",
+           "-np", str(np_)]
+    if rpp is not None:
+        cmd += ["--ranks-per-proc", str(rpp)]
+    if devices is not None:
+        cmd += ["--devices", devices]
+    if job_timeout:
+        cmd += ["--timeout", str(job_timeout)]
+    for k, v in mca:
+        cmd += ["--mca", k, str(v)]
+    cmd += [*extra, prog if os.path.isabs(prog)
+            else os.path.join(repo, prog), *args]
+    full = dict(os.environ if env is None else env)
+    full["PYTHONPATH"] = repo + os.pathsep + full.get("PYTHONPATH", "")
+    return subprocess.run(cmd, capture_output=True, timeout=timeout,
+                          env=full, cwd=cwd or repo)

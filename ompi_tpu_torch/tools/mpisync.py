@@ -11,13 +11,22 @@ noise).
 ``trace.sync_state`` calls ``measure_offsets`` at finalize and embeds
 the table into every rank's trace dump, the input traceview and
 critpath merge with.  In a thread world every rank reads one clock, so
-the offsets are near zero; they ride the dumps all the same.  The
-reference's ``python -m`` entry runs under its process launcher, which
-the port does not have yet (ROADMAP.md A8), so this copy has none.
+the offsets are near zero; they ride the dumps all the same.
+
+Run under mpirun:
+
+    python -m ompi_tpu_torch.tools.mpirun -np 4 \
+        ompi_tpu_torch/tools/mpisync.py [--rounds N]
+
+Rank 0 prints one line per rank: offset seconds + RTT, plus a JSON
+summary.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import sys
 import time
 from typing import List, Tuple
 
@@ -58,3 +67,29 @@ def measure_offsets(comm, rounds: int = 50) -> List[Tuple[float, float]]:
     table = np.array([[o, r] for o, r in out], dtype=np.float64)
     comm.Bcast(table, root=0)
     return [(float(o), float(r)) for o, r in table]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="mpisync")
+    ap.add_argument("--rounds", type=int, default=50)
+    opts = ap.parse_args(argv)
+
+    import ompi_tpu_torch
+    comm = ompi_tpu_torch.init()
+    offsets = measure_offsets(comm, rounds=opts.rounds)
+    if comm.rank == 0:
+        for r, (off, rtt) in enumerate(offsets):
+            sys.stdout.write(
+                f"rank {r}: offset {off * 1e6:+.1f} us  "
+                f"rtt {rtt * 1e6:.1f} us\n")
+        sys.stdout.write(json.dumps(
+            {"offsets_us": [round(o * 1e6, 2) for o, _ in offsets],
+             "rtts_us": [round(t * 1e6, 2) for _, t in offsets]})
+            + "\n")
+        sys.stdout.flush()
+    ompi_tpu_torch.finalize()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

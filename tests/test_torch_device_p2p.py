@@ -8,8 +8,10 @@ every rank co-located on the CPU.  Results are equal byte for byte.
 The port's own guarantees, which the reference's immutable arrays give
 for free, are held here too: the receiver always gets a copy of its own
 (a sender that writes into its tensor right after ``send_arr`` does not
-change what arrives), and a peer outside the process raises instead of
-being staged through the host (ROADMAP A8).
+change what arrives), and a peer outside the process gets host bytes
+staged through pinned memory only: where a card's stage cannot be
+pinned the send raises instead of bouncing through pageable memory
+(the process cases themselves are in test_torch_device_p2p_procs.py).
 """
 
 import jax
@@ -166,25 +168,43 @@ def test_reuse_after_send_does_not_reach_the_receiver(tier):
 
 
 def test_send_to_a_peer_outside_the_process_raises():
-    """A peer that is not a thread of this process: send_arr raises,
-    naming the missing cross-process transfer — never a host bounce."""
+    """A peer that is not a thread of this process (rank 1 made to look
+    remote to rank 0, and the payload pickled as btl/shm and btl/tcp do
+    on the wire): a tensor's payload crosses as host bytes and arrives
+    as the receiver's own copy on its device; a card tensor (a meta
+    tensor standing in for one: no pinned allocator here) raises at the
+    send instead of bouncing through pageable memory."""
+    import pickle
+
     def fn(comm):
         comm.Barrier()
         msg = None
+        pml = comm.state.pml
         if comm.rank == 0:
             world = comm.state.rte.world
             world.is_local = lambda r: r == 0
+            wire = pml.isend_obj
+            pml.isend_obj = lambda obj, dst, tag, c: wire(
+                pickle.loads(pickle.dumps(obj)), dst, tag, c)
             try:
-                comm.send_arr(torch.ones(4), 1, tag=6)
-            except NotImplementedError as e:
-                msg = str(e)
+                x = torch.arange(4.0)
+                comm.send_arr(x, 1, tag=6)
+                x.fill_(-1.0)
+                try:
+                    comm.send_arr(torch.ones(4, device="meta"), 1, tag=7)
+                except RuntimeError as e:
+                    msg = str(e)
             finally:
                 del world.is_local
+                del pml.isend_obj
+        got = comm.recv_arr(0, tag=6) if comm.rank == 1 else None
         comm.Barrier()
-        return msg
+        return msg, None if got is None else (
+            got.device.type, _np(got).tolist())
 
     res = port_run_ranks(2, fn, device_map=logical_devices("cpu"))
-    assert res[0] is not None and "A8" in res[0]
+    assert res[0][0] is not None and "pin" in res[0][0].lower(), res[0]
+    assert res[1][1] == ("cpu", [0.0, 1.0, 2.0, 3.0])
 
 
 def test_proc_null_ends_are_no_ops():

@@ -21,6 +21,7 @@ tier exists (``test_divergence_rejoin_without_ckpt_ft_abort``).
 
 import os
 import threading
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -181,6 +182,29 @@ def test_respawn_chaos_victim_list(buddy_degree_1):
         clean = run_ranks(4, _make_fn(PORT, iters=10), timeout=60)
         faulty = run_ranks(4, _make_fn(PORT, iters=10, kill_at=kill_at),
                            timeout=60, respawn=True)
+    assert faulty == clean
+
+
+def test_respawn_survives_a_late_failure_record(buddy_degree_1,
+                                                monkeypatch):
+    """The dead rank's failure record reaches the last survivor 0.5 s
+    after the others: that survivor enters rejoin through the first
+    survivor's revoke, before its own record of the death arrived.
+    It must not un-fail the rank before the record lands, or the late
+    record fails the replacement again and the restore on the new
+    communicator raises MPI_ERR_PROC_FAILED.  The run still equals
+    the fault-free run."""
+    deliver = ulfm.UlfmState.deliver
+
+    def late(self, rec):
+        if rec[0] == "fail" and self.state.rank == 3:
+            time.sleep(0.5)
+        deliver(self, rec)
+
+    clean = run_ranks(4, _make_fn(PORT), timeout=60)
+    monkeypatch.setattr(ulfm.UlfmState, "deliver", late)
+    faulty = run_ranks(4, _make_fn(PORT, kill_at={1: 5}), timeout=60,
+                       respawn=True)
     assert faulty == clean
 
 
