@@ -352,6 +352,33 @@ Phases, each fatal on failure (nothing is caught and carried on):
              --ranks-per-proc C`` (C cards: the mesh tier inside each
              shell, one K6 and one K2 peer a card an op).
 
+12. nodes   — the multi-node launcher (tools/plm.py, tools/tpud.py, the
+             oob channel, rmaps, the daemons' KV proxies), each job an
+             mpirun subprocess as in phase 11.  12a: phase 11a's
+             headline through the PLM: ``-np 8 --hosts localhost:8
+             --ranks-per-proc all``, one daemon and one shell on coll/
+             hbm, exactly one K1 an op plus the check op; its us an op
+             beside 11a's.  12b: ``-np 8 --simulate-nodes 2x4
+             --ranks-per-proc all`` running examples/hier_allreduce.py
+             at 8 MiB float32 a rank: each node's shell holds 4 rank-
+             threads on 4 logical devices of the card, its node comm on
+             the mesh tier (exactly one K6 and one K2 peer an op, plus
+             the check op's), the leaders' 8 MiB Allreduce over tcp
+             between the nodes, the node Bcast; the result within the
+             float SUM band; us an op and of each step (slowest
+             leader), and the seconds from the launch to
+             DAEMONS_REPORTED and to the job's first collectives.  12c:
+             examples/devp2p_big.py, a 256 MiB card tensor send_arr ->
+             recv_arr across ``--simulate-nodes 2`` (btl/tcp): exact,
+             the sender's overwrite never reaching the receiver,
+             max_staged_bytes <= (depth + 2) x chunk; GB/s against the
+             bound of its two pinned copies.  12d: abort_test.py across
+             ``--simulate-nodes 2x2`` exits 42 with MPI_Abort; seconds
+             to DAEMONS_REPORTED.  The K1, K6 and K2 peer launches join
+             the kernels line's counts.  ``--cards`` runs 12b with one
+             card a simulated device (``-np 2H --simulate-nodes 2xH``,
+             H = half the cards).
+
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
@@ -361,7 +388,7 @@ card, then the mesh, RMA, integrity and halo phases and the SHMEM
 workloads over peer access, and with four or more cards phase 9 in
 slices of two: 9a, 9b, 9c on the mesh, 9d and 9e, and phase 10's
 shrink on the mesh across the cards (10b's checks) and 10d), then
-11b one rank a card in two shells.
+11b one rank a card in two shells and 12b one card a simulated device.
 """
 
 from __future__ import annotations
@@ -5830,16 +5857,20 @@ RANK_PROGRAMS = {"procs": lambda a: rank_program_procs(int(a[0]),
                  "fail": lambda a: rank_program_fail()}
 
 
-def mpirun_job(np_: int, rpp, args, devices: str = "auto", mca=()):
+def mpirun_job(np_: int, rpp, args, devices: str = "auto", mca=(),
+               extra=(), stamps=None):
     """Run ``args`` (a program and its arguments) under ``python -m
     ompi_tpu_torch.tools.mpirun`` from this checkout, with --timeout on
-    the job and a subprocess timeout past it; the whole process group
-    is killed if that runs out.  Returns (exit code, stdout, stderr,
-    seconds)."""
+    the job and a subprocess timeout past it (``extra``: more mpirun
+    options); the whole process group is killed if that runs out.
+    Returns (exit code, stdout, stderr, seconds).  ``stamps``, a dict,
+    receives the wall clock at the launch ("t0") and the seconds from
+    the launch to each stderr line of a ``--verbose state`` transition,
+    keyed by the transition ("MAP -> LAUNCH_DAEMONS", ...)."""
     import signal
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.mpirun",
-           "-np", str(np_), "--timeout", str(PROC_JOB_S)]
+           "-np", str(np_), "--timeout", str(PROC_JOB_S), *extra]
     if rpp is not None:
         cmd += ["--ranks-per-proc", str(rpp), "--devices", devices]
     for k, v in mca:
@@ -5848,17 +5879,38 @@ def mpirun_job(np_: int, rpp, args, devices: str = "auto", mca=()):
     env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
     t0 = time.perf_counter()
+    if stamps is not None:
+        stamps["t0"] = time.time()
     p = subprocess.Popen(cmd + list(args), cwd=root, env=env,
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                          text=True, start_new_session=True)
+    errs, outs = [], []
+
+    def read_err():
+        for line in p.stderr:
+            errs.append(line)
+            if stamps is not None and "[mpirun:hnp:state]" in line:
+                key = line.split("]", 1)[1].split("(")[0].strip()
+                stamps.setdefault(key, time.perf_counter() - t0)
+
+    readers = [threading.Thread(target=read_err, daemon=True),
+               threading.Thread(target=lambda: outs.extend(p.stdout),
+                                daemon=True)]
+    for t in readers:
+        t.start()
     try:
-        out, err = p.communicate(timeout=PROC_JOB_S + 60)
+        p.wait(timeout=PROC_JOB_S + 60)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
-        out, err = p.communicate()
+        p.wait()
+        for t in readers:
+            t.join(timeout=10)
         raise AssertionError(f"mpirun {args} outlived its timeout:\n"
-                             f"{err[-3000:]}")
-    return p.returncode, out, err, time.perf_counter() - t0
+                             f"{''.join(errs)[-3000:]}")
+    for t in readers:
+        t.join(timeout=60)
+    return p.returncode, "".join(outs), "".join(errs), \
+        time.perf_counter() - t0
 
 
 def _json_lines(out: str, prefix: str = ""):
@@ -5866,12 +5918,13 @@ def _json_lines(out: str, prefix: str = ""):
             if ln.startswith(prefix + "{")]
 
 
-def phase_procs_headline(devices: str, headline_us) -> int:
+def phase_procs_headline(devices: str, headline_us):
     """11a: the headline under the launcher — ``-np 8
     --ranks-per-proc all``, examples/device_allreduce.py at 8 MiB
     float32, PROC_ITERS chained allreduce_arr calls: one shell, its
     provider coll/hbm, exactly one K1 launch an op (plus the check op),
-    the bytes within the band.  Returns the shell's K1 launches."""
+    the bytes within the band.  Returns the shell's K1 launches and its
+    us an op."""
     prog = os.path.join("ompi_tpu_torch", "examples", "device_allreduce.py")
     rc, out, err, secs = mpirun_job(
         NRANKS, "all", [prog, "--bytes", str(PROC_MIB * MIB), "--iters",
@@ -5898,7 +5951,7 @@ def phase_procs_headline(devices: str, headline_us) -> int:
         f"{[round(u, 1) for u in headline_us]}); K1 {d['k1']} over the "
         f"ops, {d['k1_total']} in the job; bytes within the band (max "
         f"error {d['max_err']:.3g}); job {secs:.1f} s")
-    return d["k1_total"]
+    return d["k1_total"], us
 
 
 def phase_procs_shells(devices: str, ncards: int, btl,
@@ -6007,13 +6060,14 @@ def phase_procs_failures(devices: str) -> None:
         f"({secs2:.1f} s, job timeout {PROC_JOB_S} s)")
 
 
-def phase_procs(dev, headline_us, devices: str = "auto") -> int:
+def phase_procs(dev, headline_us, devices: str = "auto"):
     """Phase 11 on one card: 11a; 11b across two app shells (tcp), and
     between two process ranks over shm and over tcp; 11c; and the
     pinned copy rates that bound the pull; the phase's time.  Returns
-    the shells' K1 launches (they join the kernels line)."""
+    the shells' K1 launches (they join the kernels line) and 11a's us
+    an op."""
     t0 = time.perf_counter()
-    k1 = phase_procs_headline(devices, headline_us)
+    k1, us_11a = phase_procs_headline(devices, headline_us)
     k1 += phase_procs_shells(devices, 0, None)
     for btl in (None, "self,tcp"):
         k1 += phase_procs_shells(devices, 0, btl, pair=True)
@@ -6029,7 +6083,184 @@ def phase_procs(dev, headline_us, devices: str = "auto") -> int:
             f"({nb / bound_ms / 1e6:.2f} GB/s)")
     log(f"[procs] phase 11: {time.perf_counter() - t0:.1f} s, the shells' "
         f"K1 launches {k1}")
-    return k1
+    return k1, us_11a
+
+
+# ---------------------------------------------------------------------------
+# 12. the multi-node launcher: the PLM, tpud daemons, simulated nodes
+# ---------------------------------------------------------------------------
+
+NODE_ITERS = 20     # 12b's timed hierarchical allreduce ops
+BIG_MIB = 256       # 12c's send_arr across two simulated nodes
+
+
+def _daemons_reported(stamps: dict, what: str) -> float:
+    if "LAUNCH_DAEMONS -> DAEMONS_REPORTED" not in stamps:
+        raise AssertionError(f"{what}: no DAEMONS_REPORTED transition "
+                             f"in the state trace ({sorted(stamps)})")
+    return stamps["LAUNCH_DAEMONS -> DAEMONS_REPORTED"]
+
+
+def phase_nodes_headline(devices: str, us_11a) -> int:
+    """12a: 11a's job through the PLM (``--hosts localhost:8``): one
+    daemon, one shell, coll/hbm, one K1 an op plus the check op, the
+    bytes within the band.  Returns the shell's K1 launches."""
+    prog = os.path.join("ompi_tpu_torch", "examples", "device_allreduce.py")
+    stamps = {}
+    rc, out, err, secs = mpirun_job(
+        NRANKS, "all", [prog, "--bytes", str(PROC_MIB * MIB), "--iters",
+                        str(PROC_ITERS)], devices,
+        extra=("--hosts", f"localhost:{NRANKS}", "--verbose", "state"),
+        stamps=stamps)
+    if rc != 0:
+        raise AssertionError(f"12a: mpirun exited {rc}:\n{err[-3000:]}")
+    docs = _json_lines(out)
+    if len(docs) != 1 or docs[0]["ranks"] != NRANKS:
+        raise AssertionError(f"12a: expected one shell line of {NRANKS} "
+                             f"ranks, got {docs}")
+    d = docs[0]
+    card = devices == "auto"
+    if d["provider"] != "hbm" or (card and (
+            d["k1"] != PROC_ITERS or d["k1_total"] != PROC_ITERS + 1)):
+        raise AssertionError(f"12a: provider {d['provider']}, K1 {d['k1']} "
+                             f"over {PROC_ITERS} ops, {d['k1_total']} in "
+                             f"all (expected {PROC_ITERS} and "
+                             f"{PROC_ITERS + 1} on coll/hbm)")
+    reported = _daemons_reported(stamps, "12a")
+    log(f"[nodes] 12a headline through the PLM, -np 8 --hosts "
+        f"localhost:8 --ranks-per-proc all ({d['device']}): "
+        f"{d['us_per_op']:.1f} us/op (slowest rank, {PROC_ITERS} chained "
+        f"ops; 11a in this run {us_11a:.1f}); K1 {d['k1']} over the ops, "
+        f"{d['k1_total']} in the job; max error {d['max_err']:.3g}; "
+        f"DAEMONS_REPORTED at {reported:.2f} s; job {secs:.1f} s")
+    return d["k1_total"]
+
+
+def phase_nodes_hier(devices: str, ncards: int = 0) -> dict:
+    """12b: examples/hier_allreduce.py at 8 MiB float32 a rank on two
+    simulated nodes of NRANKS // 2 ranks, each on that many logical
+    devices of card 0 (or, with ``ncards``, of ncards // 2 ranks each
+    owning a card): one line a node, its node comm on the mesh tier,
+    exactly one K6 and one K2 peer a card an op (the check op's too),
+    no K1; the result within the float SUM band (the program checks
+    it); each step's us.  Returns the nodes' launches."""
+    half = ncards // 2 if ncards else NRANKS // 2
+    np_ = 2 * half
+    prog = os.path.join("ompi_tpu_torch", "examples", "hier_allreduce.py")
+    stamps = {}
+    rc, out, err, secs = mpirun_job(
+        np_, "all", [prog, "--bytes", str(PROC_MIB * MIB), "--iters",
+                     str(NODE_ITERS)], devices,
+        extra=("--simulate-nodes", f"2x{half}", "--verbose", "state"),
+        stamps=stamps)
+    what = f"12b {np_} ranks on 2 simulated nodes" + (
+        ", one card a device" if ncards else "")
+    if rc != 0:
+        raise AssertionError(f"{what}: mpirun exited {rc}:\n{err[-4000:]}")
+    docs = sorted(_json_lines(out), key=lambda d: d["node"])
+    if [d["node"] for d in docs] != [0, 1]:
+        raise AssertionError(f"{what}: node lines {docs}")
+    cards = half if ncards else 1
+    card = devices == "auto"
+    total = {"stacked_reduce": 0, "mesh_fold": 0, "peer_copy": 0}
+    for d in docs:
+        want = {"mesh_fold": NODE_ITERS * cards,
+                "peer_copy": NODE_ITERS * cards, "stacked_reduce": 0}
+        want_all = {k: v + v // NODE_ITERS for k, v in want.items()}
+        if not card:
+            want = want_all = dict.fromkeys(want, 0)
+        if d["node_provider"] != "tpu" or d["ranks"] != half or \
+                d["launches"] != want or d["launches_total"] != want_all:
+            raise AssertionError(f"{what}: node {d['node']}: provider "
+                                 f"{d['node_provider']}, launches "
+                                 f"{d['launches']} of {d['launches_total']}"
+                                 f" (expected {want} of {want_all} on the "
+                                 f"mesh tier)")
+        for k in total:
+            total[k] += d["launches_total"][k]
+    d = docs[0]
+    reported = _daemons_reported(stamps, what)
+    first = min(x["unix_first_collective"] for x in docs) - stamps["t0"]
+    first_ar = min(x["unix_first_allreduce"] for x in docs) - stamps["t0"]
+    nb = PROC_MIB * MIB
+    log(f"[nodes] {what} ({d['device']}), hier_allreduce {PROC_MIB} MiB "
+        f"float32 a rank: {d['us_per_op']:.1f} us/op (slowest leader, "
+        f"{NODE_ITERS} ops): node allreduce_arr "
+        f"{d['us_node_allreduce']:.1f} us, leaders' tcp Allreduce "
+        f"{d['us_leaders_allreduce']:.1f} us "
+        f"({nb / (d['us_leaders_allreduce'] * 1e-6) / 1e9:.3f} GB/s of "
+        f"the partial), node Bcast {d['us_node_bcast']:.1f} us; launches "
+        f"a node {[x['launches'] for x in docs]} over the ops, "
+        f"{[x['launches_total'] for x in docs]} in all; max error "
+        f"{max(x['max_err'] for x in docs):.3g}; from the launch: "
+        f"DAEMONS_REPORTED {reported:.2f} s, the first collectives "
+        f"{first:.2f} s, the first hierarchical allreduce {first_ar:.2f} "
+        f"s; job {secs:.1f} s")
+    return total
+
+
+def phase_nodes_big(dev, devices: str) -> None:
+    """12c: BIG_MIB MiB of torch.arange on the card, send_arr ->
+    recv_arr across two simulated nodes (process ranks, btl/tcp):
+    exact, the sender's overwrite never reaching the receiver, its
+    staging within (depth + 2) chunks; GB/s beside the bound of the
+    pull's two pinned copies (one D2H, one H2D)."""
+    prog = os.path.join("ompi_tpu_torch", "examples", "devp2p_big.py")
+    rc, out, err, secs = mpirun_job(
+        2, None, [prog, "--mb", str(BIG_MIB), "--device",
+                  "auto" if devices == "auto" else "cpu"],
+        extra=("--simulate-nodes", "2"))
+    if rc != 0:
+        raise AssertionError(f"12c: mpirun exited {rc}:\n{err[-3000:]}")
+    docs = {d["rank"]: d for d in _json_lines(out)}
+    s, r = docs[0], docs[1]
+    if s["btl"] != "tcp" or r["btl"] != "tcp" or not r.get("exact") \
+            or not 0 < s["staged"] <= s["bound"]:
+        raise AssertionError(f"12c: sender {s}, receiver {r}")
+    nb = BIG_MIB * MIB
+    sec = max(s["seconds"], r["seconds"])
+    bound = ""
+    if devices == "auto":
+        d2h, h2d = pinned_copy_ms(dev, 4 * MIB)
+        bound_ms = nb / (4 * MIB / d2h) + nb / (4 * MIB / h2d)
+        bound = (f"; the bound of its two pinned copies {bound_ms:.2f} ms "
+                 f"({nb / bound_ms / 1e6:.2f} GB/s; 4 MiB D2H {d2h:.4f} "
+                 f"ms, H2D {h2d:.4f} ms)")
+    log(f"[nodes] 12c {BIG_MIB} MiB send_arr -> recv_arr across 2 simulated "
+        f"nodes ({s['device']}, tcp): exact, {s['chunks']} chunks, "
+        f"max_staged_bytes {s['staged']} <= {s['bound']}; sender "
+        f"{s['seconds'] * 1e3:.1f} ms, receiver {r['seconds'] * 1e3:.1f} "
+        f"ms, {nb / sec / 1e9:.3f} GB/s{bound}; job {secs:.1f} s")
+
+
+def phase_nodes_abort() -> None:
+    """12d: abort_test.py across ``--simulate-nodes 2x2`` exits 42 with
+    MPI_Abort on stderr; the seconds from the launch to
+    DAEMONS_REPORTED."""
+    prog = os.path.join("ompi_tpu_torch", "examples", "abort_test.py")
+    stamps = {}
+    rc, out, err, secs = mpirun_job(
+        4, None, [prog], extra=("--simulate-nodes", "2x2", "--verbose",
+                                "state"), stamps=stamps)
+    if rc != 42 or "MPI_Abort" not in err or "should not reach" in out:
+        raise AssertionError(f"12d abort: exit {rc}:\n{err[-2000:]}")
+    log(f"[nodes] 12d abort_test -np 4 --simulate-nodes 2x2: exit {rc}, "
+        f"MPI_Abort on stderr; DAEMONS_REPORTED "
+        f"{_daemons_reported(stamps, '12d'):.2f} s, job {secs:.1f} s")
+
+
+def phase_nodes(dev, us_11a: float, devices: str = "auto") -> dict:
+    """Phase 12 on one card: 12a, 12b, 12c, 12d; the phase's time.
+    Returns the K1, K6 and K2 peer launches (they join the kernels
+    line)."""
+    t0 = time.perf_counter()
+    launches = phase_nodes_hier(devices)
+    launches["stacked_reduce"] += phase_nodes_headline(devices, us_11a)
+    phase_nodes_big(dev, devices)
+    phase_nodes_abort()
+    log(f"[nodes] phase 12: {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}")
+    return launches
 
 
 def main(argv) -> int:
@@ -6060,6 +6291,7 @@ def main(argv) -> int:
             return 2
         phase_cards()
         phase_procs_shells("auto", torch.cuda.device_count(), None)
+        phase_nodes_hier("auto", torch.cuda.device_count() // 2 * 2)
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6128,10 +6360,13 @@ def main(argv) -> int:
     f_launches = phase_ft(dev)
     for r in rows:  # and phase 10's, the fault-tolerance runs'
         r["launches"] += f_launches.get(r["name"].split(":")[0], 0)
-    p_k1 = phase_procs(dev, headline_us)
+    p_k1, us_11a = phase_procs(dev, headline_us)
     for r in rows:  # and phase 11's, the app shells' (K1 only)
         if r["name"].split(":")[0] == "stacked_reduce":
             r["launches"] += p_k1
+    n_launches = phase_nodes(dev, us_11a)
+    for r in rows:  # and phase 12's, the daemons' shells'
+        r["launches"] += n_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

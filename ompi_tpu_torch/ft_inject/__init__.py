@@ -20,7 +20,13 @@ change.  Ported injection points:
   * MPI_Init (runtime/init.py): ``rank_kill`` arms a one-shot timer on
     each of ``ft_inject_victim_rank``'s ranks that kills it
     ``ft_inject_after`` seconds later (a RankKilled out of its next
-    progress sweep — the ULFM detect/shrink/respawn target).
+    progress sweep — the ULFM detect/shrink/respawn target);
+  * the node daemon (tools/tpud.py): on ``ft_inject_victim_node``,
+    ``daemon_kill`` hard-exits the daemon ``ft_inject_after`` seconds
+    after it starts (the HNP's heartbeat and errmgr path) and
+    ``oob_sever`` drops its channel to the HNP (the reconnect path);
+    (``node_faults``); ``rank_kill`` there SIGKILLs the launch unit
+    hosting the victim rank.
 
 Determinism: a rolling injector owns a ``random.Random`` seeded from
 ``(ft_inject_seed, scope, rank)``, so a chaos run replays bit for bit
@@ -48,8 +54,9 @@ the KV primary):
   * the KV primary (runtime/kvstore.py ``KVServer``): ``kv_kill``
     crashes it at its Nth served op (``KillInjector``).
 
-Not ported (ROADMAP.md): dvm, node and host kills, ``node_faults`` and
-the host agent's slow beat (A8b), and checkpoint I/O faults (A9).
+Not ported (ROADMAP.md): the resident pool's ``dvm_kill``,
+``dvm_disconnect`` and ``host_kill`` and the host agent's slow beat
+(A8b), and checkpoint I/O faults (A9).
 """
 
 from __future__ import annotations
@@ -79,7 +86,10 @@ _plan_var = registry.register(
          "ft_inject_victim_host stalls delay_ms*(factor-1) at each "
          "deposit), rank_kill (ft_inject_victim_rank's ranks die "
          "ft_inject_after seconds after MPI_Init; the number is "
-         "ignored), the btl/tcp frame faults (drop, delay, dup, "
+         "ignored), daemon_kill and oob_sever (the node daemon on "
+         "ft_inject_victim_node hard-exits, or drops its channel to "
+         "the HNP, ft_inject_after seconds after it starts), the "
+         "btl/tcp frame faults (drop, delay, dup, "
          "reorder, corrupt, sever, corrupt_payload), kv_partition (a "
          "KV client op severs its socket first), kv_kill (the KV "
          "primary dies serving its Nth op; the number is that count) "
@@ -110,7 +120,11 @@ _victim_rank_var = registry.register(
 _after_var = registry.register(
     "ft", "inject", "after", 1.0, float,
     help="Seconds after MPI_Init at which the rank_kill class kills "
-         "its victims")
+         "its victims; the node-level scenarios (daemon_kill/"
+         "oob_sever) fire this many seconds after daemon start")
+_victim_var = registry.register(
+    "ft", "inject", "victim_node", 1, int,
+    help="Node id that hosts the daemon_kill/oob_sever scenarios")
 _delay_ms_var = registry.register(
     "ft", "inject", "delay_ms", 20, int,
     help="How long a 'delay' or 'rma_delay' hit holds its thread")
@@ -143,6 +157,7 @@ _sdc_period_var = registry.register(
 # (btl_tcp_payload_digest) can catch it
 BTL_CLASSES = ("drop", "delay", "dup", "reorder", "corrupt", "sever",
                "corrupt_payload")
+NODE_CLASSES = ("daemon_kill", "oob_sever")
 # seeded latency/loss shaping on the tcp + KV client paths — the
 # network-flakiness half of gray failure
 NET_CLASSES = ("net_jitter",)
@@ -500,6 +515,15 @@ def rma_injector(rank: int) -> Optional[RmaInjector]:
 RANK_CLASSES = ("rank_kill",)
 
 
+def node_faults(node_id: int) -> List[str]:
+    """Node-level scenario classes armed on THIS node (the daemon
+    consults this once at startup and arms timers)."""
+    if node_id != _victim_var.value:
+        return []
+    p = plan()
+    return [c for c in NODE_CLASSES if c in p]
+
+
 def victim_ranks(size: Optional[int] = None) -> List[int]:
     """Parse ft_inject_victim_rank into the concrete victim list.
 
@@ -529,7 +553,8 @@ def victim_ranks(size: Optional[int] = None) -> List[int]:
 
 def rank_faults(rank: int, size: Optional[int] = None) -> List[str]:
     """Permanent rank-level scenario classes armed on THIS global
-    rank (mpi_init consults this once and arms a one-shot timer)."""
+    rank (mpi_init consults this once and arms a one-shot timer;
+    tpud consults it to kill the victim's child process for real)."""
     if rank not in victim_ranks(size):
         return []
     p = plan()

@@ -89,17 +89,6 @@ def _kv_pvars():
     return _pv_kv
 
 
-def backoff_s(attempt: int, base: float, cap: float = 5.0) -> float:
-    """One control-plane reconnect backoff step: exponential in
-    ``attempt``, capped, with full 0.5x–1.5x jitter so a fleet of
-    reconnecting clients never stampedes a freshly promoted standby in
-    lockstep (a copy of the reference's runtime/oob.py ``backoff_s``;
-    the multi-node half that owns it there is ROADMAP A8c)."""
-    import random
-    d = min(cap, max(0.001, base) * (2 ** min(6, max(0, attempt))))
-    return d * (0.5 + random.random())
-
-
 def job_secret() -> Optional[str]:
     """The per-job control-plane secret (launcher-generated,
     env-forwarded).  The sec/basic analog (ref:
@@ -945,9 +934,10 @@ class KVClient:
                 if fast > 0:
                     fast -= 1
                 else:
-                    # shared control-plane pacing (the reference's
-                    # oob.backoff_s; oob is not ported yet)
-                    time.sleep(backoff_s(backoffs, delay, cap=2.0))
+                    # shared control-plane pacing (oob.backoff_s);
+                    # lazy import — oob itself imports this module
+                    from ompi_tpu_torch.runtime import oob
+                    time.sleep(oob.backoff_s(backoffs, delay, cap=2.0))
                     backoffs += 1
             if self._nj is not None:
                 # net_jitter: delay only, never a drop — KV callers

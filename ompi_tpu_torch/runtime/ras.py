@@ -6,12 +6,12 @@ ref: orte/util/hostfile/hostfile.c:51-55 collapsed to line parsing),
 or the **simulator** (--simulate-nodes NxM — the ras/simulator analog,
 ref: orte/mca/ras/simulator/ras_sim_module.c:67-91: fabricate an
 N-node allocation with M slots each so multi-node mapping/launch/
-wireup logic is testable on one machine).
+wireup logic is testable on one machine; each simulated node's app
+shell gives its ranks M devices of their own — M logical devices of
+one card, M cards when the host has N × M, or M logical devices of the
+CPU — a fake N-node × M-device mesh, tools/hostrun.py).
 
-With no source the allocation is the single local node.  The port's
-mpirun takes that branch only: --hosts, --hostfile and
---simulate-nodes raise there until the multi-node launch is ported
-(ROADMAP A8c); the parsers are kept whole.
+With no source the allocation is the single local node.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ class Node:
     node_id: int = 0
     simulated: bool = False    # launched as a local process, fake identity
     local: bool = False        # the HNP's own host — exec directly, no agent
-    sim_devices: int = 0       # simulator: forced-CPU device count
+    sim_devices: int = 0       # simulator: the node's device count
 
 
 def parse_hosts(spec: str) -> List[Node]:

@@ -26,9 +26,19 @@ Devices (TPUMPI_DEVICES, mpirun --devices):
     plain versions), the explicit request the CPU tests make;
   * ``none`` — host-only ranks (no device).
 
-Env contract (set by mpirun): TPUMPI_SIZE, TPUMPI_RANK_BASE,
-TPUMPI_LOCAL_RANKS, TPUMPI_KV_ADDR, TPUMPI_NODE, TPUMPI_JOBID,
-TPUMPI_SESSION_DIR, TPUMPI_DEVICES (auto|cpu|none).
+A simulated node (mpirun --simulate-nodes NxM sets TPUMPI_SIM_NODES=N
+and TPUMPI_SIM_DEVICES=M in its daemon's env) has M devices of its
+own, handed to its ranks in node order: with ``auto``, M logical
+devices of card ``n % count`` for node n (``runtime.state.
+LogicalDevice``: ranks on distinct slots of one card form a mesh, so
+the node's communicator takes the mesh tier), or M distinct cards when
+the host has N × M of them; with ``cpu``, M logical devices of the
+CPU.  The reference forces an M-device CPU platform there instead.
+
+Env contract (set by mpirun or tpud): TPUMPI_SIZE, TPUMPI_RANK_BASE,
+TPUMPI_LOCAL_RANKS, TPUMPI_KV_ADDR, TPUMPI_NODE, TPUMPI_NODE_RANK_BASE,
+TPUMPI_JOBID, TPUMPI_SESSION_DIR, TPUMPI_DEVICES (auto|cpu|none),
+TPUMPI_SIM_NODES and TPUMPI_SIM_DEVICES (simulated nodes only).
 """
 
 from __future__ import annotations
@@ -38,19 +48,26 @@ import runpy
 import sys
 import threading
 import traceback
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from ompi_tpu_torch.runtime.rte import HybridRTE, HybridWorld, set_thread_rte
+from ompi_tpu_torch.runtime.state import LogicalDevice
 
 
-def shell_devices(choice: str) -> Optional[list]:
-    """The devices the shell's ranks take in turn (rank r gets entry
-    r % len): the cards for ``auto`` (raises when there is none), the
-    CPU for ``cpu``, None for ``none``."""
+def shell_devices(choice: str,
+                  sim: Optional[Tuple[int, int, int]] = None
+                  ) -> Optional[list]:
+    """The devices the shell's ranks take in turn: the cards for
+    ``auto`` (raises when there is none), the CPU for ``cpu``, None for
+    ``none``.  ``sim`` = (node, nodes, M) on a simulated node: that
+    node's M devices (see the module docstring)."""
     if choice == "none":
         return None
     import torch
     if choice == "cpu":
+        if sim is not None:
+            return [LogicalDevice(torch.device("cpu"), s)
+                    for s in range(sim[2])]
         return [torch.device("cpu")]
     if choice != "auto":
         raise ValueError(f"TPUMPI_DEVICES={choice!r}: auto, cpu or none")
@@ -60,7 +77,22 @@ def shell_devices(choice: str) -> Optional[list]:
             "mpirun --devices auto: no CUDA card is visible to this app "
             "shell; no rank was started (run with --devices cpu to use "
             "the CPU, or --devices none for host-only ranks)")
-    return [torch.device("cuda", i) for i in range(count)]
+    cards = [torch.device("cuda", i) for i in range(count)]
+    if sim is None:
+        return cards
+    node, nodes, m = sim
+    if count >= nodes * m:
+        return cards[node * m:(node + 1) * m]
+    return [LogicalDevice(cards[node % count], s) for s in range(m)]
+
+
+def sim_node() -> Optional[Tuple[int, int, int]]:
+    """(node, nodes, M) from a simulated node's env, else None."""
+    m = int(os.environ.get("TPUMPI_SIM_DEVICES", "0"))
+    if m < 1:
+        return None
+    return (int(os.environ.get("TPUMPI_NODE", "0")),
+            int(os.environ.get("TPUMPI_SIM_NODES", "1")), m)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -75,7 +107,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     jobid = os.environ.get("TPUMPI_JOBID", "job0")
     session = os.environ.get("TPUMPI_SESSION_DIR", "/tmp")
 
-    devices = shell_devices(os.environ.get("TPUMPI_DEVICES", "auto"))
+    sim = sim_node()
+    devices = shell_devices(os.environ.get("TPUMPI_DEVICES", "auto"), sim)
+    # rank r takes entry r % len; a simulated node's devices go to its
+    # own ranks in node order
+    offset = int(os.environ.get("TPUMPI_NODE_RANK_BASE", "0")) \
+        if sim is not None else 0
 
     world = HybridWorld(size, base, nlocal)
     failure: List[Optional[int]] = [None]
@@ -112,7 +149,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             rte = HybridRTE(world, rank, kv_addr, node_id=node_id,
                             jobid=jobid, session_dir=session)
             if devices:
-                rte.default_device = devices[rank % len(devices)]
+                rte.default_device = devices[(rank - offset) % len(devices)]
             set_thread_rte(rte)
             runpy.run_path(prog, run_name="__main__")
         except SystemExit as e:

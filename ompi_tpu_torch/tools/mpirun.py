@@ -1,5 +1,6 @@
 """mpirun: launch N ranks with KV wireup, IO forwarding and failure
-propagation on one host.
+propagation — single-host directly, multi-host through per-node
+daemons.
 
 Port of the reference's tools/mpirun.py, a re-design of orterun/HNP
 (ref: orte/tools/orterun/main.c:13, orted_submit.c job construction;
@@ -9,28 +10,34 @@ orte/mca/errmgr/default_hnp).  The launch lifecycle is an
 EVENT-DRIVEN STATE MACHINE (runtime/statemachine.py — the
 orte/mca/state analog, ref: state.h:92-109, state_base_fns.c:428-843):
 
-    INIT -> ALLOCATE -> MAP -> LAUNCH_APPS -> RUNNING -> DRAINING
-         -> TERMINATED
+    INIT -> ALLOCATE -> MAP -> [LAUNCH_DAEMONS -> DAEMONS_REPORTED]
+         -> LAUNCH_APPS -> RUNNING -> DRAINING -> TERMINATED
 
-Proc exits, KV aborts and timeouts arrive as events from any thread;
-the errmgr policy (first abnormal exit / abort kills the job) is
-implemented as the PROC_FAILED / ABORTED / TIMEOUT state handlers.
+Daemon report-ins, proc exits, node completions, KV aborts and
+timeouts arrive as events from any thread; the errmgr policy (first
+abnormal exit / daemon loss / abort kills the job) is implemented as
+the PROC_FAILED / DAEMON_FAILED / ABORTED / TIMEOUT state handlers.
 ``--verbose state`` traces every transition.
 
-The launcher IS the daemon: it fork/execs each rank (or, with
---ranks-per-proc, each app shell, tools/hostrun.py) with
-subprocess.Popen, so no child inherits a CUDA context; this module
-imports nothing that initialises a card.  Not ported yet, each
-raising NotImplementedError that names its ROADMAP item: the
-multi-node launch (--hosts, --hostfile, --simulate-nodes: the PLM,
-tpud daemons and rmaps, A8c), --dvm (the resident pool, A8b) and
---ckpt-dir / --restart (cr/ckpt.py, A9).
+On the default single-local-node allocation the launcher IS the
+daemon: it fork/execs each rank (or, with --ranks-per-proc, each app
+shell, tools/hostrun.py) with subprocess.Popen, daemon states
+skipped.  With --hosts/--hostfile/--simulate-nodes the PLM takes
+over: a radix tree of tpud daemons is launched (ssh agent or local
+subprocesses), each daemon runs its slice of the rmaps job map and
+relays IOF/exits back (tools/plm.py, tools/tpud.py).  Neither this
+module nor the daemons import anything that initialises a card, so
+no child inherits a CUDA context.  A simulated node's app shell gives
+its ranks M devices of their own (tools/hostrun.py).  Not ported yet,
+each raising NotImplementedError that names its ROADMAP item: --dvm
+(the resident pool, A8b) and --ckpt-dir / --restart (cr/ckpt.py, A9).
 
 Usage:
     python -m ompi_tpu_torch.tools.mpirun -np 4 [--mca k v] [--tag-output]
-        [--timeout SEC] [--verbose state] [--ranks-per-proc N|all]
-        [--devices auto|cpu|none] [--bind-to none|core|numa]
-        prog [args...]
+        [--timeout SEC] [--verbose state] [--hosts a,b:4 |
+        --hostfile F | --simulate-nodes NxM] [--map-by byslot|bynode]
+        [--ranks-per-proc N|all] [--devices auto|cpu|none]
+        [--bind-to none|core|numa] prog [args...]
 """
 
 from __future__ import annotations
@@ -218,13 +225,308 @@ def _errmgr_table(sm: smx.StateMachine, drain) -> None:
     })
 
 
-def run_multinode(opts, nodes, rpp: int, hybrid: bool) -> int:
-    """The PLM path (per-node daemons, the rmaps job map, tree launch)
-    is not ported yet."""
-    raise NotImplementedError(
-        "mpirun's multi-node launch (--hosts, --hostfile, "
-        "--simulate-nodes: tools/plm.py, tools/tpud.py, runtime/oob.py, "
-        "runtime/rmaps.py) is not ported yet (ROADMAP.md A8c)")
+def run_multinode(opts, nodes, rpp: int, hybrid: bool,
+                  ckpt_env: dict) -> int:
+    """The PLM path: per-node daemons, rmaps job map, tree launch —
+    sequenced by the hnp-role state machine."""
+    from ompi_tpu_torch.runtime import oob, rmaps
+    from ompi_tpu_torch.tools.plm import HNP
+
+    sm = smx.StateMachine("hnp", verbose="state" in opts.verbose.split(","))
+    d = sm.data
+    d.update(registered=set(), done=set(), drained=False)
+
+    pkg_root = _pkg_root()
+
+    def on_allocate(sm, info):
+        # allocation itself happened in main() (ras.allocate); this
+        # state validates and records it
+        d["nodes"] = nodes
+        sm.activate(smx.MAP)
+
+    def on_map(sm, info):
+        try:
+            d["maps"] = rmaps.map_ranks(
+                nodes, opts.np, rpp if hybrid else 1,
+                policy=opts.map_by, oversubscribe=opts.oversubscribe)
+        except ValueError as e:
+            sm.activate(smx.LAUNCH_FAILED, msg=str(e), code=2)
+            return
+        sm.activate(smx.LAUNCH_DAEMONS)
+
+    def on_launch_daemons(sm, info):
+        maps = d["maps"]
+        any_remote = any(not (n.simulated or n.local) for n in nodes)
+        if any_remote:
+            hnp_ip = opts.hnp_ip or oob.local_ip_toward(
+                next(n.name for n in nodes
+                     if not (n.simulated or n.local)) + ":22")
+        else:
+            hnp_ip = "127.0.0.1"
+        server = KVServer(opts.np,
+                          host="0.0.0.0" if any_remote else "127.0.0.1",
+                          advertise=hnp_ip if any_remote else None)
+        _wire_abort(server, sm)
+        hnp = HNP(maps, agent=opts.agent, python=sys.executable,
+                  pythonpath=pkg_root, tree_radix=opts.tree_radix,
+                  bind_all=any_remote, events=sm)
+        hnp.tag_output = opts.tag_output
+        d.update(server=server, hnp=hnp,
+                 want={m.node.node_id for m in maps},
+                 active={m.node.node_id for m in maps if m.procs})
+
+        # per-node daemon env: a simulated node's app shell gives its
+        # ranks M devices of its own (ras/simulator analog; the
+        # reference forces an M-device CPU platform, the port hands
+        # out M logical devices — tools/hostrun.py shell_devices).
+        # MCA env reaches the DAEMONS too — heartbeat, oob retry and
+        # ft_inject knobs are read by tpud itself, not only by ranks
+        mca_env = {
+            **{k: v for k, v in os.environ.items()
+               if k.startswith(("TPUMPI_MCA_", "OMPI_MCA_"))},
+            **{f"TPUMPI_MCA_{k}": v for k, v in opts.mca},
+        }
+        node_env = {}
+        for n in nodes:
+            env = {"TPUMPI_JOB_SECRET":
+                   os.environ["TPUMPI_JOB_SECRET"],
+                   **mca_env}
+            if n.simulated and opts.devices != "none":
+                env["TPUMPI_SIM_NODES"] = str(len(nodes))
+                env["TPUMPI_SIM_DEVICES"] = str(n.sim_devices)
+            node_env[n.node_id] = env
+
+        job_env = {
+            # MCA environment forwards to remote ranks (the schizo
+            # discipline: reference users' OMPI_MCA_* env applies
+            # job-wide, not just on the mpirun host); explicit --mca
+            # pairs below still win
+            **{k: v for k, v in os.environ.items()
+               if k.startswith(("TPUMPI_MCA_", "OMPI_MCA_"))},
+            **ckpt_env,
+            "TPUMPI_BIND": opts.bind_to,
+            "TPUMPI_SIZE": str(opts.np),
+            "TPUMPI_KV_ADDR": server.uri,
+            "TPUMPI_JOBID": f"job-{os.getpid()}",
+            "TPUMPI_JOB_SECRET": os.environ["TPUMPI_JOB_SECRET"],
+        }
+        if _errmgr_policy_var.value in ("ulfm", "respawn"):
+            # ranks start the ulfm note watcher (ompi_tpu_torch/ft/ulfm);
+            # respawn rides the same detection plane
+            job_env["TPUMPI_ULFM"] = "1"
+        if hybrid:
+            job_env["TPUMPI_DEVICES"] = opts.devices
+        for key, value in opts.mca:
+            job_env[f"TPUMPI_MCA_{key}"] = value
+        d["job_env"] = job_env
+
+        hnp.spawn_daemons(hnp_ip, node_env)
+        t = threading.Timer(max(90.0, opts.timeout),
+                            lambda: sm.activate("EV_REG_TIMEOUT"))
+        t.daemon = True
+        t.start()
+        d["reg_timer"] = t
+
+    def ev_daemon_up(sm, info):
+        d["registered"].add(info["node"])
+        if sm.state == smx.LAUNCH_DAEMONS \
+                and d["registered"] >= d["want"]:
+            sm.activate(smx.DAEMONS_REPORTED)
+
+    def ev_reg_timeout(sm, info):
+        if sm.state == smx.LAUNCH_DAEMONS:
+            missing = d["want"] - d["registered"]
+            sm.activate(
+                smx.LAUNCH_FAILED, code=1,
+                msg=f"daemons on node(s) {sorted(missing)} never "
+                    f"registered")
+
+    def ev_conn_lost(sm, info):
+        # a connection died before registering: fatal during launch,
+        # a stray probe once running
+        if sm.state == smx.LAUNCH_DAEMONS:
+            sm.activate(smx.LAUNCH_FAILED, code=1,
+                        msg="daemon connection lost before "
+                            "registration")
+
+    def ev_daemon_lost(sm, info):
+        if info["node"] in d["done"] or d.get("drained") \
+                or sm.state in (smx.DRAINING, smx.TERMINATED):
+            return  # clean teardown closes daemon channels
+        if sm.state == smx.RUNNING \
+                and _errmgr_policy_var.value == "ulfm" \
+                and try_ulfm_node(sm, info["node"]):
+            return  # survivors continue with ERR_PROC_FAILED
+        sm.activate(smx.DAEMON_FAILED, node=info["node"])
+
+    def try_ulfm_node(sm, node: int) -> bool:
+        """ULFM forward recovery on daemon loss: declare every rank
+        the dead node hosted permanently failed (one note each) and
+        keep the job running — survivors shrink around the hole."""
+        failed = next((m for m in d["maps"]
+                       if m.node.node_id == node and m.procs), None)
+        if failed is None:
+            return False
+        ranks: List[int] = []
+        for p in failed.procs:
+            ranks += list(range(p.rank_base,
+                                p.rank_base + max(1, p.nlocal)))
+        _ulfm_publish_failed(d["server"], ranks)
+        d["done"].add(node)  # the node will never report node_done
+        # one atomic domain record: the whole host's rank set failed
+        # together, not N racing per-rank detections
+        _obs.record_event(_obs.EV_HOST_LOST, node, len(ranks), 1)
+        sys.stderr.write(
+            f"mpirun: daemon on node {node} lost; ulfm policy: "
+            f"ranks {ranks} declared failed, job continues on "
+            f"survivors\n")
+        if d["active"] <= d["done"]:
+            sm.activate(smx.DRAINING, failed=False)
+        return True
+
+    def on_daemons_reported(sm, info):
+        d["reg_timer"].cancel()
+        sm.activate(smx.LAUNCH_APPS)
+
+    def on_launch_apps(sm, info):
+        prog = os.path.abspath(opts.prog) if os.path.exists(opts.prog) \
+            else opts.prog
+        if opts.preload and not os.path.isfile(prog):
+            sm.activate(smx.LAUNCH_FAILED, code=2,
+                        msg=f"--preload: cannot read program "
+                            f"{opts.prog!r}")
+            return
+        d["launched_prog"] = prog
+        if opts.preload and os.path.isfile(prog) \
+                and _errmgr_policy_var.value == "respawn":
+            # only the respawn policy ever relaunches from d;
+            # the normal path lets HNP.launch do its own encode
+            import base64 as _b64
+            with open(prog, "rb") as _fh:
+                d["prog_data"] = _b64.b64encode(
+                    _fh.read()).decode("ascii")
+        d["hnp"].launch(prog, opts.args, d["job_env"], opts.wdir,
+                        preload=opts.preload)
+        sm.activate(smx.RUNNING)
+
+    def try_respawn_remote(info) -> bool:
+        """Respawn policy on the PLM path: relaunch the dead launch
+        unit on ITS OWN node (the daemon survived — only the rank
+        process died; daemon loss still falls through to the ulfm/
+        abort ladder in ev_daemon_lost)."""
+        tag = info.get("tag", "")
+        ranks = _tag_ranks(tag)
+        if not ranks:
+            return False
+        node = None
+        unit = None
+        for m in d["maps"]:
+            for p in m.procs:
+                lo = p.rank_base
+                hi = lo + max(1, p.nlocal)
+                if lo <= ranks[0] < hi:
+                    node, unit = m.node.node_id, p
+                    break
+            if unit is not None:
+                break
+        if unit is None:
+            return False
+        tries = d.setdefault("respawns", {}).get(tag, 0)
+        max_r = int(_errmgr_max_restarts_var.value)
+        if tries >= max_r:
+            sys.stderr.write(
+                f"mpirun: {info['tag']} died again but reached "
+                f"errmgr_base_max_restarts={max_r}; giving up\n")
+            return False
+        d["respawns"][tag] = tries + 1
+        epoch = d["ft_epoch"] = d.get("ft_epoch", 0) + 1
+        # note first, replacement second (same ordering argument as
+        # the local path): survivors must see the death before the
+        # newcomer's init fences can find partners
+        _ulfm_publish_failed(d["server"], ranks, epoch)
+        env = dict(d["job_env"])
+        env["TPUMPI_FT_EPOCH"] = str(epoch)
+        env["TPUMPI_RESPAWN"] = "1"
+        try:
+            d["hnp"].send_launch(node, {
+                "op": "launch", "prog": d["launched_prog"],
+                "args": opts.args, "prog_data": d.get("prog_data"),
+                "wdir": opts.wdir, "env": env,
+                "procs": [{"rank_base": unit.rank_base,
+                           "nlocal": unit.nlocal}],
+            })
+        except (KeyError, ConnectionError, OSError) as e:
+            sys.stderr.write(
+                f"mpirun: respawn policy: relaunch of {tag} on node "
+                f"{node} failed ({e}); tearing down\n")
+            return False
+        sys.stderr.write(
+            f"mpirun: {info['tag']} exited with status "
+            f"{info['code']}; respawn policy: relaunching on node "
+            f"{node} at epoch {epoch} (attempt {tries + 1}/{max_r})\n")
+        return True
+
+    def ev_proc_exit(sm, info):  # only abnormal exits are posted
+        if d.get("drained"):
+            return
+        if sm.state == smx.RUNNING \
+                and _errmgr_policy_var.value == "respawn" \
+                and try_respawn_remote(info):
+            return
+        if sm.state == smx.RUNNING \
+                and _errmgr_policy_var.value == "ulfm":
+            ranks = _tag_ranks(info["tag"])
+            if ranks:
+                _ulfm_publish_failed(d["server"], ranks)
+                sys.stderr.write(
+                    f"mpirun: {info['tag']} exited with status "
+                    f"{info['code']}; ulfm policy: ranks {ranks} "
+                    f"declared failed, job continues on survivors\n")
+                return
+        sm.activate(smx.PROC_FAILED, who=info["tag"],
+                    code=info["code"], error=info.get("error", ""))
+
+    def ev_node_done(sm, info):
+        d["done"].add(info["node"])
+        if sm.state in (smx.RUNNING, smx.LAUNCH_APPS) \
+                and d["active"] <= d["done"]:
+            sm.activate(smx.DRAINING, failed=False)
+
+    def drain(failed: bool) -> None:
+        hnp = d.get("hnp")
+        server = d.get("server")
+        if server is not None and "kv" in opts.verbose.split(","):
+            sys.stderr.write(
+                f"mpirun: kv server served "
+                f"{server.connections_served} connections\n")
+        if "reg_timer" in d:
+            d["reg_timer"].cancel()
+        if hnp is not None:
+            hnp.shutdown(failed)
+        if server is not None:
+            server.close()
+
+    sm.register_table({
+        smx.ALLOCATE: on_allocate,
+        smx.MAP: on_map,
+        smx.LAUNCH_DAEMONS: on_launch_daemons,
+        smx.DAEMONS_REPORTED: on_daemons_reported,
+        smx.LAUNCH_APPS: on_launch_apps,
+        "EV_DAEMON_UP": ev_daemon_up,
+        "EV_REG_TIMEOUT": ev_reg_timeout,
+        "EV_CONN_LOST": ev_conn_lost,
+        "EV_DAEMON_LOST": ev_daemon_lost,
+        "EV_PROC_EXIT": ev_proc_exit,
+        "EV_NODE_DONE": ev_node_done,
+    })
+    _errmgr_table(sm, drain)
+    sm.start_timeout(opts.timeout)
+    sm.activate(smx.ALLOCATE)
+    try:
+        return sm.run()
+    finally:
+        if not d.get("drained"):
+            drain(True)
 
 
 def run_local(opts, rpp: int, hybrid: bool, ckpt_env: dict) -> int:
@@ -521,10 +823,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="File of 'name [slots=N]' lines")
     ap.add_argument("--simulate-nodes", default=None, dest="simulate",
                     help="NxM: fake N nodes with M slots each as local "
-                         "daemons (the ras/simulator analog).  These "
-                         "three raise until the multi-node launch is "
-                         "ported (ROADMAP.md A8c), which brings its "
-                         "mapping and daemon options with it")
+                         "daemons (the ras/simulator analog); a node's "
+                         "app shell gives its ranks M devices: M "
+                         "logical devices of card n %% count (M distinct "
+                         "cards when the host has N x M), or of the CPU "
+                         "with --devices cpu")
+    ap.add_argument("--map-by", default="byslot", dest="map_by",
+                    help="rmaps policy: byslot | bynode | ppr:N:node "
+                         "| seq | rankfile:PATH")
+    ap.add_argument("--oversubscribe", action="store_true")
+    ap.add_argument("--launch-agent", default="ssh", dest="agent",
+                    help="Remote daemon launcher (e.g. 'ssh' or "
+                         "'python -m ompi_tpu_torch.tools.localssh')")
+    ap.add_argument("--tree-radix", type=int, default=32,
+                    help="PLM launch-tree fan-out per daemon")
+    ap.add_argument("--preload", action="store_true",
+                    help="Ship the program file to each node inside "
+                         "the launch message (filem/raw analog: no "
+                         "shared filesystem needed)")
     ap.add_argument("--bind-to", default="none", dest="bind_to",
                     choices=("none", "core", "numa"),
                     help="Bind each rank to a core / NUMA domain by "
@@ -542,6 +858,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="Restart from the latest complete snapshot "
                          "in DIR (not ported yet, ROADMAP.md A9: "
                          "cr/ckpt.py)")
+    ap.add_argument("--hnp-ip", default=None,
+                    help="IP remote nodes should dial for the HNP "
+                         "control + KV servers (default: auto-detect)")
     ap.add_argument("--dvm", default=None, metavar="URI_FILE",
                     help="submit the job to a running resident pool "
                          "instead of launching (orte-dvm analog; not "
@@ -598,7 +917,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # only the implicit local default uses the direct fork/exec path
     if any(x is not None for x in (opts.hosts, opts.hostfile,
                                    opts.simulate)):
-        return run_multinode(opts, nodes, rpp, hybrid)
+        return run_multinode(opts, nodes, rpp, hybrid, ckpt_env)
     return run_local(opts, rpp, hybrid, ckpt_env)
 
 

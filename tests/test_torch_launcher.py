@@ -145,14 +145,12 @@ def test_kv_server_refuses_unauthenticated_connection(monkeypatch):
         server.close()
 
 
-@pytest.mark.parametrize("flag", [("--hosts", "a,b"),
-                                  ("--simulate-nodes", "2x2"),
-                                  ("--dvm", "uri.txt"),
+@pytest.mark.parametrize("flag", [("--dvm", "uri.txt"),
                                   ("--ckpt-dir", "ckpt")])
 def test_unported_launch_options_raise(flag, tmp_path):
-    """The multi-node launch (A8c), the resident pool (A8b) and the
-    checkpoint store (A9) raise NotImplementedError naming their
-    ROADMAP item; no rank is started."""
+    """The resident pool (A8b) and the checkpoint store (A9) raise
+    NotImplementedError naming their ROADMAP item; no rank is
+    started."""
     prog = tmp_path / "never.py"
     prog.write_text("open(__file__ + '.ran', 'w').close()\n")
     r = mpirun_run(2, str(prog), extra=flag, timeout=60, cwd=str(tmp_path))
