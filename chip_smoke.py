@@ -379,6 +379,34 @@ Phases, each fatal on failure (nothing is caught and carried on):
              card a simulated device (``-np 2H --simulate-nodes 2xH``,
              H = half the cards).
 
+13. pool    — the resident pool (ompi_tpu_torch/tools/dvm.py) as two
+             subprocesses, ``python -m ompi_tpu_torch.tools.dvm --np 8
+             --devices auto`` (their own CUDA contexts; the second with
+             ``--batch-window-us 800000``), driven through the port's
+             DvmClient; each pool sees the script's card alone
+             (CUDA_VISIBLE_DEVICES), so every session rank is on it
+             (coll/hbm) and runs
+             examples/dvm_session.py (a rep: iallreduce_arr SUM int32,
+             MAX float32, ibcast_arr: one fused batch, 2 K3; a blocking
+             allreduce_arr of 64 float32: 1 K1).  13a: a session of 4
+             twice (digests equal to each other and to a plain-torch
+             digest of the same formula), a warm attach and 200 reps
+             (µs a collective inside the session), two sessions at once
+             with the window shut; on the second pool a solo run, then
+             two sessions at once with the window open: one combined K3
+             a group (dvm_xsession_batches +1, _collectives +6); the
+             K3/K1 launches of each step read from the pool's metrics
+             RPC, exact; no kernel library loaded after the first run.
+             13b: ``mpirun --dvm URI -np 4`` examples/device_allreduce.py
+             exits 0, exact, 4 K1 (rank 0's line and the pool's
+             metrics).  13c: a session whose program raises returns
+             non-zero and launches nothing; the next session prints the
+             solo digest with 2 K3 + 1 K1.
+             13d: halt drains each pool, whose process exits 0.  The
+             pools' K3 and K1 launches join the kernels line's counts;
+             on a failure the pools' stderr tails are printed and both
+             are killed.
+
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
 result when no CUDA card is present.  ``python3 chip_smoke.py --cards``
@@ -6263,6 +6291,384 @@ def phase_nodes(dev, us_11a: float, devices: str = "auto") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 13. the resident pool: tools/dvm.py, its sessions, mpirun --dvm
+# ---------------------------------------------------------------------------
+
+POOL_NP = 8             # the pool's rank capacity (--np)
+POOL_SESSION = 4        # ranks a session: two sessions fill the pool
+POOL_WINDOW_US = 800_000  # 13a's open window, the reference test's
+POOL_REPS = 200         # reps of the timed run: 4 collectives a rep
+POOL_T = 120            # seconds: each RPC, wait and job of the phase
+POOL_PROG = os.path.join("ompi_tpu_torch", "examples", "dvm_session.py")
+
+
+class _PoolProc:
+    """``python -m ompi_tpu_torch.tools.dvm`` as a subprocess of its own
+    (its own CUDA context; this script's stdio untouched): stdout to
+    /dev/null, stderr to a file whose tail a failure prints.  ``kill``
+    ends it (and anything it started) whatever state it is in."""
+
+    def __init__(self, tmp: str, name: str, devices: str,
+                 window_us: int = 0, dev=None) -> None:
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.uri = os.path.join(tmp, f"{name}.uri")
+        self.err_path = os.path.join(tmp, f"{name}.err")
+        cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.dvm",
+               "--np", str(POOL_NP), "--devices", devices,
+               "--uri-file", self.uri]
+        if window_us:
+            cmd += ["--batch-window-us", str(window_us)]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+        if dev is not None and dev.type == "cuda":
+            # the pool sees this card alone, so every session rank
+            # (card r % count) lands on it: coll/hbm, the path whose
+            # counts the phase derives — never the mesh tier
+            seen = env.get("CUDA_VISIBLE_DEVICES")
+            env["CUDA_VISIBLE_DEVICES"] = (
+                seen.split(",")[dev.index or 0].strip() if seen
+                else str(dev.index or 0))
+        self._err = open(self.err_path, "w")
+        self.t0 = time.perf_counter()
+        self.p = subprocess.Popen(cmd, cwd=root, env=env,
+                                  stdout=subprocess.DEVNULL,
+                                  stderr=self._err, start_new_session=True)
+        self.ready_s = None
+
+    def wait_ready(self) -> float:
+        deadline = time.monotonic() + POOL_T
+        while not os.path.exists(self.uri):
+            if self.p.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"pool {self.uri} never came up (exit "
+                    f"{self.p.poll()}):\n{self.tail()}")
+            time.sleep(0.02)
+        self.ready_s = time.perf_counter() - self.t0
+        return self.ready_s
+
+    def tail(self) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-3000:]
+
+    def halt(self) -> int:
+        from ompi_tpu_torch.tools.dvm import DvmClient
+        with DvmClient(self.uri) as c:
+            if not c.halt().get("ok"):
+                raise AssertionError(f"pool {self.uri}: halt refused")
+        return self.p.wait(timeout=POOL_T)
+
+    def kill(self) -> None:
+        import signal
+        if self.p.poll() is None:
+            try:
+                os.killpg(self.p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            self.p.wait(timeout=POOL_T)
+        self._err.close()
+
+
+def pool_digest(dev, np_: int, reps: int) -> str:
+    """The DIGEST of examples/dvm_session.py on ``np_`` ranks, ``reps``
+    reps, computed here with plain torch on ``dev`` from the same
+    formula (rank 0's result bytes of each collective of a rep)."""
+    r = torch.arange(np_, device=dev, dtype=torch.int32)[:, None]
+    a = (torch.arange(32, dtype=torch.int32, device=dev) * (r + 1)).sum(
+        0, dtype=torch.int32)
+    b = (r + 1).float().expand(np_, 16).clone()
+    b[:, 0] = (-r[:, 0]).float()  # an integer 0 for rank 0, never -0.0
+    b = b.max(0).values
+    c = torch.full((7,), (1 % np_) * 3 + 1, dtype=torch.int32, device=dev)
+    d = (r + 1).float().expand(np_, 64).sum(0)
+    rep = b"".join(t.cpu().numpy().tobytes() for t in (a, b, c, d))
+    return hashlib.sha256(rep * reps).hexdigest()
+
+
+def _pool_lines(stdout: str, kind: str, tag: str):
+    out = []
+    for line in stdout.splitlines():
+        parts = line.split(" ", 2)
+        if len(parts) == 3 and parts[0] == kind and parts[1] == tag:
+            out.append(parts[2])
+    return out
+
+
+def _pool_digest_of(resp: dict, tag: str, what: str) -> str:
+    if resp.get("code") != 0:
+        raise AssertionError(f"{what}: exit {resp.get('code')}:\n"
+                             f"{resp.get('stderr', '')[-3000:]}")
+    got = _pool_lines(resp["stdout"], "DIGEST", tag)
+    if len(got) != 1:
+        raise AssertionError(f"{what}: no single DIGEST line in "
+                             f"{resp['stdout']!r}")
+    return got[0]
+
+
+def _pool_counts(c) -> dict:
+    m = c.metrics(events=0, prometheus=False)
+    n = dict(m["launches"])
+    n["xsession_batches"] = m["pvars"]["dvm_xsession_batches"]
+    n["xsession_collectives"] = m["pvars"]["dvm_xsession_collectives"]
+    n["libs"] = m["kernel_libs"]
+    return n
+
+
+def _pool_moved(a: dict, b: dict) -> dict:
+    keys = ("fused_batch", "stacked_reduce", "xsession_batches",
+            "xsession_collectives")
+    return {k: b.get(k, 0) - a.get(k, 0) for k in keys}
+
+
+def pool_pair(uri: str, tag: str):
+    """Two sessions of POOL_SESSION ranks attached first (the pool
+    reports 2 resident before either program dispatches), both running
+    the mix at once, then detached.  Returns (responses, wall s)."""
+    from ompi_tpu_torch.tools.dvm import DvmClient
+    cs = [DvmClient(uri), DvmClient(uri)]
+    res = [None, None]
+    try:
+        sids = [c.attach(POOL_SESSION, timeout=POOL_T)["sid"] for c in cs]
+
+        def runner(i):
+            res[i] = cs[i].run(sids[i], POOL_PROG, [tag, "1", "report"],
+                               timeout=POOL_T)
+
+        ths = [threading.Thread(target=runner, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=POOL_T)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in ths) or None in res:
+            raise AssertionError(f"{tag}: a concurrent run never returned")
+        for c, sid in zip(cs, sids):
+            c.detach(sid)
+    finally:
+        for c in cs:
+            c.close()
+    return res, wall
+
+
+def _pool_want(card: bool, k3: int, k1: int, xb: int = 0, xc: int = 0):
+    return {"fused_batch": k3 if card else 0,
+            "stacked_reduce": k1 if card else 0,
+            "xsession_batches": xb, "xsession_collectives": xc}
+
+
+def _pool_check(moved: dict, want: dict, what: str) -> None:
+    if moved != want:
+        raise AssertionError(f"{what}: the pool's counts moved {moved}, "
+                             f"expected {want} (K3 one a (op, dtype) group "
+                             f"a batch: 2 a rep; a combined dispatch 2 for "
+                             f"both sessions; K1 one a blocking allreduce)")
+
+
+def phase_pool(dev, devices: str = "auto") -> dict:
+    """Phase 13: the resident pool on the card.  Two pool subprocesses
+    (``--np 8 --devices auto``; the second with ``--batch-window-us
+    800000``) driven through the port's DvmClient.  13a: one session of
+    4 runs examples/dvm_session.py twice (digests equal, and equal to
+    the plain-torch digest of the same formula), a warm attach runs it
+    POOL_REPS times (µs a collective), two sessions of 4 run it at
+    once with the window shut; on the second pool a solo run, then two
+    sessions at once with the window open — their fused batches ride
+    one combined K3 launch a group.  Each run's K3 / K1 launches and
+    dvm_xsession moves (the pool's metrics) exact.  13b: ``mpirun --dvm
+    URI -np 4`` examples/device_allreduce.py exits 0, exact, its K1
+    launches exact.  13c: a session whose program raises returns
+    non-zero and launches nothing; a session attached right after
+    prints the solo digest, its launches exact.  Each pool sees only
+    ``dev`` (the counts are derived for every rank on one card).  13d: halt drains each pool and
+    its process exits 0.  Returns the pools' K3 and K1 launches over
+    their lives (they join the kernels line)."""
+    import tempfile
+
+    from ompi_tpu_torch.tools.dvm import DvmClient
+    t_phase = time.perf_counter()
+    card = devices == "auto"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    pa = _PoolProc(tmp, "shut", devices, dev=dev)
+    pb = _PoolProc(tmp, "open", devices, POOL_WINDOW_US, dev=dev)
+    total = {"fused_batch": 0, "stacked_reduce": 0}
+    ok = False
+    try:
+        ready = (pa.wait_ready(), pb.wait_ready())
+        want1 = pool_digest(dev, POOL_SESSION, 1)
+        # 13a, pool A: solo twice, warm attach, the timed run
+        with DvmClient(pa.uri) as c:
+            t0 = time.perf_counter()
+            sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            n0 = _pool_counts(c)
+            walls, digs = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                r = c.run(sid, POOL_PROG, ["solo", "1", "report"],
+                          timeout=POOL_T)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                digs.append(_pool_digest_of(r, "solo", "13a solo"))
+            n1 = _pool_counts(c)
+            if digs != [want1, want1]:
+                raise AssertionError(f"13a solo digests {digs}, the plain "
+                                     f"torch digest {want1}")
+            _pool_check(_pool_moved(n0, n1), _pool_want(card, 4, 2),
+                        "13a two solo runs")
+            c.detach(sid)
+            t0 = time.perf_counter()
+            sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            r = c.run(sid, POOL_PROG, ["timed", str(POOL_REPS), "report"],
+                      timeout=POOL_T)
+            timed_s = time.perf_counter() - t0
+            dig = _pool_digest_of(r, "timed", "13a timed")
+            if dig != pool_digest(dev, POOL_SESSION, POOL_REPS):
+                raise AssertionError(f"13a timed run: digest {dig}")
+            rep = json.loads(_pool_lines(r["stdout"], "REPORT", "timed")[0])
+            n2 = _pool_counts(c)
+            _pool_check(_pool_moved(n1, n2),
+                        _pool_want(card, 2 * POOL_REPS, POOL_REPS),
+                        "13a timed run")
+            c.detach(sid)
+        # 13a, pool A: two sessions at once, the window shut
+        res, pair_s = pool_pair(pa.uri, "shut")
+        with DvmClient(pa.uri) as c:
+            n3 = _pool_counts(c)
+        digs = [_pool_digest_of(x, "shut", "13a shut pair") for x in res]
+        if digs != [want1, want1]:
+            raise AssertionError(f"13a shut pair digests {digs}")
+        _pool_check(_pool_moved(n2, n3), _pool_want(card, 4, 2),
+                    "13a two sessions, window shut")
+        if n3["libs"] != n1["libs"]:
+            raise AssertionError(f"13a: later sessions loaded kernel "
+                                 f"libraries ({n1['libs']} -> "
+                                 f"{n3['libs']})")
+        # 13b: mpirun --dvm
+        rc, out, err, mp_s = mpirun_job(
+            POOL_SESSION, None,
+            [os.path.join("ompi_tpu_torch", "examples",
+                          "device_allreduce.py")], extra=("--dvm", pa.uri))
+        oks = sorted(ln for ln in out.splitlines() if ln.endswith(" ok"))
+        if rc != 0 or "coll_allreduce_arr_provider=hbm" not in out or \
+                oks != [f"rank {i} ok" for i in range(POOL_SESSION)]:
+            raise AssertionError(f"13b mpirun --dvm: exit {rc}:\n{out}\n"
+                                 f"{err[-3000:]}")
+        k1_line = [ln for ln in out.splitlines()
+                   if ln.startswith("coll_hbm_k1_launches=")]
+        # rank 0's own count: allreduce_arr, reduce_scatter_arr and the
+        # two halves' allreduce_arr, one K1 each on the card
+        if k1_line != [f"coll_hbm_k1_launches={4 if card else 0}"]:
+            raise AssertionError(f"13b mpirun --dvm: {k1_line}, expected "
+                                 f"{4 if card else 0} K1 launches")
+        with DvmClient(pa.uri) as c:
+            nb = _pool_counts(c)
+        _pool_check(_pool_moved(n3, nb), _pool_want(card, 0, 4),
+                    "13b mpirun --dvm device_allreduce.py")
+        # 13c: a failing session, then a session that must still work
+        bad = os.path.join(tmp, "boom.py")
+        with open(bad, "w") as f:
+            f.write("import ompi_tpu_torch\n"
+                    "comm = ompi_tpu_torch.init()\n"
+                    "raise RuntimeError('boom rank %d' % comm.rank)\n")
+        with DvmClient(pa.uri) as c:
+            sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+            rb = c.run(sid, bad, timeout=POOL_T)
+            if rb.get("code") == 0 or "boom" not in rb.get("stderr", ""):
+                raise AssertionError(f"13c: the failing session returned "
+                                     f"{rb.get('code')}")
+            c.detach(sid)
+            nc = _pool_counts(c)
+            _pool_check(_pool_moved(nb, nc), _pool_want(card, 0, 0),
+                        "13c the failing session (no collective)")
+            sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+            r = c.run(sid, POOL_PROG, ["after"], timeout=POOL_T)
+            if _pool_digest_of(r, "after", "13c") != want1:
+                raise AssertionError("13c: the session after the failing "
+                                     "one printed another digest")
+            c.detach(sid)
+            na = _pool_counts(c)
+            _pool_check(_pool_moved(nc, na), _pool_want(card, 2, 1),
+                        "13c the session after the failing one")
+        # 13d, pool A
+        t0 = time.perf_counter()
+        rc_a = pa.halt()
+        halt_a_ms = (time.perf_counter() - t0) * 1e3
+        if rc_a != 0:
+            raise AssertionError(f"13d: pool A exited {rc_a}:\n{pa.tail()}")
+        # 13a, pool B: solo, then two sessions with the window open
+        with DvmClient(pb.uri) as c:
+            sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+            m0 = _pool_counts(c)
+            r = c.run(sid, POOL_PROG, ["open", "1", "report"],
+                      timeout=POOL_T)
+            if _pool_digest_of(r, "open", "13a open solo") != want1:
+                raise AssertionError("13a: pool B's solo digest differs")
+            m1 = _pool_counts(c)
+            _pool_check(_pool_moved(m0, m1), _pool_want(card, 2, 1),
+                        "13a pool B solo (one session: window unused)")
+            c.detach(sid)
+        res, open_s = pool_pair(pb.uri, "open")
+        with DvmClient(pb.uri) as c:
+            m2 = _pool_counts(c)
+        digs = [_pool_digest_of(x, "open", "13a open pair") for x in res]
+        if digs != [want1, want1]:
+            raise AssertionError(f"13a open pair digests {digs}")
+        moved = _pool_moved(m1, m2)
+        if moved["xsession_batches"] < 1:
+            raise AssertionError(f"13a: no combined dispatch with the "
+                                 f"window open ({moved})")
+        _pool_check(moved, _pool_want(card, 2, 2, 1, 6),
+                    "13a two sessions, window open (one combined K3 a "
+                    "group)")
+        t0 = time.perf_counter()
+        rc_b = pb.halt()
+        halt_b_ms = (time.perf_counter() - t0) * 1e3
+        if rc_b != 0:
+            raise AssertionError(f"13d: pool B exited {rc_b}:\n{pb.tail()}")
+        for n in (na, m2):
+            total["fused_batch"] += n.get("fused_batch", 0)
+            total["stacked_reduce"] += n.get("stacked_reduce", 0)
+        ok = True
+    finally:
+        if not ok:
+            for pp in (pa, pb):
+                log(f"[pool] stderr tail of {pp.uri}:\n{pp.tail()}")
+        pa.kill()
+        pb.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[pool] {card_line()}")
+    log(f"[pool] 13a pool up in {ready[0]:.2f} / {ready[1]:.2f} s (two "
+        f"pools started together, --np {POOL_NP} --devices {devices}); "
+        f"attach of {POOL_SESSION} ranks: cold {cold_ms:.1f} ms, warm "
+        f"{warm_ms:.1f} ms; a solo run {walls[0]:.1f} then {walls[1]:.1f} "
+        f"ms (client wall); the timed run of {POOL_REPS} reps "
+        f"{timed_s * 1e3:.1f} ms, {rep['us_per_coll']:.1f} us a collective "
+        f"inside the session (rank 0, {4 * POOL_REPS} collectives); two "
+        f"sessions at once {pair_s * 1e3:.1f} ms with the window shut, "
+        f"{open_s * 1e3:.1f} ms with it open ({POOL_WINDOW_US} us); every "
+        f"DIGEST {want1[:16]}... = the plain torch digest")
+    log(f"[pool] 13a launches (pool metrics): two solo runs "
+        f"{_pool_moved(n0, n1)}, timed {_pool_moved(n1, n2)}, pair shut "
+        f"{_pool_moved(n2, n3)}, pool B solo {_pool_moved(m0, m1)}, pair "
+        f"open {moved}; rank 0's REPORT of the open pair "
+        f"{[_pool_lines(x['stdout'], 'REPORT', 'open')[0] for x in res]}; "
+        f"kernel libraries loaded {n3['libs']}")
+    log(f"[pool] 13b mpirun --dvm -np {POOL_SESSION} device_allreduce.py: "
+        f"exit 0, {k1_line}, pool moved {_pool_moved(n3, nb)}, job "
+        f"{mp_s:.1f} s; 13c failing session exit {rb.get('code')}, moved "
+        f"{_pool_moved(nb, nc)}; the next session's digest the solo one, "
+        f"moved {_pool_moved(nc, na)}; 13d "
+        f"halt: pool A {halt_a_ms:.0f} ms, pool B {halt_b_ms:.0f} ms, both "
+        f"exit 0; pools' launches over their lives {total}; phase 13 "
+        f"{secs:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
     host with two or more cards); no argument: every phase.
@@ -6367,6 +6773,9 @@ def main(argv) -> int:
     n_launches = phase_nodes(dev, us_11a)
     for r in rows:  # and phase 12's, the daemons' shells'
         r["launches"] += n_launches.get(r["name"].split(":")[0], 0)
+    q_launches = phase_pool(dev)
+    for r in rows:  # and phase 13's, the resident pools' sessions'
+        r["launches"] += q_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

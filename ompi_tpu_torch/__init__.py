@@ -36,6 +36,13 @@ Thread ranks in one process:
 ``run_ranks(n, fn, devices=True)`` maps rank i to card i % count and
 raises when there is no card; the CPU is used only when the caller
 asks for it with ``device_map=lambda r: torch.device("cpu")``.
+
+Sessions resident in a pool (tools/dvm.py), where init() finds the
+pool's warm world and finalize() is a run boundary:
+
+    $ python -m ompi_tpu_torch.tools.dvm --np 8 --uri-file /tmp/dvm.uri &
+    $ python -m ompi_tpu_torch.tools.mpirun --dvm /tmp/dvm.uri -np 4 prog.py
+    $ python -m ompi_tpu_torch.tools.dvm --halt /tmp/dvm.uri
 """
 
 from __future__ import annotations
@@ -82,10 +89,17 @@ def finalize() -> None:
     global _finalized_once
     st = statemod.maybe_current()
     if st is not None and st.initialized and not st.finalized:
-        if getattr(st, "serve_resident", False):
-            raise NotImplementedError(
-                "finalize of a pool-resident session (a run boundary in "
-                "the reference) needs the resident pool, ROADMAP.md A8b")
+        if st.serve_resident:
+            # a session resident in the pool (tools/dvm.py): the world
+            # outlives the program.  Finalize is a run boundary — flush
+            # deferred fused batches and meet the peers — so the next
+            # program of this session starts from a quiet, still-warm
+            # world.  Real teardown happens at detach, when the pool
+            # clears serve_resident.
+            from ompi_tpu_torch.coll import fusion as _fusion
+            _fusion.flush_state(st)
+            st.rte.fence()
+            return
         mpi_finalize(st)
         _finalized_once = True
 

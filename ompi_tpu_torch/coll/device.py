@@ -966,13 +966,28 @@ def _abort_check(comm):
     return check
 
 
+# the resident pool's HBM quota tap (ompi_tpu_torch/serve/quota): bound
+# by serve.quota.install(), so coll never imports the serve package and
+# a world outside the pool pays one None check per deposit
+_hbm_charge_hook: Optional[Callable[[int], None]] = None
+
+
 def _deposit(comm, x) -> torch.Tensor:
     """A deposited value lives on the comm's shared device,
-    contiguous."""
+    contiguous.  A value that was not already there is a deposit onto
+    the device, charged to the calling session's HBM quota when the
+    pool armed it (the one deposit point of both tiers: coll/hbm and
+    the mesh tier's placement go through here)."""
     dev = comm.state.device
+    hook = _hbm_charge_hook
     if isinstance(x, torch.Tensor):
+        if hook is not None and x.device != dev:
+            hook(x.numel() * x.element_size())
         return x.to(dev).contiguous()
-    return convert.to_torch(x, dev)
+    t = convert.to_torch(x, dev)
+    if hook is not None:
+        hook(t.numel() * t.element_size())
+    return t
 
 
 def _norm(x):

@@ -54,9 +54,17 @@ the KV primary):
   * the KV primary (runtime/kvstore.py ``KVServer``): ``kv_kill``
     crashes it at its Nth served op (``KillInjector``).
 
-Not ported (ROADMAP.md): the resident pool's ``dvm_kill``,
-``dvm_disconnect`` and ``host_kill`` and the host agent's slow beat
-(A8b), and checkpoint I/O faults (A9).
+The resident pool (tools/dvm.py):
+
+  * its client (``DvmClient.run``): ``dvm_disconnect`` drops the pool
+    connection right after a run request is sent (``DvmInjector``),
+    leaving the session's program executing with no client;
+  * its server (``serve()``, a subprocess pool only):
+    ``dvm_kill`` hard-exits the server at its Nth served op
+    (``KillInjector``; the journal rehydration path).
+
+Not ported (ROADMAP.md): the fleet's ``host_kill`` and the host
+agent's slow beat (A8b-2), and checkpoint I/O faults (A9).
 """
 
 from __future__ import annotations
@@ -92,7 +100,10 @@ _plan_var = registry.register(
          "btl/tcp frame faults (drop, delay, dup, "
          "reorder, corrupt, sever, corrupt_payload), kv_partition (a "
          "KV client op severs its socket first), kv_kill (the KV "
-         "primary dies serving its Nth op; the number is that count) "
+         "primary dies serving its Nth op; the number is that count), "
+         "dvm_disconnect (a pool client drops its connection right "
+         "after sending a run), dvm_kill (a subprocess pool server "
+         "hard-exits serving its Nth op; the number is that count) "
          "and net_jitter (seeded latency on tcp frames and KV ops).  "
          "Empty = framework disabled")
 _rate_var = registry.register(
@@ -293,6 +304,34 @@ def kv_kill_injector() -> Optional[KillInjector]:
     if "kv_kill" not in p:
         return None
     return KillInjector("kv", p["kv_kill"])
+
+
+def dvm_kill_injector() -> Optional[KillInjector]:
+    p = plan()
+    if "dvm_kill" not in p:
+        return None
+    return KillInjector("dvm", p["dvm_kill"])
+
+
+# the pool client's fault: dvm_disconnect drops the client's pool
+# connection right after a run request is sent — the session's program
+# is already executing inside the pool, so this drives the client-
+# death cleanup (the pool must finish or poison ONLY that session)
+DVM_CLASSES = ("dvm_disconnect",)
+
+
+class DvmInjector(_Scoped):
+    def disconnect(self) -> bool:
+        """A run request was just sent: True = drop the pool
+        connection now, leaving the job executing with no client."""
+        return self._roll() == "dvm_disconnect"
+
+
+def dvm_injector(rank: int = 0) -> Optional[DvmInjector]:
+    p = {c: r for c, r in plan().items() if c in DVM_CLASSES}
+    if not p:
+        return None
+    return DvmInjector("dvm", rank, p)
 
 
 class NetJitterInjector(_Scoped):

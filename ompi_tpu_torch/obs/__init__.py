@@ -61,6 +61,39 @@ _ring_var = registry.register(
     "obs", "", "events_ring", 256, int,
     help="Flight-recorder capacity (events); the oldest event is "
          "overwritten and the dropped counter grows")
+_prom_var = registry.register(
+    "obs", "", "prometheus", True, bool,
+    help="Include Prometheus text exposition in the resident pool's "
+         "metrics RPC replies")
+_wd_ms_var = registry.register(
+    "obs", "", "watchdog_ms", 0, int,
+    help="Progress-stall watchdog tick interval of the resident pool "
+         "(tools/dvm.py), milliseconds (0 = off, the default).  A "
+         "running job whose wall time exceeds the pool's EWMA estimate "
+         "by obs_watchdog_factor fires a wd_stall flight event and a "
+         "doctor capture (stacks + rendezvous/fence/abort state) "
+         "within ~2 ticks")
+_wd_factor_var = registry.register(
+    "obs", "", "watchdog_factor", 4, int,
+    help="Stall threshold as a multiple of the pool's EWMA wall "
+         "estimate: a job running longer than factor x estimate is "
+         "declared stalled.  With the FleetController on, its "
+         "published per-tick tolerance (widened under backlog) takes "
+         "precedence, this knob seeding its floor")
+
+
+def watchdog_ms() -> int:
+    return max(0, int(_wd_ms_var.value))
+
+
+def watchdog_factor_pct() -> int:
+    """The stall threshold in percent of the EWMA wall estimate (knob
+    x100; the FleetController publishes an adaptive override)."""
+    return max(100, int(_wd_factor_var.value) * 100)
+
+
+def prometheus_enabled() -> bool:
+    return bool(_prom_var.value)
 
 
 # -- per-session attribution ------------------------------------------------

@@ -107,6 +107,11 @@ class Progress:
         # obs_scrape_interval_ms > 0 and a tracer is on; ticked only on
         # the tracer's sampled sweeps with the timestamp already read
         self.obs = None
+        # fleet controller (ompi_tpu_torch/serve): set by the resident
+        # pool on its sessions' ranks; ticked on the same sampled sweeps
+        # as the scraper (one extra is-None check), while the pool's
+        # heartbeat loop covers the idle pool
+        self.ctrl = None
 
     def deferred_interrupts(self):
         """Context manager: hold any armed ft interrupt until exit.
@@ -303,6 +308,9 @@ class Progress:
                 obs = self.obs
                 if obs is not None:
                     obs.tick(_t0)
+                ctrl = self.ctrl
+                if ctrl is not None:
+                    ctrl.tick(_t0)
             tr.tick_ns(time.perf_counter_ns() - _t0)
         return events
 

@@ -66,6 +66,9 @@ class ProcState:
         # keys stay unambiguous)
         self.respawn_epoch = 0
         self.cid_band = 0
+        # a rank resident in the pool (tools/dvm.py): finalize() is a run
+        # boundary (flush + fence) until the pool clears it at detach
+        self.serve_resident = False
         self.finalized = False
         self.initialized = False
         self.extra: Dict[str, Any] = {}

@@ -103,6 +103,23 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     "ompi_tpu_torch/obs/health.py": (
         "HealthPlane.tick",
     ),
+    # the fleet-controller decision tick rides the same sampled
+    # progress sweeps as Scraper.tick on every resident pool
+    # rank-thread: gate-first, integer decisions only — resizes and
+    # event recording happen in apply(), off this path
+    "ompi_tpu_torch/serve/controller.py": (
+        "FleetController.tick",
+    ),
+    # the resident pool's loops: the session-journal flush tick rides
+    # the heartbeat loop every period for the life of the pool (a
+    # dirty-flag check, allocation-free when nothing is pending), and
+    # the progress-stall watchdog scan ticks at obs_watchdog_ms/2 when
+    # armed (integer compares over the session table; the capture
+    # lives off-path in _watchdog_collect)
+    "ompi_tpu_torch/tools/dvm.py": (
+        "_Journal.tick",
+        "DVMServer._watchdog_tick",
+    ),
 }
 
 _BANNED_BUILTIN_CALLS = ("dict", "list", "set", "tuple", "frozenset")

@@ -28,9 +28,11 @@ subprocesses), each daemon runs its slice of the rmaps job map and
 relays IOF/exits back (tools/plm.py, tools/tpud.py).  Neither this
 module nor the daemons import anything that initialises a card, so
 no child inherits a CUDA context.  A simulated node's app shell gives
-its ranks M devices of their own (tools/hostrun.py).  Not ported yet,
-each raising NotImplementedError that names its ROADMAP item: --dvm
-(the resident pool, A8b) and --ckpt-dir / --restart (cr/ckpt.py, A9).
+its ranks M devices of their own (tools/hostrun.py).  ``--dvm
+URI_FILE`` launches nothing: it submits the program to a running
+resident pool (tools/dvm.py ``submit``), whose devices were fixed when
+it started.  Not ported yet, raising NotImplementedError that names
+its ROADMAP item: --ckpt-dir / --restart (cr/ckpt.py, A9).
 
 Usage:
     python -m ompi_tpu_torch.tools.mpirun -np 4 [--mca k v] [--tag-output]
@@ -863,15 +865,33 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "control + KV servers (default: auto-detect)")
     ap.add_argument("--dvm", default=None, metavar="URI_FILE",
                     help="submit the job to a running resident pool "
-                         "instead of launching (orte-dvm analog; not "
-                         "ported yet, ROADMAP.md A8b)")
+                         "(ompi_tpu_torch.tools.dvm) instead of "
+                         "launching: the pool's CUDA context, kernel "
+                         "libraries and imports carry across jobs "
+                         "(orte-dvm analog)")
     ap.add_argument("prog")
     ap.add_argument("args", nargs=argparse.REMAINDER)
     opts = ap.parse_args(argv)
     if opts.dvm:
-        raise NotImplementedError(
-            "mpirun --dvm submits to the resident pool (tools/dvm.py), "
-            "which is not ported yet (ROADMAP.md A8b)")
+        dropped = [n for n, v in (
+            ("--mca", opts.mca), ("--ckpt-dir", opts.ckpt_dir),
+            ("--restart", opts.restart), ("--hosts", opts.hosts),
+            ("--hostfile", opts.hostfile),
+            ("--simulate-nodes", opts.simulate),
+            ("--preload", opts.preload)) if v]
+        if opts.rpp not in (1, "all"):
+            # the pool always runs every rank as a thread (hostrun
+            # model); any other explicit split cannot be honored
+            dropped.append("--ranks-per-proc")
+        if dropped:
+            sys.stderr.write(
+                f"mpirun: --dvm submits to a warm pool and cannot "
+                f"honor {', '.join(dropped)} (the pool's launch "
+                f"configuration is fixed at dvm start)\n")
+            return 2
+        from ompi_tpu_torch.tools.dvm import submit
+        return submit(opts.dvm, opts.np, opts.prog, opts.args,
+                      timeout=opts.timeout or None)
     if opts.ckpt_dir or opts.restart:
         raise NotImplementedError(
             "mpirun --ckpt-dir / --restart need the checkpoint store "

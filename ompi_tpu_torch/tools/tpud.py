@@ -22,8 +22,9 @@ argv: --hnp HOST:PORT --node ID --name NAME [--subtree B64JSON]
 
 Fleet host-agent mode: ``--fleet URI_FILE --host K`` instead of
 ``--hnp`` turns the daemon into the liveness agent of one host failure
-domain of a resident pool.  The pool (tools/dvm.py) is not ported yet
-(ROADMAP.md A8b), so that mode raises NotImplementedError.
+domain of a resident pool's fleet.  The port's pool (tools/dvm.py)
+spans one host; the fleet is not ported yet (ROADMAP.md A8b-2), so
+that mode raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -117,12 +118,13 @@ class _Unit:
 
 
 def host_agent(opts) -> int:
-    """One tpud per host failure domain of a resident pool: register
-    on the pool's control port, then beat.  The pool (tools/dvm.py,
-    its DvmClient) is not ported yet."""
+    """One tpud per host failure domain of a resident pool's fleet:
+    register on the pool's control port, then beat.  The port's pool
+    (tools/dvm.py) spans one host; the multi-host fleet is not ported
+    yet."""
     raise NotImplementedError(
-        "tpud --fleet is the host agent of the resident pool "
-        "(tools/dvm.py), which is not ported yet (ROADMAP.md A8b)")
+        "tpud --fleet is the host agent of the resident pool's "
+        "multi-host fleet, which is not ported yet (ROADMAP.md A8b-2)")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -136,7 +138,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--pythonpath", default="")
     ap.add_argument("--fleet", default=None, metavar="URI_FILE",
                     help="host-agent mode: the resident pool's uri file "
-                         "(not ported yet, ROADMAP.md A8b)")
+                         "(the fleet is not ported yet, ROADMAP.md "
+                         "A8b-2)")
     ap.add_argument("--host", type=int, default=0,
                     help="host failure-domain id this agent covers "
                          "(with --fleet)")

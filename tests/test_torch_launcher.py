@@ -145,12 +145,13 @@ def test_kv_server_refuses_unauthenticated_connection(monkeypatch):
         server.close()
 
 
-@pytest.mark.parametrize("flag", [("--dvm", "uri.txt"),
+@pytest.mark.parametrize("flag", [("--restart", "ckpt"),
                                   ("--ckpt-dir", "ckpt")])
 def test_unported_launch_options_raise(flag, tmp_path):
-    """The resident pool (A8b) and the checkpoint store (A9) raise
-    NotImplementedError naming their ROADMAP item; no rank is
-    started."""
+    """The checkpoint store (A9) raises NotImplementedError naming its
+    ROADMAP item, for a restart as for a checkpoint directory; no rank
+    is started.  (``--dvm``, once in this list, now submits to a
+    running pool: test_dvm_submits_to_a_running_cpu_pool.)"""
     prog = tmp_path / "never.py"
     prog.write_text("open(__file__ + '.ran', 'w').close()\n")
     r = mpirun_run(2, str(prog), extra=flag, timeout=60, cwd=str(tmp_path))
@@ -158,3 +159,33 @@ def test_unported_launch_options_raise(flag, tmp_path):
     assert r.returncode != 0
     assert "NotImplementedError" in err and "ROADMAP.md A" in err, err
     assert not os.path.exists(str(prog) + ".ran")
+
+
+def test_dvm_submits_to_a_running_cpu_pool(tmp_path):
+    """``mpirun --dvm URI`` launches nothing: it submits the program to
+    a running resident pool (here an embedded ``--devices cpu`` pool)
+    and returns the job's exit code and output; options the pool cannot
+    honor are refused."""
+    import torch
+
+    from ompi_tpu_torch.tools.dvm import DVMServer
+
+    uri = str(tmp_path / "dvm.uri")
+    srv = DVMServer(4, devices=[torch.device("cpu")], uri_file=uri).start()
+    try:
+        r = mpirun_run(4, "ompi_tpu_torch/examples/device_allreduce.py",
+                       extra=("--dvm", uri), timeout=120)
+        out = r.stdout.decode()
+        assert r.returncode == 0, r.stderr.decode()[-3000:]
+        assert "coll_allreduce_arr_provider=hbm" in out, out
+        assert sorted(l for l in out.splitlines()
+                      if l.endswith(" ok")) == [f"rank {i} ok"
+                                                for i in range(4)]
+        assert srv._jobs == 1
+        bad = mpirun_run(2, "ompi_tpu_torch/examples/hello.py",
+                         extra=("--dvm", uri, "--ranks-per-proc", "2"),
+                         timeout=120)
+        assert bad.returncode == 2
+        assert "cannot honor --ranks-per-proc" in bad.stderr.decode()
+    finally:
+        srv.stop()

@@ -106,7 +106,9 @@ def test_port_imports_no_jax_and_no_reference():
             "ompi_tpu_torch.datatype.device, ompi_tpu_torch.kernels.fused, "
             "ompi_tpu_torch.kernels.index, ompi_tpu_torch.runtime.kvstore, "
             "ompi_tpu_torch.btl.tcp, ompi_tpu_torch.btl.shm, "
-            "ompi_tpu_torch.tools.mpirun, ompi_tpu_torch.tools.hostrun\n"
+            "ompi_tpu_torch.tools.mpirun, ompi_tpu_torch.tools.hostrun, "
+            "ompi_tpu_torch.tools.dvm, ompi_tpu_torch.serve.quota, "
+            "ompi_tpu_torch.serve.controller, ompi_tpu_torch.obs.reqtrace\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "
             "m == 'ompi_tpu' or m.startswith('ompi_tpu.'))\n"
