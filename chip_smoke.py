@@ -6301,6 +6301,7 @@ POOL_WINDOW_US = 800_000  # 13a's open window, the reference test's
 POOL_REPS = 200         # reps of the timed run: 4 collectives a rep
 POOL_T = 120            # seconds: each RPC, wait and job of the phase
 POOL_PROG = os.path.join("ompi_tpu_torch", "examples", "dvm_session.py")
+POOL_SOLO = []          # phase 13's solo DIGEST, for phase 14 to match
 
 
 class _PoolProc:
@@ -6310,7 +6311,8 @@ class _PoolProc:
     ends it (and anything it started) whatever state it is in."""
 
     def __init__(self, tmp: str, name: str, devices: str,
-                 window_us: int = 0, dev=None) -> None:
+                 window_us: int = 0, dev=None, hosts: int = 1,
+                 mca=None) -> None:
         root = os.path.dirname(os.path.abspath(__file__))
         self.uri = os.path.join(tmp, f"{name}.uri")
         self.err_path = os.path.join(tmp, f"{name}.err")
@@ -6319,7 +6321,11 @@ class _PoolProc:
                "--uri-file", self.uri]
         if window_us:
             cmd += ["--batch-window-us", str(window_us)]
+        if hosts > 1:
+            cmd += ["--hosts", str(hosts)]
         env = dict(os.environ)
+        for k, v in (mca or {}).items():
+            env[f"TPUMPI_MCA_{k}"] = str(v)
         env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
         if dev is not None and dev.type == "cuda":
@@ -6410,8 +6416,10 @@ def _pool_digest_of(resp: dict, tag: str, what: str) -> str:
 def _pool_counts(c) -> dict:
     m = c.metrics(events=0, prometheus=False)
     n = dict(m["launches"])
-    n["xsession_batches"] = m["pvars"]["dvm_xsession_batches"]
-    n["xsession_collectives"] = m["pvars"]["dvm_xsession_collectives"]
+    # a pool that ran no device collective yet has not registered them
+    n["xsession_batches"] = m["pvars"].get("dvm_xsession_batches", 0)
+    n["xsession_collectives"] = m["pvars"].get(
+        "dvm_xsession_collectives", 0)
     n["libs"] = m["kernel_libs"]
     return n
 
@@ -6515,6 +6523,7 @@ def phase_pool(dev, devices: str = "auto") -> dict:
             if digs != [want1, want1]:
                 raise AssertionError(f"13a solo digests {digs}, the plain "
                                      f"torch digest {want1}")
+            POOL_SOLO[:] = digs[:1]
             _pool_check(_pool_moved(n0, n1), _pool_want(card, 4, 2),
                         "13a two solo runs")
             c.detach(sid)
@@ -6669,6 +6678,451 @@ def phase_pool(dev, devices: str = "auto") -> dict:
     return total
 
 
+FLEET_HOSTS = 2         # host failure domains of the fleet's pools
+FLEET_REPS = 50         # reps of 14a's timed run: 4 collectives a rep
+FLEET_STEPS = 12        # fleet_host.py's steps (a pass)
+FLEET_HOLD = 3          # 14b: the step at which host 1 dies
+FLEET_CKPT_STEPS = 10   # fleet_ckpt.py's steps
+FLEET_CKPT_HOLD = 4     # 14c: the step at which host 1 dies
+FLEET_MIB = 8           # the card tensor a rank of fleet_host/ulfm_procs
+# 14b's kill point: pool A's host_kill fault fires at its Nth served op
+# (the agents' beats are not counted).  The ops before it: the two
+# agents' registrations, 17 ops of 14a and 6 of 14b (see phase_fleet,
+# which checks the count before it sends op N)
+FLEET_KILL_OP = 2 + 17 + 6 + 1
+HOST_PROG = os.path.join("ompi_tpu_torch", "examples", "fleet_host.py")
+CKPT_PROG = os.path.join("ompi_tpu_torch", "examples", "fleet_ckpt.py")
+
+
+class _Agent:
+    """``python -m ompi_tpu_torch.tools.tpud --fleet URI --host H``: one
+    host agent (no torch), stderr to a file whose tail a failure
+    prints."""
+
+    def __init__(self, tmp: str, uri: str, host: int, n: int = 0) -> None:
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.err_path = os.path.join(tmp, f"agent{host}.{n}.err")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+        self._err = open(self.err_path, "w")
+        self.t0 = time.perf_counter()
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "ompi_tpu_torch.tools.tpud", "--fleet",
+             uri, "--host", str(host)], cwd=root, env=env,
+            stdout=subprocess.DEVNULL, stderr=self._err,
+            start_new_session=True)
+
+    def wait_registered(self) -> float:
+        """Seconds from the agent's start to its registration."""
+        deadline = time.monotonic() + POOL_T
+        while "registered with fleet" not in self.text():
+            if self.p.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"agent {self.err_path} never "
+                                     f"registered (exit {self.p.poll()})")
+            time.sleep(0.01)
+        return time.perf_counter() - self.t0
+
+    def text(self) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()
+
+    def kill(self) -> None:
+        import signal
+        if self.p.poll() is None:
+            try:
+                os.killpg(self.p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            self.p.wait(timeout=POOL_T)
+        self._err.close()
+
+
+def _tail40(text: str) -> str:
+    return "\n".join(text.splitlines()[-40:])
+
+
+def fleet_host_digest(np_: int, steps: int) -> str:
+    """examples/fleet_host.py's DIGEST on ``np_`` ranks (or survivors),
+    from its formula with numpy: the sum over the steps of each step's
+    allreduced contribution."""
+    import numpy as np
+    vec = np.zeros(32, np.float64)
+    for step in range(steps):
+        vec = vec + float((step + 1) * sum(range(1, np_ + 1)))
+    return hashlib.sha256(vec.tobytes()).hexdigest()
+
+
+def phase_fleet(dev, devices: str = "auto") -> dict:
+    """Phase 14: the resident pool's fleet of host failure domains and
+    ULFM / respawn for process ranks.  Two pool subprocesses (``--np 8
+    --hosts 2``): A with the batch window open, its ``host_kill`` fault
+    armed at op FLEET_KILL_OP and two ``tpud --fleet`` agents; C with
+    ``mpi_ft_ulfm=0``.  14a: a session of 4 spans both domains
+    (proctable hdom [0, 0, 1, 1]; stats quiet) and prints phase 13's
+    solo digest; a timed run of FLEET_REPS reps; two sessions at once
+    share one K3 a group.  14b: a session of 4 runs fleet_host.py, host
+    1 dies at its hold step through the host_kill fault (the op count
+    is checked first), the survivors shrink once and print the digest
+    and card digest of a two-rank run; respawn_host(1) gives mttr_ms >
+    0, a new agent registers, and a new session of 4 prints 14a's
+    digest.  14c (pool C): fleet_ckpt.py's run killed at its hold step
+    and replayed: exit 0, preempted, resumed at the hold step, the
+    baseline digest.  14d: mpirun's ulfm and respawn policies over 4
+    process ranks (ulfm_procs.py, respawn_procs.py), at once.  14e:
+    halts; every agent but the killed one exits 0, and no journal is
+    left.  Every sub-phase's K3 / K1 launches (the pools' metrics)
+    exact.  Returns the pools' launches over their lives."""
+    import tempfile
+
+    from ompi_tpu_torch.tools.dvm import DvmClient
+
+    class _OpClient(DvmClient):
+        """A client of pool A counting the ops it sends (14b's kill
+        point is an op count)."""
+        sent = [0]
+
+        def _rpc(self, msg, *a, **k):
+            _OpClient.sent[0] += 1
+            return super()._rpc(msg, *a, **k)
+
+        def run(self, *a, **k):  # one op, sent without _rpc
+            _OpClient.sent[0] += 1
+            return super().run(*a, **k)
+
+    t_phase = time.perf_counter()
+    card = devices == "auto"
+    choice = "auto" if card else "cpu"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    pa = _PoolProc(tmp, "fleet", devices, POOL_WINDOW_US, dev=dev,
+                   hosts=FLEET_HOSTS,
+                   mca={"ft_inject_plan": f"host_kill:{FLEET_KILL_OP}",
+                        "ft_inject_victim_host": 1})
+    pc = _PoolProc(tmp, "replay", devices, dev=dev, hosts=FLEET_HOSTS,
+                   mca={"mpi_ft_ulfm": 0})
+    agents = []
+    stage = "14a pools up"
+    total = {"fused_batch": 0, "stacked_reduce": 0}
+    ok = False
+    want1 = pool_digest(dev, POOL_SESSION, 1)
+    try:
+        ready = (pa.wait_ready(), pc.wait_ready())
+        agents = [_Agent(tmp, pa.uri, h) for h in range(FLEET_HOSTS)]
+        reg_s = [a.wait_registered() for a in agents]
+        # 14a: a session across both domains
+        stage = "14a session across both host domains"
+        c = _OpClient(pa.uri)
+        t0 = time.perf_counter()
+        sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]       # 1
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        with open(pa.uri + ".proctable.json") as f:
+            hdom = [e["hdom"] for e in json.load(f) if "hdom" in e]
+        st = c.stats()                                             # 2
+        if hdom != [0, 0, 1, 1] or st["hosts"] != 2 or any(
+                st[k] for k in ("hosts_lost", "hosts_degraded",
+                                "hosts_quarantined", "hosts_rehydrating")):
+            raise AssertionError(f"14a: hdom {hdom}, stats {st}")
+        n0 = _pool_counts(c)                                       # 3
+        r = c.run(sid, POOL_PROG, ["fleet"], timeout=POOL_T)       # 4
+        dig = _pool_digest_of(r, "fleet", "14a solo")
+        if dig != want1 or (POOL_SOLO and dig != POOL_SOLO[0]):
+            raise AssertionError(f"14a: digest {dig}, the plain torch "
+                                 f"digest {want1}, phase 13's {POOL_SOLO}")
+        n1 = _pool_counts(c)                                       # 5
+        _pool_check(_pool_moved(n0, n1), _pool_want(card, 2, 1),
+                    "14a solo run across both domains")
+        c.detach(sid)                                              # 6
+        t0 = time.perf_counter()
+        sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]       # 7
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        r = c.run(sid, POOL_PROG, ["ftimed", str(FLEET_REPS), "report"],
+                  timeout=POOL_T)                                  # 8
+        if _pool_digest_of(r, "ftimed", "14a timed") != pool_digest(
+                dev, POOL_SESSION, FLEET_REPS):
+            raise AssertionError("14a timed run: digest differs")
+        rep = json.loads(_pool_lines(r["stdout"], "REPORT", "ftimed")[0])
+        n2 = _pool_counts(c)                                       # 9
+        _pool_check(_pool_moved(n1, n2),
+                    _pool_want(card, 2 * FLEET_REPS, FLEET_REPS),
+                    "14a timed run")
+        c.detach(sid)                                              # 10
+        stage = "14a two sessions, window open"
+        cs = [_OpClient(pa.uri), _OpClient(pa.uri)]
+        sids = [x.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+                for x in cs]                                       # 12
+        res = [None, None]
+
+        def runner(i):
+            res[i] = cs[i].run(sids[i], POOL_PROG, ["fpair"],
+                               timeout=POOL_T)
+
+        ths = [threading.Thread(target=runner, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=POOL_T)
+        pair_s = time.perf_counter() - t0
+        if None in res:
+            raise AssertionError("14a: a concurrent run never returned")
+        for x, s_ in zip(cs, sids):                                # 14
+            x.detach(s_)
+            x.close()
+        digs = [_pool_digest_of(x, "fpair", "14a pair") for x in res]
+        n3 = _pool_counts(c)                                       # 17
+        if digs != [want1, want1]:
+            raise AssertionError(f"14a pair digests {digs}")
+        _pool_check(_pool_moved(n2, n3), _pool_want(card, 2, 2, 1, 6),
+                    "14a two sessions, window open (one combined K3 a "
+                    "group)")
+        # 14b: a host kill under ULFM
+        stage = "14b two-rank run of the formula"
+        t0 = time.perf_counter()
+        sid = c.attach(2, timeout=POOL_T)["sid"]                   # 18
+        warm2_ms = (time.perf_counter() - t0) * 1e3
+        fargs = [str(FLEET_STEPS), "--device", choice, "--mib",
+                 str(FLEET_MIB)]
+        r2 = c.run(sid, HOST_PROG, ["two"] + fargs, timeout=POOL_T)  # 19
+        n4 = _pool_counts(c)                                       # 20
+        c.detach(sid)                                              # 21
+        if r2.get("code") != 0:
+            raise AssertionError(f"14b two-rank run: exit {r2.get('code')}"
+                                 f":\n{r2.get('stderr', '')[-3000:]}")
+        two = _pool_lines(r2["stdout"], "DIGEST", "two")
+        two = two[0] if len(set(two)) == 1 and len(two) == 2 else None
+        two_card = {x.split()[1] for x in _pool_lines(r2["stdout"], "CARD",
+                                                      "two")}
+        if two != fleet_host_digest(2, FLEET_STEPS) or len(two_card) != 1:
+            raise AssertionError(f"14b two-rank run: {r2['stdout']}")
+        _pool_check(_pool_moved(n3, n4), _pool_want(card, 0, 1),
+                    "14b two-rank run (one K1: the card tensor)")
+        stage = "14b host kill under ULFM"
+        sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]       # 22
+        hold = os.path.join(tmp, "hold14b")
+        res = {}
+
+        def killed_run():
+            res["r"] = c.run(sid, HOST_PROG, ["sa"] + fargs + [
+                "--hold", str(FLEET_HOLD), hold], timeout=POOL_T)  # 23
+
+        th = threading.Thread(target=killed_run)
+        th.start()
+        deadline = time.monotonic() + POOL_T
+        while not os.path.exists(hold):
+            if not th.is_alive() or time.monotonic() > deadline:
+                raise AssertionError(f"14b: fleet_host.py never reached its "
+                                     f"hold step: {res}")
+            time.sleep(0.005)
+        if 2 + _OpClient.sent[0] != FLEET_KILL_OP - 1:
+            raise AssertionError(f"14b: pool A served {2 + _OpClient.sent[0]}"
+                                 f" counted ops before the kill op, not "
+                                 f"{FLEET_KILL_OP - 1}")
+        ck = _OpClient(pa.uri)
+        st = ck.stats()                                            # 24: kill
+        th.join(timeout=POOL_T)
+        if th.is_alive() or st["hosts_lost"] != 1 \
+                or st["hosts_rehydrating"] != 1:
+            raise AssertionError(f"14b: stats at the kill op {st}")
+        r = res["r"]
+        if r.get("code") != 0:
+            raise AssertionError(f"14b: exit {r.get('code')}:\n"
+                                 f"{r.get('stderr', '')[-3000:]}")
+        shrinks = sorted(_pool_lines(r["stdout"], "SHRINKS", "sa"))
+        digs = _pool_lines(r["stdout"], "DIGEST", "sa")
+        cards = {x.split()[1] for x in _pool_lines(r["stdout"], "CARD",
+                                                   "sa")}
+        if shrinks != ["0 1", "1 1"] or digs != [two, two] \
+                or cards != two_card:
+            raise AssertionError(f"14b survivors: {r['stdout']}")
+        if agents[1].p.wait(timeout=POOL_T) != -9:
+            raise AssertionError("14b: host 1's agent was not SIGKILLed")
+        n5 = _pool_counts(ck)
+        _pool_check(_pool_moved(n4, n5), _pool_want(card, 0, 1),
+                    "14b killed run (one K1 on the survivors' comm of 2)")
+        ev = ck.metrics(events=512, prometheus=False)["events"]
+        lost_ts = [e["ts"] for e in ev if e["name"] == "host_lost"]
+        shrink_ts = [e["ts"] for e in ev if e["name"] == "ulfm_shrink"]
+        if len(lost_ts) != 1 or len(shrink_ts) != 2:
+            raise AssertionError(f"14b: {len(lost_ts)} host_lost and "
+                                 f"{len(shrink_ts)} ulfm_shrink events")
+        shrink_ms = (max(shrink_ts) - lost_ts[0]) * 1e3
+        mttr = ck.respawn_host(1)["mttr_ms"]
+        agents.append(_Agent(tmp, pa.uri, 1, 1))
+        reg_s.append(agents[-1].wait_registered())
+        st = ck.stats()
+        if mttr <= 0 or st["hosts_rehydrating"] or st["hosts_lost"]:
+            raise AssertionError(f"14b respawn: mttr {mttr}, stats {st}")
+        c.detach(sid)
+        stage = "14b a new session after the respawn"
+        sid = c.attach(POOL_SESSION, timeout=POOL_T)["sid"]
+        r = c.run(sid, POOL_PROG, ["fleet"], timeout=POOL_T)
+        if _pool_digest_of(r, "fleet", "14b after respawn") != want1:
+            raise AssertionError("14b: the session after the respawn "
+                                 "printed another digest")
+        n6 = _pool_counts(c)
+        _pool_check(_pool_moved(n5, n6), _pool_want(card, 2, 1),
+                    "14b the session after the respawn")
+        c.detach(sid)
+        c.close()
+        ck.close()
+        # 14c: the replay arm on pool C
+        stage = "14c replay arm"
+        cargs = [str(FLEET_CKPT_STEPS), "--device", choice]
+        with DvmClient(pc.uri) as c3, DvmClient(pc.uri) as c4:
+            m0 = _pool_counts(c3)
+            sid = c3.attach(2, timeout=POOL_T)["sid"]
+            rb = c3.run(sid, CKPT_PROG,
+                        ["hb", os.path.join(tmp, "store_a")] + cargs,
+                        timeout=POOL_T)
+            c3.detach(sid)
+            base = _pool_digest_of(rb, "hb", "14c baseline")
+            if base != fleet_host_digest(2, FLEET_CKPT_STEPS):
+                raise AssertionError(f"14c baseline digest {base}")
+            sid = c3.attach(2, timeout=POOL_T)["sid"]
+            hold = os.path.join(tmp, "hold14c")
+            res = {}
+
+            def replayed():
+                t0 = time.perf_counter()
+                res["r"] = c3.run(sid, CKPT_PROG, [
+                    "hb", os.path.join(tmp, "store_v")] + cargs + [
+                    "--hold", str(FLEET_CKPT_HOLD), hold], timeout=POOL_T)
+                res["s"] = time.perf_counter() - t0
+
+            th = threading.Thread(target=replayed)
+            th.start()
+            deadline = time.monotonic() + POOL_T
+            while not os.path.exists(hold):
+                if not th.is_alive() or time.monotonic() > deadline:
+                    raise AssertionError(f"14c: never reached the hold "
+                                         f"step: {res}")
+                time.sleep(0.005)
+            c4.kill_host(1)
+            mttr_c = c4.respawn_host(1)["mttr_ms"]
+            th.join(timeout=POOL_T)
+            r = res["r"]
+            if th.is_alive() or r.get("code") != 0 \
+                    or r.get("preempted", 0) < 1 \
+                    or _pool_lines(r["stdout"], "STEPS", "hb") != [
+                        str(FLEET_CKPT_HOLD)] \
+                    or _pool_digest_of(r, "hb", "14c replay") != base \
+                    or _pool_lines(r["stdout"], "CARD", "hb") != \
+                    _pool_lines(rb["stdout"], "CARD", "hb"):
+                raise AssertionError(f"14c replay: {r}")
+            c3.detach(sid)
+            m1 = _pool_counts(c3)
+            _pool_check(_pool_moved(m0, m1), _pool_want(card, 0, 2),
+                        "14c (one K1 a completed run: the card digest)")
+        # 14d: ULFM and respawn for process ranks, both jobs at once
+        stage = "14d process ranks"
+        jobs = {}
+        kill = [("ft_inject_plan", "rank_kill"),
+                ("ft_inject_victim_rank", "1"), ("ft_inject_after", "0.8")]
+        specs = {
+            "ulfm": ([("errmgr_base_policy", "ulfm")] + kill,
+                     [os.path.join("ompi_tpu_torch", "examples",
+                                   "ulfm_procs.py"), "--device", choice,
+                      "--mib", str(FLEET_MIB)]),
+            "respawn": ([("errmgr_base_policy", "respawn"),
+                         ("cr_buddy_degree", "1")] + kill,
+                        [os.path.join("ompi_tpu_torch", "examples",
+                                      "respawn_procs.py"), "--device",
+                         choice])}
+
+        def job(name):
+            mca, args = specs[name]
+            jobs[name] = mpirun_job(4, None, args, mca=mca,
+                                    extra=("--devices", devices))
+
+        ths = [threading.Thread(target=job, args=(n,)) for n in specs]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=PROC_JOB_S + 60)
+        for name in specs:
+            if name not in jobs or jobs[name][0] != 0:
+                raise AssertionError(f"14d {name}: {jobs.get(name)}")
+        out = jobs["ulfm"][1]
+        lines = [x for x in out.splitlines() if x.startswith("rank=")]
+        cards = {x.split()[2] for x in out.splitlines()
+                 if x.startswith("CARD ")}
+        if len(lines) != 3 or not all("size=3" in x and "sum=6.0" in x
+                                      for x in lines) or len(cards) != 1:
+            raise AssertionError(f"14d ulfm: {out}")
+        out = jobs["respawn"][1]
+        lines = [x for x in out.splitlines() if x.startswith("rank=")]
+        cards = {x.split()[2] for x in out.splitlines()
+                 if x.startswith("CARD ")}
+        if len(lines) != 4 or not all("size=4" in x for x in lines) \
+                or len({x.split("digest=")[1] for x in lines}) != 1 \
+                or sum("joined=1" in x for x in lines) != 1 \
+                or len(cards) != 1:
+            raise AssertionError(f"14d respawn: {out}")
+        # 14e: halts, agents, journals
+        stage = "14e halts"
+        for pp in (pa, pc):
+            rc = pp.halt()
+            if rc != 0:
+                raise AssertionError(f"14e: pool {pp.uri} exited {rc}")
+        codes = [a.p.wait(timeout=POOL_T) for a in agents]
+        if codes != [0, -9, 0]:
+            raise AssertionError(f"14e: agents exited {codes} (host 1's "
+                                 f"first agent was killed with its host)")
+        left = [f for f in os.listdir(tmp) if ".journal" in f]
+        if left:
+            raise AssertionError(f"14e: journals left on disk: {left}")
+        for n in (n6, m1):
+            total["fused_batch"] += n.get("fused_batch", 0)
+            total["stacked_reduce"] += n.get("stacked_reduce", 0)
+        ok = True
+    finally:
+        if not ok:
+            log(f"[fleet] FAILED in {stage}")
+            for pp in (pa, pc):
+                log(f"[fleet] stderr tail of {pp.uri}:\n"
+                    f"{_tail40(pp.tail())}")
+            for a in agents:
+                log(f"[fleet] stderr tail of {a.err_path}:\n"
+                    f"{_tail40(a.text())}")
+        pa.kill()
+        pc.kill()
+        for a in agents:
+            a.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"[fleet] {card_line()}")
+    log(f"[fleet] 14a pools up in {ready[0]:.2f} / {ready[1]:.2f} s (--np "
+        f"{POOL_NP} --hosts {FLEET_HOSTS} --devices {devices}, started "
+        f"together); agents registered {[round(x, 3) for x in reg_s]} s "
+        f"after their start; attach of {POOL_SESSION} ranks across both "
+        f"domains: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms (of 2: "
+        f"{warm2_ms:.1f} ms); the timed run of {FLEET_REPS} reps "
+        f"{rep['us_per_coll']:.1f} us a collective inside the session; "
+        f"two sessions at once {pair_s * 1e3:.1f} ms with the window open; "
+        f"DIGEST {want1[:16]}... = the plain torch digest"
+        f"{' = phase 13' if POOL_SOLO else ''}")
+    log(f"[fleet] 14a launches (pool metrics): solo "
+        f"{_pool_moved(n0, n1)}, timed {_pool_moved(n1, n2)}, pair "
+        f"{_pool_moved(n2, n3)}")
+    log(f"[fleet] 14b host 1 killed at pool op {FLEET_KILL_OP} "
+        f"(fleet_host.py step {FLEET_HOLD}): survivors 0 and 1 shrank once, "
+        f"{shrink_ms:.1f} ms from the host_lost record to the last shrink; "
+        f"digest = the two-rank run's {two[:16]}..., card digests equal; "
+        f"launches two-rank {_pool_moved(n3, n4)}, killed run "
+        f"{_pool_moved(n4, n5)}, after respawn {_pool_moved(n5, n6)}; "
+        f"mttr_ms {mttr}")
+    log(f"[fleet] 14c replay arm: exit 0, preempted "
+        f"{r.get('preempted')}, resumed at step {FLEET_CKPT_HOLD}, the "
+        f"baseline digest; run wall {res['s'] * 1e3:.1f} ms, mttr_ms "
+        f"{mttr_c}; launches {_pool_moved(m0, m1)}")
+    log(f"[fleet] 14d process ranks: ulfm job {jobs['ulfm'][3]:.1f} s, "
+        f"respawn job {jobs['respawn'][3]:.1f} s (run at once), both exit "
+        f"0; 14e pools and agents halted, no journal left; pools' "
+        f"launches over their lives {total}; phase 14 {secs:.1f} s")
+    return total
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
     host with two or more cards); no argument: every phase.
@@ -6776,6 +7230,9 @@ def main(argv) -> int:
     q_launches = phase_pool(dev)
     for r in rows:  # and phase 13's, the resident pools' sessions'
         r["launches"] += q_launches.get(r["name"].split(":")[0], 0)
+    f_launches = phase_fleet(dev)
+    for r in rows:  # and phase 14's, the fleet's sessions'
+        r["launches"] += f_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -52,12 +52,38 @@ __version__ = "0.1.0"
 _finalized_once = False
 
 
+def _named_device(choice: str, rte):
+    """The device ``init(device="auto"|"cpu")`` names: the one the app
+    shell or the pool assigned this rank when there is one (which must
+    then be of that kind), else the CPU, or for ``auto`` the card
+    ``rank % count`` (no card: RuntimeError — never a silent CPU)."""
+    import torch
+    given = getattr(rte, "default_device", None)
+    kind = getattr(given, "device", given)  # a LogicalDevice's card
+    want = {"auto": "cuda", "cpu": "cpu"}.get(choice)
+    if want is None:
+        raise ValueError(f"device {choice!r}: auto, cpu or a torch.device")
+    if given is not None:
+        if kind.type != want:
+            raise RuntimeError(
+                f"device {choice!r}: rank {rte.rank} was given {given} "
+                f"by its app shell or pool")
+        return given
+    if want == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("device 'auto': no CUDA card is visible to "
+                           f"rank {rte.rank} (name 'cpu' to use the CPU)")
+    return torch.device("cuda", rte.rank % torch.cuda.device_count())
+
+
 def init(device=None):
     """MPI_Init analog: bootstrap this process's rank and return
     COMM_WORLD (ref: ompi/mpi/c/init.c → ompi_mpi_init.c).  Without a
     launcher it is a 1-rank world with no device unless ``device`` (a
     ``torch.device``) is given; a rank of an app shell gets the device
-    the shell assigned it."""
+    the shell assigned it.  ``device="auto"`` or ``"cpu"`` names the
+    kind instead (see ``_named_device``): the examples' ``--device``."""
     from ompi_tpu_torch.runtime import state as statemod
     from ompi_tpu_torch.runtime.init import mpi_init
     from ompi_tpu_torch.runtime.rte import HybridRTE, make_rte
@@ -68,7 +94,9 @@ def init(device=None):
         return existing.comm_world
     rte = make_rte()
     st = statemod.ProcState(rte.rank, rte.size, rte)
-    if device is None:
+    if isinstance(device, str):
+        device = _named_device(device, rte)
+    elif device is None:
         # hybrid launch: the app shell pre-assigned this rank-thread a
         # device (mpirun --ranks-per-proc, see tools/hostrun.py)
         device = getattr(rte, "default_device", None)

@@ -341,13 +341,15 @@ def restore_local(comm, store_dir: Optional[str] = None) -> Optional[Any]:
         "(pml/vprotocol), not ported yet (ROADMAP.md A9)")
 
 
-def restore(comm, store_dir: Optional[str] = None, shmem_ctx=None
-            ) -> Optional[Any]:
+def restore(comm, store_dir: Optional[str] = None, shmem_ctx=None,
+            resume: bool = False) -> Optional[Any]:
     """Returns the latest complete snapshot's payload (tensors on this
     rank's device), or None when starting fresh (no restart flag, or
-    an empty store)."""
+    an empty store).  ``resume=True`` restores whenever the store holds
+    a complete snapshot, whatever the restart flag says: a program that
+    resumes itself, as a pool session replayed after its host died."""
     root = store_dir or os.environ.get(ENV_DIR)
-    if not root or not os.environ.get(ENV_RESTART):
+    if not root or not (resume or os.environ.get(ENV_RESTART)):
         return None
     store = Store(root)
     seq = store.latest_complete()

@@ -13,10 +13,12 @@ The flow, per failure:
 
   1. **detect** — the death becomes ULFM failure records on every
      survivor; parked ops drain with ``ERR_PROC_FAILED``.
-  2. **respawn** — the supervision loop of
+  2. **respawn** — the launch plane brings a replacement up under the
+     SAME world rank at a bumped recovery epoch: mpirun's supervision
+     loop relaunches the dead process (or app shell, with every rank
+     it held) with ``TPUMPI_RESPAWN=1`` + ``TPUMPI_FT_EPOCH=<E>``;
      ``testing.run_ranks(..., respawn=True)`` starts a fresh rank
-     thread under the SAME world rank, bound to the dead rank's
-     device, at a bumped recovery epoch.
+     thread bound to the dead rank's device.
   3. **rejoin** — survivors and the newcomer call :func:`rejoin` on
      their full-world communicator.  Built on the ULFM put-once store:
      the lowest-ranked survivor publishes the decision (failed set +
@@ -55,6 +57,7 @@ completes, unless both deaths land in one reap window of that loop.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Set
@@ -126,12 +129,20 @@ def _wait_store(store, key, comm, deadline, what: str):
 
 
 def _epoch_rewire(state, epoch: int) -> None:
-    """Survivor-side epoch reset for a world whose transports must be
-    rewired (the reference's process jobs): transport + pml reset,
-    re-modex, and the two fences that pair with the replacement's
-    init fences.  A thread world resolves peers through
-    ``world.states`` and takes two bare fences instead (see rejoin)."""
+    """Survivor-side epoch reset for a job whose ranks live in several
+    processes (process ranks, app shells): epoch-scoped jobid and
+    modex namespaces, transport + pml reset, re-modex, and the two
+    fences that pair with the replacement's init fences (its launch
+    env carries TPUMPI_FT_EPOCH=epoch, so it fences under the same
+    epoch-scoped keys with a reset fence counter).  A thread world
+    holding every rank resolves peers through ``world.states`` and
+    takes two bare fences instead (see rejoin)."""
     rte = state.rte
+    base_jobid = getattr(rte, "jobid_base", None) or rte.jobid
+    rte.jobid_base = base_jobid
+    rte.jobid = f"{base_jobid}:e{epoch}"
+    rte._fence_count = 0
+    rte.modex_epoch = epoch
     state.ft_epoch = epoch
     keep = []
     for m in state.btls:
@@ -237,21 +248,25 @@ def rejoin(comm, name: str = ""):
 
     decided: Set[int] = set(int(x) for x in d["failed"])
     survivors: List[int] = [g for g in comm.group if g not in decided]
-    world = state.rte.world
+    world = getattr(state.rte, "world", None)
 
     if not am_joining:
         # un-fail: the decided ranks are being replaced in place.
-        # Under the fence cv — a concurrent fence recomputes its
-        # quorum on every wake and must see the discard atomically,
-        # and the failure records are delivered under it, so every
-        # record of the dead incarnation has reached this rank before
-        # it un-fails (see ulfm.publish_world_failures)
-        with world._f_cv:
+        # Under the fence cv of a thread world — a concurrent fence
+        # recomputes its quorum on every wake and must see the discard
+        # atomically, and the failure records are delivered under it,
+        # so every record of the dead incarnation has reached this
+        # rank before it un-fails (see ulfm.publish_world_failures).
+        # A process rank has no thread world: its KV fence quorum
+        # follows u.failed (UlfmState._sync_rte)
+        with (world._f_cv if world is not None
+              else contextlib.nullcontext()):
             for g in sorted(decided):
                 u.unfail(g)
-            for g in decided:
-                world.ulfm_failed.discard(g)
-            world._f_cv.notify_all()
+            if world is not None:
+                for g in decided:
+                    world.ulfm_failed.discard(g)
+                world._f_cv.notify_all()
         # per-peer pml sequence reset BEFORE the replacement can send
         # anything: its seq-0 traffic must match, not park behind the
         # predecessor's counters
@@ -266,12 +281,19 @@ def rejoin(comm, name: str = ""):
             _wait_store(store, base + ("cleared", r), comm, deadline,
                         f"rank {r} to clear epoch {epoch}")
         _dbg(state, "all survivors cleared")
-        # the inproc btl resolves peers through world.states
-        # dynamically — no transport rewire.  Two bare fences pair
-        # with the replacement's two init fences (a generation
-        # barrier at full quorum again now that ulfm_failed is empty)
-        state.rte.fence()
-        state.rte.fence()
+        if _ulfm._all_local(world):
+            # the inproc btl resolves peers through world.states
+            # dynamically — no transport rewire.  Two bare fences pair
+            # with the replacement's two init fences (a generation
+            # barrier at full quorum again now that ulfm_failed is
+            # empty)
+            state.rte.fence()
+            state.rte.fence()
+        else:
+            # ranks in other processes: full epoch rewire, fences
+            # pairing with the replacement's TPUMPI_FT_EPOCH init
+            # fences
+            _epoch_rewire(state, epoch)
         _dbg(state, "epoch fences passed")
 
     # hygiene on both sides: caches keyed on the old incarnation's

@@ -4,12 +4,18 @@ revoke / shrink / agree.
 Port of the reference's ft/ulfm.py (a re-design of the ULFM
 prototype's run-through-stabilization surface, ref: the MPI-4 FT
 proposal's MPIX_Comm_revoke/shrink/agree + failure_ack,
-ompi/communicator/ft and the errmgr framework), thread-rank worlds:
+ompi/communicator/ft and the errmgr framework):
 
-* **detect** — a permanently dead rank (``kill_now``, or the
-  ft_inject ``rank_kill`` timer) becomes a failure *record* that the
-  thread-world harness delivers to every survivor's ``UlfmState``.
-  Each ingested failure bumps a monotonic local failure epoch.
+* **detect** — a permanently dead rank (``kill_now``, the ft_inject
+  ``rank_kill`` timer, a process rank or app shell that exited under
+  mpirun's ulfm or respawn policy, a lost host domain of the resident
+  pool) becomes a failure *record* carried world-wide: a thread-rank
+  world delivers it directly to every survivor's ``UlfmState``; a job
+  whose ranks live in several processes also appends
+  ``ulfm:note:<n>`` records to the KV store, consumed by a per-rank
+  watcher thread (``start_watcher``, started by ``init()`` for a rank
+  launched with ``TPUMPI_ULFM=1``).  Each ingested failure bumps a
+  monotonic local failure epoch.
 * **report** — pending and future p2p/collective operations naming a
   failed peer complete with ``ERR_PROC_FAILED`` instead of hanging:
   ``pml/ob1`` has a ``ulfm_sweep`` that drains parked requests, and
@@ -24,16 +30,14 @@ ompi/communicator/ft and the errmgr framework), thread-rank worlds:
 * **observe** — detect/revoke/shrink/agree emit trace instants,
   flight-recorder events and ``ulfm_*`` pvars.
 
-Agreement/shrink run over a *store* (the world-shared dict), not over
-p2p: the control plane must stay usable on a communicator whose data
-plane is already revoked or holed.
+Agreement/shrink run over a *store*, not over p2p: the control plane
+must stay usable on a communicator whose data plane is already revoked
+or holed.  A thread-rank world holding every rank uses the world-shared
+dict (``_InprocStore``); ranks in several processes use KV put-once
+records (``_KvStore``).  The reference picks the KV store whenever the
+rank has a KV client, a resident pool session included; the port keeps
+a pool session, whose world holds every rank, on the shared dict.
 
-Not ported: the process-rank half — the KV-store backend of the store
-and its note watcher (``_KvStore``, ``start_watcher``) wait for
-ROADMAP.md A8b; ``_store`` raises for a world without a shared table
-or whose ranks live in more than one process, and ``init()`` refuses a
-process rank launched under the ulfm or respawn errmgr policy
-(``TPUMPI_ULFM=1``), so no rank runs on without failure detection.
 The reference's shrink also drops compiled executables keyed on the
 old mesh (``compile_cache.drop_mesh``); the
 port has no process-wide compiled-program cache — its kernel libraries
@@ -49,6 +53,7 @@ new cid).
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, List, Optional, Set, Tuple
@@ -152,7 +157,13 @@ class UlfmState:
                 # a respawned replacement meets its predecessor's
                 # death record: its own rank is alive by construction
                 return 0
-            if len(rec) > 2 and int(rec[2]) <= self.state.respawn_epoch:
+            # a replacement still joining (ft/respawn) is the recovery
+            # of its launch epoch: that epoch's records are the deaths
+            # it replaces (its own, and those of the other ranks its
+            # relaunched app shell holds)
+            done = self.state.respawn_epoch + (
+                1 if self.state.respawn_joining else 0)
+            if len(rec) > 2 and int(rec[2]) <= done:
                 # epoch-tagged record of a failure the respawn
                 # protocol already recovered: ingesting it would
                 # re-mark a revived rank dead forever
@@ -160,6 +171,7 @@ class UlfmState:
             if grank in self.failed:
                 return 0
             self.failed.add(grank)
+            self._sync_rte()
             self.epoch += 1
             _pv_failures.add(1)
             _trace.instant_state(self.state, "ulfm_detect", "ft",
@@ -197,6 +209,15 @@ class UlfmState:
             self._pending = [
                 r for r in self._pending
                 if not (r[0] == "fail" and int(r[1]) == grank)]
+        self._sync_rte()
+
+    def _sync_rte(self) -> None:
+        """A KV-fenced rank (EnvRTE, HybridRTE, a pool's SessionRTE)
+        shrinks its fence quorum by this set: dead ranks never arrive
+        at a fence."""
+        rte = self.state.rte
+        if getattr(rte, "kv", None) is not None:
+            rte.ulfm_failed = set(self.failed)
 
     def _sweep_pml(self) -> None:
         sweep = getattr(self.state.pml, "ulfm_sweep", None)
@@ -291,12 +312,32 @@ def publish_world_failures(world, granks) -> None:
         cv.notify_all()
 
 
+def _kv_note(state, rec: list) -> None:
+    """Append a ``ulfm:note:<n>`` record for the ranks of other
+    processes (their watchers consume it)."""
+    kv = getattr(state.rte, "kv", None)
+    if kv is None:
+        return
+    try:
+        n = kv.incr("ulfm:nseq")
+        kv.put(f"ulfm:note:{n}", rec)
+    except (ConnectionError, OSError, RuntimeError):
+        pass  # control plane gone: local delivery still drains us
+
+
 def publish_failure(state, grank: int) -> None:
-    """Propagate a suspected-permanent rank failure world-wide (direct
-    delivery in a thread-rank world)."""
+    """Propagate a suspected-permanent rank failure job-wide: direct
+    delivery in a thread-rank world, a ``ulfm:note:<n>`` KV record for
+    ranks in other processes (each rank's watcher consumes it)."""
     world = getattr(state.rte, "world", None)
     if world is not None and hasattr(world, "ulfm_failed"):
         publish_world_failure(world, grank)
+    # the note carries the recovery epoch this failure opens, as
+    # mpirun's respawn notes do: a replacement replaying the note
+    # stream drops the deaths its own epoch replaces (the reference's
+    # note carries none, and a relaunched app shell's ranks would fail
+    # each other again on a survivor's transport-detected note)
+    _kv_note(state, ["fail", int(grank), state.respawn_epoch + 1])
     u = getattr(state, "ulfm", None)
     if u is not None:
         u.deliver(("fail", int(grank)))
@@ -314,10 +355,58 @@ def publish_revoke(comm) -> None:
             u = getattr(st, "ulfm", None)
             if u is not None:
                 u.deliver(rec)
+    _kv_note(state, ["revoke", int(comm.cid), list(comm.group)])
     u = getattr(state, "ulfm", None)
     if u is not None:
         u.deliver(rec)
         u.poll()  # the revoker's own parked ops drain immediately
+
+
+# -- KV watcher (ranks of a job in several processes) -----------------------
+
+
+def start_watcher(state) -> None:
+    """Consume ``ulfm:note:<n>`` records from the KV store on a daemon
+    thread with its own KVClient (the shared client is single-threaded
+    by contract).  The notes come from mpirun's errmgr (a dead process
+    rank or app shell) and from ranks of other processes (their
+    revokes and the deaths they saw)."""
+    addr = os.environ.get("TPUMPI_KV_ADDR")
+    if not addr or getattr(state, "ulfm", None) is None:
+        return
+    ns = getattr(getattr(state.rte, "kv", None), "ns", None)
+
+    def run() -> None:
+        from ompi_tpu_torch.runtime.kvstore import KVClient
+        try:
+            kv = KVClient(addr, ns=ns)
+        except (OSError, RuntimeError):
+            return
+        n = 0
+        while True:
+            try:
+                rec = kv.get(f"ulfm:note:{n}", timeout=3600.0)
+            except (RuntimeError, OSError, TimeoutError):
+                if state.finalized:
+                    return
+                continue
+            n += 1
+            u = state.ulfm
+            if u is None or state.finalized:
+                return
+            if rec and rec[0] == "fail":
+                # respawn-policy notes carry the recovery epoch the
+                # failure opens; _ingest drops stale epochs so note
+                # replay after a rejoin cannot re-kill a revived rank
+                if len(rec) > 2:
+                    u.deliver(("fail", int(rec[1]), int(rec[2])))
+                else:
+                    u.deliver(("fail", int(rec[1])))
+            elif rec and rec[0] == "revoke":
+                u.deliver(("revoke", int(rec[1]), tuple(rec[2])))
+
+    threading.Thread(target=run, daemon=True,
+                     name=f"ulfm-watcher-{state.rank}").start()
 
 
 # -- injected kills ---------------------------------------------------------
@@ -383,15 +472,49 @@ class _InprocStore:
             return n
 
 
-def _store(state) -> _InprocStore:
+class _KvStore:
+    """Backend of ranks in several processes: KV put-once via
+    incr-claim (the first caller's pre-increment is 0 — it owns the
+    write)."""
+
+    def __init__(self, kv) -> None:
+        self.kv = kv
+
+    @staticmethod
+    def _k(key: tuple) -> str:
+        return "ulfm:" + ":".join(str(p) for p in key)
+
+    def put_once(self, key: tuple, value: Any) -> bool:
+        return self.kv.put_once(self._k(key), value)
+
+    def try_get(self, key: tuple) -> Any:
+        try:
+            return self.kv.get(self._k(key), timeout=0.05)
+        except (TimeoutError, RuntimeError):
+            return None
+
+    def next_cid(self) -> int:
+        return 4096 + self.kv.incr("ulfm:cid")
+
+
+def _all_local(world) -> bool:
+    """Does this thread world hold every rank (a ``run_ranks`` world, a
+    pool session) — so its shared dict sees every agreement?"""
+    return (world is not None and hasattr(world, "shared")
+            and getattr(world, "nlocal", world.size) >= world.size)
+
+
+def _store(state):
     world = getattr(state.rte, "world", None)
-    if world is None or not hasattr(world, "shared") \
-            or getattr(world, "nlocal", world.size) < world.size:
-        raise RuntimeError(
-            "ULFM agreement needs the world-shared table of a thread-"
-            "rank world holding every rank; the KV-store backend of "
-            "process-rank jobs is not ported (ROADMAP.md A8b)")
-    return _InprocStore(world)
+    if _all_local(world):
+        return _InprocStore(world)
+    kv = getattr(state.rte, "kv", None)
+    if kv is not None:
+        return _KvStore(kv)
+    raise RuntimeError(
+        "ULFM agreement needs a store every rank sees: the world-shared "
+        "table of a thread world holding every rank, or the launcher's "
+        "KV store")
 
 
 def _require(comm) -> UlfmState:
@@ -555,6 +678,13 @@ def purge_tickets(state) -> None:
                       if isinstance(k, tuple) and k
                       and k[0] in ("agree", "shrink")]:
                 del world.shared[k]
+    kv = getattr(state.rte, "kv", None)
+    if kv is not None and not _all_local(world):
+        try:
+            kv.purge("ulfm:agree:")
+            kv.purge("ulfm:shrink:")
+        except (ConnectionError, OSError, RuntimeError):
+            pass
 
 
 def purge_store(state) -> None:
@@ -568,6 +698,14 @@ def purge_store(state) -> None:
                       if isinstance(k, tuple) and k
                       and k[0] in _STORE_KEY_HEADS]:
                 del world.shared[k]
+    kv = getattr(state.rte, "kv", None)
+    if kv is not None:
+        # the KV half: failure notes, the note sequence counter and
+        # the KV tickets
+        try:
+            kv.purge("ulfm:")
+        except (ConnectionError, OSError, RuntimeError):
+            pass
 
 
 def shrink(comm, name: str = ""):

@@ -61,10 +61,15 @@ The resident pool (tools/dvm.py):
     leaving the session's program executing with no client;
   * its server (``serve()``, a subprocess pool only):
     ``dvm_kill`` hard-exits the server at its Nth served op
-    (``KillInjector``; the journal rehydration path).
+    (``KillInjector``; the journal rehydration path);
+  * its fleet of host failure domains: ``host_kill`` severs
+    ``ft_inject_victim_host`` at the pool's Nth served op — agent,
+    KV endpoint and resident ranks as one record (``KillInjector``,
+    in-process safe, so an embedded pool arms it too), and
+    ``host_slow`` makes that host's ``tpud --fleet`` agent beat
+    ``ft_inject_host_slow_factor`` times slower.
 
-Not ported (ROADMAP.md): the fleet's ``host_kill`` and the host
-agent's slow beat (A8b-2), and checkpoint I/O faults (A9).
+Not ported (ROADMAP.md): checkpoint I/O faults (A9).
 """
 
 from __future__ import annotations
@@ -103,7 +108,10 @@ _plan_var = registry.register(
          "primary dies serving its Nth op; the number is that count), "
          "dvm_disconnect (a pool client drops its connection right "
          "after sending a run), dvm_kill (a subprocess pool server "
-         "hard-exits serving its Nth op; the number is that count) "
+         "hard-exits serving its Nth op; the number is that count), "
+         "host_kill (a multi-host pool severs ft_inject_victim_host's "
+         "whole failure domain — agent plus every resident rank — at "
+         "its Nth served op; the number is that count) "
          "and net_jitter (seeded latency on tcp frames and KV ops).  "
          "Empty = framework disabled")
 _rate_var = registry.register(
@@ -120,8 +128,9 @@ _skip_var = registry.register(
          "traffic establishes the job before chaos")
 _victim_host_var = registry.register(
     "ft", "inject", "victim_host", 1, int,
-    help="Host (failure-domain) id the host_slow class slows: every "
-         "rank whose node_id it is")
+    help="Host (failure-domain) id the host_slow class slows (every "
+         "rank whose node_id it is, and its host agent's beat) and the "
+         "host_kill class severs")
 _victim_rank_var = registry.register(
     "ft", "inject", "victim_rank", "1", str,
     help="Global rank(s) the rank_kill class kills, the device_sdc "
@@ -313,6 +322,18 @@ def dvm_kill_injector() -> Optional[KillInjector]:
     return KillInjector("dvm", p["dvm_kill"])
 
 
+def host_kill_injector() -> Optional[KillInjector]:
+    p = plan()
+    if "host_kill" not in p:
+        return None
+    return KillInjector("host", p["host_kill"])
+
+
+def host_kill_victim() -> int:
+    """Host id the host_kill scenario severs."""
+    return _victim_host_var.value
+
+
 # the pool client's fault: dvm_disconnect drops the client's pool
 # connection right after a run request is sent — the session's program
 # is already executing inside the pool, so this drives the client-
@@ -433,7 +454,7 @@ class HostSlowInjector:
     No RNG, no op counting: the victim is simply SLOW, everywhere,
     from the first op — ``delay_s()`` is the stall a resident rank
     adds at every device-collective deposit, ``beat_interval_s(iv)``
-    the inflated heartbeat pacing of a host agent (the pool's, A8).
+    the inflated heartbeat pacing of a host agent (tools/tpud --fleet).
     Both derive from delay_ms and host_slow_factor, so a 10x-slow
     chaos run replays bit for bit with no seed involved."""
 

@@ -42,19 +42,16 @@ state per sustained-clean streak.  The adaptive host-liveness grace
 also lives here: ``HostBeatEstimator`` derives each host's grace from
 its own beat EWMA + jitter, floored at a static horizon.
 
-In the port the module has two callers today: the hierarchical tier's
-leader reroute reads ``node_degraded`` (through the process-global
-mask ``set_degraded_mask`` holds), and the hang doctor's capture
-(``testing.sessions.doctor_capture``) takes a plane's ``snapshot``.
-Nothing in the port builds, beats or ticks a ``HealthPlane`` yet: the
-reference's DVM pool does (``tools/dvm.py``: its heartbeat feed into
-``note_beat``, ``tick`` on its host sweep, ``collect`` in
-``_health_collect`` with the events and the ladder, ``exclude`` and
-``reset_host`` on host death and respawn, ``placement_ok`` and
-``widen_pct`` at admission, the convict hook into ``note_sdc``), and it
-comes with A8 (ROADMAP.md), which names each of these.  Until then the
-``health_*`` knobs act only on a plane a caller builds, and the pool's
-own ``health_respawn`` is not registered.
+Callers: the resident pool of more than one host (tools/dvm.py) builds
+a plane, feeds its agents' beats into ``note_beat``, ticks it on its
+heartbeat loop, walks the ladder in ``_health_collect`` (with
+``health_respawn`` cycling a quarantined host), ``exclude``s a dead
+host, asks ``placement_ok`` at placement and ``widen_pct`` at deadline
+shedding, and wires the integrity plane's convict hook into
+``note_sdc``; the hierarchical tier's leader reroute reads
+``node_degraded`` (through the process-global mask
+``set_degraded_mask`` holds); the hang doctor's capture takes a
+plane's ``snapshot``.
 """
 
 from __future__ import annotations
@@ -67,9 +64,7 @@ _enable_var = registry.register(
     "health", "", "enable", 1, int,
     help="Arm the gray-failure health plane on multi-host pools "
          "(score hosts, degrade/quarantine, mitigate); 0 leaves only "
-         "the death-by-silence liveness plane.  The port has no pool "
-         "yet: this and the other health_* knobs act on a "
-         "HealthPlane the caller builds")
+         "the death-by-silence liveness plane")
 _tick_ms_var = registry.register(
     "health", "", "tick_ms", 250, int,
     help="Health-plane scoring period (the audited tick rides the "
@@ -105,6 +100,11 @@ _skew_budget_var = registry.register(
     "health", "", "skew_budget_us", 50000, int,
     help="Cross-rank rdv_wait skew EWMA that scores 100 health "
          "points (corroboration signal weighting)")
+_respawn_var = registry.register(
+    "health", "", "respawn", 0, int,
+    help="After a quarantined host is fully drained, cycle the "
+         "domain (kill_host + respawn_host) so a fresh agent rejoins "
+         "clean; 0 leaves the offender quarantined for the operator")
 _pv_host_health = registry.register_pvar(
     "fleet", "", "host_health", var_class="level",
     help="Hosts currently NOT healthy (degraded + quarantined) — the "

@@ -18,11 +18,15 @@ plane's knobs; obs.detach at finalize), the session cid band (the
 predefined communicators at the band base), the fault injectors of
 the rendezvous and the RMA AM apply, and ULFM (attached before pml
 selection; the ``rank_kill`` arm after the final fence, never on a
-respawned replacement; its store purged at finalize).  vprotocol,
-the KV note watchers and live recovery are listed in ROADMAP.md as
-still to port: a process rank launched under the ulfm or respawn
-errmgr policy (``TPUMPI_ULFM=1``) is refused here, because it would
-run on without the KV note watcher that detects its peers' deaths.
+respawned replacement; its store purged at finalize).  A rank
+launched under mpirun's ulfm or respawn errmgr policy
+(``TPUMPI_ULFM``) starts ULFM's KV note watcher after the final fence,
+and a replacement launched by the respawn policy (``TPUMPI_RESPAWN``,
+``TPUMPI_FT_EPOCH``) comes up joining (``ft.respawn.joining``) and
+without btl/shm (the rings of a pre-failure epoch cannot be made
+stale-byte-safe, so an epoch > 0 world talks over tcp).  vprotocol
+and live recovery (the recover policy's epoch watcher) are listed in
+ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -45,13 +49,6 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     """``device`` is the ``torch.device`` this rank owns (None in a
     host-only world), or a ``LogicalDevice``: a torch device and this
     rank's logical slot on it."""
-    if os.environ.get("TPUMPI_ULFM") and getattr(state.rte, "kv",
-                                                   None) is not None:
-        raise NotImplementedError(
-            "mpirun's ulfm and respawn errmgr policies need the KV note "
-            "watcher on every process rank (ft/ulfm.py start_watcher), "
-            "which is not ported yet (ROADMAP.md A8b); without it this "
-            "rank would not detect a peer's death")
     set_current(state)
     # span tracer attach BEFORE pml/coll selection so every layer
     # constructed below can cache state.tracer (None when trace_enable
@@ -116,16 +113,30 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     from ompi_tpu_torch.ft import ulfm as _ulfm
     _ulfm.attach(state)
     # the recovery epoch a launcher starts this rank in (0 for a
-    # fresh job).  A thread-world replacement gets respawn_joining
-    # and respawn_epoch from run_ranks before mpi_init (threads share
-    # the environment, so an env flag cannot mark one of them)
+    # fresh job)
     state.ft_epoch = int(os.environ.get("TPUMPI_FT_EPOCH", "0"))
+    # self-healing respawn (ft/respawn): a replacement launched by
+    # mpirun carries TPUMPI_RESPAWN=1 and the epoch its failure opened
+    # — it runs the rejoin protocol before real work and never re-arms
+    # the fault that killed its predecessor.  A thread-world
+    # replacement gets these attrs from run_ranks before mpi_init
+    # (threads share the environment, so the env flag marks a
+    # launched process or app shell only)
+    if (not state.respawn_joining and os.environ.get("TPUMPI_RESPAWN")
+            and getattr(state.rte, "kv", None) is not None):
+        state.respawn_joining = True
+        state.respawn_epoch = max(0, state.ft_epoch - 1)
     # 1. select the single pml engine (ref: ompi_mpi_init.c:640)
     comp, pml_cls = _pml_ob1.pml_framework.select_one(state)
     state.pml = pml_cls(state)
     # 2. btl modules + endpoint wiring (modex happens inside init)
     modules = []
     for c in btl_base.btl_framework.components():
+        if state.ft_epoch and getattr(c, "name", "") == "shm":
+            # an epoch > 0 world keeps shm out: a constructed-then-
+            # dropped module would create rings for a transport the
+            # epoch never uses
+            continue
         modules += c.init_modules(state)
     state.btls = modules
     # publish our state for inproc peers + our device assignment for
@@ -172,6 +183,11 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
             # a respawned replacement never re-arms its predecessor's
             # death — that would be an infinite kill/respawn loop
             _ulfm.arm_rank_kill(state, _fi.after_s())
+        if os.environ.get("TPUMPI_ULFM"):
+            # mpirun runs the ulfm or respawn errmgr policy: consume
+            # the job-wide ulfm:note:<n> failure/revoke records from
+            # the KV store
+            _ulfm.start_watcher(state)
     return state
 
 

@@ -25,10 +25,10 @@ ticks, covering the idle-pool case where no rank-thread is running —
 calls :meth:`apply` off the hot path to actually resize and record
 flight-recorder events.
 
-The port's pool is one host: the reference's fleet half (widening the
-margins while its health plane holds a degraded host, auto-respawning
-a dead host domain, holding the shrink while one rehydrates) is
-ROADMAP.md A8b-2 and is not carried.
+On a pool of several host domains it also widens the margins while the
+health plane holds a degraded host (or an integrity conviction), holds
+the shrink while a lost host rehydrates, and with ``ctrl_host_respawn``
+re-places a dead host domain itself.
 """
 
 from __future__ import annotations
@@ -58,6 +58,12 @@ _margin_max_var = registry.register(
 pv_ticks = registry.register_pvar(
     "ctrl", "loop", "ticks",
     help="FleetController decision-loop ticks taken")
+_host_respawn_var = registry.register(
+    "ctrl", "host", "respawn", 0,
+    help="1 = the controller auto-respawns dead host failure domains "
+         "on its apply sweep (the cluster-scheduler stand-in); 0 "
+         "leaves respawn to the operator / chaos probe so MTTR can "
+         "be measured")
 
 
 class FleetController:
@@ -112,6 +118,19 @@ class FleetController:
         wf = self.wd_base_pct + depth * 25
         if wf > self.wd_base_pct * 2:
             wf = self.wd_base_pct * 2
+        hp = getattr(srv, "health", None)
+        if hp is not None and (hp.degraded_n > 0 or hp.sdc_n > 0):
+            # gray-failure mitigation: a degraded host runs slow ON
+            # PURPOSE while the health plane holds it (and a host
+            # convicted of silent data corruption is mid-drain, its
+            # retried collectives inflating run times the same way) —
+            # widen the shed margin and the watchdog tolerance by 1.5x
+            # so the estimator and the hang doctor do not punish the
+            # sessions the fleet chose not to migrate yet
+            margin = margin + (margin >> 1)
+            if margin > self.margin_max:
+                margin = self.margin_max
+            wf = wf + (wf >> 1)
         self.shed_margin_pct = margin
         self.wd_factor_pct = wf
         if depth >= self.grow_depth and cap < self.ceil:
@@ -121,11 +140,15 @@ class FleetController:
             self.want_capacity = want
             self.idle_ticks = 0
         elif depth == 0 and active == 0 \
-                and getattr(srv, "rehydrated_parked", 0) == 0:
+                and getattr(srv, "rehydrated_parked", 0) == 0 \
+                and getattr(srv, "hosts_rehydrating", 0) == 0:
             # rehydrated-but-unresumed sessions (crash recovery,
             # DESIGN.md §20) hold zero ranks yet are about to resume:
             # shrinking now would yank capacity out from under the
-            # recovering pool and add resize churn to the MTTR
+            # recovering pool and add resize churn to the MTTR.
+            # Likewise a lost host domain mid-rehydration: its parked
+            # sessions need their ranks back the moment the
+            # replacement host rejoins
             self.idle_ticks += 1
             if self.idle_ticks >= self.shrink_ticks and cap > self.floor:
                 self.want_capacity = self.floor
@@ -143,6 +166,7 @@ class FleetController:
         tests) — may lock, allocate, log.  Returns True if a resize
         was applied."""
         srv = self.server
+        self._maintain_hosts(srv)
         want = self.want_capacity
         if srv is None or not want or want == srv.capacity:
             self.want_capacity = 0
@@ -152,3 +176,21 @@ class FleetController:
                           self.last_depth, getattr(srv, "est_wall_us", 0))
         srv.resize(want)
         return True
+
+    def _maintain_hosts(self, srv) -> None:
+        """Host-granularity repair: a dead failure domain is replaced,
+        not merely mourned.  The controller stands in for a cluster
+        scheduler handing back a machine: it re-places the lost domain
+        so the parked sessions' next run lands on a live fleet.
+        Opt-in (ctrl_host_respawn=1): chaos runs measure the gap
+        between a kill and an operator-driven respawn."""
+        if srv is None or getattr(srv, "hosts", 1) < 2:
+            return
+        if not _host_respawn_var.value:
+            return
+        dead = getattr(srv, "_host_dead", None)
+        if not dead:
+            return
+        for h, d in enumerate(dead):
+            if d:
+                srv.respawn_host(h)

@@ -1,5 +1,5 @@
 """tpu-dvm: the resident pool — a persistent, multiplexed service plane
-for jobs, on one host.
+for jobs.
 
 Port of the reference's ``ompi_tpu/tools/dvm.py`` (a re-design of
 orte-dvm, ref: orte/tools/orte-dvm/orte-dvm.c:1 — start the runtime
@@ -49,10 +49,18 @@ none`` gives the ranks no device (host-only collectives).
 ``{uri-file}.proctable.json`` maps every resident session rank to its
 pool pid/thread.
 
-The pool spans one host.  The multi-host fleet (``hosts > 1``, the tpud
-host agents, host kill and respawn, the per-host journals and the
-pool's gray-failure health plane) is ROADMAP.md A8b-2: each raises
-NotImplementedError.
+Host failure domains (``--hosts N``): the pool models N hosts.  Session
+ranks band contiguously onto them (rank r on host ``r * N // np``, its
+``node_id``); a ``tpud --fleet URI --host H`` agent a host registers and
+beats on the pool port, and silence past the grace horizon, a
+``--kill-host H`` or the ft_inject ``host_kill`` fault fails every
+resident rank of the host as ONE ULFM failure record.  ``--respawn-host
+H`` rejoins it and reports its MTTR.  Session journal records federate
+across per-host files (``{uri}.journal.h{H}.jsonl``) under one
+incarnation, and a health plane (obs/health) scores live hosts from
+their beats and degrades, quarantines and drains the slow ones.  The
+domains are failure domains of this one pool process: a session rank's
+device is ``devices[r % len(devices)]`` whatever its host.
 """
 from __future__ import annotations
 
@@ -77,7 +85,6 @@ from ompi_tpu_torch import trace
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.obs import reqtrace as _reqtrace
 
-_FLEET = "ROADMAP.md A8b-2"
 _session_max_var = registry.register(
     "dvm", "", "session_max", 8, int,
     help="Most sessions concurrently resident in one DVM pool; an "
@@ -145,7 +152,16 @@ _pv_resizes = registry.register_pvar(
     "dvm", "", "resizes",
     help="Live pool capacity changes applied (grow or shrink), each "
          "opening a new pool epoch")
-# session-banded (ompi_tpu/obs): a pool serves many tenants; global
+# host failure domains: the fleet-granularity liveness counters
+_pv_hosts_active = registry.register_pvar(
+    "fleet", "", "hosts_active", var_class="level",
+    help="Live failure domains (hosts) currently backing the fleet")
+_pv_hosts_lost = registry.register_pvar(
+    "fleet", "", "hosts_lost",
+    help="Whole-host failures declared (heartbeat silence past the "
+         "grace horizon, or host_kill chaos) — each one atomic ULFM "
+         "domain record, never N racing per-rank detections")
+# session-banded (ompi_tpu_torch/obs): a pool serves many tenants; global
 # reads through the registry stay O(1), per-session values come from
 # the metrics RPC only
 _pv_jobs = _obs.scoped_pvar(
@@ -217,12 +233,6 @@ def _integrity_snapshot() -> list:
     """Process-global sdc conviction rows for doctor reports."""
     from ompi_tpu_torch.obs import integrity as _integrity
     return _integrity.convicted_snapshot()
-
-
-def _fleet(what: str):
-    raise NotImplementedError(
-        f"{what} belongs to the multi-host fleet, which is not ported "
-        f"yet ({_FLEET})")
 
 
 def _pvar_snapshot() -> Dict[str, Any]:
@@ -576,6 +586,10 @@ class _Session:
         self.preempt_count = 0
         self.epoch = 0  # pool epoch at (re)admission — cid-bands
         #                 derived comms per resize epoch (ft/respawn)
+        # health-plane placement override: rank -> host band stamped
+        # at _bringup when any domain is degraded, quarantined or
+        # dead.  None = the static contiguous banding.
+        self.placement: Optional[List[int]] = None
         # crash recovery (DESIGN.md §20): the reattach credential, the
         # jobid->exit-code dedup memory for replayed runs, and the
         # set of jobids whose run WAL has no run_done (in flight at a
@@ -629,6 +643,7 @@ class _Conn:
         self.send_lock = threading.Lock()
         self.busy = 0
         self.dead = False
+        self.agent_pid = 0  # set when this conn is a tpud host agent
 
     def reply(self, obj: dict) -> None:
         with self.send_lock:
@@ -644,14 +659,13 @@ class DVMServer:
     (rank r gets ``devices[r % len(devices)]``: ``[torch.device("cuda",
     0)]`` puts every rank of a session on card 0, the coll/hbm tier;
     ``[torch.device("cpu")]`` is the CPU with the kernels' plain
-    versions), or None for host-only ranks.  ``hosts`` > 1 (the
-    multi-host fleet) is not ported yet and raises."""
+    versions), or None for host-only ranks.  ``hosts`` is the number
+    of host failure domains the session ranks band onto (rank r of a
+    session of np on host ``r * hosts // np``)."""
 
     def __init__(self, capacity: int, devices=None,
                  uri_file: Optional[str] = None,
                  hosts: int = 1) -> None:
-        if int(hosts) != 1:
-            _fleet(f"a pool of {hosts} host failure domains")
         self.capacity = capacity
         self.devices = list(devices) if devices else None
         self.uri_file = uri_file
@@ -692,10 +706,38 @@ class DVMServer:
         # yet): read by FleetController.tick as a shrink inhibitor —
         # a just-recovered pool with zero active ranks is NOT idle
         self.rehydrated_parked = 0
-        # one host failure domain (the fleet is A8b-2): the replies'
-        # host fields keep their one-host values
-        self.hosts = 1
         self._stdio = False
+        # host failure domains: the pool models `hosts` domains.
+        # Resident ranks band onto them contiguously (_bringup stamps
+        # the band as the rank's node_id), session journal records
+        # federate across per-host files under ONE incarnation id, and
+        # a per-host liveness plane (tpud host agents beating over the
+        # pool port) turns silence into one atomic domain record.
+        # All-int preallocated state: _host_tick scans it on the
+        # audited hot path.
+        self.hosts = max(1, int(hosts))
+        self._host_beat = [0] * self.hosts     # last beat ns (0 = no agent)
+        self._host_dead = [0] * self.hosts     # 1 = lost domain
+        self._host_pending = [0] * self.hosts  # silence marks to collect
+        self._host_lost_ns = [0] * self.hosts  # MTTR clock starts
+        self._host_grace_ns = 0
+        self._host_agents: Dict[int, Any] = {}
+        self._host_lost_sids: Dict[int, List[int]] = {}
+        self._hjournals: List[Optional[_Journal]] = [None] * self.hosts
+        self._hkill: Any = None
+        self._sdc_hook: Any = None
+        # lost domains not yet replaced: read by FleetController.tick
+        # as a shrink inhibitor (a fleet mid-rehydration is not idle)
+        self.hosts_rehydrating = 0
+        # gray-failure health plane (obs/health): scores slow-but-alive
+        # domains and drives the degrade/quarantine ladder.  None on
+        # one-host pools and when health_enable=0 — every consumer
+        # null-checks.
+        self.health: Any = None
+        # last health state _health_collect applied per host: the
+        # delta against HealthPlane.state tells escalation from
+        # recovery when transitions are drained
+        self._health_applied = [0] * self.hosts
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -711,7 +753,43 @@ class DVMServer:
         _squota.install()
         self._started = True
         from ompi_tpu_torch.runtime.kvstore import KVServer
-        self.kv_server = KVServer(self.capacity, host_id=0)
+        # a fleet homes the KV primary on host 0 and places the hot
+        # standby on host 1 (a standby sharing the primary's host dies
+        # with it on a host kill)
+        self.kv_server = KVServer(
+            self.capacity, host_id=0,
+            standby_host=1 if self.hosts > 1 else None)
+        from ompi_tpu_torch.runtime import oob as _oob
+        self._host_grace_ns = int(
+            (3.0 * max(0.2, _hb_var.value)
+             + max(0.0, _oob.host_grace_var.value)) * 1e9)
+        if self.hosts > 1:
+            # host_kill is in-process safe (no os._exit): embedded
+            # pools arm it too, unlike dvm_kill
+            from ompi_tpu_torch import ft_inject as _fi
+            self._hkill = _fi.host_kill_injector()
+            from ompi_tpu_torch.obs import health as _health
+            if _health._enable_var.value:
+                # the expected beat interval mirrors the agent's own
+                # pacing (tools/tpud beats at grace/6); the adaptive
+                # grace floors at the static horizon computed above
+                self.health = _health.HealthPlane(
+                    self.hosts,
+                    expect_beat_ns=max(50_000_000,
+                                       self._host_grace_ns // 6),
+                    floor_grace_ns=self._host_grace_ns)
+                # a collective-integrity conviction on any resident
+                # rank feeds the decisive per-host sdc signal: the next
+                # health tick quarantines
+                from ompi_tpu_torch.obs import integrity as _integrity
+                hp = self.health
+
+                def _on_sdc(rec, _hp=hp):
+                    _hp.note_sdc(int(rec.get("host", 0)))
+
+                self._sdc_hook = _on_sdc
+                _integrity.install_convict_hook(_on_sdc)
+        _pv_hosts_active.add(self.hosts)
         self.listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self.listener.bind(("127.0.0.1", 0))
@@ -775,11 +853,15 @@ class DVMServer:
 
     def stop(self) -> None:
         self._drain()
-        if self._journal is not None:
-            # orderly stop == clean halt: drop the journal, nothing
-            # should rehydrate from an intentional shutdown
-            self._journal.close(delete=True)
-            self._journal = None
+        if self._sdc_hook is not None:
+            from ompi_tpu_torch.obs import integrity as _integrity
+            _integrity.remove_convict_hook(self._sdc_hook)
+            self._sdc_hook = None
+        # orderly stop == clean halt: drop the journals, nothing
+        # should rehydrate from an intentional shutdown
+        self._close_journals()
+        if self._started:
+            _pv_hosts_active.add(-(self.hosts - sum(self._host_dead)))
         self._halted = True
         self._close_listener()
         if self._accept_thread is not None:
@@ -853,6 +935,21 @@ class DVMServer:
                             w.error = "client connection lost"
                             w.event.set()
                 self._pump()
+            # host liveness plane: the audited tick only MARKS silent
+            # domains; declaration (allocating, socket-touching) runs
+            # here, off any hot path
+            if self.hosts > 1 \
+                    and self._host_tick(time.perf_counter_ns()):
+                self._host_collect()
+            # gray-failure plane: same split — the audited score and
+            # hysteresis tick latches transitions, the cold collect
+            # applies the mitigation ladder (the skew corroboration
+            # sample is cold too: pure reads)
+            hp = self.health
+            if hp is not None:
+                self._health_sample(hp)
+                if hp.tick(time.perf_counter_ns()):
+                    self._health_collect()
             ctrl = self.ctrl
             if ctrl is not None:
                 # idle-pool coverage: rank-threads only tick the
@@ -861,9 +958,9 @@ class DVMServer:
                 # must stay off the rank hot path) while none run
                 ctrl.tick(time.perf_counter_ns())
                 ctrl.apply()
-            j = self._journal
-            if j is not None:
-                j.tick()  # flush buffered bookkeeping records
+            for j in [self._journal] + self._hjournals:
+                if j is not None:
+                    j.tick()  # flush buffered bookkeeping records
 
     def _client(self, conn: _Conn) -> None:
         owned: List[int] = []
@@ -930,6 +1027,16 @@ class DVMServer:
                              f"op {op}\n")
             sys.stderr.flush()
             os._exit(70)
+        if self._hkill is not None and op != "host_beat" \
+                and self._hkill.op():
+            # chaos (ft_inject host_kill): deterministic whole-host
+            # sever at the armed op count — the victim domain's agent,
+            # KV endpoint and resident ranks all die as one record.
+            # The agents' beats are not counted (the reference counts
+            # them): they arrive on the wall clock, and counting them
+            # would make the kill point depend on time
+            from ompi_tpu_torch import ft_inject as _fi
+            self.kill_host(_fi.host_kill_victim())
         if op == "halt":
             conn.busy += 1
             try:
@@ -938,11 +1045,10 @@ class DVMServer:
                 conn.busy -= 1
             _obs.record_event(_obs.EV_DVM_HALT, len(self.sessions), jobs)
             self._persist_events("halt")
-            if self._journal is not None:
-                # clean halt: nothing to rehydrate — a journal left
-                # behind would resurrect sessions nobody wants back
-                self._journal.close(delete=True)
-                self._journal = None
+            # clean halt: nothing to rehydrate — a journal (the pool's
+            # or a host's) left behind would resurrect sessions nobody
+            # wants back
+            self._close_journals()
             conn.reply({"ok": True, "jobs": jobs})
             sys.stderr.write(f"tpu-dvm: halt after {jobs} jobs\n")
             self._halted = True
@@ -961,17 +1067,66 @@ class DVMServer:
                             "capacity": self.capacity,
                             "epoch": self.pool_epoch,
                             "hosts": self.hosts,
-                            "hosts_lost": 0,
-                            "hosts_rehydrating": 0,
-                            "hosts_degraded": 0,
-                            "hosts_quarantined": 0})
+                            "hosts_lost": sum(self._host_dead),
+                            "hosts_rehydrating":
+                                self.hosts_rehydrating,
+                            "hosts_degraded":
+                                self.health.degraded_n
+                                if self.health else 0,
+                            "hosts_quarantined":
+                                self.health.quarantined_n
+                                if self.health else 0})
             return False
-        if op in ("host_register", "host_beat", "host_kill",
-                  "host_respawn"):
-            # the fleet's control path (tpud host agents, host kill and
-            # respawn): a one-host pool has no host domains to serve
-            raise DvmError(f"op {op}: the multi-host fleet is not "
-                           f"ported yet ({_FLEET})")
+        if op == "host_register":
+            # a tpud host agent (one per failure domain) announces
+            # itself on the pool port and starts beating — silence past
+            # the grace horizon marks the WHOLE domain lost (one
+            # atomic ULFM record)
+            h = int(msg.get("host", -1))
+            if not 0 <= h < self.hosts:
+                raise DvmError(f"host {h} outside fleet "
+                               f"(hosts={self.hosts})")
+            conn.agent_pid = int(msg.get("pid", 0))
+            with self.lock:
+                self._host_agents[h] = conn
+                self._host_beat[h] = time.perf_counter_ns()
+                self._host_dead[h] = 0
+                self._host_pending[h] = 0
+            conn.reply({"ok": True, "host": h,
+                        "incarnation": self.incarnation,
+                        "grace_s": self._host_grace_ns / 1e9})
+            return False
+        if op == "host_beat":
+            h = int(msg.get("host", -1))
+            if 0 <= h < self.hosts and self._host_dead[h] == 0:
+                now = time.perf_counter_ns()
+                self._host_beat[h] = now
+                if self.health is not None:
+                    # feeds the shared beat estimator: inter-arrival
+                    # EWMA + jitter drive both the health score and
+                    # the adaptive per-host liveness grace
+                    self.health.note_beat(h, now)
+            conn.reply({"ok": True})
+            return False
+        if op == "host_kill":
+            h = int(msg.get("host", -1))
+            conn.busy += 1
+            try:
+                self.kill_host(h)
+            finally:
+                conn.busy -= 1
+            conn.reply({"ok": True, "host": h})
+            return False
+        if op == "host_respawn":
+            h = int(msg.get("host", -1))
+            conn.busy += 1
+            try:
+                mttr_ms = self.respawn_host(h)
+            finally:
+                conn.busy -= 1
+            conn.reply({"ok": True, "host": h,
+                        "mttr_ms": round(mttr_ms, 3)})
+            return False
         if op == "resize":
             new_cap = int(msg.get("np", 0))
             conn.busy += 1
@@ -1214,9 +1369,10 @@ class DVMServer:
             "epoch": self.pool_epoch,
             "est_wall_us": self.est_wall_us,
             "hosts": self.hosts,
-            "hosts_lost": 0,
-            "hosts_rehydrating": 0,
-            "host_health": None,
+            "hosts_lost": sum(self._host_dead),
+            "hosts_rehydrating": self.hosts_rehydrating,
+            "host_health": (self.health.snapshot()
+                            if self.health is not None else None),
             "sdc": _integrity_snapshot(),
             "ctrl": None if self.ctrl is None else {
                 "ticks": self.ctrl.ticks,
@@ -1256,10 +1412,44 @@ class DVMServer:
 
     # -- crash recovery ----------------------------------------------------
 
-    def _jrec(self, rec: dict, sync: bool = False) -> None:
-        j = self._journal
+    def _journal_path(self, h: int) -> str:
+        """Per-host journal file: host 0 shares the legacy path (so a
+        one-host pool's on-disk format is unchanged), host k >= 1 gets
+        a `.h<k>` sibling.  All federated under one incarnation id."""
+        base = f"{self.uri_file}.journal"
+        return f"{base}.jsonl" if h == 0 else f"{base}.h{h}.jsonl"
+
+    def _jrec_h(self, h: int, rec: dict, sync: bool = False) -> None:
+        j = self._journal if h == 0 else self._hjournals[h]
         if j is not None:
             j.append(rec, sync=sync)
+
+    def _jrec(self, rec: dict, sync: bool = False) -> None:
+        if self._journal is None:
+            return
+        h = 0
+        if self.hosts > 1:
+            # federate: each session's write-ahead records land in the
+            # journal of the host domain that owns it, so losing one
+            # host loses exactly that host's tail — the survivors'
+            # journals stay intact and replayable
+            sid = rec.get("sid")
+            if sid is not None:
+                h = int(sid) % self.hosts
+        self._jrec_h(h, rec, sync=sync)
+
+    def _close_journals(self) -> None:
+        """Clean halt: close and delete the pool's journal and every
+        host's — a journal on disk always means a crash, and would
+        resurrect sessions nobody wants back."""
+        if self._journal is not None:
+            self._journal.close(delete=True)
+            self._journal = None
+        for h in range(1, self.hosts):
+            jh = self._hjournals[h]
+            if jh is not None:
+                jh.close(delete=True)
+                self._hjournals[h] = None
 
     def _quota_snapshot(self) -> Dict[str, Any]:
         return {"dvm_quota_hbm_bytes":
@@ -1270,18 +1460,30 @@ class DVMServer:
         incarnation left behind.  Every journaled-attached session
         comes back PARKED — sid, ns, token, priority and replay
         memory restored, world torn down (it died with the process);
-        the preemption machinery (_run -> _unpark) brings the world
-        back up on the owner's next run, after it reattaches by token.
-        Jobids journaled as in-flight (run WAL without run_done) are
-        handed back at reattach so the client resubmits them — never
-        silently lost."""
+        the existing preemption machinery (_run -> _unpark) brings
+        the world back up on the owner's next run, after it
+        reattaches by token.  Jobids journaled as in-flight (run WAL
+        without run_done) are handed back at reattach so the client
+        resubmits them — never silently lost.
+
+        With hosts > 1 the journal is FEDERATED: one file per host
+        domain, all stamped with the same fleet incarnation id.  A
+        new incarnation loads every surviving host journal (a torn
+        tail in any one of them is tolerated independently) and
+        compacts each back to its own host's state."""
         recs = _Journal.load(path)
         self._journal = _Journal(path)
-        opened = {"t": "open", "inc": self.incarnation,
-                  "pid": os.getpid(), "cap": self.capacity}
+        for h in range(1, self.hosts):
+            hp = self._journal_path(h)
+            recs.extend(_Journal.load(hp))
+            self._hjournals[h] = _Journal(hp)
         if not recs:
-            self._jrec(opened, sync=True)
-            self._jrec({"t": "quota", **self._quota_snapshot()})
+            opened = {"t": "open", "inc": self.incarnation,
+                      "pid": os.getpid(), "cap": self.capacity}
+            self._jrec_h(0, opened, sync=True)
+            self._jrec_h(0, {"t": "quota", **self._quota_snapshot()})
+            for h in range(1, self.hosts):
+                self._jrec_h(h, opened, sync=True)
             return
         live: Dict[int, dict] = {}
         done: Dict[int, "collections.OrderedDict[str, int]"] = {}
@@ -1309,7 +1511,10 @@ class DVMServer:
                 d = done.setdefault(sid, collections.OrderedDict())
                 d[rec["jobid"]] = int(rec["code"])
                 # bound replay memory exactly like the live path
-                # (remember_done)
+                # (remember_done): without this, a long-lived session
+                # rehydrated across incarnations accretes its entire
+                # completed-jobid history into RAM and back into the
+                # compacted journal, growing without bound
                 while len(d) > 64:
                     d.popitem(last=False)
                 jobs += 1
@@ -1340,21 +1545,30 @@ class DVMServer:
         if live:
             _pv_peak.update_max(len(self.sessions))
             self._set_xsession_hint(len(self.sessions))
-        # compact: the journal starts from the rehydrated state, not
-        # the dead incarnation's full history
-        out: List[dict] = [opened, {"t": "quota",
-                                    **self._quota_snapshot()}]
+        # compact: each journal starts from the rehydrated state, not
+        # the dead incarnation's full history.  Session records route
+        # back to their owning host's journal; pool-level records
+        # (quota, epoch) live in host 0's.
+        opened = {"t": "open", "inc": self.incarnation,
+                  "pid": os.getpid(), "cap": self.capacity}
+        outs: List[List[dict]] = [[opened] for _ in range(self.hosts)]
+        outs[0].append({"t": "quota", **self._quota_snapshot()})
         if epoch:
-            out.append({"t": "epoch", "epoch": epoch,
-                        "cap": self.capacity})
+            outs[0].append({"t": "epoch", "epoch": epoch,
+                            "cap": self.capacity})
         for sid, arec in live.items():
+            out = outs[sid % self.hosts if self.hosts > 1 else 0]
             out.append(arec)
             for jobid, code in done.get(sid, {}).items():
                 out.append({"t": "run_done", "sid": sid,
                             "jobid": jobid, "code": code})
             for jobid in wal.get(sid, set()):
                 out.append({"t": "run", "sid": sid, "jobid": jobid})
-        self._journal.rewrite(out)
+        self._journal.rewrite(outs[0])
+        for h in range(1, self.hosts):
+            jh = self._hjournals[h]
+            if jh is not None:
+                jh.rewrite(outs[h])
         _obs.record_event(_obs.EV_DVM_REHYDRATE, len(live), jobs,
                           _obs.intern(self.incarnation))
         inflight = sum(len(s) for s in wal.values())
@@ -1363,13 +1577,432 @@ class DVMServer:
             f"completed job(s), {inflight} in-flight jobid(s) from "
             f"{path} (incarnation {self.incarnation})\n")
 
-    # -- host failure domains: the multi-host fleet (A8b-2) ----------------
+    # -- host failure domains ----------------------------------------------
+
+    def host_ranks(self, sess: _Session, h: int) -> List[int]:
+        """Ranks of `sess` resident on host domain `h` — the same
+        contiguous banding _bringup stamps into each rank's node_id,
+        so liveness, placement and the modex all agree on who lives
+        where.  A health-plane placement override (sess.placement,
+        stamped at _bringup when a domain is degraded/quarantined)
+        wins over the static banding — liveness must kill exactly the
+        ranks that actually live on the dead host."""
+        if self.hosts < 2:
+            return list(range(sess.np)) if h == 0 else []
+        if sess.placement is not None:
+            return [r for r in range(sess.np)
+                    if sess.placement[r] == h]
+        return [r for r in range(sess.np)
+                if r * self.hosts // sess.np == h]
+
+    def _host_tick(self, now: int) -> int:
+        """Hot-path host-liveness sweep (hotpath_audit-enforced):
+        mark every host whose agent has beaten at least once but has
+        now been silent past the grace horizon.  Pure integer
+        arithmetic over preallocated lists — no allocation, no
+        formatting; the expensive collection (ULFM publication,
+        parking, KV failover) runs off-path in _host_collect."""
+        if self.hosts < 2:
+            return 0
+        grace = self._host_grace_ns
+        beat = self._host_beat
+        dead = self._host_dead
+        pend = self._host_pending
+        hp = self.health
+        graces = hp.grace_ns if hp is not None else None
+        n = self.hosts
+        hit = 0
+        h = 0
+        while h < n:
+            b = beat[h]
+            # adaptive per-host grace (obs/health): the shared
+            # beat estimator widens a jittery-but-alive host's
+            # horizon and keeps a crisp host at the static floor
+            g = grace
+            if graces is not None:
+                g = graces[h]
+                if g < grace:
+                    g = grace
+            if b > 0 and dead[h] == 0 and pend[h] == 0 \
+                    and now - b > g:
+                pend[h] = 1
+                hit += 1
+            h += 1
+        return hit
+
+    def _host_collect(self) -> None:
+        """Off-hot-path half of the liveness plane: turn every host
+        _host_tick marked into one atomic lost-domain record."""
+        h = 0
+        while h < self.hosts:
+            if self._host_pending[h] == 1 and self._host_dead[h] == 0:
+                self._host_lost(h, "heartbeat silence past "
+                                   "oob_host_grace_s")
+            h += 1
+
+    def _host_lost(self, h: int, why: str) -> None:
+        """A whole host failure domain died.  Every resident rank of
+        every session is marked failed as ONE atomic record — ULFM
+        waiters see a single consistent failure set instead of N
+        racing per-rank detections.  Per session:
+
+        - running + ULFM-aware: publish the batched failure set and
+          let the program shrink around it (survivors continue);
+        - running, not ULFM-aware: publish, then poison + park — the
+          session replays transparently on respawn (the preemption
+          machinery; the client sees a slower run, never a failed
+          one);
+        - idle: park directly, no ULFM publication (a graceful
+          finalize with dead ranks pre-counted would over-fill the
+          fence quorum).
+
+        Also fails the host's KV endpoint (crash_host — the off-host
+        standby takes over mid-fence) and closes — without deleting —
+        its federated journal, so the tail replays at respawn."""
+        from ompi_tpu_torch.ft import ulfm as _ulfm
+        with self.lock:
+            if self._host_dead[h]:
+                return
+            self._host_dead[h] = 1
+            self._host_pending[h] = 0
+            self._host_lost_ns[h] = time.perf_counter_ns()
+            self.hosts_rehydrating += 1
+            agent = self._host_agents.pop(h, None)
+            sessions = list(self.sessions.values())
+        _pv_hosts_lost.add(1)
+        _pv_hosts_active.add(-1)
+        if self.health is not None:
+            # a dead domain leaves the gray-failure sweep: the
+            # liveness plane owns it now (scores/state reset so a
+            # respawned host starts healthy with fresh estimates)
+            self.health.exclude(h, True)
+            self._health_applied[h] = 0
+        lost_sids: List[int] = []
+        nranks = 0
+        for sess in sessions:
+            ranks = self.host_ranks(sess, h)
+            if not ranks:
+                continue
+            park = False
+            with sess.lock:
+                if sess.dead or sess.parked or sess.world is None:
+                    continue
+                lost_sids.append(sess.sid)
+                nranks += len(ranks)
+                if sess.running:
+                    aware = False
+                    for st in sess.states:
+                        if st is not None and getattr(
+                                st, "ulfm", None) is not None:
+                            aware = True
+                            break
+                    # mark each resident rank's incarnation dead (the
+                    # arm_rank_kill marker): the rank-thread standing
+                    # in for a vanished process must see its own death
+                    # — a rank never ingests its own global-rank into
+                    # ulfm.failed — and last-rank accounting must stop
+                    # waiting for it
+                    for r in ranks:
+                        if r < len(sess.states):
+                            st = sess.states[r]
+                            if st is not None:
+                                st.ulfm_dead = True
+                    _ulfm.publish_world_failures(sess.world, ranks)
+                    if not aware:
+                        sess.preempt_requested = True
+                        self._poison_session(
+                            sess, 75, f"host {h} lost ({why})")
+                else:
+                    sess.preempt_requested = False
+                    sess.parked = True
+                    park = True
+            if park:
+                self._park(sess)
+        self._host_lost_sids[h] = lost_sids
+        if self.kv_server is not None:
+            try:
+                self.kv_server.crash_host(h)
+            except OSError:
+                pass
+        if agent is not None:
+            agent.dead = True
+            try:
+                agent.sock.close()
+            except OSError:
+                pass
+        jh = self._hjournals[h]
+        if jh is not None:
+            jh.close()  # keep the file: its tail replays at respawn
+            self._hjournals[h] = None
+        _obs.record_event(_obs.EV_HOST_LOST, h, nranks,
+                          len(lost_sids))
+        tr = trace.global_tracer()
+        if tr is not None:
+            tr.instant("host_lost", "fleet", host=h, ranks=nranks,
+                       sessions=len(lost_sids))
+        sys.stderr.write(
+            f"tpu-dvm: host {h} LOST ({why}) — {nranks} rank(s) in "
+            f"{len(lost_sids)} session(s) failed as one domain\n")
 
     def kill_host(self, h: int) -> None:
-        _fleet("kill_host")
+        """Deterministic whole-host sever (ft_inject host_kill and
+        the `tpu-dvm --kill-host` path): SIGKILL the host's tpud
+        agent if it is a real process, then run the same lost-domain
+        handling heartbeat silence would have reached — minus the
+        grace wait."""
+        if not 0 <= h < self.hosts:
+            raise DvmError(f"host {h} outside fleet "
+                           f"(hosts={self.hosts})")
+        if self._host_dead[h]:
+            return
+        agent = self._host_agents.get(h)
+        pid = getattr(agent, "agent_pid", 0) if agent is not None else 0
+        if pid:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        self._host_lost(h, "host_kill")
 
     def respawn_host(self, h: int) -> float:
-        _fleet("respawn_host")
+        """Host-granularity rehydration: a replacement host (fresh
+        tpud agent re-registers after this) rejoins the fleet under
+        the SAME incarnation id.  Its federated journal is rebuilt
+        from the live session table (the dead tail already did its
+        job: parked sessions replay through _unpark).  Returns the
+        domain's MTTR in milliseconds — lost-mark to rejoin."""
+        if not 0 <= h < self.hosts:
+            raise DvmError(f"host {h} outside fleet "
+                           f"(hosts={self.hosts})")
+        with self.lock:
+            if not self._host_dead[h]:
+                return 0.0
+            self._host_dead[h] = 0
+            self._host_pending[h] = 0
+            self._host_beat[h] = 0
+            lost_ns = self._host_lost_ns[h]
+            self._host_lost_ns[h] = 0
+            self.hosts_rehydrating = max(0, self.hosts_rehydrating - 1)
+            sids = self._host_lost_sids.pop(h, [])
+        if self.health is not None:
+            self.health.exclude(h, False)
+        if h > 0 and self.uri_file and self._journal is not None:
+            jh = _Journal(self._journal_path(h))
+            self._hjournals[h] = jh
+            outs = [{"t": "open", "inc": self.incarnation,
+                     "pid": os.getpid(), "cap": self.capacity}]
+            with self.lock:
+                for sid, sess in self.sessions.items():
+                    if sid % self.hosts != h:
+                        continue
+                    outs.append({"t": "attach", "sid": sid,
+                                 "np": sess.np, "prio": sess.priority,
+                                 "pre": sess.preemptible,
+                                 "token": sess.token})
+                    for jobid, code in sess.completed.items():
+                        outs.append({"t": "run_done", "sid": sid,
+                                     "jobid": jobid, "code": code})
+            jh.rewrite(outs)
+        _pv_hosts_active.add(1)
+        mttr_ms = ((time.perf_counter_ns() - lost_ns) / 1e6
+                   if lost_ns else 0.0)
+        _obs.record_event(_obs.EV_HOST_RESPAWN, h, len(sids),
+                          int(mttr_ms))
+        tr = trace.global_tracer()
+        if tr is not None:
+            tr.instant("host_respawn", "fleet", host=h,
+                       sessions=len(sids), ms=round(mttr_ms, 3))
+        sys.stderr.write(
+            f"tpu-dvm: host {h} respawned in {mttr_ms:.1f} ms "
+            f"({len(sids)} session(s) rehydrating)\n")
+        self._pump()
+        return mttr_ms
+
+    # -- gray-failure health plane -----------------------------------------
+
+    def _health_collect(self) -> None:
+        """Cold half of the gray-failure plane: drain the transitions
+        the audited tick latched and walk the mitigation ladder —
+        degraded stops new placement (and reroutes hier leaders,
+        widens deadlines), quarantined drains-and-migrates, recovery
+        walks back down.  Never declares death: that stays the
+        liveness plane's job."""
+        hp = self.health
+        if hp is None:
+            return
+        from ompi_tpu_torch.obs import health as _health
+        tr = trace.global_tracer()
+        for h in hp.collect():
+            new = hp.state[h]
+            old = self._health_applied[h]
+            self._health_applied[h] = new
+            score = hp.score[h]
+            if new > old and new == _health.DEGRADED:
+                _obs.record_event(_obs.EV_HOST_DEGRADED, h, score, new)
+                if tr is not None:
+                    tr.instant("host_degraded", "fleet", host=h,
+                               score=score)
+                sys.stderr.write(
+                    f"tpu-dvm: host {h} DEGRADED (score {score}, "
+                    f"signals {','.join(hp.tripped(h)) or 'beat'}) — "
+                    f"new placements avoid it, deadlines widened\n")
+            elif new > old and new == _health.QUARANTINED:
+                hp.note_quarantine()
+                moved = self._quarantine_drain(h)
+                _obs.record_event(_obs.EV_HOST_QUARANTINE, h, score,
+                                  moved)
+                if tr is not None:
+                    tr.instant("host_quarantine", "fleet", host=h,
+                               score=score, sessions=moved)
+                sys.stderr.write(
+                    f"tpu-dvm: host {h} QUARANTINED (score {score}) — "
+                    f"{moved} session(s) draining onto healthy "
+                    f"domains\n")
+                if _health._respawn_var.value:
+                    # operator opted into cycling the offender: the
+                    # death path is safe here because the drain just
+                    # parked every resident (never-failed-jobs holds)
+                    self.kill_host(h)
+                    self.respawn_host(h)
+                    hp.exclude(h, False)
+                    self._health_applied[h] = 0
+            elif new < old:
+                _obs.record_event(_obs.EV_HOST_RECOVERED, h, score)
+                if tr is not None:
+                    tr.instant("host_recovered", "fleet", host=h,
+                               score=score)
+                sys.stderr.write(
+                    f"tpu-dvm: host {h} recovered to "
+                    f"{_health.STATE_NAMES[new]} (score {score})\n")
+
+    def _health_sample(self, hp) -> None:
+        """Cold corroboration sweep (rides the heartbeat loop):
+        approximate per-host rendezvous-wait microseconds from each
+        resident rank's straggler-skew histogram (trace.HIST_RDV_WAIT,
+        the critpath phase gauge) and feed the cross-host SKEW to the
+        health plane — attributed to the host everyone else waits FOR
+        (stragglers arrive last, so their own rdv_wait is the
+        smallest)."""
+        tot = [0] * self.hosts
+        cnt = [0] * self.hosts
+        with self.lock:
+            sessions = list(self.sessions.values())
+        for sess in sessions:
+            states = sess.states
+            for r in range(len(states)):
+                st = states[r]
+                if st is None:
+                    continue
+                tr_ = getattr(st, "tracer", None)
+                if tr_ is None:
+                    continue
+                h = self._place_node(sess, r)
+                if not 0 <= h < self.hosts:
+                    continue
+                hist = tr_.hists[trace.HIST_RDV_WAIT]
+                us = 0
+                for b in range(len(hist)):
+                    c = hist[b]
+                    if c:
+                        us += c * (1 << b) >> 1  # mid-bucket estimate
+                tot[h] += us
+                cnt[h] += 1
+        lo_h = -1
+        lo_v = -1
+        hi_v = -1
+        for h in range(self.hosts):
+            if cnt[h] == 0:
+                continue
+            avg = tot[h] // cnt[h]
+            if lo_v < 0 or avg < lo_v:
+                lo_v = avg
+                lo_h = h
+            if avg > hi_v:
+                hi_v = avg
+        if lo_h >= 0 and hi_v > lo_v:
+            hp.note_rdv_skew(lo_h, hi_v - lo_v)
+
+    def _quarantine_drain(self, h: int) -> int:
+        """Drain-and-migrate every session resident on quarantined
+        host `h` through the preemption machinery: running
+        sessions are poisoned with preempt_requested (the run replays
+        from checkpoint after re-bringup — the client sees a slower
+        run, never a failed one), idle sessions are parked directly.
+        The next _bringup places them off the quarantined domain
+        (_plan_placement skips non-healthy hosts).  No ULFM
+        publication, no KV crash, no journal close: the host is ALIVE
+        — just too slow to serve."""
+        hp = self.health
+        with self.lock:
+            sessions = list(self.sessions.values())
+        moved = 0
+        t0 = time.perf_counter_ns()
+        for sess in sessions:
+            ranks = self.host_ranks(sess, h)
+            if not ranks:
+                continue
+            park = False
+            with sess.lock:
+                if sess.dead or sess.parked or sess.world is None:
+                    continue
+                if sess.running:
+                    sess.preempt_requested = True
+                    self._poison_session(
+                        sess, 75, f"host {h} quarantined (migrating)")
+                else:
+                    sess.preempt_requested = False
+                    sess.parked = True
+                    park = True
+            if park:
+                self._park(sess)
+            moved += 1
+            us = (time.perf_counter_ns() - t0) // 1000
+            _obs.record_event(_obs.EV_MIGRATE, sess.sid, h, us)
+        if moved and hp is not None:
+            hp.note_migration(moved)
+        return moved
+
+    def _plan_placement(self, np_: int) -> Optional[List[int]]:
+        """Rank->host bands for a new (or re-admitted) session.  All
+        domains healthy: None — the static contiguous banding
+        `rank*hosts//np` is unchanged.  Any
+        domain degraded/quarantined/dead: band over the healthy-host
+        list only, so new placements simply never land on a sick
+        domain (the admission path is unchanged — capacity still
+        gates; this only decides WHERE)."""
+        if self.hosts < 2:
+            return None
+        hp = self.health
+        healthy = [h for h in range(self.hosts)
+                   if self._host_dead[h] == 0
+                   and (hp is None or hp.placement_ok(h))]
+        if len(healthy) == self.hosts:
+            return None
+        if not healthy:
+            # every domain sick: fall back to the static banding
+            # rather than refusing service (degraded > dead)
+            return None
+        return [healthy[r * len(healthy) // np_] for r in range(np_)]
+
+    def _place_node(self, sess: _Session, rank: int) -> int:
+        if self.hosts < 2:
+            return 0
+        if sess.placement is not None:
+            return sess.placement[rank]
+        return rank * self.hosts // sess.np
+
+    def _touches_degraded(self, sess: _Session) -> bool:
+        """Does any of this session's resident ranks live on a
+        degraded (or worse) domain?  Drives the deadline-widening arm
+        of the mitigation ladder."""
+        hp = self.health
+        if hp is None or self.hosts < 2:
+            return False
+        for r in range(sess.np):
+            h = self._place_node(sess, r)
+            if hp.state[h] >= 1 and hp.excluded[h] == 0:
+                return True
+        return False
 
     # -- admission ---------------------------------------------------------
 
@@ -1547,6 +2180,13 @@ class DVMServer:
         _pv_attaches.add(1)
         _pv_queue_wait_us.add(queued_us, sess.sid)
         _pv_sli_qwait.add_us(queued_us, sess.sid)
+        if self.health is not None and queued_us > 0:
+            # queue-wait SLI corroboration: attributed to the hosts
+            # this session actually landed on (small weight — the
+            # beat estimator stays the load-bearing signal)
+            for h in set(self._place_node(sess, r)
+                         for r in range(sess.np)):
+                self.health.note_queue_wait(h, queued_us)
         _pv_attach_us_max.update_max(attach_us)
         _obs.record_event(_obs.EV_DVM_ATTACH, sess.sid, np_, attach_us)
         if tid:
@@ -1661,6 +2301,17 @@ class DVMServer:
         Runs on the owning connection's dispatch thread — the client
         keeps getting heartbeats while we wait."""
         t0 = time.perf_counter()
+        if self.hosts > 1 and self.hosts_rehydrating > 0:
+            # a replay admitted while a host domain is still a hole
+            # would band ranks onto the dead host: hold until the
+            # fleet rehydrates (bounded — a domain nobody replaces
+            # must not wedge the client forever; the pool can still
+            # bring the band up on the survivors)
+            deadline = time.monotonic() + max(
+                5.0, 4.0 * self._host_grace_ns / 1e9)
+            while (self.hosts_rehydrating > 0
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
         w = _Waiter(sess.np, sess.conn, sess.priority,
                     sess.preemptible, resume=sess)
         with self.lock:
@@ -1701,7 +2352,15 @@ class DVMServer:
             margin = 100 + 25 * len(self._waiters)
             if margin > 400:
                 margin = 400
-        if est * margin // 100 <= deadline_ms * 1000:
+        eff_deadline = deadline_ms
+        hp = self.health
+        if hp is not None and hp.degraded_n > 0 \
+                and self._touches_degraded(sess):
+            # mitigation ladder: a session whose ranks sit on a
+            # degraded host runs slow ON PURPOSE — widen its deadline
+            # instead of shedding its work
+            eff_deadline = deadline_ms * hp.widen_pct() // 100
+        if est * margin // 100 <= eff_deadline * 1000:
             return
         _pv_sheds.add(1)
         _obs.record_event(_obs.EV_DVM_SHED, sess.sid, deadline_ms,
@@ -1785,11 +2444,12 @@ class DVMServer:
             return
         doc = _sessions.doctor_capture(
             w, sid=sess.sid, tid=sess.tid, run_ms=run_ms, est_ms=est_ms,
-            factor_pct=factor)
+            factor_pct=factor, health=self.health)
         doc["np"] = sess.np
         doc["span"] = sess.span
         doc["mttd_ms"] = round(mttd_ms, 3)
-        doc["placement"] = [0] * sess.np
+        doc["placement"] = [self._place_node(sess, r)
+                            for r in range(sess.np)]
         try:
             doc["fences"] = self.kv_server.fence_snapshot(f"{sess.ns}/")
         except Exception:  # noqa: BLE001 — diagnostics never raise
@@ -1887,12 +2547,24 @@ class DVMServer:
         world = HybridWorld(sess.np, 0, sess.np)
         sess.world = world
         sess.states = [None] * sess.np
+        # health-aware placement: recomputed at every bring-up — a
+        # session parked off a quarantined or dead host comes back
+        # banded onto the healthy domains only; with an all-healthy
+        # fleet this is None and the static banding holds
+        sess.placement = self._plan_placement(sess.np)
         errs: List[tuple] = []
 
         def boot(rank: int) -> None:
             try:
+                # hosts > 1: band ranks contiguously onto host failure
+                # domains — node_id flows into the modex, so topology-
+                # aware consumers (buddy placement, the hierarchical
+                # tier) see the fleet's placement.  The device stays
+                # devices[rank % len]: the domains share this pool's
+                # cards
                 rte = SessionRTE(world, rank, self.kv_server.uri,
-                                 node_id=0, jobid=sess.jobid,
+                                 node_id=self._place_node(sess, rank),
+                                 jobid=sess.jobid,
                                  session_dir=sess.dir, kv_ns=sess.ns)
                 if self.devices:
                     rte.default_device = self.devices[
@@ -2255,6 +2927,10 @@ class DVMServer:
                     ent = {"tag": f"s{sess.sid}:r{r}",
                            "pid": pid, "host": host,
                            "thread": f"dvm-s{sess.sid}-r{r}"}
+                    if self.hosts > 1:
+                        # failure-domain column: which host's death
+                        # takes this rank with it
+                        ent["hdom"] = self._place_node(sess, r)
                     entries.append(ent)
             path = self.uri_file + ".proctable.json"
             try:
@@ -2523,14 +3199,18 @@ class DvmClient:
             deadline=time.monotonic() + timeout if timeout else None)
 
     def kill_host(self, host: int) -> dict:
-        """Sever a whole host failure domain: the multi-host fleet,
-        not ported yet."""
-        _fleet("DvmClient.kill_host")
+        """Sever a whole host failure domain (agent + ranks)."""
+        resp = self._rpc({"op": "host_kill", "host": host})
+        if "error" in resp:
+            raise DvmError(resp["error"])
+        return resp
 
     def respawn_host(self, host: int) -> dict:
-        """Rejoin a lost host domain: the multi-host fleet, not ported
-        yet."""
-        _fleet("DvmClient.respawn_host")
+        """Rejoin a lost host domain; resp['mttr_ms'] is the MTTR."""
+        resp = self._rpc({"op": "host_respawn", "host": host})
+        if "error" in resp:
+            raise DvmError(resp["error"])
+        return resp
 
     def halt(self) -> dict:
         return self._rpc({"op": "halt"})
@@ -2769,15 +3449,13 @@ def pool_devices(choice: str) -> Optional[list]:
 
 
 def serve(opts) -> int:
-    hosts = getattr(opts, "hosts", 1)
-    if hosts != 1:
-        _fleet(f"tpu-dvm --hosts {hosts}")
     try:
         devices = pool_devices(opts.devices)
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"tpu-dvm: {e}\n")
         return 1
-    server = DVMServer(opts.np, devices=devices, uri_file=opts.uri_file)
+    server = DVMServer(opts.np, devices=devices, uri_file=opts.uri_file,
+                       hosts=getattr(opts, "hosts", 1))
     # chaos: dvm_kill is armed ONLY here, on a real subprocess server
     # — an embedded pool shares the host process, and os._exit(70)
     # would take the host with it
@@ -2869,14 +3547,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="enable the FleetController closed loop "
                          "(dvm_ctrl=1)")
     ap.add_argument("--hosts", type=int, default=1,
-                    help="host failure domains in the fleet (only 1: "
-                         f"the multi-host fleet is {_FLEET})")
+                    help="host failure domains in the fleet: ranks "
+                         "band contiguously across N domains, each "
+                         "watched by a tpud host agent over the pool "
+                         "port (silence = the whole domain fails as "
+                         "one atomic ULFM record)")
     ap.add_argument("--kill-host", type=int, default=None,
                     metavar="H",
-                    help=f"sever host domain H of a fleet ({_FLEET})")
+                    help="sever host domain H of a running fleet "
+                         "(named by --uri-file): agent + ranks die "
+                         "as one record")
     ap.add_argument("--respawn-host", type=int, default=None,
                     metavar="H",
-                    help=f"rejoin host domain H of a fleet ({_FLEET})")
+                    help="rejoin host domain H of a running fleet; "
+                         "prints the domain's MTTR")
     ap.add_argument("--supervise", action="store_true",
                     help="run the pool under a respawning supervisor: "
                          "an abnormally-dying server is restarted and "
@@ -2893,10 +3577,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         return Supervisor(child).run_forever()
     if opts.halt:
         return halt(opts.halt)
-    if opts.kill_host is not None:
-        _fleet("tpu-dvm --kill-host")
-    if opts.respawn_host is not None:
-        _fleet("tpu-dvm --respawn-host")
+    if opts.kill_host is not None or opts.respawn_host is not None:
+        if not opts.uri_file:
+            ap.error("--kill-host/--respawn-host need --uri-file to "
+                     "find the fleet")
+        try:
+            client = DvmClient(opts.uri_file)
+            try:
+                if opts.kill_host is not None:
+                    client.kill_host(opts.kill_host)
+                    sys.stderr.write(
+                        f"tpu-dvm: host {opts.kill_host} severed\n")
+                if opts.respawn_host is not None:
+                    resp = client.respawn_host(opts.respawn_host)
+                    sys.stderr.write(
+                        f"tpu-dvm: host {opts.respawn_host} rejoined "
+                        f"(mttr {resp.get('mttr_ms')} ms)\n")
+            finally:
+                client.close()
+        except DvmError as e:
+            sys.stderr.write(f"tpu-dvm: {e}\n")
+            return 1
+        return 0
     if opts.resize is not None:
         if not opts.uri_file:
             ap.error("--resize needs --uri-file to find the pool")

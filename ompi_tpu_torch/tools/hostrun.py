@@ -35,10 +35,22 @@ the node's communicator takes the mesh tier), or M distinct cards when
 the host has N × M of them; with ``cpu``, M logical devices of the
 CPU.  The reference forces an M-device CPU platform there instead.
 
+Rank deaths under mpirun's errmgr policies (TPUMPI_ULFM names the
+policy): a rank-thread killed by ULFM's ``RankKilled`` (ft_inject
+``rank_kill``, ``ulfm.kill_now``) is the thread analog of a rank
+process dying.  Under ``ulfm`` the shell publishes the failure — to
+its own rank-threads directly and to the other shells through a KV
+failure note — and runs on with its survivors; under ``respawn`` the
+shell is the unit the launcher replaces, so it exits at once and
+mpirun relaunches it, every rank it held joining at the next epoch
+(TPUMPI_RESPAWN, TPUMPI_FT_EPOCH).  Any other death reports an abort
+and the job ends.
+
 Env contract (set by mpirun or tpud): TPUMPI_SIZE, TPUMPI_RANK_BASE,
 TPUMPI_LOCAL_RANKS, TPUMPI_KV_ADDR, TPUMPI_NODE, TPUMPI_NODE_RANK_BASE,
 TPUMPI_JOBID, TPUMPI_SESSION_DIR, TPUMPI_DEVICES (auto|cpu|none),
-TPUMPI_SIM_NODES and TPUMPI_SIM_DEVICES (simulated nodes only).
+TPUMPI_SIM_NODES and TPUMPI_SIM_DEVICES (simulated nodes only),
+TPUMPI_ULFM, TPUMPI_RESPAWN and TPUMPI_FT_EPOCH (errmgr policies).
 """
 
 from __future__ import annotations
@@ -106,6 +118,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     node_id = int(os.environ.get("TPUMPI_NODE", "0"))
     jobid = os.environ.get("TPUMPI_JOBID", "job0")
     session = os.environ.get("TPUMPI_SESSION_DIR", "/tmp")
+    policy = os.environ.get("TPUMPI_ULFM", "")
+    epoch = int(os.environ.get("TPUMPI_FT_EPOCH", "0"))
 
     sim = sim_node()
     devices = shell_devices(os.environ.get("TPUMPI_DEVICES", "auto"), sim)
@@ -142,17 +156,41 @@ def main(argv: Optional[List[str]] = None) -> int:
         except Exception:  # noqa: BLE001
             pass
 
+    def rank_killed(rank: int) -> None:
+        """A rank-thread died a ULFM death (see the module
+        docstring)."""
+        if policy == "respawn":
+            sys.stderr.write(f"[rank {rank}] killed; app shell exits for "
+                             f"the respawn policy to relaunch it\n")
+            sys.stderr.flush()
+            sys.stdout.flush()
+            os._exit(1)
+        from ompi_tpu_torch.ft import ulfm as _ulfm
+        st = world.states[rank]
+        if st is not None:
+            _ulfm.publish_failure(st, rank)
+
     def run_rank(local_rank: int) -> None:
         rank = base + local_rank
         rte = None
         try:
             rte = HybridRTE(world, rank, kv_addr, node_id=node_id,
                             jobid=jobid, session_dir=session)
+            if epoch:
+                # a replacement shell of the respawn policy: its fences
+                # and modex keys live in the epoch's namespace, as a
+                # replacement process's (EnvRTE)
+                rte.jobid_base, rte.jobid = jobid, f"{jobid}:e{epoch}"
+                rte.modex_epoch = epoch
             if devices:
                 rte.default_device = devices[(rank - offset) % len(devices)]
             set_thread_rte(rte)
             runpy.run_path(prog, run_name="__main__")
         except SystemExit as e:
+            from ompi_tpu_torch.ft.ulfm import RankKilled
+            if policy and isinstance(e, RankKilled):
+                rank_killed(rank)
+                return
             code = e.code if isinstance(e.code, int) else (
                 0 if e.code is None else 1)
             if code != 0:

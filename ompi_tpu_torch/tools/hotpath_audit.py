@@ -115,10 +115,14 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     # dirty-flag check, allocation-free when nothing is pending), and
     # the progress-stall watchdog scan ticks at obs_watchdog_ms/2 when
     # armed (integer compares over the session table; the capture
-    # lives off-path in _watchdog_collect)
+    # lives off-path in _watchdog_collect); on a pool of several host
+    # domains the host-liveness sweep rides the heartbeat loop too
+    # (integer arithmetic over the preallocated per-host lists; the
+    # declaration lives off-path in _host_collect)
     "ompi_tpu_torch/tools/dvm.py": (
         "_Journal.tick",
         "DVMServer._watchdog_tick",
+        "DVMServer._host_tick",
     ),
 }
 

@@ -314,8 +314,10 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
         }
         if _errmgr_policy_var.value in ("ulfm", "respawn"):
             # ranks start the ulfm note watcher (ompi_tpu_torch/ft/ulfm);
-            # respawn rides the same detection plane
-            job_env["TPUMPI_ULFM"] = "1"
+            # respawn rides the same detection plane.  The value names
+            # the policy: an app shell handles a rank-thread's death
+            # by it (tools/hostrun)
+            job_env["TPUMPI_ULFM"] = _errmgr_policy_var.value
         if hybrid:
             job_env["TPUMPI_DEVICES"] = opts.devices
         for key, value in opts.mca:
@@ -565,8 +567,10 @@ def run_local(opts, rpp: int, hybrid: bool, ckpt_env: dict) -> int:
         env_base[f"TPUMPI_MCA_{key}"] = value
     if _errmgr_policy_var.value in ("ulfm", "respawn"):
         # ranks start the ulfm note watcher (ompi_tpu_torch/ft/ulfm);
-        # respawn rides the same detection plane
-        env_base["TPUMPI_ULFM"] = "1"
+        # respawn rides the same detection plane.  The value names the
+        # policy: an app shell handles a rank-thread's death by it
+        # (tools/hostrun)
+        env_base["TPUMPI_ULFM"] = _errmgr_policy_var.value
 
     def _write_proctable() -> None:
         """MPIR proctable analog (ref: ompi/debuggers MPIR_proctable):

@@ -22,9 +22,12 @@ argv: --hnp HOST:PORT --node ID --name NAME [--subtree B64JSON]
 
 Fleet host-agent mode: ``--fleet URI_FILE --host K`` instead of
 ``--hnp`` turns the daemon into the liveness agent of one host failure
-domain of a resident pool's fleet.  The port's pool (tools/dvm.py)
-spans one host; the fleet is not ported yet (ROADMAP.md A8b-2), so
-that mode raises NotImplementedError.
+domain of a resident pool's fleet (tools/dvm.py ``--hosts N``): it
+dials the pool's port, registers its domain, and beats until killed.
+Silence past the pool's grace horizon (or a SIGKILL from
+``tpu-dvm --kill-host`` / ft_inject ``host_kill``) is what the pool's
+host-liveness plane turns into ONE failure record covering every
+resident rank of the host.
 """
 
 from __future__ import annotations
@@ -119,12 +122,47 @@ class _Unit:
 
 def host_agent(opts) -> int:
     """One tpud per host failure domain of a resident pool's fleet:
-    register on the pool's control port, then beat.  The port's pool
-    (tools/dvm.py) spans one host; the multi-host fleet is not ported
-    yet."""
-    raise NotImplementedError(
-        "tpud --fleet is the host agent of the resident pool's "
-        "multi-host fleet, which is not ported yet (ROADMAP.md A8b-2)")
+    register on the pool's control port, then beat.  The agent carries no state —
+    its PROCESS is the liveness signal, so ft_inject host_kill
+    SIGKILLs it (a real dead daemon, not a simulated one) and the
+    pool's detector runs the production silence path."""
+    from ompi_tpu_torch.tools.dvm import DvmClient, DvmError
+    tag = f"tpud[host{opts.host}]"
+    try:
+        client = DvmClient(opts.fleet)
+        resp = client._rpc({"op": "host_register", "host": opts.host,
+                            "pid": os.getpid()})
+    except DvmError as e:
+        sys.stderr.write(f"{tag}: {e}\n")
+        return 1
+    if "error" in resp:
+        sys.stderr.write(f"{tag}: {resp['error']}\n")
+        client.close()
+        return 1
+    grace = float(resp.get("grace_s", 1.0))
+    iv = max(0.05, grace / 6.0)
+    from ompi_tpu_torch import ft_inject
+    slow = ft_inject.host_slow_injector(opts.host)
+    if slow is not None:
+        # gray failure (ft_inject host_slow): beat SLOWER — but keep
+        # beating.  The liveness grace must never fire; only the
+        # health plane's beat-EWMA scoring can see this host is sick
+        iv = slow.beat_interval_s(iv, grace=grace)
+        sys.stderr.write(f"{tag}: host_slow armed — beating "
+                         f"{slow.factor}x slow ({iv:.2f}s)\n")
+    sys.stderr.write(f"{tag}: registered with fleet incarnation "
+                     f"{resp.get('incarnation')} (beat every "
+                     f"{iv:.2f}s)\n")
+    while True:
+        time.sleep(iv)
+        try:
+            r = client._rpc({"op": "host_beat", "host": opts.host})
+        except (DvmError, OSError):
+            break  # pool gone; an agent has nothing to clean up
+        if "error" in r or not r.get("ok"):
+            break
+    client.close()
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -137,9 +175,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--python", default=sys.executable)
     ap.add_argument("--pythonpath", default="")
     ap.add_argument("--fleet", default=None, metavar="URI_FILE",
-                    help="host-agent mode: the resident pool's uri file "
-                         "(the fleet is not ported yet, ROADMAP.md "
-                         "A8b-2)")
+                    help="host-agent mode: the resident pool's uri file")
     ap.add_argument("--host", type=int, default=0,
                     help="host failure-domain id this agent covers "
                          "(with --fleet)")

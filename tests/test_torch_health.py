@@ -12,9 +12,9 @@ of beats, skew notes, convictions, exclusions and resets go through
 both packages' ``HealthPlane`` and ``HostBeatEstimator``: state,
 score, streaks, pending, grace and ``collect()`` equal at every tick.
 
-The pool that feeds the plane in the reference (``tools/dvm.py``: its
-heartbeat sweep and ``_health_collect``) is not ported (A8).  Its
-convict-hook wiring is done here by hand, as the pool does it: a
+The pool that feeds the plane (``tools/dvm.py``: its heartbeat sweep
+and ``_health_collect``) is tested in tests/test_torch_grayfail.py.
+Its convict-hook wiring is done here by hand, as the pool does it: a
 ``device_sdc`` conviction quarantines the victim's host at the next
 tick in both packages, and ``collect()`` drains it into the degraded
 mask the hierarchical tier reads.

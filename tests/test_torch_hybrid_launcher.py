@@ -80,21 +80,3 @@ def test_devices_auto_without_a_card_starts_no_rank(tmp_path):
     assert r.returncode != 0
     assert "no CUDA card" in err and "no rank was started" in err, err
     assert not os.path.exists(str(prog) + ".ran")
-
-
-@pytest.mark.parametrize("rpp", [None, 2])
-def test_divergence_ulfm_policy_refused_at_init(tmp_path, rpp):
-    """Pinned divergence: under the ulfm (or respawn) errmgr policy
-    every process rank would need the KV note watcher, which is not
-    ported (ROADMAP A8b): init() raises instead of running on without
-    failure detection."""
-    prog = tmp_path / "init.py"
-    prog.write_text("import ompi_tpu_torch\nompi_tpu_torch.init()\n"
-                    "print('initialised', flush=True)\n")
-    r = mpirun_run(2, str(prog), rpp=rpp,
-                   devices="none" if rpp else None,
-                   mca=(("errmgr_base_policy", "ulfm"),), timeout=60)
-    err = r.stderr.decode()
-    assert r.returncode != 0
-    assert "A8b" in err and "NotImplementedError" in err, err
-    assert b"initialised" not in r.stdout

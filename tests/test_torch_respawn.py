@@ -448,8 +448,10 @@ def test_ingest_filters_recovered_epochs():
 
 def test_epoch_rewire_resets_transports_and_pml():
     """``_epoch_rewire`` (the survivor's reset where transports must be
-    rewired): btls whose ft_reset refuses the epoch are dropped, the
-    pml is reset and re-wired, the modex re-published, two fences."""
+    rewired): the jobid and modex move to the epoch's namespace with a
+    reset fence counter, btls whose ft_reset refuses the epoch are
+    dropped, the pml is reset and re-wired, the modex re-published, two
+    fences."""
     calls = []
 
     class Btl:
@@ -461,6 +463,9 @@ def test_epoch_rewire_resets_transports_and_pml():
             return self.keep
 
     class Rte:
+        jobid = "job-1"
+        _fence_count = 3
+
         def modex_put(self, k, v):
             calls.append(("modex", k))
 
@@ -480,6 +485,9 @@ def test_epoch_rewire_resets_transports_and_pml():
                             rank=0, size=0, ft_epoch=0)
     respawn._epoch_rewire(state, 4)
     assert state.ft_epoch == 4 and state.btls == [keep, plain]
+    rte = state.rte
+    assert (rte.jobid, rte.jobid_base) == ("job-1:e4", "job-1")
+    assert rte.modex_epoch == 4 and rte._fence_count == 0
     assert [c for c in calls if c[0] == "fence"] == [("fence",)] * 2
     assert ("pml_reset",) in calls and ("add_procs", 0) in calls
     assert {c[1] for c in calls if c[0] == "modex"} == {

@@ -12,16 +12,15 @@ Pinned divergences, each a test named ``test_divergence_*``: the port
 has no compiled-program cache, so the HBM quota's degrade step records
 its flight event and evicts nothing (the reference drops the
 offender's compiled executables), and a pool started with
-``dvm_quota_cache_share_pct`` nonzero is refused (no cache to bound).  The multi-host fleet (``hosts > 1``, ``tpud
---fleet``, host kill and respawn) is ROADMAP.md A8b-2: each raises
-NotImplementedError naming it.
+``dvm_quota_cache_share_pct`` nonzero is refused (no cache to bound).
+The multi-host fleet is tested in tests/test_torch_fleet.py and
+tests/test_torch_grayfail.py.
 
 Every pool here is ``DVMServer(n, devices=[cpu])`` (coll/hbm with the
 kernels' plain versions); every RPC and join carries its own timeout.
 """
 
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -787,38 +786,3 @@ def test_reqtrace_rides_attach_and_run(tmp_path):
     finally:
         _restore(saved)
         srv.stop()
-
-
-# -- the multi-host fleet: ROADMAP.md A8b-2 ------------------------------------
-
-def _fleet_calls(tmp_path):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-
-    def tpud():
-        r = subprocess.run(
-            [sys.executable, "-m", "ompi_tpu_torch.tools.tpud", "--fleet",
-             str(tmp_path / "u"), "--host", "1"], capture_output=True,
-            text=True, env=env, cwd=REPO, timeout=T)
-        assert r.returncode != 0
-        raise NotImplementedError(r.stderr)
-
-    def kill_host():
-        srv, uri = _pool(tmp_path, 2)
-        try:
-            with DvmClient(uri) as c:
-                c.kill_host(1)
-        finally:
-            srv.stop()
-
-    return {"hosts2": lambda: DVMServer(4, devices=CPU, hosts=2),
-            "tpud_fleet": tpud, "kill_host": kill_host}
-
-
-@pytest.mark.parametrize("what", ["hosts2", "tpud_fleet", "kill_host"])
-def test_fleet_raises_naming_a8b2(what, tmp_path):
-    """``DVMServer(hosts=2)``, ``tpud --fleet`` and
-    ``DvmClient.kill_host`` raise NotImplementedError naming ROADMAP.md
-    A8b-2: the port's pool spans one host."""
-    with pytest.raises(NotImplementedError, match="A8b-2"):
-        _fleet_calls(tmp_path)[what]()
