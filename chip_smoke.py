@@ -406,6 +406,28 @@ Phases, each fatal on failure (nothing is caught and carried on):
              pools' K3 and K1 launches join the kernels line's counts;
              on a failure the pools' stderr tails are printed and both
              are killed.
+14. fleet  — the resident pool's fleet of host failure domains
+             (phase_fleet's docstring).
+15. ckpt   — the tiered checkpoint engine and live recovery.  15a: 8
+             rank-threads on the card (coll/hbm), each an 8 MiB float32
+             card tensor and a small numpy leaf; six steps of
+             allreduce_arr (K1) + cr.ckpt.checkpoint (a filesystem
+             epoch every call, cr_fs_interval 1); right after the
+             sixth, its drain still pending, every rank overwrites its
+             tensor in place; flush; a fresh world restores from the
+             filesystem epoch onto the card: sha256 equal to the bytes
+             before the overwrite, and to plain torch's sum; K1 exactly
+             6, nothing else.  The enqueue, drain (the flight
+             recorder's req_drain events) and commit times and the
+             bytes written.  15b: an io_partial epoch on top: the
+             restore falls back to 15a's epoch, its digest.  15c:
+             ``mpirun -np 3 --simulate-nodes 3x1 --ranks-per-proc 1
+             --ckpt-dir --mca errmgr_base_policy recover
+             examples/ft_prog.py --device auto``, sim1's daemon killed
+             after step 3: exit 0, rank 1 re-routed off sim1, no
+             relaunch, every rank's Barrier + Allreduce right after
+             the epoch reset, ``final step=10 acc=[330.0, ...]`` and
+             the card digest of plain torch's [330.0] * 4.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -7123,6 +7145,252 @@ def phase_fleet(dev, devices: str = "auto") -> dict:
     return total
 
 
+CKPT_MIB = 8          # 15a: the float32 card tensor a rank checkpoints
+CKPT_STEPS = 6        # 15a: allreduce_arr + checkpoint steps
+CKPT_KILL_STEP = 3    # 15c: sim1's daemon dies after this step's line
+CKPT_JOB_S = 120      # 15c: mpirun --timeout of the live-recovery job
+
+
+def ckpt_input(rank: int, step: int, dev, n: int) -> torch.Tensor:
+    """15a's step input: small integers in float32, so every sum is
+    exact in any order."""
+    return ((torch.arange(n, device=dev) % 97) + 3 * rank + step).float()
+
+
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def ckpt_program(dev, store: str, n: int):
+    """15a's rank program: CKPT_STEPS steps of ``t = t +
+    allreduce_arr(input)`` then a tiered checkpoint of {"step", "t",
+    "small"}; right after the last checkpoint the tensor is cloned and
+    overwritten in place, its epoch's drain still pending; flush.
+    Returns (shards pending at the overwrite, the pre-overwrite digest,
+    enqueue seconds, the flush's seconds)."""
+    import numpy as np
+    from ompi_tpu_torch.cr import ckpt
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        t = torch.zeros(n, dtype=torch.float32, device=dev)
+        small = np.arange(16, dtype=np.int64) * (comm.rank + 1)
+        enq = []
+        for step in range(CKPT_STEPS):
+            t = t + comm.allreduce_arr(ckpt_input(comm.rank, step, dev, n),
+                                       SUM)
+            t0 = time.perf_counter()
+            ckpt.checkpoint(comm, {"step": step + 1, "t": t,
+                                   "small": small}, store_dir=store)
+            enq.append(time.perf_counter() - t0)
+        pending = len(ckpt._engine(comm.state).pending.queue)
+        keep = t.clone()     # stream-ordered after the snapshot's copy
+        t.fill_(-1.0)        # the application writes on, in place
+        t0 = time.perf_counter()
+        ckpt.flush(comm)
+        commit = time.perf_counter() - t0
+        return pending, _sha(keep), enq, commit
+    return fn
+
+
+def ckpt_restore_program(store: str):
+    def fn(comm):
+        from ompi_tpu_torch.cr import ckpt
+        out = ckpt.restore(comm, store_dir=store)
+        return (out["step"], str(out["t"].device), _sha(out["t"]),
+                out["small"].tolist())
+    return fn
+
+
+def ckpt_torn_program(dev, store: str, n: int):
+    """15b: one more epoch, written under io_partial (a truncated shard
+    a rank: committed, but its CRCs fail at restore)."""
+    def fn(comm):
+        import numpy as np
+        from ompi_tpu_torch.cr import ckpt
+        ckpt.checkpoint(comm, {"step": 99,
+                               "t": ckpt_input(comm.rank, 99, dev, n),
+                               "small": np.zeros(16, dtype=np.int64)},
+                        store_dir=store)
+        return ckpt.flush(comm)
+    return fn
+
+
+def phase_ckpt_engine(dev) -> dict:
+    """15a and 15b (see the module docstring).  Returns 15a's
+    launches."""
+    import tempfile
+    from ompi_tpu_torch import obs
+    from ompi_tpu_torch.cr import ckpt
+    n = CKPT_MIB * MIB // 4
+    hbm = lambda r: dev  # noqa: E731
+    store = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        rec = obs.recorder()
+        seen, b0 = rec.recorded, ckpt._pv_bytes.read()
+        res, launches = _ft_launch_run(ckpt_program(dev, store, n), NRANKS,
+                                       hbm)
+        drains = [e["args"]["us"] for e in rec.snapshot(
+            last=rec.recorded - seen) if e["name"] == "req_drain"]
+        written = ckpt._pv_bytes.read() - b0
+        if launches != {**{k: 0 for k in launches},
+                        "stacked_reduce": CKPT_STEPS}:
+            raise AssertionError(f"15a launches {_ft_counted(launches)}, "
+                                 f"expected stacked_reduce {CKPT_STEPS}")
+        if any(p < 1 for p, _, _, _ in res):
+            raise AssertionError(f"15a: the overwrite came after the "
+                                 f"drain ({[p for p, _, _, _ in res]} "
+                                 "shards pending)")
+        want = res[0][1]
+        plain = torch.zeros(n, dtype=torch.float32, device=dev)
+        for step in range(CKPT_STEPS):
+            plain = plain + sum(ckpt_input(r, step, dev, n)
+                                for r in range(NRANKS))
+        if any(r[1] != want for r in res) or want != _sha(plain):
+            raise AssertionError("15a: the checkpointed tensor differs "
+                                 "from plain torch's sum")
+        back = _ft_launch_run(ckpt_restore_program(store), NRANKS, hbm)[0]
+        for r, (step, where, dig, small) in enumerate(back):
+            if (step, where, dig) != (CKPT_STEPS, str(dev), res[r][1]) \
+                    or small != [k * (r + 1) for k in range(16)]:
+                raise AssertionError(f"15a restore, rank {r}: step {step} "
+                                     f"on {where}, digest {dig[:16]}...")
+        if len(drains) != NRANKS * CKPT_STEPS:
+            raise AssertionError(f"15a: {len(drains)} req_drain events")
+        enq = [t for r in res for t in r[2]]
+        card = card_line()
+        log(f"[ckpt] 15a 8 ranks on {dev}, {CKPT_MIB} MiB f32 a rank, "
+            f"{CKPT_STEPS} steps: the tensor overwritten in place with "
+            f"{min(p for p, _, _, _ in res)}-{max(p for p, _, _, _ in res)} "
+            f"shards of its epoch still draining; restored in a fresh "
+            f"world onto {dev}, every rank's digest the pre-overwrite one "
+            f"(= plain torch's sum, {want[:16]}...); launches "
+            f"{_ft_counted(launches)}, exact")
+        log(f"[ckpt] 15a enqueue {sum(enq) / len(enq) * 1e3:.3f} ms mean, "
+            f"{max(enq) * 1e3:.3f} ms max (app-visible, a checkpoint "
+            f"call); drain {sorted(drains)[len(drains) // 2] / 1e3:.3f} ms "
+            f"median, {max(drains) / 1e3:.3f} ms max (req_drain, enqueue to "
+            f"the last shard written, a rank an epoch); commit (flush) "
+            f"{max(r[3] for r in res) * 1e3:.3f} ms (slowest rank); "
+            f"{written} bytes written in {CKPT_STEPS} epochs [{card}]")
+        # 15b: a torn epoch on top falls back to 15a's
+        fb0 = ckpt._pv_crc_fb.read()
+        with _knobs(ft_inject_plan="io_partial:1.0", ft_inject_skip=0):
+            torn = _ft_launch_run(ckpt_torn_program(dev, store, n), NRANKS,
+                                  hbm)[0]
+        if torn != [CKPT_STEPS] * NRANKS:
+            raise AssertionError(f"15b: the torn epoch committed as {torn}")
+        back = _ft_launch_run(ckpt_restore_program(store), NRANKS, hbm)[0]
+        if [b[:3] for b in back] != [(CKPT_STEPS, str(dev), r[1])
+                                     for r in res] \
+                or ckpt._pv_crc_fb.read() - fb0 != NRANKS:
+            raise AssertionError(f"15b: restored {[b[:2] for b in back]}, "
+                                 f"crc fallbacks "
+                                 f"{ckpt._pv_crc_fb.read() - fb0}")
+        log(f"[ckpt] 15b epoch {CKPT_STEPS} written under io_partial "
+            f"(committed, a truncated shard a rank): the restore fell back "
+            f"to epoch {CKPT_STEPS - 1}, 15a's digest, {NRANKS} CRC "
+            f"fallbacks")
+        return launches
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def phase_ckpt_recover(dev, devices: str = "auto") -> None:
+    """15c (see the module docstring).  sim1's daemon is found through
+    the launcher's own records: ``--verbose state`` names each daemon's
+    pid as it registers."""
+    import signal
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = tempfile.mkdtemp(prefix="chip-smoke-ft-")
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.tools.mpirun", "-np", "3",
+           "--simulate-nodes", "3x1", "--ranks-per-proc", "1",
+           "--ckpt-dir", store, "--timeout", str(CKPT_JOB_S),
+           "--verbose", "state", "--mca", "errmgr_base_policy", "recover",
+           os.path.join("ompi_tpu_torch", "examples", "ft_prog.py"),
+           "--device", devices]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    errs, outs, stamp = [], [], {}
+
+    def read_err():
+        for line in p.stderr:
+            errs.append(line)
+            if "re-routing ranks" in line:
+                stamp.setdefault("route", time.perf_counter())
+
+    reader = threading.Thread(target=read_err, daemon=True)
+    reader.start()
+    try:
+        for line in p.stdout:
+            outs.append(line)
+            if f"ft: step {CKPT_KILL_STEP} done" in line:
+                break
+        pids = [m.group(1) for m in (
+            re.search(r"daemon sim1 \(node \d+\) registered, pid (\d+)",
+                      e) for e in list(errs)) if m]
+        if len(pids) != 1:
+            raise AssertionError(f"15c: sim1's daemon pid {pids}:\n"
+                                 f"{''.join(errs)[-3000:]}")
+        os.kill(int(pids[0]), signal.SIGKILL)
+        stamp["kill"] = time.perf_counter()
+        outs += p.stdout.readlines()
+        p.wait(timeout=CKPT_JOB_S + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+        raise AssertionError(f"15c outlived its timeout:\n"
+                             f"{''.join(errs)[-3000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        shutil.rmtree(store, ignore_errors=True)
+    end = time.perf_counter()
+    reader.join(timeout=30)
+    out, err = "".join(outs), "".join(errs)
+    want = [330.0] * 4
+    plain = _sha(torch.full((4,), 330.0, dtype=torch.float64, device=dev))
+    node = re.search(r"rank 1 on node (\w+)", out)
+    cards = [ln.split()[1] for ln in out.splitlines()
+             if ln.startswith("CARD ")]
+    final = [ln for ln in out.splitlines() if ln.startswith("final ")]
+    if p.returncode != 0 \
+            or "recovering in place: re-routing ranks [1]" not in err \
+            or "relaunching from snapshot" in err \
+            or not node or node.group(1) == "sim1" \
+            or final != [f"final step=10 acc={want}"] \
+            or cards != [plain] or "route" not in stamp \
+            or any(f"rank {r}: world ok after recovery (3 ranks)" not in out
+                   for r in range(3)):
+        raise AssertionError(f"15c: exit {p.returncode}\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    log(f"[ckpt] 15c mpirun -np 3 --simulate-nodes 3x1 recover policy, "
+        f"ft_prog.py --device {devices}: sim1's daemon killed after step "
+        f"{CKPT_KILL_STEP}; rank 1 re-routed to {node.group(1)}, every rank "
+        f"met in a Barrier + Allreduce after the epoch reset; {final[0]}, "
+        f"card digest = plain torch's {plain[:16]}...; kill to re-route "
+        f"{stamp['route'] - stamp['kill']:.3f} s, kill to the job's end "
+        f"{end - stamp['kill']:.3f} s, job {end - t0:.1f} s [{card_line()}]")
+
+
+def phase_ckpt(dev, devices: str = "auto") -> dict:
+    """Phase 15: 15a-15b (phase_ckpt_engine), 15c (phase_ckpt_recover).
+    Returns 15a's launches (they join the kernels line)."""
+    t0 = time.perf_counter()
+    launches = phase_ckpt_engine(dev)
+    phase_ckpt_recover(dev, devices)
+    log(f"[ckpt] phase 15 {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
     host with two or more cards); no argument: every phase.
@@ -7233,6 +7501,9 @@ def main(argv) -> int:
     f_launches = phase_fleet(dev)
     for r in rows:  # and phase 14's, the fleet's sessions'
         r["launches"] += f_launches.get(r["name"].split(":")[0], 0)
+    c_launches = phase_ckpt(dev)
+    for r in rows:  # and phase 15's, the checkpointed steps'
+        r["launches"] += c_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,16 +19,20 @@ sequence directories):
     with its allocator state.
 
 ``cr/buddy.py`` is the in-memory partner tier over the same shard
-image (``cr/shard.py``).  Not ported: the asynchronous filesystem tier
-``cr/ckpt.py`` (it writes through MPI-IO, ROADMAP.md A9) and the
-uncoordinated ``checkpoint_local`` / ``restore_local`` (they need
-sender-based message logging, ``pml/vprotocol``, A9): both raise.
+image (``cr/shard.py``), and ``cr/ckpt.py`` the tiered engine that
+puts an asynchronous filesystem tier (MPI-IO epochs) under it.  Not
+ported: the uncoordinated ``checkpoint_local`` / ``restore_local``
+(they need sender-based message logging, ``pml/vprotocol``, ROADMAP.md
+A9b): both raise.
 
 API (collective over COMM_WORLD):
 
-    state = cr.restore(comm, store_dir=D)   # None on a fresh start
+    state = cr.restore(comm)            # None on a fresh start
     ...
-    cr.checkpoint(comm, state, store_dir=D)
+    cr.checkpoint(comm, state)          # store dir from mpirun
+
+mpirun --ckpt-dir DIR exports the store; mpirun --restart DIR (or
+``python -m ompi_tpu_torch.tools.restart DIR``) relaunches into it.
 """
 
 from __future__ import annotations
@@ -40,9 +44,7 @@ import shutil
 from typing import Any, List, Optional
 
 import numpy as np
-import torch
 
-from ompi_tpu_torch.cr import shard as _shard
 from ompi_tpu_torch.mca.params import registry as _registry
 
 ENV_DIR = "TPUMPI_CKPT_DIR"
@@ -81,13 +83,18 @@ class _TensorLeaf:
 
     __slots__ = ("dtype", "shape", "raw")
 
-    def __init__(self, t: torch.Tensor) -> None:
+    def __init__(self, t) -> None:
+        from ompi_tpu_torch.cr import shard as _shard
         self.dtype = _shard.dtype_tag(t.dtype)
         self.shape = tuple(t.shape)
         self.raw = _shard.host_bytes(*_shard.snapshot(t)).copy()
 
 
 def _encode(obj):
+    # torch is imported where a payload is encoded, not with the
+    # package: the launcher reads the store (Store.latest_complete)
+    # on its recovery path and must not pay torch's import there
+    import torch
     if isinstance(obj, torch.Tensor):
         return _TensorLeaf(obj)
     if isinstance(obj, dict):
@@ -101,6 +108,7 @@ def _encode(obj):
 
 def _decode(obj, device):
     if isinstance(obj, _TensorLeaf):
+        from ompi_tpu_torch.cr import shard as _shard
         return _shard.tensor_from_bytes(obj.raw, obj.dtype, obj.shape,
                                         device)
     if isinstance(obj, dict):

@@ -154,8 +154,9 @@ def snapshot(t: torch.Tensor):
 
 def host_bytes(stage, event) -> np.ndarray:
     """The flat uint8 host bytes of a :func:`snapshot`, once its copy
-    has finished."""
-    if event is not None:
+    has finished (a wait only where the event has not completed yet,
+    so a caller that checked :func:`ready` never waits)."""
+    if event is not None and not event.query():
         event.synchronize()
     if isinstance(stage, torch.Tensor):
         return stage.numpy()
@@ -216,6 +217,13 @@ def plan(payload: Any) -> Plan:
     skeleton = walk(payload)
     residue = pickle.dumps(skeleton, protocol=pickle.HIGHEST_PROTOCOL)
     return Plan(residue, shards)
+
+
+def ready(sh: Shard) -> bool:
+    """Can :func:`drain` take this shard without waiting?  True once
+    its device-to-host copy has finished (``event.query()``, which
+    never blocks), and always for a host leaf or a drained shard."""
+    return sh.event is None or sh.event.query()
 
 
 def drain(sh: Shard) -> int:

@@ -4,19 +4,23 @@ deterministic stepped allreduce accumulation that checkpoints EVERY
 step to the filesystem tier and restores at start, so a run that the
 pool parks and replays (its host died under a session that is not
 ULFM-aware) resumes where it stopped and its final digest is
-byte-identical to an unkilled run.  The reference checkpoints through
-``cr.ckpt``; the port's filesystem tier until ROADMAP A9 is
-``cr.checkpoint`` / ``cr.restore`` — the same state and digest.
+byte-identical to an unkilled run.  It checkpoints through the tiered
+engine, ``cr.ckpt`` (a filesystem epoch every step, the last one
+committed by ``ckpt.flush`` before the digest), as the reference's
+does.
 
     python -m ompi_tpu_torch.tools.mpirun --dvm /tmp/dvm.uri -np 2 \\
         ompi_tpu_torch/examples/fleet_ckpt.py TAG STORE STEPS [SLEEP_S] \\
         [--hold STEP PATH] [--device auto|cpu]
 
-``--hold STEP PATH``: at step STEP of a run that did not resume, rank 0
-writes PATH and every rank then waits in a receive nobody sends — the
-deterministic kill point of a test: whoever watches PATH kills a host,
-the pool takes the session down (the wait raises) and replays the run,
-which resumes from step STEP's checkpoint.
+``--hold STEP PATH``: at step STEP of a run that did not resume, every
+rank commits the epoch in flight (``ckpt.flush``), rank 0 writes PATH
+and every rank then waits in a receive nobody sends — the deterministic
+kill point of a test: whoever watches PATH kills a host, the pool takes
+the session down (the wait raises) and replays the run, which resumes
+from step STEP's checkpoint (without the flush, the newest committed
+epoch at the kill would be the step before, or the hold step's if a
+surviving rank's engine commits it at the replay's restore: a race).
 
 Rank 0 prints the reference's ``STEPS {tag} {resumed_at}`` and
 ``DIGEST {tag} {sha256}``, then ``CARD {tag} {sha256}``: the digest of
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 import ompi_tpu_torch
-from ompi_tpu_torch import cr
+from ompi_tpu_torch.cr import ckpt
 from ompi_tpu_torch.op import op as mpi_op
 
 argv = list(sys.argv[1:])
@@ -53,7 +57,7 @@ sleep_s = float(argv[3]) if len(argv) > 3 else 0.0
 comm = ompi_tpu_torch.init(device=choice)
 rank, size = comm.rank, comm.size
 
-snap = cr.restore(comm, store_dir=store, resume=True)
+snap = ckpt.restore(comm, store_dir=store)
 if snap is None:
     start = 0
     vec = np.zeros(32, np.float64)
@@ -63,6 +67,7 @@ else:
 
 for step in range(start, steps):
     if hold is not None and step == hold[0] and start == 0:
+        ckpt.flush(comm)
         if rank == 0:
             with open(hold[1] + ".tmp", "w") as fh:
                 fh.write(f"{tag} {step}\n")
@@ -73,10 +78,12 @@ for step in range(start, steps):
     r = np.empty_like(contrib)
     comm.Allreduce(contrib, r, mpi_op.SUM)
     vec = vec + r
-    cr.checkpoint(comm, {"step": step + 1, "vec": vec}, store_dir=store)
+    ckpt.checkpoint(comm, {"step": step + 1, "vec": vec},
+                    store_dir=store, fs=True)
     if sleep_s:
         time.sleep(sleep_s)
 
+ckpt.flush(comm)  # commit the last epoch before the digest
 dig = hashlib.sha256(vec.tobytes()).hexdigest()
 card = comm.allreduce_arr(torch.from_numpy(vec).to(comm.device),
                           mpi_op.SUM)

@@ -13,8 +13,11 @@ replacement that takes
 the same world rank, restores its state from a buddy checkpoint
 (``cr/buddy.py``) and rejoins at full size.
 
-The process-rank half (the KV note watcher, ``runtime/ft.py``'s live
-recovery) waits for the launcher RTEs (ROADMAP.md A8).
+Process ranks under mpirun's ulfm and respawn policies consume the
+failure and revoke notes through ULFM's KV note watcher
+(``ulfm.start_watcher``); the recover policy's live recovery, which
+re-routes a dead node's ranks and rolls every rank back to a snapshot,
+is ``runtime/ft.py``.
 """
 
 from ompi_tpu_torch.ft.ulfm import (  # noqa: F401

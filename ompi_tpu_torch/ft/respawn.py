@@ -35,12 +35,12 @@ The flow, per failure:
 Epoch hygiene: completed epochs purge their consumed agreement
 tickets (``ulfm.purge_tickets``).
 
-Divergences from the reference: the reference's rejoin first drops an
-in-flight filesystem checkpoint epoch (``ckpt.ft_abort``); the port
-has no filesystem tier yet (``cr/ckpt.py``, ROADMAP.md A9), so no
-epoch can be in flight and the call is left out until A9 brings it
-back.  Its rejoin also drops compiled executables of the dead ranks'
-devices (``compile_cache.drop_device``); the port has no process-wide
+Rejoin first drops an in-flight filesystem checkpoint epoch torn
+(``cr/ckpt.ft_abort``), as the reference's does.
+
+Divergences from the reference: its rejoin also drops compiled
+executables of the dead ranks' devices
+(``compile_cache.drop_device``); the port has no process-wide
 compiled-program cache (see ft/ulfm).  And the port's survivors revoke
 the communicator they replace before they agree, as the port's shrink
 does (see ``ulfm.shrink``): a survivor still parked on it, waiting on
@@ -179,6 +179,14 @@ def rejoin(comm, name: str = ""):
         raise ValueError(
             "respawn.rejoin must run on a full-world-size communicator")
     state.progress.interrupt = None  # disarm: rejoin must not re-raise
+    # drop any in-flight filesystem checkpoint epoch torn: it was begun
+    # with the dead ranks and can never commit (the manifest gather
+    # would wait on them forever); the previous committed epoch is
+    # intact by two-phase construction, so the restore ladder
+    # (ckpt.restore — buddy, then filesystem replay) still has its
+    # newest durable state
+    from ompi_tpu_torch.cr import ckpt as _ckpt
+    _ckpt.ft_abort(state)
     store = _ulfm._store(state)
     am_joining = joining(state)
     epoch = state.respawn_epoch + 1

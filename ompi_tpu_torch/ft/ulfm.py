@@ -618,6 +618,11 @@ _COMM_CACHE_KEYS = (
     "_osc_pick",
     # topo/neighbor: the cart's per-member source table (port-only)
     "_nbr_sources",
+    # placement verdicts: the tuned module's oversubscription verdict
+    # (every member must pick the same algorithm, and a live
+    # recovery's re-routed ranks oversubscribe a survivor node) and
+    # coll/device's "does this comm span processes" answer
+    "_oversub_verdict", "_spans_procs",
 )
 
 # the subset safe to purge while a comm stays LIVE: pure routing

@@ -69,7 +69,11 @@ The resident pool (tools/dvm.py):
     ``host_slow`` makes that host's ``tpud --fleet`` agent beat
     ``ft_inject_host_slow_factor`` times slower.
 
-Not ported (ROADMAP.md): checkpoint I/O faults (A9).
+The checkpoint engine's shard-write point (cr/ckpt.py), and only
+there: ``io_stall`` holds a write ``ft_inject_delay_ms``,
+``io_partial`` truncates a shard (the manifest CRC catches it at
+restore), ``io_enospc`` raises ENOSPC, which aborts the epoch on every
+rank at commit (``IoInjector``).
 """
 
 from __future__ import annotations
@@ -111,7 +115,9 @@ _plan_var = registry.register(
          "hard-exits serving its Nth op; the number is that count), "
          "host_kill (a multi-host pool severs ft_inject_victim_host's "
          "whole failure domain — agent plus every resident rank — at "
-         "its Nth served op; the number is that count) "
+         "its Nth served op; the number is that count), the "
+         "checkpoint shard-write faults (io_stall, io_partial, "
+         "io_enospc) "
          "and net_jitter (seeded latency on tcp frames and KV ops).  "
          "Empty = framework disabled")
 _rate_var = registry.register(
@@ -178,6 +184,13 @@ _sdc_period_var = registry.register(
 BTL_CLASSES = ("drop", "delay", "dup", "reorder", "corrupt", "sever",
                "corrupt_payload")
 NODE_CLASSES = ("daemon_kill", "oob_sever")
+# checkpoint-I/O faults, consumed by the cr/ckpt shard-write path:
+#   io_stall   — the write is held delay_ms before hitting the disk
+#   io_partial — the shard is silently truncated (manifest CRC is
+#                over the full shard, so restore detects the tear)
+#   io_enospc  — the write raises ENOSPC; the epoch aborts on every
+#                rank through the commit error agreement
+IO_CLASSES = ("io_stall", "io_partial", "io_enospc")
 # seeded latency/loss shaping on the tcp + KV client paths — the
 # network-flakiness half of gray failure
 NET_CLASSES = ("net_jitter",)
@@ -569,6 +582,30 @@ def rma_injector(rank: int) -> Optional[RmaInjector]:
     if not p:
         return None
     return RmaInjector("rma", rank, p)
+
+
+class IoInjector(_Scoped):
+    """Faults at the checkpoint shard-write choke point (cr/ckpt).
+    Deliberately NOT wired into io.file itself: a raise inside an
+    fcoll aggregator would strand peer ranks in the collective's
+    barrier, whereas the ckpt layer agrees on errors before anything
+    collective happens."""
+
+    @property
+    def delay_s(self) -> float:
+        return max(0, _delay_ms_var.value) / 1000.0
+
+    def pick(self) -> Optional[str]:
+        """One shard is about to be written; return a fault class to
+        apply, or None to write it clean."""
+        return self._roll()
+
+
+def io_injector(rank: int) -> Optional[IoInjector]:
+    p = {c: r for c, r in plan().items() if c in IO_CLASSES}
+    if not p:
+        return None
+    return IoInjector("io", rank, p)
 
 
 #: permanent rank-level scenario classes (armed once at MPI_Init)

@@ -32,9 +32,8 @@ is guarded by a module flag, the recorder is a lazy process singleton,
 and ``attach(state)`` may run once per world without duplicating
 anything.
 
-Not ported yet (ROADMAP.md A9): ``FlightRecorder.persist(comm=...)``
-(it writes through MPI-IO) and the MPI_T pvar snapshot that
-``local_metrics`` reads (mpit); both raise NotImplementedError.
+Not ported yet (ROADMAP.md A9d): the MPI_T pvar snapshot that
+``local_metrics`` reads (mpit); it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -486,21 +485,30 @@ class FlightRecorder:
                 "events": self.snapshot(last)}
 
     def persist(self, path: str, comm=None) -> Optional[str]:
-        """Write the ring as JSON, atomically (a temporary file, then a
-        rename).  Returns the path on success, None on best-effort
-        failure.  Writing through the io layer with a communicator
-        (the reference's failure path) needs MPI-IO, which the port
-        does not have yet: ``comm`` raises NotImplementedError."""
-        if comm is not None:
-            raise NotImplementedError(
-                "FlightRecorder.persist(comm=...) writes through MPI-IO, "
-                "which is not ported yet (ROADMAP.md A9)")
+        """Write the ring as JSON.  With a communicator, write through
+        the io layer (collective open, rank 0 lays down the bytes) —
+        the failure path in an MPI world.  Without one (pool halt, no
+        comm in scope) fall back to an atomic plain write.  Returns
+        the path on success, None on best-effort failure."""
         try:
             data = json.dumps(self.trace_dump(), indent=1).encode()
-            tmp = f"{path}.tmp.{os.getpid()}"
-            with open(tmp, "wb") as fh:
-                fh.write(data)
-            os.replace(tmp, path)
+            if comm is not None:
+                import numpy as np
+
+                from ompi_tpu_torch import io as mpiio
+                f = mpiio.open(comm, path,
+                               mpiio.MODE_CREATE | mpiio.MODE_RDWR)
+                try:
+                    if comm.rank == 0:
+                        f.write_at(0, np.frombuffer(bytearray(data),
+                                                    dtype=np.uint8))
+                finally:
+                    f.close()
+            else:
+                tmp = f"{path}.tmp.{os.getpid()}"
+                with open(tmp, "wb") as fh:
+                    fh.write(data)
+                os.replace(tmp, path)
             return path
         except (OSError, ValueError):
             return None

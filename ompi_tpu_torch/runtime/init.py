@@ -24,9 +24,10 @@ launched under mpirun's ulfm or respawn errmgr policy
 and a replacement launched by the respawn policy (``TPUMPI_RESPAWN``,
 ``TPUMPI_FT_EPOCH``) comes up joining (``ft.respawn.joining``) and
 without btl/shm (the rings of a pre-failure epoch cannot be made
-stale-byte-safe, so an epoch > 0 world talks over tcp).  vprotocol
-and live recovery (the recover policy's epoch watcher) are listed in
-ROADMAP.md as still to port.
+stale-byte-safe, so an epoch > 0 world talks over tcp).  A rank
+launched under mpirun's recover policy (``TPUMPI_FT_RECOVER``) starts
+the live-recovery epoch watcher (runtime/ft.py) after the final fence.
+vprotocol is listed in ROADMAP.md as still to port.
 """
 
 from __future__ import annotations
@@ -173,6 +174,12 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     # 5. final fence before returning (sync #2, ref: :833-838)
     state.rte.fence()
     state.initialized = True
+    if os.environ.get("TPUMPI_FT_RECOVER"):
+        # the launcher runs the recover errmgr policy: watch for
+        # recovery epochs so a daemon loss interrupts blocking waits
+        # instead of hanging them (runtime/ft.py)
+        from ompi_tpu_torch.runtime import ft as _ft
+        _ft.start_watcher(state)
     if state.ulfm is not None:
         # ft_inject rank_kill: this rank is the victim — arm the
         # one-shot death timer (fires as a RankKilled interrupt out

@@ -1171,8 +1171,11 @@ class KVProxy:
         server completes when summed weights reach n;
       * get    — write-once ``modex:`` keys are cached after the
         first fetch, so N local readers cost one upstream read;
-        blocking upstream gets poll with short timeouts so one
-        waiting rank never serializes the node's other traffic;
+        blocking upstream gets poll with short timeouts, and a wait
+        that outlasts its first poll goes on to poll over an upstream
+        channel of its own local connection, so one waiting rank (a
+        recovery-epoch or ULFM watcher parks on a key for the whole
+        job) never serializes the node's other traffic;
       * everything else (put/incr/uncr/take/abort/spawn) forwards.
     """
 
@@ -1207,20 +1210,32 @@ class KVProxy:
             threading.Thread(target=self._serve, args=(conn,),
                              daemon=True).start()
 
-    def _poll_upstream(self, op: str, key: str, timeout: float):
-        """Blocking get/take forwarded as short polls so the shared
-        upstream channel is never held across a long wait."""
+    def _poll_upstream(self, op: str, key: str, timeout: float,
+                       own: list):
+        """Blocking get/take forwarded as short polls.  The first poll
+        rides the shared upstream channel (a key already published
+        answers at once); a wait that outlasts it polls on over
+        ``own[0]``, an upstream channel of the asking local connection
+        (opened on first need): the shared channel's lock is not fair,
+        and a poller taking it back every step would starve every
+        other local rank's ops for as long as it waits (the
+        reference's proxy polls only on the shared channel)."""
         deadline = time.monotonic() + timeout
+        up = self.up
         while True:
             left = deadline - time.monotonic()
             step = min(0.2, max(0.01, left))
             try:
                 if op == "get":
-                    return {"value": self.up.get(key, timeout=step)}
-                return {"value": self.up.take(key, timeout=step)}
+                    return {"value": up.get(key, timeout=step)}
+                return {"value": up.take(key, timeout=step)}
             except TimeoutError:
                 if time.monotonic() >= deadline:
                     return {"timeout": True}
+                if up is self.up:
+                    if own[0] is None:
+                        own[0] = KVClient(self.up.uri)
+                    up = own[0]
             except RuntimeError as e:  # job abort rides the reply
                 return {"abort": str(e)}
 
@@ -1236,6 +1251,7 @@ class KVProxy:
             return
         dfs_fds: Dict[int, int] = {}
         dfs_owner: Dict[int, str] = {}  # forwarded fd -> remote host
+        own: list = [None]  # this connection's upstream poll channel
         try:
             while True:
                 msg = _recv_msg(conn)
@@ -1285,7 +1301,7 @@ class KVProxy:
                         _send_msg(conn, {"value": hit})
                         continue
                     resp = self._poll_upstream(
-                        "get", key, msg.get("timeout", 60.0))
+                        "get", key, msg.get("timeout", 60.0), own)
                     if "value" in resp and key.startswith("modex:"):
                         # modex keys are write-once per rank: safe to
                         # serve every later local reader from cache
@@ -1294,7 +1310,8 @@ class KVProxy:
                     _send_msg(conn, resp)
                 elif op == "take":
                     _send_msg(conn, self._poll_upstream(
-                        "take", msg["key"], msg.get("timeout", 60.0)))
+                        "take", msg["key"], msg.get("timeout", 60.0),
+                        own))
                 elif op == "incr":
                     _send_msg(conn, {"value": self.up.incr(msg["key"])})
                 elif op == "uncr":
@@ -1326,6 +1343,8 @@ class KVProxy:
         except OSError:
             return
         finally:
+            if own[0] is not None:
+                own[0].close()
             for fd in dfs_fds.values():
                 try:
                     os.close(fd)

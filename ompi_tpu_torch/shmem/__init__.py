@@ -24,8 +24,9 @@ Symmetry: every PE performs the same allocation sequence
 allocator yields identical offsets everywhere — a remote address is
 (pe, my_offset), exactly the memheap model (ref: oshmem/mca/memheap).
 
-The port has no process world yet: a context needs the caller's
-communicator (the reference's ``ShmemCtx()`` initialises one).
+A context with no communicator takes ``ompi_tpu_torch.init()``'s
+world, as the reference's does (a process rank under mpirun, or a
+singleton); a thread world passes the comm its rank function gets.
 
     from ompi_tpu_torch import shmem
     from ompi_tpu_torch.testing import logical_devices, run_ranks
@@ -90,14 +91,10 @@ class ShmemCtx:
     """One PE's shmem state (the oshmem_group_all-rooted world)."""
 
     def __init__(self, comm=None, heap_size: Optional[int] = None) -> None:
+        import ompi_tpu_torch
         from ompi_tpu_torch import osc as oscmod
 
-        if comm is None:
-            raise RuntimeError(
-                "shmem needs the caller's communicator: the port has no "
-                "process world to initialise (ROADMAP A8); pass the comm "
-                "a run_ranks rank function gets")
-        self.comm = comm
+        self.comm = comm if comm is not None else ompi_tpu_torch.init()
         self.heap_size = heap_size or _heap_var.value
         # sshmem backing segment through real osc selection: a
         # mesh-capable comm mints a device shard, so the symmetric heap

@@ -101,7 +101,8 @@ def doctor_capture(world, sid: int = 0, tid: int = 0, run_ms: int = 0,
     each rank's host (its ``rte.node_id``, 0 where none).  The
     session's id, request trace id and timing are the caller's (a
     thread world has no pool estimate); its namespace is ``s<sid>``.
-    The KV fences stay empty (no KV store before A8).  Cold path: run
+    The KV fences stay empty: a thread world fences in memory, not
+    through the KV store.  Cold path: run
     it off the ranks' threads, while they are wedged."""
     from ompi_tpu_torch.obs import integrity
     stacks: Dict[str, List[str]] = {}

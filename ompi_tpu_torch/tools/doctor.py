@@ -6,9 +6,9 @@ the session world's rendezvous arrival state, its KV namespace's
 in-flight fences, the abort state, the flight-recorder tail, the
 health plane's host rows, the integrity convictions and the ranks'
 placement.  In the port ``testing.sessions.doctor_capture`` builds one
-from a thread world (the reference pool's watchdog writes them as
-``<uri>.doctor.s<sid>.json``; the port's pool and its watchdog come
-with A8, ROADMAP.md).  This tool reads captures and answers the only
+from a thread world, and the resident pool's watchdog (tools/dvm.py)
+writes them as ``<uri>.doctor.s<sid>.json``, as the reference's does.
+This tool reads captures and answers the only
 question the operator has at 3am: *which rank is absent from which
 rendezvous*, or *who never arrived at which fence*, with the
 run-vs-estimate numbers and the last flight events as supporting

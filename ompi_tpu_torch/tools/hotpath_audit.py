@@ -33,9 +33,7 @@ from typing import Dict, List, Tuple
 
 # (module path relative to the package root, {qualified function: ...})
 # Qualified names are "Class.method" or bare "function".  The port's
-# copy declares the hot functions the port has: the reference's
-# checkpoint drain, fleet controller and DVM ticks have no counterpart
-# here yet (ROADMAP.md A8-A9).
+# copy declares the reference's hot functions under the port's paths.
 HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     "ompi_tpu_torch/trace/__init__.py": (
         "Tracer.start",
@@ -94,6 +92,12 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     # interval elapses, never an allocation
     "ompi_tpu_torch/obs/__init__.py": (
         "Scraper.tick",
+    ),
+    # the checkpoint engine's drain tick rides every low-priority
+    # progress sweep once a filesystem epoch has been taken: the idle
+    # path (no epoch in flight, or its queue drained) must not allocate
+    "ompi_tpu_torch/cr/ckpt.py": (
+        "Engine.tick",
     ),
     # the gray-failure health scoring tick rides a pool's heartbeat
     # sweep whenever health_enable is on: integer EWMA reads,

@@ -31,8 +31,13 @@ no child inherits a CUDA context.  A simulated node's app shell gives
 its ranks M devices of their own (tools/hostrun.py).  ``--dvm
 URI_FILE`` launches nothing: it submits the program to a running
 resident pool (tools/dvm.py ``submit``), whose devices were fixed when
-it started.  Not ported yet, raising NotImplementedError that names
-its ROADMAP item: --ckpt-dir / --restart (cr/ckpt.py, A9).
+it started.  ``--ckpt-dir DIR`` exports the checkpoint store to the
+ranks and records the launch as ``DIR/job.json`` (the record
+tools/restart.py and tools/migrate.py replay); ``--restart DIR``
+relaunches into it.  The errmgr's ``restart`` policy relaunches the
+whole job from the latest complete snapshot, and ``recover`` re-routes
+a dead node's ranks onto a survivor while the job runs on
+(runtime/ft.py).
 
 Usage:
     python -m ompi_tpu_torch.tools.mpirun -np 4 [--mca k v] [--tag-output]
@@ -64,8 +69,7 @@ _errmgr_policy_var = _params.register(
     "errmgr", "base", "policy", "abort", str,
     help="What the launcher does when a proc/daemon fails: 'abort' "
          "(first failure kills the job — the errmgr/default_hnp "
-         "policy), 'restart' (with --ckpt-dir, which the port does "
-         "not have yet: relaunch the WHOLE "
+         "policy), 'restart' (with --ckpt-dir: relaunch the WHOLE "
          "job from the latest complete snapshot), or 'recover' "
          "(with --ckpt-dir: on daemon loss, remap the dead node's "
          "ranks onto a survivor at a bumped recovery epoch while "
@@ -312,6 +316,9 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
             "TPUMPI_JOBID": f"job-{os.getpid()}",
             "TPUMPI_JOB_SECRET": os.environ["TPUMPI_JOB_SECRET"],
         }
+        if _errmgr_policy_var.value == "recover" and opts.ckpt_dir:
+            # ranks start the ft epoch watcher (runtime/ft.py)
+            job_env["TPUMPI_FT_RECOVER"] = "1"
         if _errmgr_policy_var.value in ("ulfm", "respawn"):
             # ranks start the ulfm note watcher (ompi_tpu_torch/ft/ulfm);
             # respawn rides the same detection plane.  The value names
@@ -333,6 +340,14 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
 
     def ev_daemon_up(sm, info):
         d["registered"].add(info["node"])
+        if "state" in (opts.verbose or ""):
+            # the PLM's registration record: which process is each
+            # node's daemon (a chaos test kills one by this pid)
+            sys.stderr.write(
+                f"[mpirun:hnp:state] daemon {info.get('name', '')} "
+                f"(node {info['node']}) registered, pid "
+                f"{info.get('pid')}\n")
+            sys.stderr.flush()
         if sm.state == smx.LAUNCH_DAEMONS \
                 and d["registered"] >= d["want"]:
             sm.activate(smx.DAEMONS_REPORTED)
@@ -357,6 +372,8 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
         if info["node"] in d["done"] or d.get("drained") \
                 or sm.state in (smx.DRAINING, smx.TERMINATED):
             return  # clean teardown closes daemon channels
+        if sm.state == smx.RUNNING and try_recover(sm, info["node"]):
+            return  # job keeps running on the survivors
         if sm.state == smx.RUNNING \
                 and _errmgr_policy_var.value == "ulfm" \
                 and try_ulfm_node(sm, info["node"]):
@@ -388,6 +405,84 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
             sm.activate(smx.DRAINING, failed=False)
         return True
 
+    def try_recover(sm, node: int) -> bool:
+        """Live fault recovery (errmgr_base_policy=recover +
+        --ckpt-dir): instead of tearing the job down, remap the dead
+        node's ranks onto a survivor at a bumped recovery epoch and
+        tell the surviving ranks to roll back to the latest snapshot
+        (runtime/ft.py; ref: orte/mca/routed/radix/routed_radix.c:58
+        ft_event + orte/mca/rmaps/resilient/rmaps_resilient.c:76+)."""
+        if _errmgr_policy_var.value != "recover" or not opts.ckpt_dir:
+            return False
+        from ompi_tpu_torch import cr as _cr
+        try:
+            seq = _cr.Store(opts.ckpt_dir).latest_complete()
+        except OSError:
+            seq = None
+        if seq is None:
+            sys.stderr.write(
+                "mpirun: recover policy: no complete snapshot yet — "
+                "falling back to job teardown\n")
+            return False
+        hnp = d["hnp"]
+        failed = next((m for m in d["maps"]
+                       if m.node.node_id == node and m.procs), None)
+        if failed is None:
+            return False
+        with hnp.lock:
+            survivors = [nid for nid in hnp.channels if nid != node]
+        if not survivors:
+            return False
+        target = survivors[0]
+        epoch = d["ft_epoch"] = d.get("ft_epoch", 0) + 1
+        failed_ranks = []
+        for p in failed.procs:
+            failed_ranks += list(range(p.rank_base,
+                                       p.rank_base + max(1, p.nlocal)))
+        env = dict(d["job_env"])
+        env["TPUMPI_RESTART"] = "1"
+        env["TPUMPI_FT_EPOCH"] = str(epoch)
+        try:
+            hnp.send_launch(target, {
+                "op": "launch", "prog": d["launched_prog"],
+                "args": opts.args, "prog_data": d.get("prog_data"),
+                "wdir": opts.wdir, "env": env,
+                "procs": [{"rank_base": p.rank_base,
+                           "nlocal": p.nlocal} for p in failed.procs],
+            })
+        except (KeyError, ConnectionError, OSError) as e:
+            sys.stderr.write(
+                f"mpirun: recover policy: relaunch on node {target} "
+                f"failed ({e}); tearing down\n")
+            return False
+        # the dead node will never report node_done, and its procs
+        # now belong to the target's map — a SECOND failure on the
+        # target must relaunch them too
+        d["done"].add(node)
+        tmap = next((m for m in d["maps"]
+                     if m.node.node_id == target), None)
+        if tmap is not None:
+            tmap.procs.extend(failed.procs)
+        failed.procs = []
+        # announce the epoch: every surviving rank's ft watcher arms
+        # a JobRecovery interrupt and rolls back to snapshot `seq`
+        srv = d["server"]
+        with srv.cv:
+            srv.data[f"ft:epoch:{epoch}"] = {
+                "epoch": epoch, "failed": failed_ranks,
+                "node": node, "target": target, "snapshot": seq}
+            srv.cv.notify_all()
+        sys.stderr.write(
+            f"mpirun: daemon on node {node} lost; recovering in "
+            f"place: re-routing ranks {failed_ranks} to node "
+            f"{target} (epoch {epoch}, snapshot {seq})\n")
+        if "state" in (opts.verbose or ""):
+            sys.stderr.write(
+                f"[mpirun:hnp:state] RUNNING -> RECOVERING "
+                f"(re-route epoch {epoch}: node {node} ranks "
+                f"{failed_ranks} -> node {target}) -> RUNNING\n")
+        return True
+
     def on_daemons_reported(sm, info):
         d["reg_timer"].cancel()
         sm.activate(smx.LAUNCH_APPS)
@@ -402,8 +497,8 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
             return
         d["launched_prog"] = prog
         if opts.preload and os.path.isfile(prog) \
-                and _errmgr_policy_var.value == "respawn":
-            # only the respawn policy ever relaunches from d;
+                and _errmgr_policy_var.value in ("recover", "respawn"):
+            # only the recover/respawn policies ever relaunch from d;
             # the normal path lets HNP.launch do its own encode
             import base64 as _b64
             with open(prog, "rb") as _fh:
@@ -416,8 +511,8 @@ def run_multinode(opts, nodes, rpp: int, hybrid: bool,
     def try_respawn_remote(info) -> bool:
         """Respawn policy on the PLM path: relaunch the dead launch
         unit on ITS OWN node (the daemon survived — only the rank
-        process died; daemon loss still falls through to the ulfm/
-        abort ladder in ev_daemon_lost)."""
+        process died; daemon loss still falls through to the recover/
+        ulfm/abort ladder in ev_daemon_lost)."""
         tag = info.get("tag", "")
         ranks = _tag_ranks(tag)
         if not ranks:
@@ -853,8 +948,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "local rank (the rtc/hwloc binding analog)")
     ap.add_argument("--ckpt-dir", default=None, dest="ckpt_dir",
                     help="Checkpoint store root exported to ranks as "
-                         "TPUMPI_CKPT_DIR (not ported yet, ROADMAP.md "
-                         "A9: cr/ckpt.py)")
+                         "TPUMPI_CKPT_DIR; mpirun records job.json "
+                         "there for ompi_tpu_torch.tools.restart")
     ap.add_argument("--ckpt-keep", type=int, default=None,
                     dest="ckpt_keep", metavar="N",
                     help="Prune the checkpoint store to the newest N "
@@ -862,8 +957,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "default job-wide; 0/default keeps all)")
     ap.add_argument("--restart", default=None, metavar="DIR",
                     help="Restart from the latest complete snapshot "
-                         "in DIR (not ported yet, ROADMAP.md A9: "
-                         "cr/ckpt.py)")
+                         "in DIR (sets TPUMPI_RESTART; the app picks "
+                         "it up via cr.restore)")
     ap.add_argument("--hnp-ip", default=None,
                     help="IP remote nodes should dial for the HNP "
                          "control + KV servers (default: auto-detect)")
@@ -896,10 +991,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         from ompi_tpu_torch.tools.dvm import submit
         return submit(opts.dvm, opts.np, opts.prog, opts.args,
                       timeout=opts.timeout or None)
-    if opts.ckpt_dir or opts.restart:
-        raise NotImplementedError(
-            "mpirun --ckpt-dir / --restart need the checkpoint store "
-            "(cr/ckpt.py), which is not ported yet (ROADMAP.md A9)")
     # per-job control-plane secret (sec/basic analog): the KV server
     # refuses connections without it.  setdefault so a relaunch under
     # an outer job reuses the outer credential.
@@ -909,6 +1000,41 @@ def main(argv: Optional[List[str]] = None) -> int:
     if opts.ckpt_keep is not None:
         # job-wide cr_keep default (the MCA env of every rank)
         ckpt_env["TPUMPI_MCA_cr_keep"] = str(opts.ckpt_keep)
+    # checkpoint/restart store plumbing (cr stack; the orte-restart
+    # analog is ompi_tpu_torch.tools.restart)
+    ckpt_root = opts.restart or opts.ckpt_dir
+    if ckpt_root:
+        ckpt_root = os.path.abspath(ckpt_root)
+        ckpt_env["TPUMPI_CKPT_DIR"] = ckpt_root
+        if opts.restart:
+            # restart must NEVER rewrite job.json: the original launch
+            # record is what ompi_tpu_torch.tools.restart replays
+            ckpt_env["TPUMPI_RESTART"] = "1"
+        else:
+            try:
+                os.makedirs(ckpt_root, exist_ok=True)
+                with open(os.path.join(ckpt_root, "job.json"),
+                          "w") as jf:
+                    import json as _json
+                    _json.dump({"np": opts.np, "prog": opts.prog,
+                                "args": opts.args, "mca": opts.mca,
+                                "rpp": opts.rpp,
+                                # the rank-threads' devices (the
+                                # reference's jax platform has no flag)
+                                "devices": opts.devices,
+                                "preload": opts.preload,
+                                # allocation + placement, so restart
+                                # replays it and orte-migrate's analog
+                                # can override per-rank placement
+                                "hosts": opts.hosts,
+                                "hostfile": opts.hostfile,
+                                "simulate": opts.simulate,
+                                "map_by": opts.map_by,
+                                "oversubscribe":
+                                    opts.oversubscribe}, jf)
+            except OSError as e:
+                sys.stderr.write(
+                    f"mpirun: cannot write job.json: {e}\n")
     # --mca pairs apply to the LAUNCHER's own registry too (the
     # reference's orterun reads MCA params itself — e.g. the notifier
     # sinks used by the errmgr handlers), not only to rank env
@@ -939,10 +1065,43 @@ def main(argv: Optional[List[str]] = None) -> int:
     # any EXPLICIT allocation goes through the PLM (slot counts and
     # mapping policy enforced uniformly, even for one local node);
     # only the implicit local default uses the direct fork/exec path
-    if any(x is not None for x in (opts.hosts, opts.hostfile,
-                                   opts.simulate)):
-        return run_multinode(opts, nodes, rpp, hybrid, ckpt_env)
-    return run_local(opts, rpp, hybrid, ckpt_env)
+    explicit = any(x is not None for x in (opts.hosts, opts.hostfile,
+                                           opts.simulate))
+
+    def run_once() -> int:
+        if explicit:
+            return run_multinode(opts, nodes, rpp, hybrid, ckpt_env)
+        return run_local(opts, rpp, hybrid, ckpt_env)
+
+    rc = run_once()
+    # errmgr restart policy (elastic-recovery slice): instead of the
+    # default first-failure-kills-the-job, relaunch from the latest
+    # complete snapshot.  Exit 124 is the --timeout kill — restarting
+    # a job that legitimately ran out of wall clock only doubles the
+    # damage, so it never retries.
+    if rc not in (0, 124) and opts.ckpt_dir \
+            and _errmgr_policy_var.value == "restart":
+        from ompi_tpu_torch import cr as _cr
+        attempts = 0
+        max_r = int(_errmgr_max_restarts_var.value)
+        while rc not in (0, 124) and attempts < max_r:
+            seq = _cr.Store(ckpt_root).latest_complete()
+            if seq is None:
+                sys.stderr.write(
+                    "mpirun: errmgr restart policy: no complete "
+                    "snapshot to restart from; giving up\n")
+                break
+            attempts += 1
+            if "state" in (opts.verbose or ""):
+                sys.stderr.write(
+                    f"[mpirun:hnp:state] DRAINING -> RESTARTING "
+                    f"(snapshot={seq} attempt={attempts}/{max_r})\n")
+            sys.stderr.write(
+                f"mpirun: errmgr restart policy: relaunching from "
+                f"snapshot {seq} (attempt {attempts}/{max_r})\n")
+            ckpt_env["TPUMPI_RESTART"] = "1"
+            rc = run_once()
+    return rc
 
 
 if __name__ == "__main__":

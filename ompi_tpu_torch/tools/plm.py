@@ -226,7 +226,9 @@ class HNP:
                     except (IndexError, ConnectionError, OSError):
                         break
             else:
-                self.events.activate("EV_DAEMON_UP", node=node)
+                self.events.activate("EV_DAEMON_UP", node=node,
+                                     name=msg.get("name", ""),
+                                     pid=msg.get("pid"))
         elif op == "beat":
             pass  # liveness stamped below for every registered op
         elif op == "iof":

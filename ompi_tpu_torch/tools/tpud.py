@@ -361,7 +361,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def register_msg(reconnect: bool = False) -> dict:
         m = {"op": "register", "node": opts.node, "name": opts.name,
-             "if_ip": if_ip,
+             "if_ip": if_ip, "pid": os.getpid(),
              "secret": os.environ.get("TPUMPI_JOB_SECRET", "")}
         if reconnect:
             m["reconnect"] = True

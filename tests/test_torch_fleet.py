@@ -15,10 +15,9 @@ server.
 
 Pinned divergences: the port's ``host_kill`` fault does not count the
 agents' beats among the pool's served ops, since they arrive on the
-wall clock (``test_divergence_host_kill_op_count_skips_beats``); the
-replay arm's program checkpoints through ``cr.checkpoint`` /
-``cr.restore`` until ``cr/ckpt.py`` (ROADMAP A9;
-``test_host_kill_replay_arm_byte_identical``).  A host kill here lands
+wall clock (``test_divergence_host_kill_op_count_skips_beats``).  The
+replay arm's program checkpoints through ``cr.ckpt``, as the
+reference's does.  A host kill here lands
 at the examples' ``--hold`` point (a file the program writes before it
 blocks) instead of after the reference tests' sleeps.
 
@@ -287,7 +286,8 @@ def test_host_kill_replay_arm_byte_identical(tmp_path):
     """A host killed under a session that is NOT ULFM-aware
     (mpi_ft_ulfm=0): the session parks, waits out the rehydration and
     replays from its checkpoint — one run with exit code 0, resumed at
-    the hold step, the unkilled baseline's digest (which is also the
+    the hold step (the program commits its cr.ckpt epoch there before
+    the kill), the unkilled baseline's digest (which is also the
     reference's two-rank ``_fleet_host_prog`` digest: one formula)."""
     saved = _set({"mpi_ft_ulfm": 0})
     try:

@@ -148,17 +148,27 @@ def test_kv_server_refuses_unauthenticated_connection(monkeypatch):
 @pytest.mark.parametrize("flag", [("--restart", "ckpt"),
                                   ("--ckpt-dir", "ckpt")])
 def test_unported_launch_options_raise(flag, tmp_path):
-    """The checkpoint store (A9) raises NotImplementedError naming its
-    ROADMAP item, for a restart as for a checkpoint directory; no rank
-    is started.  (``--dvm``, once in this list, now submits to a
-    running pool: test_dvm_submits_to_a_running_cpu_pool.)"""
-    prog = tmp_path / "never.py"
-    prog.write_text("open(__file__ + '.ran', 'w').close()\n")
+    """Once unported (they raised NotImplementedError), the checkpoint
+    store's options now launch, as the reference's do: both export the
+    store to every rank, ``--restart`` sets the restart flag, and
+    ``--ckpt-dir`` records the launch as job.json for tools/restart.
+    (``--dvm``, once in this list, submits to a running pool:
+    test_dvm_submits_to_a_running_cpu_pool.)"""
+    prog = tmp_path / "prog.py"
+    prog.write_text(
+        "import os\n"
+        "open(__file__ + '.ran.' + os.environ['TPUMPI_RANK'], 'w').write(\n"
+        "    os.environ.get('TPUMPI_CKPT_DIR', '') + '|'\n"
+        "    + os.environ.get('TPUMPI_RESTART', ''))\n")
     r = mpirun_run(2, str(prog), extra=flag, timeout=60, cwd=str(tmp_path))
-    err = r.stderr.decode()
-    assert r.returncode != 0
-    assert "NotImplementedError" in err and "ROADMAP.md A" in err, err
-    assert not os.path.exists(str(prog) + ".ran")
+    assert r.returncode == 0, r.stderr.decode()
+    store = str(tmp_path / "ckpt")
+    restart = "1" if flag[0] == "--restart" else ""
+    for rank in range(2):
+        with open(f"{prog}.ran.{rank}") as fh:
+            assert fh.read() == f"{store}|{restart}"
+    job = tmp_path / "ckpt" / "job.json"
+    assert job.exists() == (flag[0] == "--ckpt-dir")
 
 
 def test_dvm_submits_to_a_running_cpu_pool(tmp_path):

@@ -7,8 +7,8 @@ events come from the same injected silent-data-corruption run in both
 packages (the integrity plane and the ft_inject ``device_sdc``
 injector; the port's coll/hbm and mesh on the CPU with the kernels'
 plain versions).  The pool's metrics RPC, the watchdog knobs, the
-MPI-IO persist and the MPI_T snapshot are out of scope (the last two
-raise NotImplementedError in the port).
+MPI_T snapshot is out of scope (it raises NotImplementedError in the
+port); the MPI-IO persist writes the plain persist's bytes.
 
 Tolerance: exact — counters, bands, buckets, percentiles, event fields
 and text; timestamps are compared only for their order.
@@ -254,8 +254,9 @@ def test_injected_sdc_events_match_reference(tier):
 
 def test_trace_dump_loads_in_traceview(tmp_path):
     """The ring's trace dump, persisted as a plain file, loads in the
-    port's traceview as a flight document; persist(comm=...) needs
-    MPI-IO (not ported) and raises, as local_metrics does (mpit)."""
+    port's traceview as a flight document; persist(comm=...) writes
+    the same bytes through MPI-IO (rank 0 lays them down); local_metrics
+    raises (mpit is not ported)."""
     from ompi_tpu_torch.tools import traceview
     r = obs.FlightRecorder(16)
     r.record(obs.EV_SDC_MISMATCH, 4, 7, obs.intern("allreduce"), rank=2)
@@ -269,8 +270,11 @@ def test_trace_dump_loads_in_traceview(tmp_path):
     names = [e.get("name")
              for e in traceview.chrome_trace(dumps, [])["traceEvents"]]
     assert "sdc_mismatch" in names and "ft_inject" in names
-    with pytest.raises(NotImplementedError, match="A9"):
-        r.persist(path, comm=object())
+    cpath = str(tmp_path / "flight_io.json")
+    assert port_run_ranks(2, lambda comm: r.persist(cpath, comm=comm)) \
+        == [cpath, cpath]
+    with open(cpath, "rb") as a, open(path, "rb") as b:
+        assert a.read() == b.read()
     with pytest.raises(NotImplementedError, match="A9"):
         obs.local_metrics()
 

@@ -13,10 +13,10 @@ versions), checkpointed every step.  Tolerance: bytes — every value is
 a float sum of small integers, exact in any order.  Kills are
 ``kill_now`` at a named step.
 
-Not here: ``test_kv_purge_op`` tests the KV store, which the port does
-not have yet (ROADMAP.md A8).  Pinned divergence: ``rejoin`` runs
-without the reference's ``ckpt.ft_abort`` call until the filesystem
-tier exists (``test_divergence_rejoin_without_ckpt_ft_abort``).
+Not here: ``test_kv_purge_op`` tests the KV store (the port's is held
+by tests/test_torch_kvstore.py).  ``rejoin`` drops a torn in-flight
+filesystem epoch (``ckpt.ft_abort``) as the reference's does
+(``test_rejoin_drops_a_torn_inflight_epoch``).
 """
 
 import os
@@ -217,22 +217,64 @@ def test_respawn_pvars_count_rejoins(buddy_degree_1):
     assert buddy._pv_ckpts.read() > 0 and buddy._pv_us.read() > 0
 
 
-def test_divergence_rejoin_without_ckpt_ft_abort():
-    """The reference's rejoin first drops an in-flight filesystem
-    checkpoint epoch (``ckpt.ft_abort``); the port has no filesystem
-    tier (cr/ckpt.py, ROADMAP.md A9), so no epoch can be in flight and
-    rejoin reaches for none: the port's cr package has no ckpt module,
-    and a rejoin completes without one."""
-    import importlib.util
-    import inspect
-    assert importlib.util.find_spec("ompi_tpu_torch.cr.ckpt") is None
-    assert "ft_abort" in inspect.getsource(ref_respawn.rejoin)
-    assert "ft_abort(" not in inspect.getsource(respawn.rejoin)
-    with knobs({"cr_buddy_degree": "1"}):
-        out = run_ranks(3, _make_fn(PORT, iters=4, kill_at={2: 1}),
+def _torn_epoch_fn(pkg, ck, root):
+    """Epoch 0 committed, epoch 1 begun (in flight), then rank 2 dies:
+    the survivors and the replacement rejoin and restore from the
+    filesystem tier."""
+    rsp, bdy, ul, op, exc = pkg
+
+    def fn(comm):
+        state = comm.state
+        if rsp.joining(state):
+            comm = rsp.rejoin(comm)
+            st = ck.restore(comm, store_dir=root)
+            return ("joined", int(st["i"]), ck.pending_epoch(state))
+        ck.checkpoint(comm, {"i": 0, "w": np.arange(8.0)}, store_dir=root)
+        ck.flush(comm)
+        ck.checkpoint(comm, {"i": 1, "w": np.arange(8.0) + 1},
+                      store_dir=root)
+        inflight = ck.pending_epoch(state)
+        # every rank is out of the checkpoint's collectives before the
+        # kill (the agreement is store-based: it cannot half-complete)
+        comm.agree(True)
+        if comm.rank == 2:
+            ul.kill_now(state)
+        x, r = np.ones(1), np.empty(1)
+        try:
+            while True:  # until the death shows
+                comm.Allreduce(x, r, op.SUM)
+        except exc as e:
+            if e.code not in FT:
+                raise
+        comm = rsp.rejoin(comm)
+        dropped = ck.pending_epoch(state)
+        st = ck.restore(comm, store_dir=root)
+        return ("survivor", inflight, dropped, int(st["i"]))
+    return fn
+
+
+def test_rejoin_drops_a_torn_inflight_epoch(tmp_path):
+    """rejoin calls ckpt.ft_abort first, as the reference's does: an
+    epoch begun before a rank died can never commit, so every survivor
+    drops it torn (no manifest is ever written) and the restore ladder
+    serves the previous committed epoch, in both packages."""
+    from ompi_tpu.cr import ckpt as ref_ckpt
+    from ompi_tpu_torch.cr import ckpt
+    ab0 = ckpt._pv_aborted.read()
+    out = run_ranks(3, _torn_epoch_fn(PORT, ckpt, str(tmp_path / "p")),
+                    timeout=60, respawn=True)
+    ref = ref_run_ranks(3, _torn_epoch_fn(REF, ref_ckpt,
+                                          str(tmp_path / "r")),
                         timeout=60, respawn=True)
-        ref = ref_run_ranks(3, _make_fn(REF, iters=4), timeout=60)
     assert out == ref
+    assert out[0] == ("survivor", 1, -1, 0) and out[1] == out[0]
+    assert out[2] == ("joined", 0, -1)
+    assert ckpt._pv_aborted.read() - ab0 >= 2
+    for root in ("p", "r"):
+        assert os.path.exists(tmp_path / root / "ep_000000"
+                              / "manifest.json")
+        assert not os.path.exists(tmp_path / root / "ep_000001"
+                                  / "manifest.json")
 
 
 # ---- cr/buddy on its own --------------------------------------------

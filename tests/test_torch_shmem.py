@@ -12,15 +12,15 @@ port's, one rank a logical device of the CPU,
 and K8–K10 take their plain versions), the device heap under
 ``osc_device_dma`` 1 and 0, and holds the results equal.
 
-Left out, each waiting for a slice of ROADMAP Queue A:
-  * test_shmem_ring_example_procs, test_shmem_atomics_example_procs and
-    test_lock_mutual_exclusion_procs run under mpirun (process ranks):
-    A8, the launcher; their workloads run here on thread ranks
-    (``ompi_tpu_torch.testing.shmem``).
+Left out: test_shmem_ring_example_procs,
+test_shmem_atomics_example_procs and test_lock_mutual_exclusion_procs
+run the reference's shmem examples under mpirun (process ranks); they
+come with those examples (ROADMAP A10).  Their workloads run here on
+thread ranks (``ompi_tpu_torch.testing.shmem``).
 
-The divergences of the layer (a context needs a communicator; the
-device window holds no pool and no host mirror) are pinned in
-tests/test_torch_staging.py.
+The divergences of the layer (the device window holds no pool and no
+host mirror) are pinned in tests/test_torch_staging.py, with the
+parity tests of ``shmem.init()`` without a communicator.
 """
 
 import numpy as np

@@ -21,8 +21,10 @@ Known divergences, pinned by the tests named after them:
   * a card's staging buffer is pinned host memory, and where pinning
     fails ``aligned_empty`` raises instead of handing back pageable
     memory;
-  * ``shmem.ShmemCtx()`` without a communicator raises: the port has
-    no process world to initialise (ROADMAP A8).
+  * nothing about a context without a communicator: it takes
+    ``init()``'s world in both packages (a singleton process here,
+    ``test_shmem_init_without_a_comm_takes_the_world`` and
+    ``test_shmem_ctx_default_comm_is_the_world``).
 """
 
 import types
@@ -299,11 +301,88 @@ def test_divergence_card_stage_is_pinned_or_raises():
         staging.MirrorPool(device=torch.device("cuda", 0)).take(64)
 
 
-def test_divergence_shmem_ctx_needs_a_comm():
-    with pytest.raises(RuntimeError, match="A8"):
-        port_shmem.ShmemCtx()
-    with pytest.raises(RuntimeError, match="A8"):
-        port_shmem.init()
+# A singleton process of either package (``init()`` with no launcher)
+# runs a shmem program on the world ``init()`` gives it; each prints
+# one JSON line.  In a child process: ``init()`` publishes its world
+# process-wide, which a test process must not keep.
+_SINGLETON_PE = """
+import importlib, json, sys
+import numpy as np
+pkg = importlib.import_module(sys.argv[1])
+shmem = importlib.import_module(sys.argv[1] + ".shmem")
+comm = pkg.init()
+if sys.argv[2] == "init":
+    shmem.init()
+    x = shmem.malloc(8, np.int64)
+    shmem.put(x, np.arange(8, dtype=np.int64) * 3, pe=0)
+    shmem.quiet()
+    got = shmem.get(x, pe=0)
+    old = shmem.atomic_fetch_add(x, 2, 5, pe=0)
+    shmem.barrier_all()
+    out = {"n_pes": shmem.n_pes(), "my_pe": shmem.my_pe(),
+           "get": np.asarray(got).tolist(), "old": int(old),
+           "after": np.asarray(shmem.get(x, pe=0)).tolist()}
+    shmem.finalize()
+else:
+    a = shmem.ShmemCtx()
+    b = shmem.ShmemCtx(comm=pkg.init())
+    out = {"same_comm": a.comm is b.comm is comm,
+           "pes": [a.comm.size, b.comm.size],
+           "heap": [a.heap_size, b.heap_size],
+           "cid": [a.comm.cid, b.comm.cid, comm.cid]}
+    a.finalize()
+    b.finalize()
+pkg.finalize()
+print(json.dumps(out))
+"""
+
+
+def _singleton_pe(mode: str):
+    """(reference, port) JSON results of ``_SINGLETON_PE`` in ``mode``,
+    the two children run at once."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=repo + os.pathsep + os.environ.get(
+                   "PYTHONPATH", ""))
+    for k in [k for k in env if k.startswith("TPUMPI_")]:
+        del env[k]  # a singleton: no launcher in sight
+    procs = [subprocess.Popen([sys.executable, "-c", _SINGLETON_PE, pkg,
+                               mode], env=env, cwd=repo,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for pkg in ("ompi_tpu", "ompi_tpu_torch")]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err[-2000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return outs
+
+
+def test_shmem_init_without_a_comm_takes_the_world():
+    """``shmem.init()`` with no communicator takes ``init()``'s world, as
+    the reference's does: one PE, a put/get and an atomic fetch-add on
+    PE 0 give the reference's values."""
+    ref, port = _singleton_pe("init")
+    assert port == ref
+    assert port["n_pes"] == 1 and port["my_pe"] == 0
+    assert port["get"] == [3 * i for i in range(8)]
+    assert port["old"] == 6 and port["after"][2] == 11
+
+
+def test_shmem_ctx_default_comm_is_the_world():
+    """``ShmemCtx()`` and ``ShmemCtx(comm=init())`` stand on the same
+    communicator (``init()``'s COMM_WORLD): the same PE count, heap
+    size and cid, in both packages."""
+    ref, port = _singleton_pe("ctx")
+    assert port == ref
+    assert port["same_comm"] and port["pes"] == [1, 1]
+    assert port["heap"][0] == port["heap"][1]
+    assert len(set(port["cid"])) == 1
 
 
 # ---- on the card -------------------------------------------------------
