@@ -428,6 +428,35 @@ Phases, each fatal on failure (nothing is caught and carried on):
              relaunch, every rank's Barrier + Allreduce right after
              the epoch reset, ``final step=10 acc=[330.0, ...]`` and
              the card digest of plain torch's [330.0] * 4.
+16. proto  — the pml's protocols.  16a: 8 rank-threads on the card
+             (coll/hbm) with pml_monitoring_enable, 20 allreduce_arr
+             SUM of 8 MiB float32: every rank's sent_filtered_msgs 20
+             and sent_filtered_bytes 20 x 8388608 to each other rank
+             (count_offload at the rendezvous), user rows 0, K1 exactly
+             20, the result in the float SUM band of plain torch's sum;
+             then 20 chained ops timed with monitoring on, off, off, on
+             (host µs an op).  16b: 2 rank-threads on the card with
+             pml_vprotocol pessimist: after a first send_arr received
+             as usual (timed: the cold one), rank 0 send_arrs an 8 MiB
+             card tensor (the log's snapshot: a queued D2H into a
+             pinned stage; log_bytes grows by 8388608) and
+             checkpoint_locals; rank 1 checkpoint_locals
+             before receiving; the cut is simulated (the message
+             dropped, wanted back); rank 0 overwrites its source and
+             replays: rank 1's tensor, on the card, has plain torch's
+             digest of the pre-overwrite bytes; log_bytes printed.
+             16c: ``mpirun -np 2 --mca pml_vprotocol pessimist
+             examples/vproto_prog.py --device auto --mib 48`` with
+             VPROTO_CRASH=1 (rank 1 dies after both snapshots: exit
+             non-zero), then ``--restart``: exit 0, ``vproto ok`` and
+             the 48 MiB chunked pull's card digest equal to plain
+             torch's; examples/vproto_big_prog.py over shm, run beside
+             those two jobs: ``vproto big ok``.  16d: ``mpirun -np 2 --ranks-per-proc all
+             examples/device_allreduce.py --bytes 8388608 --iters 20``
+             with pml_monitoring_dump_path: the internal-traffic matrix
+             (mon_filtered_size.mat, and each rank's .prof line exact)
+             holds 21 offloaded deposits of 8 MiB + 16 bytes of host
+             Allreduce to the peer; the user matrices are empty.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -7391,6 +7420,299 @@ def phase_ckpt(dev, devices: str = "auto") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. the pml's protocols: monitoring, vprotocol's sender log, Bsend
+# ---------------------------------------------------------------------------
+
+PROTO_N = 20          # 16a: monitored allreduce_arr ops
+PROTO_MIB = 8         # 16a's and 16b's float32 card tensor a rank
+PROTO_TIMED = 20      # 16a: chained ops a timed run (on, off, off, on)
+PROTO_PULL_MIB = 48   # 16c: the send_arr through the chunked pull
+PROTO_ITERS = 20      # 16d: device_allreduce.py's chained ops
+VPROTO_PROG = os.path.join("ompi_tpu_torch", "examples", "vproto_prog.py")
+VBIG_PROG = os.path.join("ompi_tpu_torch", "examples", "vproto_big_prog.py")
+DEVAR_PROG = os.path.join("ompi_tpu_torch", "examples",
+                          "device_allreduce.py")
+
+
+def proto_values(n: int, dev) -> torch.Tensor:
+    """vproto_prog.py's ``card_values``: small integers in float32."""
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    return ((i * 2654435761) % 1000003).to(torch.float32)
+
+
+def proto_monitored(dev, n: int):
+    """16a's rank program: PROTO_N allreduce_arr SUM of the rank's
+    8 MiB float32 input, its monitoring rows read just before and just
+    after; returns (the rows it added, the last output)."""
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        x = rank_elems(comm.rank, n, torch.float32, dev, 60)
+        torch.cuda.synchronize()
+        before = comm.state.pml.matrix_rows()
+        for _ in range(PROTO_N):
+            y = comm.allreduce_arr(x, SUM)
+        after = comm.state.pml.matrix_rows()
+        torch.cuda.synchronize()
+        return {k: [b - a for a, b in zip(before[k], after[k])]
+                for k in after}, y
+    return fn
+
+
+def phase_proto_monitoring(dev) -> dict:
+    """16a (see the module docstring).  Returns its launches."""
+    from ompi_tpu_torch.pml import monitoring
+    n = PROTO_MIB * MIB // 4
+    hbm = lambda r: dev  # noqa: E731
+    with _knobs(pml_monitoring_enable=1):
+        res, launches = _ft_launch_run(proto_monitored(dev, n), NRANKS, hbm)
+    want = {**{k: 0 for k in launches}, "stacked_reduce": PROTO_N}
+    if launches != want:
+        raise AssertionError(f"16a launches {_ft_counted(launches)}, "
+                             f"expected stacked_reduce {PROTO_N}")
+    ref = _sum_ref(range(NRANKS), n, dev, 60)
+    err = max(_in_band(y, ref, NRANKS, f"16a rank {r}")
+              for r, (_, y) in enumerate(res))
+    for r, (rows, _) in enumerate(res):
+        other = [0 if p == r else 1 for p in range(NRANKS)]
+        if rows["sent_filtered_msgs"] != [PROTO_N * o for o in other] or \
+                rows["sent_filtered_bytes"] != [
+                    PROTO_N * 4 * n * o for o in other] or \
+                any(rows[k] != [0] * NRANKS for k in (
+                    "sent_msgs", "sent_bytes", "recv_msgs", "recv_bytes")):
+            raise AssertionError(f"16a rank {r}'s monitoring rows {rows}")
+    # host µs an op, monitoring on and off in turns (A B B A)
+    us = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        with _knobs(pml_monitoring_enable=int(mode == "on")):
+            def fn(comm, _inner=chained_allreduce(dev, 4 * n, PROTO_TIMED)):
+                mon = isinstance(comm.state.pml, monitoring.MonitoringPml)
+                if mon != (mode == "on"):
+                    raise AssertionError(f"16a: monitoring {mode} but the "
+                                         f"pml is {type(comm.state.pml)}")
+                return _inner(comm)
+            dts, _ = _ft_launch_run(fn, NRANKS, hbm)
+        us[mode].append(max(dts) / PROTO_TIMED * 1e6)
+    card = card_line()
+    log(f"[proto] 16a 8 ranks on {dev}, {PROTO_MIB} MiB f32 allreduce_arr "
+        f"SUM x {PROTO_N} with pml_monitoring_enable: every rank's "
+        f"sent_filtered_msgs {PROTO_N} and sent_filtered_bytes "
+        f"{PROTO_N * 4 * n} to each of the 7 others, user rows 0; launches "
+        f"{_ft_counted(launches)}, exact; max error {err:.3e} (in the "
+        f"float SUM band)")
+    log(f"[proto] 16a host us an op ({PROTO_TIMED} chained ops, slowest "
+        f"rank, A B B A): monitoring on {us['on'][0]:.1f} / "
+        f"{us['on'][1]:.1f}, off {us['off'][0]:.1f} / {us['off'][1]:.1f}; "
+        f"mean on {sum(us['on']) / 2:.1f}, off {sum(us['off']) / 2:.1f} "
+        f"[{card}]")
+    return launches
+
+
+def proto_vlog_program(dev, n: int, store: str):
+    """16b's rank program (see the module docstring).  Rank 0 returns
+    (the bytes the measured send_arr added to log_bytes, whether its
+    snapshot's stage is pinned, the first (cold) send_arr's seconds,
+    the measured (warm) one's, checkpoint_local's and replay's); rank
+    1 (its received tensor's device, its digest)."""
+    def fn(comm):
+        from ompi_tpu_torch import cr
+        from ompi_tpu_torch.pml import vprotocol
+        v = vprotocol.find(comm.state.pml)
+        base = v._base
+        if comm.rank == 0:
+            # a first send_arr, received as usual: the cold one (the
+            # log's first pinned stage, the process's first events)
+            x = proto_values(n, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comm.send_arr(x, 1, tag=15)
+            cold = time.perf_counter() - t0
+            comm.Barrier()          # rank 1 received it
+            before = v.log_bytes
+            t0 = time.perf_counter()
+            comm.send_arr(x, 1, tag=16)
+            t1 = time.perf_counter()
+            logged = v.log_bytes - before
+            snap = [e[4] for es in v.log.values() for e in es
+                    if e[3] == "obj"][-1]
+            comm.Barrier()          # the message reached rank 1
+            cr.checkpoint_local(comm, {"phase": 1}, store_dir=store)
+            t2 = time.perf_counter()
+            comm.Barrier()          # rank 1 has cut
+            x.fill_(-1.0)           # the sender writes on
+            t3 = time.perf_counter()
+            v.replay()
+            t4 = time.perf_counter()
+            comm.Barrier()
+            return (logged, pinned(snap.stage), cold, t1 - t0, t2 - t1,
+                    t4 - t3)
+        if _sha(comm.recv_arr(0, tag=15)) != _sha(proto_values(n, dev)):
+            raise AssertionError("16b: the first send_arr's bytes differ")
+        comm.Barrier()
+        # parked in a Barrier while rank 0 sends (a spinning wait here
+        # would hold the GIL against the timed send_arr); the message
+        # precedes rank 0's Barrier message on the channel
+        comm.Barrier()
+
+        def mine():
+            return [m for m in base._unexpected.get(comm.cid, [])
+                    if m.tag == 16 and m.src == 0]
+        while not mine():
+            comm.state.progress.progress()
+        # the snapshot is taken before the receive: the message is
+        # in this rank's unexpected queue, so it is a replay want
+        cr.checkpoint_local(comm, {"phase": 1}, store_dir=store)
+        # the restart's cut, simulated: drop the unconsumed message
+        drop = mine()
+        base._unexpected[comm.cid] = [
+            m for m in base._unexpected[comm.cid] if m not in drop]
+        v.cr_restore_vlog(v.cr_capture_vlog())
+        base._replay_want = {(comm.cid, m.src, m.seq) for m in drop}
+        comm.Barrier()
+        comm.Barrier()
+        y = comm.recv_arr(0, tag=16)
+        return str(y.device), _sha(y)
+    return fn
+
+
+def phase_proto_vlog(dev) -> dict:
+    """16b (see the module docstring).  Returns its launches (none)."""
+    import tempfile
+    n = PROTO_MIB * MIB // 4
+    store = tempfile.mkdtemp(prefix="chip-smoke-vlog-")
+    try:
+        with _knobs(pml_vprotocol="pessimist"):
+            res, launches = _ft_launch_run(proto_vlog_program(dev, n, store),
+                                           2, lambda r: dev)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    (logged, pinned, cold_s, send_s, ckpt_s, replay_s), (where, got) = res
+    plain = _sha(proto_values(n, dev))
+    if (where, got) != (str(dev), plain) or pinned != (dev.type == "cuda") \
+            or logged != 4 * n or any(launches.values()):
+        raise AssertionError(f"16b: received on {where}, digest {got[:16]} "
+                             f"(plain {plain[:16]}), pinned {pinned}, "
+                             f"log_bytes {logged}, launches "
+                             f"{_ft_counted(launches)}")
+    log(f"[proto] 16b 2 ranks on {dev}, pml_vprotocol pessimist: rank 0 "
+        f"send_arr {PROTO_MIB} MiB f32 (log_bytes {logged}, its snapshot's "
+        f"stage pinned: {pinned}), checkpoint_local; rank 1 checkpoint_local before "
+        f"receiving, the cut simulated; rank 0 overwrote its source and "
+        f"replayed: rank 1's tensor on {where}, digest = plain torch's "
+        f"{plain[:16]}...; send_arr {send_s * 1e3:.3f} ms (the first, "
+        f"cold: {cold_s * 1e3:.3f} ms), checkpoint_local "
+        f"{ckpt_s * 1e3:.3f} ms, replay {replay_s * 1e3:.3f} ms; no launch "
+        f"[{card_line()}]")
+    return launches
+
+
+def phase_proto_jobs(dev, devices: str = "auto") -> None:
+    """16c and 16d (see the module docstring)."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip-smoke-proto-")
+    try:
+        store = os.path.join(root, "store")
+        mca = (("pml_vprotocol", "pessimist"),)
+        args = (VPROTO_PROG, "--device", devices, "--mib",
+                str(PROTO_PULL_MIB))
+        # the host-only 12 MiB replay over shm runs beside the crash
+        # and restart jobs (its own job, session and KV server)
+        big = {}
+
+        def run_big():
+            try:
+                big["r"] = mpirun_job(2, None, (VBIG_PROG,), mca=mca)
+            except BaseException as e:  # noqa: BLE001 (raised below)
+                big["e"] = e
+        beside = threading.Thread(target=run_big)
+        beside.start()
+        os.environ["VPROTO_CRASH"] = "1"
+        try:
+            rc1, out1, err1, s1 = mpirun_job(
+                2, None, args, mca=mca, extra=("--ckpt-dir", store))
+        finally:
+            del os.environ["VPROTO_CRASH"]
+        rc2, out2, err2, s2 = mpirun_job(2, None, args, mca=mca,
+                                         extra=("--restart", store))
+        # the program's --mib is in MiB whatever this script's MIB is
+        plain = _sha(proto_values(PROTO_PULL_MIB << 18, dev))
+        if rc1 == 0 or "vproto ok" in out1 or rc2 != 0 \
+                or "vproto ok" not in out2 \
+                or f"CARD {plain}" not in out2:
+            raise AssertionError(f"16c: crash run exit {rc1}, restart exit "
+                                 f"{rc2}\n{out2[-1500:]}\n{err1[-1500:]}\n"
+                                 f"{err2[-2000:]}")
+        beside.join()
+        if "e" in big:
+            raise big["e"]
+        rc3, out3, err3, s3 = big["r"]
+        if rc3 != 0 or "vproto big ok" not in out3:
+            raise AssertionError(f"16c big: exit {rc3}\n{err3[-2000:]}")
+        log(f"[proto] 16c mpirun -np 2 vproto_prog.py --device {devices} "
+            f"--mib {PROTO_PULL_MIB}: rank 1 crashed after both snapshots "
+            f"(exit {rc1}, {s1:.1f} s); --restart exit 0 in {s2:.1f} s, the "
+            f"{PROTO_PULL_MIB} MiB chunked pull replayed from the lenient "
+            f"capture, card digest = plain torch's {plain[:16]}...; "
+            f"vproto_big_prog.py over shm, beside them: vproto big ok "
+            f"({s3:.1f} s)")
+        # 16d: the finalize-time traffic matrices of a monitored job
+        prefix = os.path.join(root, "mon")
+        nbytes = PROTO_MIB * MIB
+        rc4, out4, err4, s4 = mpirun_job(
+            2, "all", (DEVAR_PROG, "--bytes", str(nbytes), "--iters",
+                       str(PROTO_ITERS)), devices=devices,
+            mca=(("pml_monitoring_enable", 1),
+                 ("pml_monitoring_dump_path", prefix)))
+        # offloaded: one allreduce_arr + PROTO_ITERS chained ones, the
+        # deposit's bytes to the peer each; on the pml: the program's
+        # two host Allreduce of one float64 (8 bytes each) and its
+        # three Barriers (0 bytes)
+        want = (1 + PROTO_ITERS) * nbytes + 2 * 8
+        rows = [json.loads(ln) for ln in out4.splitlines()
+                if ln.startswith("{")]
+
+        def mat(name):
+            with open(f"{prefix}{name}.mat") as fh:
+                return [[float(v) for v in ln.split()] for ln in fh]
+        profs = []
+        for r in range(2):
+            with open(f"{prefix}_filtered.{r}.prof") as fh:
+                profs.append(fh.read().split())
+        if rc4 != 0 or len(rows) != 1 or \
+                (devices == "auto" and rows[0]["k1_total"] !=
+                 1 + PROTO_ITERS) or \
+                profs != [["0", "1", str(PROTO_ITERS + 6), str(want)],
+                          ["1", "0", str(PROTO_ITERS + 6), str(want)]] or \
+                mat("_filtered_size") != [[0.0, float(f"{want:g}")],
+                                          [float(f"{want:g}"), 0.0]] or \
+                mat("_size") != []:
+            raise AssertionError(f"16d: exit {rc4}, {rows}, {profs}\n"
+                                 f"{err4[-2000:]}")
+        log(f"[proto] 16d mpirun -np 2 --ranks-per-proc all "
+            f"device_allreduce.py --bytes {nbytes} --iters {PROTO_ITERS} "
+            f"with pml_monitoring_dump_path: mon_filtered_size.mat "
+            f"[[0, {want:g}], [{want:g}, 0]] = {1 + PROTO_ITERS} offloaded "
+            f"deposits of {nbytes} B + 16 B of host Allreduce, the .prof "
+            f"lines exact ({want}); user matrices empty; K1 "
+            f"{rows[0]['k1_total']}; {rows[0]['us_per_op']:.1f} us an op "
+            f"monitored ({s4:.1f} s job)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_proto(dev, devices: str = "auto") -> dict:
+    """Phase 16: 16a (phase_proto_monitoring), 16b (phase_proto_vlog),
+    16c-16d (phase_proto_jobs).  Returns 16a's launches (they join the
+    kernels line)."""
+    t0 = time.perf_counter()
+    launches = phase_proto_monitoring(dev)
+    phase_proto_vlog(dev)
+    phase_proto_jobs(dev, devices)
+    log(f"[proto] phase 16 {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
     host with two or more cards); no argument: every phase.
@@ -7504,6 +7826,9 @@ def main(argv) -> int:
     c_launches = phase_ckpt(dev)
     for r in rows:  # and phase 15's, the checkpointed steps'
         r["launches"] += c_launches.get(r["name"].split(":")[0], 0)
+    m_launches = phase_proto(dev)
+    for r in rows:  # and phase 16a's, the monitored headline's
+        r["launches"] += m_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -138,13 +138,19 @@ def _not_ported(call: str, item: str):
 
 
 def attach_buffer(size_or_buf) -> None:
-    """MPI_Buffer_attach: needs pml/persistent (ROADMAP.md A9)."""
-    _not_ported("attach_buffer", "A9: pml/persistent")
+    """MPI_Buffer_attach for this rank (Bsend backing store)."""
+    from ompi_tpu_torch.pml.persistent import attach_buffer as _attach
+    from ompi_tpu_torch.runtime import state as statemod
+
+    _attach(statemod.current(), size_or_buf)
 
 
 def detach_buffer() -> int:
-    """MPI_Buffer_detach: needs pml/persistent (ROADMAP.md A9)."""
-    _not_ported("detach_buffer", "A9: pml/persistent")
+    """MPI_Buffer_detach: drains pending buffered sends."""
+    from ompi_tpu_torch.pml.persistent import detach_buffer as _detach
+    from ompi_tpu_torch.runtime import state as statemod
+
+    return _detach(statemod.current())
 
 
 def get_parent():

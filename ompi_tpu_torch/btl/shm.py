@@ -26,6 +26,7 @@ from __future__ import annotations
 import mmap
 import os
 import struct
+import sys
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -202,6 +203,10 @@ class ShmModule(BTLModule):
         self._rx: Dict[int, Ring] = {}
         self._pending: Dict[int, deque] = {}
         self._peer_nodes: Dict[int, int] = {}
+        # frames queued behind a full ring must reach their peer before
+        # this rank parks in the finalize fence, where nothing drives
+        # this module's progress any more
+        state.progress.register_finalize_hook(self._drain_pending)
         # create my outbound rings up front (peers attach after fence)
         for peer in range(state.size):
             if peer != self.rank:
@@ -352,6 +357,23 @@ class ShmModule(BTLModule):
                 events += 1
         return events
 
+    def _drain_pending(self, timeout: float = 30.0) -> None:
+        """Finalize hook: push every frame still queued behind a full
+        ring (an eager send completes once queued, so its sender may
+        finalize first), driving progress until the queues are empty,
+        for at most ``timeout`` seconds (a peer that never drains its
+        ring again is gone or erroneous: its frames are dropped)."""
+        import time
+        deadline = time.monotonic() + timeout
+        while any(self._pending.values()):
+            if time.monotonic() > deadline:
+                sys.stderr.write(
+                    f"btl_shm: rank {self.rank} finalized with "
+                    f"{sum(len(q) for q in self._pending.values())} "
+                    "frames its peers never drained\n")
+                return
+            self.state.progress.progress()
+
     def ft_reset(self, epoch: int) -> bool:
         """Live-recovery epoch reset: the shm module RETIRES.  Its
         rings may still hold pre-epoch frames, and draining a stale
@@ -362,6 +384,7 @@ class ShmModule(BTLModule):
         and doorbell fd, closes rings — recovery drops the module
         from state.btls, so MPI_Finalize would never reach it).
         Returns False: drop this module from service."""
+        self._pending.clear()  # pre-epoch frames die with the module
         try:
             self.state.progress.unregister(self.progress)
         except (AttributeError, ValueError):

@@ -629,9 +629,14 @@ def recv_arr(comm, src: int, tag: int = 0):
                 "that owns no device")
         return _upload(raw, tdt, shape, dev)
     if dev is not None and isinstance(arr, np.ndarray):
-        # it crossed a process boundary: onto this rank's device
+        # it crossed a process boundary, or it is a vprotocol replay's
+        # host copy: onto this rank's device
         return _upload(np.ascontiguousarray(arr),
                        convert.torch_dtype(arr.dtype), arr.shape, dev)
+    if dev is not None and isinstance(arr, torch.Tensor) \
+            and arr.device.type == "cpu" and dev.type != "cpu":
+        # a vprotocol replay's host copy of a dtype numpy lacks
+        return arr.to(dev)
     return arr
 
 

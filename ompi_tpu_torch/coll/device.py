@@ -75,9 +75,14 @@ execute phase ends when the done events ``_fence`` recorded complete
 which would time the other rank threads' work too); a sampled-out op
 keeps its launches asynchronous.
 
+pml/monitoring: every deposit into ``meet`` / ``meet_begin`` counts,
+through ``count_offload``, the traffic the pml would have carried —
+one internal message of the deposit's bytes to every other member (a
+card tensor's ``numel * element_size``; 0 for a tuple value, as in the
+reference).  With monitoring off the hook is one ``isinstance`` check.
+
 Not ported yet (ROADMAP.md Queue A): the compiled-executable cache
-(``CompiledLRU``) and the monitoring hook of ``meet`` (A9's pml
-monitoring).
+(``CompiledLRU``).
 
 Only host buffers ever take the host-staged p2p stack (HostArrModule):
 structured pair types, which torch cannot hold, and user-defined ops,
@@ -109,6 +114,7 @@ from ompi_tpu_torch.kernels import mesh, stacked
 from ompi_tpu_torch.mca.params import registry
 from ompi_tpu_torch.obs import integrity as _ig
 from ompi_tpu_torch.op.op import Op
+from ompi_tpu_torch.pml.monitoring import MonitoringPml, count_offload
 from ompi_tpu_torch.runtime.init import device_key
 
 # trace ids as module constants: meet() runs once per device
@@ -818,7 +824,8 @@ def _coll_sdc_injector(state):
 def _enter(comm, value, body, abort_check, ck):
     """What a deposit passes before the rendezvous, in the reference's
     order: the 'delay' straggler, the 'host_slow' stall, the
-    'rdv_sever' wedge, the integrity gate (``ck``, the check spec, is
+    'rdv_sever' wedge, pml/monitoring's offload count, the integrity
+    gate (``ck``, the check spec, is
     non-None only when the plane is armed and the op checkable; every
     rank passes the same one) and the 'device_sdc' flip.  Returns the
     (value, body) that meet."""
@@ -833,6 +840,9 @@ def _enter(comm, value, body, abort_check, ck):
     sv = _coll_sever_injector(comm.state)
     if sv and sv.should_sever():
         _sever_hold(abort_check)
+    if isinstance(comm.state.pml, MonitoringPml):
+        count_offload(comm, value.numel() * value.element_size()
+                      if isinstance(value, torch.Tensor) else 0)
     if ck is not None:
         value, body = _ig.gate(comm, value, body, ck)
     sj = _coll_sdc_injector(comm.state)

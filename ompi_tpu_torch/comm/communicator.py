@@ -460,7 +460,19 @@ class Communicator:
         buf, count, dt = self._spec(spec)
         return self.state.pml.irecv(buf, count, dt, source, tag, self)
 
-    # -- ready sends (ref: ompi/mpi/c/rsend.c) ---------------------------
+    # -- buffered / ready sends (ref: ompi/mpi/c/bsend.c, rsend.c) ------
+    def Bsend(self, spec, dest: int, tag: int = 0) -> None:
+        from ompi_tpu_torch.pml import persistent as pers
+        self._check_tag(tag)
+        buf, count, dt = self._spec(spec)
+        pers.bsend(self, buf, count, dt, dest, tag)
+
+    def Ibsend(self, spec, dest: int, tag: int = 0):
+        from ompi_tpu_torch.pml import persistent as pers
+        self._check_tag(tag)
+        buf, count, dt = self._spec(spec)
+        return pers.ibsend(self, buf, count, dt, dest, tag)
+
     # a ready send is correct whenever a standard send is; the
     # reference's rsend is likewise standard-send under ob1.  This
     # silently legalizes erroneous programs (no matching-recv check),
@@ -471,6 +483,36 @@ class Communicator:
 
     def Irsend(self, spec, dest: int, tag: int = 0):
         return self.Isend(spec, dest, tag)
+
+    # -- persistent requests (ref: ompi/mpi/c/send_init.c et al.) -------
+    def Send_init(self, spec, dest: int, tag: int = 0):
+        from ompi_tpu_torch.pml.persistent import PersistentRequest
+        self._check_tag(tag)
+        buf, count, dt = self._spec(spec)
+        return PersistentRequest(self, PersistentRequest.KIND_SEND,
+                                 buf, count, dt, dest, tag)
+
+    def Ssend_init(self, spec, dest: int, tag: int = 0):
+        from ompi_tpu_torch.pml.ob1 import MODE_SYNC
+        from ompi_tpu_torch.pml.persistent import PersistentRequest
+        self._check_tag(tag)
+        buf, count, dt = self._spec(spec)
+        return PersistentRequest(self, PersistentRequest.KIND_SEND,
+                                 buf, count, dt, dest, tag, MODE_SYNC)
+
+    def Bsend_init(self, spec, dest: int, tag: int = 0):
+        from ompi_tpu_torch.pml.persistent import PersistentRequest
+        self._check_tag(tag)
+        buf, count, dt = self._spec(spec)
+        return PersistentRequest(self, PersistentRequest.KIND_SEND,
+                                 buf, count, dt, dest, tag, "buffered")
+
+    def Recv_init(self, spec, source: int = -1, tag: int = -1):
+        from ompi_tpu_torch.pml.persistent import PersistentRequest
+        self._check_tag(tag, recv=True)
+        buf, count, dt = self._spec(spec)
+        return PersistentRequest(self, PersistentRequest.KIND_RECV,
+                                 buf, count, dt, source, tag)
 
     def Sendrecv(self, sspec, dest: int, stag: int, rspec, source: int,
                  rtag: int = -1) -> Status:

@@ -18,12 +18,15 @@ sequence directories):
     heap's bytes, or a device heap's shard read back from the card)
     with its allocator state.
 
+  * ``checkpoint_local`` / ``restore_local`` — the uncoordinated tier
+    (pml/vprotocol's sender-based message logging): each rank
+    snapshots at its own moment under ``local_r<rank>/``, with no
+    quiesce; the senders' logs replay whatever was in flight at the
+    cut.
+
 ``cr/buddy.py`` is the in-memory partner tier over the same shard
 image (``cr/shard.py``), and ``cr/ckpt.py`` the tiered engine that
-puts an asynchronous filesystem tier (MPI-IO epochs) under it.  Not
-ported: the uncoordinated ``checkpoint_local`` / ``restore_local``
-(they need sender-based message logging, ``pml/vprotocol``, ROADMAP.md
-A9b): both raise.
+puts an asynchronous filesystem tier (MPI-IO epochs) under it.
 
 API (collective over COMM_WORLD):
 
@@ -307,6 +310,12 @@ def checkpoint(comm, payload: Any, store_dir: Optional[str] = None,
     # not be torn by an armed ft interrupt — hold it until the
     # snapshot is durably complete
     with comm.state.progress.deferred_interrupts():
+        from ompi_tpu_torch.pml.vprotocol import find as _vfind
+        _v = _vfind(comm.state.pml)
+        if _v is not None:
+            # quiesce proved every logged message consumed: the
+            # coordinated checkpoint is the pessimist log's GC point
+            _v.clear_log()
         blob = {
             "payload": _encode(payload),
             "pml_msgs": comm.state.pml.cr_capture(),
@@ -333,20 +342,92 @@ def checkpoint(comm, payload: Any, store_dir: Optional[str] = None,
     return int(seq[0])
 
 
-def checkpoint_local(comm, payload: Any, store_dir: Optional[str] = None,
+def _vlayer(comm):
+    from ompi_tpu_torch.pml.vprotocol import find
+    v = find(comm.state.pml)
+    if v is None:
+        raise RuntimeError(
+            "uncoordinated checkpoint requires sender-based message "
+            "logging: launch with --mca pml_vprotocol pessimist")
+    return v
+
+
+def checkpoint_local(comm, payload: Any,
+                     store_dir: Optional[str] = None,
                      keep: Optional[int] = None) -> int:
-    """Uncoordinated snapshot: needs sender-based message logging
-    (``pml/vprotocol``), which the port does not have yet."""
-    raise NotImplementedError(
-        "cr.checkpoint_local needs sender-based message logging "
-        "(pml/vprotocol), not ported yet (ROADMAP.md A9)")
+    """UNCOORDINATED snapshot (vprotocol/pessimist): no quiesce, no
+    collective, no drain — each rank snapshots at its own moment and
+    writes its own sequence under ``local_r<rank>/``.  Messages
+    mid-wire or arrived-but-unconsumed at the cut are NOT captured;
+    the sender's log redelivers them at restore (replay), and the
+    snapshotted sequence maps make redelivery exactly-once.  The
+    only local contract: wait your own requests first (same as MPI
+    C/R semantics)."""
+    if keep is None:
+        keep = int(_keep_var.value)
+    store = _store_for(store_dir)
+    v = _vlayer(comm)
+    base = v._base
+    # capture+write must not be torn by an armed ft interrupt; held,
+    # not discarded — it fires right after
+    with comm.state.progress.deferred_interrupts():
+        blob = {
+            "payload": _encode(payload),
+            "vlog": v.cr_capture_vlog(),
+            "replay_want": base.cr_capture_lenient(),
+            "rank": comm.rank,
+        }
+        eng = getattr(comm.state, "_tpu_rndv", None)
+        if eng is not None and eng.pending:
+            # parked sender halves of chunked device transfers: without
+            # them a replayed _XferHdr's pulls find nothing and the
+            # receiver blocks forever.  lenient: no quiesce here, so a
+            # peer mid-pull is normal — capture the full snapshot (host
+            # bytes once its copy is done); a restarted receiver
+            # re-pulls from chunk 0
+            blob["tpu_xfers"] = eng.cr_capture(lenient=True)
+        sub = Store(os.path.join(store.root, f"local_r{comm.rank}"))
+        seq = sub.next_seq()
+        sub.write_rank(seq, comm.rank, blob)
+        sub.mark_complete(seq, {"rank": comm.rank, "seq": seq})
+        if keep:
+            sub.prune(keep)
+        # everything this snapshot covers is now durable HERE: senders
+        # may trim their logs up to these watermarks (receiver-ack GC)
+        v.mark_durable(blob["vlog"]["next_seq"], blob["replay_want"])
+    return seq
 
 
-def restore_local(comm, store_dir: Optional[str] = None) -> Optional[Any]:
-    """Restore from an uncoordinated snapshot: see checkpoint_local."""
-    raise NotImplementedError(
-        "cr.restore_local needs sender-based message logging "
-        "(pml/vprotocol), not ported yet (ROADMAP.md A9)")
+def restore_local(comm, store_dir: Optional[str] = None
+                  ) -> Optional[Any]:
+    """Restore from MY latest local (uncoordinated) snapshot, then
+    replay the sender logs so every in-flight message of the cut
+    line is redelivered.  Collective only in the sense that every
+    rank must pass through here before user traffic resumes (the
+    internal fence orders replay against restored counters).
+    Tensors of the payload come back on this rank's device."""
+    root = store_dir or os.environ.get(ENV_DIR)
+    if not root or not os.environ.get(ENV_RESTART):
+        return None
+    sub = Store(os.path.join(root, f"local_r{comm.rank}"))
+    seq = sub.latest_complete()
+    if seq is None:
+        return None
+    blob = sub.read_rank(seq, comm.rank)
+    v = _vlayer(comm)
+    v.cr_restore_vlog(blob["vlog"])
+    if blob.get("tpu_xfers"):
+        from ompi_tpu_torch.btl.tpu import _engine
+        _engine(comm.state).cr_restore(blob["tpu_xfers"])
+    v._base._replay_want = {tuple(w) for w in blob["replay_want"]}
+    # every rank's counters restored BEFORE any replay frag can
+    # arrive.  The rendezvous must NOT ride the pml: a pml barrier's
+    # own fragments would queue BEHIND the unreplayed sequence holes
+    # (symmetric in-flight cuts deadlock).  The control-plane fence
+    # (KV server) is hole-free.
+    comm.state.rte.fence()
+    v.replay()
+    return _decode(blob["payload"], comm.state.device)
 
 
 def restore(comm, store_dir: Optional[str] = None, shmem_ctx=None,

@@ -69,6 +69,12 @@ RNDV = "R"
 ACK = "A"
 SYNC_ACK = "SA"
 FRAG = "F"
+VACK = "VA"        # vprotocol consumed-seq receiver ack (log GC)
+MSEG = "MG"        # segmented MATCH: vprotocol replay of payloads
+#                    larger than one transport frame (a raw MATCH
+#                    bigger than the shm ring can never be pushed).
+#                    Reassembled BEFORE sequencing, then dispatched
+#                    as a normal MATCH / MATCH_OBJ.
 
 
 class SendRequest(Request):
@@ -141,6 +147,15 @@ class PmlOb1:
         self._send_seq: Dict[Tuple[int, int], int] = {}     # (cid,dst)->seq
         self._next_seq: Dict[Tuple[int, int], int] = {}     # (cid,src)->seq
         self._cant_match: Dict[Tuple[int, int], Dict[int, UnexpectedMsg]] = {}
+        # (cid, src, seq, gsrc) -> [bytearray, filled, positions]:
+        # in-progress segmented replay reassembly (MSEG; vprotocol only)
+        self._mseg: Dict[tuple, list] = {}
+        # (cid, src, seq) triples an uncoordinated restart expects to
+        # be REDELIVERED by vprotocol replay although their sequence
+        # slot was consumed before the snapshot (the message was in
+        # the unexpected queue at capture; its payload is not in the
+        # snapshot — the sender's log carries it)
+        self._replay_want: set = set()
         # checkpoint/restart bookmark counters (crcp/bkmrk analog,
         # ref: ompi/mca/crcp/bkmrk/crcp_bkmrk_pml.c): user-tag message
         # envelopes sent to / arrived from each GLOBAL rank.  Quiesce
@@ -410,6 +425,18 @@ class PmlOb1:
     def _advance_seq(self, cid, src) -> None:
         key = (cid, src)
         self._next_seq[key] = self._next_seq.get(key, 0) + 1
+        if self._mseg:
+            # straggler MSEG duplicates may have re-seeded a partial
+            # reassembly for a seq that just got consumed (its full
+            # assembly dispatched from _cant_match); such an entry can
+            # never complete — purge it so cr_capture's in-flight
+            # guard only fires for genuinely undeliverable messages
+            nxt = self._next_seq[key]
+            stale = [k for k in self._mseg
+                     if k[0] == cid and k[1] == src and k[2] < nxt
+                     and (cid, src, k[2]) not in self._replay_want]
+            for k in stale:
+                del self._mseg[k]
         # an out-of-order frag may now be matchable
         held = self._cant_match.get(key)
         if held:
@@ -522,6 +549,60 @@ class PmlOb1:
         elif kind == FRAG:
             _, rreq_id, pos, payload = frag
             self._recv_segment(rreq_id, pos, payload)
+        elif kind == MSEG:
+            self._handle_mseg(frag)
+        elif kind == VACK:
+            # receiver-ack for the vprotocol sender log (GC); rides
+            # the btl UNSEQUENCED — an ack must never consume a
+            # sequence slot (it would itself need logging).  Ignored
+            # unless a pessimist layer installed its handler.
+            h = getattr(self, "vack_handler", None)
+            if h is not None:
+                h(frag[1])
+
+    def _handle_mseg(self, frag: tuple) -> None:
+        """Reassemble a segmented replay MATCH.  Segments are
+        position-addressed (transports may interleave rails); the
+        assembled message enters matching exactly as a single MATCH
+        frame would — including the duplicate-sequence drop for
+        receivers that already consumed it.
+
+        Duplicate segments (a tcp reconnect resends every frame not
+        provably written) must not double-count: coverage is tracked
+        per position.  And a segment for an already-consumed sequence
+        number is dropped BEFORE assembly — after a completed
+        reassembly advanced the sequence, straggler duplicates would
+        otherwise re-seed a stale partial entry that lives forever."""
+        _, cid, src, tag, seq, gsrc, total, kindcode, pos, chunk = frag
+        if seq < self._next_seq.get((cid, src), 0) and \
+                (cid, src, seq) not in self._replay_want:
+            return  # consumed seq: this whole message is a duplicate
+        key = (cid, src, seq, gsrc)
+        entry = self._mseg.get(key)
+        if entry is None:
+            entry = self._mseg[key] = [bytearray(total), 0, set()]
+        buf, got, seen = entry
+        if pos in seen:
+            return  # duplicated segment (transport resend): one replay
+        #           chunks at a fixed stride, so positions identify
+        #           segments exactly
+        seen.add(pos)
+        buf[pos:pos + len(chunk)] = chunk
+        entry[1] = got + len(chunk)
+        if entry[1] < total:
+            return
+        del self._mseg[key]
+        if kindcode == 1:
+            import pickle
+            payload = pickle.loads(bytes(buf))
+            msg = UnexpectedMsg(MATCH_OBJ, cid, src, tag, seq,
+                                len(payload), None, payload)
+        else:
+            payload = bytes(buf)
+            msg = UnexpectedMsg(MATCH, cid, src, tag, seq,
+                                len(payload), None, payload)
+        if self._dispatch_arrival(msg) and tag >= 0:
+            self.cr_arrived[gsrc] = self.cr_arrived.get(gsrc, 0) + 1
 
     def _dispatch_arrival(self, msg: UnexpectedMsg) -> bool:
         """Sequence-gate an arrived envelope into matching.  A
@@ -533,6 +614,15 @@ class PmlOb1:
         key = (msg.cid, msg.src)
         if not self._matchable(msg.cid, msg.src, msg.seq):
             if msg.seq < self._next_seq.get(key, 0):
+                want = (msg.cid, msg.src, msg.seq)
+                if want in self._replay_want:
+                    # vprotocol replay of a message whose sequence
+                    # slot was consumed before an uncoordinated
+                    # snapshot: deliver to matching WITHOUT
+                    # re-sequencing (its slot is already burned)
+                    self._replay_want.discard(want)
+                    self._match_or_buffer(msg)
+                    return True
                 # already-consumed sequence: a reconnect-resent
                 # duplicate envelope.  Drop it — parking it in
                 # _cant_match would leak it forever (its seq can
@@ -542,6 +632,9 @@ class PmlOb1:
             dup = msg.seq in held
             held[msg.seq] = msg
             return not dup
+        if self._replay_want:
+            # normally-sequenced redelivery: the want entry is served
+            self._replay_want.discard((msg.cid, msg.src, msg.seq))
         self._advance_seq(msg.cid, msg.src)
         self._match_or_buffer(msg)
         return True
@@ -654,6 +747,11 @@ class PmlOb1:
             raise RuntimeError(
                 "cr_capture with out-of-order frags held (messages "
                 "still in flight)")
+        if self._mseg:
+            raise RuntimeError(
+                "cr_capture with a partially reassembled replay "
+                "message (sender died mid-replay?) — the message is "
+                "neither capturable nor deliverable")
         msgs = []
         for cid, lst in self._unexpected.items():
             for m in sorted(lst, key=lambda u: u.arrival):
@@ -759,6 +857,8 @@ class PmlOb1:
         self._send_seq.clear()
         self._next_seq.clear()
         self._cant_match.clear()
+        self._mseg.clear()
+        self._replay_want.clear()
         self.cr_sent.clear()
         self.cr_arrived.clear()
 
@@ -781,6 +881,9 @@ class PmlOb1:
                 self._send_seq.pop((comm.cid, r), None)
                 self._next_seq.pop((comm.cid, r), None)
                 self._cant_match.pop((comm.cid, r), None)
+                for key in [k for k in self._mseg
+                            if k[0] == comm.cid and k[1] == r]:
+                    del self._mseg[key]
                 pend = self._unexpected.get(comm.cid)
                 if pend:
                     self._unexpected[comm.cid] = [

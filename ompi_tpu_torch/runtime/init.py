@@ -27,7 +27,10 @@ without btl/shm (the rings of a pre-failure epoch cannot be made
 stale-byte-safe, so an epoch > 0 world talks over tcp).  A rank
 launched under mpirun's recover policy (``TPUMPI_FT_RECOVER``) starts
 the live-recovery epoch watcher (runtime/ft.py) after the final fence.
-vprotocol is listed in ROADMAP.md as still to port.
+The selected pml is interposed by pml/monitoring (``pml_monitoring_
+enable``) and pml/vprotocol's pessimist (``pml_vprotocol pessimist``)
+on top of it; finalize writes monitoring's per-rank traffic dump
+before its fence and rank 0 aggregates the matrices after it.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ from ompi_tpu_torch.btl import tcp as _btl_tcp  # noqa: F401
 from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.comm.communicator import (SESSION_CID_STRIDE,
                                               Communicator, Group)
+from ompi_tpu_torch.pml import monitoring as _pml_monitoring
 from ompi_tpu_torch.pml import ob1 as _pml_ob1
+from ompi_tpu_torch.pml import vprotocol as _pml_vprotocol
 from .state import LogicalDevice, ProcState, clear_current, set_current
 
 
@@ -127,9 +132,12 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
             and getattr(state.rte, "kv", None) is not None):
         state.respawn_joining = True
         state.respawn_epoch = max(0, state.ft_epoch - 1)
-    # 1. select the single pml engine (ref: ompi_mpi_init.c:640)
+    # 1. select the single pml engine (ref: ompi_mpi_init.c:640),
+    # optionally interposed by pml/monitoring and, on top of it,
+    # vprotocol's sender-based message logging
     comp, pml_cls = _pml_ob1.pml_framework.select_one(state)
-    state.pml = pml_cls(state)
+    state.pml = _pml_vprotocol.maybe_wrap(
+        _pml_monitoring.maybe_wrap(pml_cls(state), state), state)
     # 2. btl modules + endpoint wiring (modex happens inside init)
     modules = []
     for c in btl_base.btl_framework.components():
@@ -224,8 +232,13 @@ def mpi_finalize(state: ProcState) -> None:
     # collective — Barrier/Send/Recv/Bcast need a live pml): embeds
     # the offset table into every rank's trace dump
     _trace.sync_state(state)
+    # pml/monitoring traffic-matrix dump BEFORE the fence: every
+    # rank's .prof file must exist by the time the fence releases
+    # rank 0 to aggregate them (profile2mat semantics)
+    _pml_monitoring.finalize_dump(state)
     # barrier, then teardown in reverse (ref: ompi_mpi_finalize.c:101)
     state.rte.fence()
+    _pml_monitoring.finalize_aggregate(state)
     if state.ulfm is not None:
         # store hygiene: drop this world's ULFM tickets so looped
         # worlds never replay a finished run's records.  After the

@@ -24,7 +24,9 @@ The pieces:
 * ``MirrorPool``: a bounded free list of staging buffers, so steady-
   state staging never pays fresh pages or a fresh pinned allocation.
 * ``d2h`` / ``h2d``: a tensor's bytes into a stage and back, queued on
-  the current stream, with the event wait a pooled stage needs.
+  the current stream, with the event wait a pooled stage needs;
+  ``d2h_async`` queues the D2H and hands back its event instead of
+  waiting (pml/vprotocol's sender-log snapshot).
 
 Its users: the hierarchical tier's leader hop (fresh stages a call),
 and through ``pool(device)`` — one shared ``MirrorPool`` a device type
@@ -186,6 +188,23 @@ def d2h(src: torch.Tensor, stage: Stage) -> None:
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(src.device))
     done.synchronize()
+
+
+def d2h_async(src: torch.Tensor, stage: Stage):
+    """Queue a copy of the bytes of the contiguous tensor ``src`` into
+    the start of ``stage`` and return the event recorded after it: for
+    a card, on the current stream of ``src``'s card (the host does not
+    wait); off the card the copy is done on return and the result is
+    None.  The stage must not be read before the event is done."""
+    src = _bytes(src)
+    dst = tensor_view(stage)[:src.numel()]
+    if not src.is_cuda:
+        dst.copy_(src)
+        return None
+    dst.copy_(src, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(src.device))
+    return done
 
 
 def h2d(stage: Stage, dst: torch.Tensor, wait: bool = False):

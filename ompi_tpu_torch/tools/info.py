@@ -33,13 +33,13 @@ _SOURCE_NAMES = {
 
 def _import_all_components() -> None:
     """Load every module that registers components/vars, mirroring
-    ompi_info's open-all-frameworks pass (pml/monitoring is not ported
-    yet, ROADMAP.md A9)."""
+    ompi_info's open-all-frameworks pass."""
     import ompi_tpu_torch.btl.inproc  # noqa: F401
     import ompi_tpu_torch.btl.self_btl  # noqa: F401
     import ompi_tpu_torch.btl.shm  # noqa: F401
     import ompi_tpu_torch.btl.tcp  # noqa: F401
     import ompi_tpu_torch.coll  # noqa: F401
+    import ompi_tpu_torch.pml.monitoring  # noqa: F401
     import ompi_tpu_torch.pml.ob1  # noqa: F401
     import ompi_tpu_torch.osc.window  # noqa: F401
 

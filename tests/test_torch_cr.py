@@ -240,11 +240,17 @@ def test_shmem_heap_snapshot(tmp_path, restart_env, dm):
     assert run_ranks(2, fn, device_map=device_map) == [True, True]
 
 
-def test_local_tiers_wait_for_message_logging():
-    for f in (lambda: cr.checkpoint_local(None, {}),
-              lambda: cr.restore_local(None)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            f()
+def test_local_tiers_wait_for_message_logging(tmp_path):
+    """The uncoordinated tier needs sender-based message logging: with
+    pml/vprotocol off, checkpoint_local raises naming the knob that
+    turns it on (as the reference's does), and restore_local without
+    the restart flag is a fresh start (None)."""
+    def fn(comm):
+        with pytest.raises(RuntimeError, match="pml_vprotocol pessimist"):
+            cr.checkpoint_local(comm, {}, store_dir=str(tmp_path))
+        return cr.restore_local(comm, store_dir=str(tmp_path))
+
+    assert run_ranks(2, fn) == [None, None]
 
 
 # ---- the shard image (the format both tiers share) ------------------

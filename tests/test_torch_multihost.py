@@ -279,9 +279,9 @@ def test_kv_proxy_upstream_ids_distinct():
 
 # ---- info ------------------------------------------------------------
 
-# components the port does not have yet (ROADMAP A9: coll seg, sm and
-# inter, pml vprotocol, persistent and monitoring; of these only coll
-# sm and seg register as components in the reference's inventory)
+# components the port does not have yet (ROADMAP A9c: coll seg, sm and
+# inter; of these only coll sm and seg register as components in the
+# reference's inventory)
 UNPORTED = {("coll", "sm"), ("coll", "seg")}
 
 

@@ -95,9 +95,28 @@ def test_p2p_and_split_match_reference():
     assert port == ref
 
 
+def _example_imports():
+    """Every module the port's example programs import (an example runs
+    a job when imported, so its imports stand in for it)."""
+    import ast
+    ex = os.path.join(PKG_DIR, "examples")
+    mods = set()
+    for f in sorted(os.listdir(ex)):
+        if not f.endswith(".py"):
+            continue
+        tree = ast.parse(open(os.path.join(ex, f), encoding="utf-8").read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods.add(node.module)
+    return sorted(mods)
+
+
 def test_port_imports_no_jax_and_no_reference():
-    """In a fresh interpreter, importing the port (its device path
-    included) loads neither jax nor the reference package."""
+    """In a fresh interpreter, importing the port (its device path and
+    its pml interposers included) and every module its example
+    programs import loads neither jax nor the reference package."""
     code = ("import sys, ompi_tpu_torch, ompi_tpu_torch.coll.device, "
             "ompi_tpu_torch.testing, ompi_tpu_torch.kernels.stacked, "
             "ompi_tpu_torch.kernels.build, ompi_tpu_torch.convert, "
@@ -108,7 +127,10 @@ def test_port_imports_no_jax_and_no_reference():
             "ompi_tpu_torch.btl.tcp, ompi_tpu_torch.btl.shm, "
             "ompi_tpu_torch.tools.mpirun, ompi_tpu_torch.tools.hostrun, "
             "ompi_tpu_torch.tools.dvm, ompi_tpu_torch.serve.quota, "
-            "ompi_tpu_torch.serve.controller, ompi_tpu_torch.obs.reqtrace\n"
+            "ompi_tpu_torch.serve.controller, ompi_tpu_torch.obs.reqtrace, "
+            "ompi_tpu_torch.pml.persistent, ompi_tpu_torch.pml.monitoring, "
+            "ompi_tpu_torch.pml.vprotocol, ompi_tpu_torch.cr, "
+            + ", ".join(_example_imports()) + "\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "
             "m == 'ompi_tpu' or m.startswith('ompi_tpu.'))\n"
