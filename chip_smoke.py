@@ -457,6 +457,39 @@ Phases, each fatal on failure (nothing is caught and carried on):
              (mon_filtered_size.mat, and each rank's .prof line exact)
              holds 21 offloaded deposits of 8 MiB + 16 bytes of host
              Allreduce to the peer; the user matrices are empty.
+17. inter  — intercommunicators, dpm and the in-box collectives.
+             17a: 8 rank-threads on the card, 20 steps of
+             allreduce_arr 8 MiB f32 SUM (K1), a host Allreduce of one
+             float64 and a host Bcast of 64 int64 through coll/sm,
+             allgather_arr 1 MiB f32 (K2) and a Barrier, all on one
+             rendezvous: K1 exactly 20, K2 exactly 20, sm the
+             allreduce provider, K1 in the float SUM band, K2 and the
+             host results byte for byte numpy's; then the host µs of an
+             8 B and an 8 MiB host Allreduce through sm against
+             ``--mca coll ^sm`` (tuned), A B B A.  17b: the same ranks
+             in two groups of 4, create_intercomm over the world; inter
+             Allreduce, Bcast from ROOT and Alltoall of host arrays
+             held to the reference's semantics; merge(), then 2
+             allreduce_arr 8 MiB f32 on the merged comm: K1 exactly 2,
+             in the band.  17e: examples/ring_attention.py's run on 4
+             rank-threads on the card, 2048 tokens a rank, head width
+             128, f32: full attention on the card at rtol 2e-4 / atol
+             2e-5; its ms, warm and the first call.  Then three jobs
+             side by side — 17c:
+             ``mpirun -np 2 examples/spawn_parent.py --device auto
+             --mib 8`` (2 parents spawn 2 workers; the reference's
+             lines; merge(), the staged allreduce_arr across the 4
+             process ranks: every rank's tensor on cuda, its digest
+             plain torch's), 17d: ``mpirun -np 4
+             examples/collseg_prog.py`` (the reference program's checks,
+             every rank's seeded digest numpy's, coll_seg_native_ops >
+             0 and python_ops 0), 17f: ``mpirun -np 4 --ranks-per-proc
+             all examples/halo_stencil.py`` (the reference's four
+             lines; the device halo's sendrecv_arr on the card) — and
+             17d's timing: ``collseg_prog.py --bench 8 10 --ab``, an
+             8 MiB f64 host Allreduce between the 4 process ranks
+             through seg and through the tuned p2p route that ``--mca
+             coll ^seg`` selects, A B B A in one job.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -4725,8 +4758,9 @@ def phase_sessions_limit(dev) -> None:
 
 def phase_sessions_flight(dev) -> None:
     """8c: the flight recorder under phase 3d's injected device_sdc
-    (its injected mode again, both tiers): the ft_inject and sdc_*
-    events equal the integrity pvars' moves, every event carries the
+    (its injected mode again, both tiers): the sdc_* events equal the
+    integrity pvars' moves, the ft_inject events those flips and one a
+    Barrier meeting of the victim, every event carries the
     reference's fields, and the ring's trace dump loads in the port's
     traceview."""
     from ompi_tpu_torch import obs
@@ -4751,7 +4785,13 @@ def phase_sessions_flight(dev) -> None:
         evs = rec.snapshot(last=nev)
         count = {nm: sum(e["name"] == nm for e in evs) for nm in (
             "ft_inject", "sdc_mismatch", "sdc_convict", "sdc_retry")}
-        want = {"ft_inject": pv["integrity_mismatches"],
+        # the victim flips at every meeting, and drive()'s Barriers
+        # (2 + 3 a case) meet at the same rendezvous through coll/sm:
+        # a flip of their None deposit is recorded and changes nothing
+        plan, _ = integrity_cases(
+            [d.device if hasattr(d, "slot") else d for d in devs], tier,
+            True)
+        want = {"ft_inject": pv["integrity_mismatches"] + 2 + 3 * len(plan),
                 "sdc_mismatch": pv["integrity_mismatches"],
                 "sdc_convict": pv["integrity_convictions"],
                 "sdc_retry": pv["integrity_retry_ops"]}
@@ -4773,8 +4813,10 @@ def phase_sessions_flight(dev) -> None:
         names = {e.get("name") for e in doc["traceEvents"]}
         if not set(count) <= names:
             raise AssertionError(f"8c: traceview lost events: {names}")
-        log(f"[sessions] 8c flight recorder, {what}: {count} = the "
-            f"integrity pvars' moves {pv}; every event has its fields; "
+        log(f"[sessions] 8c flight recorder, {what}: {count}: sdc_* = "
+            f"the integrity pvars' moves {pv}, ft_inject those flips + "
+            f"the victim's {2 + 3 * len(plan)} Barrier meetings; every "
+            f"event has its fields; "
             f"{path} loads in traceview ({len(doc['traceEvents'])} "
             "trace events)")
 
@@ -7713,6 +7755,341 @@ def phase_proto(dev, devices: str = "auto") -> dict:
     return launches
 
 
+INTER_STEPS = 20       # 17a: training steps of the interleave
+INTER_MIB = 8          # 17a/17b/17c: the allreduce_arr's float32 MiB
+INTER_AG_MIB = 1       # 17a: the allgather_arr's float32 MiB a rank
+INTER_BCAST = 64       # 17a: int64 elements of the host Bcast
+INTER_MERGED_OPS = 2   # 17b: allreduce_arr ops on the merged comm
+INTER_REPS = (200, 5)  # 17a: timed host Allreduce ops of 8 B, of 8 MiB
+SEG_REPS = 10          # 17d: timed host Allreduce ops a job
+SEG_NP = 4             # 17d: process ranks
+RA_TOKENS, RA_DIM = 2048, 128  # 17e: tokens a rank, head width
+SPAWN_PROG = os.path.join("ompi_tpu_torch", "examples", "spawn_parent.py")
+SEG_PROG = os.path.join("ompi_tpu_torch", "examples", "collseg_prog.py")
+HALO_PROG = os.path.join("ompi_tpu_torch", "examples", "halo_stencil.py")
+
+
+def inter_step_program(dev, n: int, nag: int):
+    """17a's rank program: INTER_STEPS steps of allreduce_arr (K1), a
+    host Allreduce of the loss (one float64) and a host Bcast of 64
+    int64 through sm, allgather_arr (K2) and a Barrier.  Returns (the
+    sm provider of allreduce, step 0's and the last step's K1 output,
+    the last K2 output, every step's loss sum and bcast)."""
+    import numpy as np
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        x = rank_elems(comm.rank, n, torch.float32, dev, 70)
+        a = rank_elems(comm.rank, nag, torch.float32, dev, 71)
+        losses, bcasts, first = [], [], None
+        for s in range(INTER_STEPS):
+            y = comm.allreduce_arr(x, SUM)
+            if first is None:
+                first = y
+            g = np.random.default_rng(SEED + 97 * s + comm.rank)
+            tot = np.empty(1)
+            comm.Allreduce(np.array([g.standard_normal()]), tot, SUM)
+            b = g.integers(0, 1 << 40, INTER_BCAST) if comm.rank == 0 \
+                else np.zeros(INTER_BCAST, np.int64)
+            comm.Bcast(b, root=0)
+            z = comm.allgather_arr(a)
+            comm.Barrier()
+            losses.append(tot)
+            bcasts.append(b)
+        _sync(dev)
+        return comm.coll.providers["allreduce"], first, y, z, losses, bcasts
+    return fn
+
+
+def inter_host_timed(nbytes: int, reps: int):
+    """A rank program: ``reps`` host Allreduce SUM of ``nbytes`` (one
+    float64 at 8 B, else float32) from a Barrier; returns (the
+    allreduce provider, seconds)."""
+    import numpy as np
+    from ompi_tpu_torch.op.op import SUM
+
+    def fn(comm):
+        x = np.full(1, comm.rank + 0.5) if nbytes == 8 else \
+            np.full(nbytes // 4, comm.rank + 0.5, np.float32)
+        r = np.empty_like(x)
+        comm.Allreduce(x, r, SUM)
+        comm.Barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            comm.Allreduce(x, r, SUM)
+        dt = time.perf_counter() - t0
+        if r[0] != sum(k + 0.5 for k in range(comm.size)):
+            raise AssertionError(f"17a timed Allreduce: {r[0]}")
+        return comm.coll.providers["allreduce"], dt
+    return fn
+
+
+def phase_inter_step(dev) -> dict:
+    """17a (see the module docstring).  Returns its launches."""
+    import numpy as np
+    n, nag = INTER_MIB * MIB // 4, INTER_AG_MIB * MIB // 4
+    res, launches = _ft_launch_run(inter_step_program(dev, n, nag), NRANKS,
+                                   lambda r: dev)
+    want = {**{k: 0 for k in launches}, "stacked_reduce": INTER_STEPS,
+            "stacked_copy": INTER_STEPS}
+    if launches != want:
+        raise AssertionError(f"17a launches {_ft_counted(launches)}, "
+                             f"expected K1 {INTER_STEPS}, K2 {INTER_STEPS}")
+    ref = _sum_ref(range(NRANKS), n, dev, 70)
+    gather = torch.cat([rank_elems(r, nag, torch.float32, dev, 71)
+                        for r in range(NRANKS)])
+    err = 0.0
+    for r, (prov, first, y, z, losses, bcasts) in enumerate(res):
+        if prov != "sm":
+            raise AssertionError(f"17a rank {r}: allreduce by {prov}")
+        err = max(err, _in_band(first, ref, NRANKS, f"17a rank {r}"))
+        if _sha(y) != _sha(res[0][2]) or _sha(z) != _sha(gather):
+            raise AssertionError(f"17a rank {r}: K1 or K2 output differs")
+        for s in range(INTER_STEPS):
+            gs = [np.random.default_rng(SEED + 97 * s + k)
+                  for k in range(NRANKS)]
+            acc = np.array([gs[0].standard_normal()])
+            for g in gs[1:]:
+                acc = acc + g.standard_normal()  # sm's rank-order fold
+            if losses[s].tobytes() != acc.tobytes() or \
+                    bcasts[s].tobytes() != gs[0].integers(
+                        0, 1 << 40, INTER_BCAST).tobytes():
+                raise AssertionError(f"17a rank {r} step {s}: host "
+                                     "results differ from numpy's")
+    log(f"[inter] 17a 8 ranks on {dev}, {INTER_STEPS} steps of "
+        f"allreduce_arr {INTER_MIB} MiB f32 SUM + host Allreduce (1 f64) "
+        f"+ host Bcast ({INTER_BCAST} i64) through sm + allgather_arr "
+        f"{INTER_AG_MIB} MiB f32 + Barrier, one rendezvous: allreduce by "
+        f"sm; launches {_ft_counted(launches)}, exact; K1 in the float "
+        f"SUM band (max error {err:.3e}), K2 and the host results byte "
+        f"for byte")
+    from ompi_tpu_torch.testing import run_ranks
+    us = {}
+    for nbytes, reps in zip((8, 8 * MIB), INTER_REPS):
+        for mode in ("sm", "^sm", "^sm", "sm"):
+            with _knobs(coll="" if mode == "sm" else "^sm"):
+                out = run_ranks(NRANKS, inter_host_timed(nbytes, reps),
+                                device_map=lambda r: dev, timeout=600)
+            want_p = "sm" if mode == "sm" else "tuned"
+            if any(p != want_p for p, _ in out):
+                raise AssertionError(f"17a timed {mode}: providers "
+                                     f"{[p for p, _ in out]}")
+            us.setdefault((nbytes, mode), []).append(
+                max(t for _, t in out) / reps * 1e6)
+    log(f"[inter] 17a host us a host Allreduce, 8 ranks, slowest rank, "
+        f"A B B A: 8 B (1 f64) sm {us[(8, 'sm')][0]:.1f} / "
+        f"{us[(8, 'sm')][1]:.1f}, tuned {us[(8, '^sm')][0]:.1f} / "
+        f"{us[(8, '^sm')][1]:.1f}; {INTER_MIB} MiB f32 sm "
+        f"{us[(8 * MIB, 'sm')][0]:.1f} / {us[(8 * MIB, 'sm')][1]:.1f}, "
+        f"tuned {us[(8 * MIB, '^sm')][0]:.1f} / "
+        f"{us[(8 * MIB, '^sm')][1]:.1f} [{card_line()}]")
+    return launches
+
+
+def inter_program(dev, n: int):
+    """17b's rank program: two groups of 4, an intercomm over the
+    world, inter Allreduce, a rooted Bcast and Alltoall of host
+    arrays, then merge() and INTER_MERGED_OPS allreduce_arr on the
+    merged comm.  Returns (the host results, the merged comm's outputs,
+    its allreduce_arr provider, its rank)."""
+    import numpy as np
+    from ompi_tpu_torch.comm.intercomm import ROOT
+    from ompi_tpu_torch.op.op import SUM
+    from ompi_tpu_torch.pml.request import PROC_NULL
+
+    def fn(comm):
+        half = comm.size // 2
+        low = comm.rank < half
+        local = comm.split(0 if low else 1)
+        inter = local.create_intercomm(0, comm, half if low else 0,
+                                       tag=17)
+        s = np.random.default_rng(SEED + 17 + comm.rank).integers(
+            0, 1 << 30, 16)
+        r = np.empty_like(s)
+        inter.Allreduce(s, r, SUM)
+        b = np.arange(32, dtype=np.float64) * 0.5 if comm.rank == 0 \
+            else np.zeros(32)
+        if low:
+            inter.Bcast(b, root=ROOT if comm.rank == 0 else PROC_NULL)
+        else:
+            inter.Bcast(b, root=0)
+        sb = np.array([comm.rank * 100 + i for i in range(inter.remote_size)],
+                      np.int64)
+        rb = np.empty_like(sb)
+        inter.Alltoall(sb, rb)
+        merged = inter.merge(high=not low)
+        x = rank_elems(merged.rank, n, torch.float32, dev, 72)
+        ys = [merged.allreduce_arr(x, SUM) for _ in range(INTER_MERGED_OPS)]
+        _sync(dev)
+        return ((r, b, rb), ys, merged.coll.providers["allreduce_arr"],
+                merged.rank)
+    return fn
+
+
+def phase_inter_comm(dev) -> dict:
+    """17b (see the module docstring).  Returns its launches."""
+    import numpy as np
+    n = INTER_MIB * MIB // 4
+    res, launches = _ft_launch_run(inter_program(dev, n), NRANKS,
+                                   lambda r: dev)
+    want = {**{k: 0 for k in launches}, "stacked_reduce": INTER_MERGED_OPS}
+    if launches != want:
+        raise AssertionError(f"17b launches {_ft_counted(launches)}, "
+                             f"expected K1 {INTER_MERGED_OPS}")
+    half = NRANKS // 2
+    draws = [np.random.default_rng(SEED + 17 + k).integers(0, 1 << 30, 16)
+             for k in range(NRANKS)]
+    ref = _sum_ref(range(NRANKS), n, dev, 72)
+    err = 0.0
+    for k, ((r, b, rb), ys, prov, mrank) in enumerate(res):
+        low = k < half
+        other = range(half, NRANKS) if low else range(half)
+        local = k if low else k - half
+        if r.tobytes() != np.sum([draws[o] for o in other],
+                                 axis=0).tobytes():
+            raise AssertionError(f"17b rank {k}: inter Allreduce {r}")
+        if not low and b.tobytes() != (np.arange(32) * 0.5).tobytes():
+            raise AssertionError(f"17b rank {k}: inter Bcast {b}")
+        if rb.tolist() != [o * 100 + local for o in other]:
+            raise AssertionError(f"17b rank {k}: inter Alltoall {rb}")
+        if prov != "hbm" or mrank != k:
+            raise AssertionError(f"17b rank {k}: merged rank {mrank}, "
+                                 f"allreduce_arr by {prov}")
+        for y in ys:
+            err = max(err, _in_band(y, ref, NRANKS, f"17b rank {k}"))
+    log(f"[inter] 17b 8 ranks on {dev}: two groups of 4, "
+        f"create_intercomm over the world, inter Allreduce (16 i64 SUM: "
+        f"the other group's sum), Bcast from ROOT, Alltoall, each the "
+        f"reference's semantics; merge(): allreduce_arr {INTER_MIB} MiB "
+        f"f32 SUM x {INTER_MERGED_OPS} by hbm, launches "
+        f"{_ft_counted(launches)}, exact, max error {err:.3e} (in the "
+        f"float SUM band)")
+    return launches
+
+
+def phase_inter_jobs(dev, devices: str = "auto") -> None:
+    """17c, 17d and 17f (see the module docstring): the three checked
+    jobs run side by side, then 17d's timed job alone."""
+    jobs = {
+        "17c": (2, None, (SPAWN_PROG, "--device", devices, "--mib",
+                          str(INTER_MIB)), {"devices": devices}),
+        "17d": (SEG_NP, None, (SEG_PROG,), {}),
+        "17f": (4, "all", (HALO_PROG,), {"devices": devices}),
+    }
+    got = {}
+
+    def run(key):
+        np_, rpp, args, kw = jobs[key]
+        try:
+            got[key] = mpirun_job(np_, rpp, args, **kw)
+        except BaseException as e:  # noqa: BLE001 (raised below)
+            got[key] = e
+    threads = [threading.Thread(target=run, args=(k,)) for k in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for k, v in got.items():
+        if isinstance(v, BaseException):
+            raise v
+    # 17c: parents and spawned workers on the card, the merged comm's
+    # staged allreduce_arr; every rank's digest plain torch's
+    from ompi_tpu_torch.examples.spawn_worker import card_values
+    from ompi_tpu_torch.testing import collseg_digest
+    rc, out, err, s_c = got["17c"]
+    n = INTER_MIB << 18
+    plain = _sha(sum(card_values(r, n, dev) for r in range(4)))
+    kind = "cuda" if devices == "auto" else "cpu"
+    cards = sorted(ln for ln in out.splitlines() if ln.startswith("CARD"))
+    lines = out.splitlines()
+    if rc != 0 or cards != [f"CARD rank={r} device={kind} {plain}"
+                            for r in range(4)] or \
+            sum("merged size 4 total 204.0" in ln for ln in lines) != 2 or \
+            any(f"worker {w}: merged rank {2 + w}/4" not in lines
+                for w in range(2)):
+        raise AssertionError(f"17c: exit {rc}\n{out[-2000:]}\n{err[-2000:]}")
+    log(f"[inter] 17c mpirun -np 2 spawn_parent.py --device {devices} "
+        f"--mib {INTER_MIB}: 2 parents spawned 2 workers (exit 0, "
+        f"{s_c:.1f} s), the reference's lines (merged size 4 total "
+        f"204.0; worker w: merged rank 2+w/4); merge(), allreduce_arr "
+        f"{INTER_MIB} MiB f32 across the 4 process ranks (staged): every "
+        f"rank's tensor on {kind}, digest = plain torch's {plain[:16]}...")
+    # 17d: the segment program's checks and its native path
+    rc, out, err, s_d = got["17d"]
+    want = collseg_digest(SEG_NP)
+    pv = [dict(kv.split("=") for kv in ln.split()[1:])
+          for ln in out.splitlines() if ln.startswith("SEGPVAR")]
+    digests = sorted(ln for ln in out.splitlines()
+                     if ln.startswith("SEGDIGEST"))
+    if rc != 0 or "collseg ok" not in out or "collseg chunked ok" not in out \
+            or digests != [f"SEGDIGEST rank={r} {want}"
+                           for r in range(SEG_NP)] \
+            or len(pv) != SEG_NP or any(
+                int(p["native"]) <= 0 or int(p["python"]) != 0 for p in pv):
+        raise AssertionError(f"17d: exit {rc}, {pv}\n{out[-1500:]}\n"
+                             f"{err[-2000:]}")
+    log(f"[inter] 17d mpirun -np {SEG_NP} collseg_prog.py: collseg ok, "
+        f"collseg chunked ok (the reference program's checks), every "
+        f"rank's seeded SUM/MAX/BXOR/Bcast/Allgather digest = numpy's "
+        f"{want[:16]}...; coll_seg_native_ops {pv[0]['native']}, "
+        f"python_ops 0 on every rank ({s_d:.1f} s)")
+    # 17f: the halo on rank-threads of one shell, the device halo on
+    # the card (the program asserts sendrecv_arr's tensor is there)
+    rc, out, err, s_f = got["17f"]
+    halo = [f"rank {r} coords [{r // 2}, {r % 2}] halo-mean 1.50 "
+            f"interior-mean {float(r):.2f}" for r in range(4)]
+    if rc != 0 or any(h not in out for h in halo) or \
+            out.count("halo-mean") != 4:
+        raise AssertionError(f"17f: exit {rc}\n{out[-1500:]}\n{err[-2000:]}")
+    log(f"[inter] 17f mpirun -np 4 --ranks-per-proc all --devices "
+        f"{devices} halo_stencil.py: the reference's four lines, the "
+        f"device halo's sendrecv_arr on {kind} ({s_f:.1f} s)")
+    # 17d timed: 8 MiB f64 host Allreduce, seg against the p2p route
+    # ``--mca coll ^seg`` selects (coll/tuned), A B B A in one job
+    rc, out, err, _ = mpirun_job(
+        SEG_NP, None, (SEG_PROG, "--bench", "8", str(SEG_REPS), "--ab"))
+    rows = _json_lines(out)
+    if rc != 0 or len(rows) != 1 or rows[0]["provider"] != "seg" \
+            or not rows[0]["exact"] or len(rows[0]["us_tuned"]) != 2:
+        raise AssertionError(f"17d timed: exit {rc}, {rows}\n"
+                             f"{err[-2000:]}")
+    seg_us, tuned_us = rows[0]["us_comm"], rows[0]["us_tuned"]
+    log(f"[inter] 17d host us an 8 MiB f64 Allreduce SUM between "
+        f"{SEG_NP} process ranks ({SEG_REPS} ops a run, slowest rank, one "
+        f"job, A B B A): seg {seg_us[0]:.1f} / {seg_us[1]:.1f}, the "
+        f"tuned p2p route of --mca coll ^seg {tuned_us[0]:.1f} / "
+        f"{tuned_us[1]:.1f} [{card_line()}]")
+
+
+def phase_inter_attention(devices: str = "auto") -> None:
+    """17e (see the module docstring)."""
+    from ompi_tpu_torch.examples import ring_attention
+    outs, err, cold, warm = ring_attention.run(devices, 4, RA_TOKENS,
+                                               RA_DIM)
+    kind = "cuda" if devices == "auto" else "cpu"
+    if any(o.device.type != kind or o.dtype != torch.float32 or
+           o.shape != (RA_TOKENS, RA_DIM) for o in outs):
+        raise AssertionError(f"17e: outputs {[o.device for o in outs]}")
+    log(f"[inter] 17e ring_attention.py --device {devices} --tokens "
+        f"{RA_TOKENS} --dim {RA_DIM}: 4 rank-threads on {outs[0].device}, "
+        f"f32, full attention at rtol {ring_attention.RTOL} / atol "
+        f"{ring_attention.ATOL} (max error {err:.3e}); {warm:.3f} ms, "
+        f"slowest rank (the first call {cold:.3f} ms) [{card_line()}]")
+
+
+def phase_inter(dev, devices: str = "auto") -> dict:
+    """Phase 17: 17a (phase_inter_step), 17b (phase_inter_comm), 17e
+    (phase_inter_attention), 17c/17d/17f (phase_inter_jobs).  Returns
+    17a's and 17b's launches (they join the kernels line)."""
+    t0 = time.perf_counter()
+    la = phase_inter_step(dev)
+    lb = phase_inter_comm(dev)
+    phase_inter_attention(devices)
+    phase_inter_jobs(dev, devices)
+    log(f"[inter] phase 17 {time.perf_counter() - t0:.1f} s")
+    return {k: la[k] + lb[k] for k in la}
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
     host with two or more cards); no argument: every phase.
@@ -7829,6 +8206,9 @@ def main(argv) -> int:
     m_launches = phase_proto(dev)
     for r in rows:  # and phase 16a's, the monitored headline's
         r["launches"] += m_launches.get(r["name"].split(":")[0], 0)
+    i_launches = phase_inter(dev)
+    for r in rows:  # and phase 17a/17b's, the interleaved steps'
+        r["launches"] += i_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -132,11 +132,6 @@ def finalize() -> None:
         _finalized_once = True
 
 
-def _not_ported(call: str, item: str):
-    raise NotImplementedError(
-        f"{call} is not ported yet (ROADMAP.md {item})")
-
-
 def attach_buffer(size_or_buf) -> None:
     """MPI_Buffer_attach for this rank (Bsend backing store)."""
     from ompi_tpu_torch.pml.persistent import attach_buffer as _attach
@@ -154,20 +149,33 @@ def detach_buffer() -> int:
 
 
 def get_parent():
-    """MPI_Comm_get_parent: needs comm/dpm (ROADMAP.md A9)."""
-    _not_ported("get_parent", "A9: comm/dpm")
+    """MPI_Comm_get_parent: in a spawned job, the intercommunicator
+    to the spawning processes; None otherwise."""
+    from ompi_tpu_torch.comm.dpm import get_parent as _gp
+    from ompi_tpu_torch.runtime import state as statemod
+
+    return _gp(statemod.current().comm_world)
 
 
 def open_port() -> str:
-    _not_ported("open_port", "A9: comm/dpm")
+    from ompi_tpu_torch.comm.dpm import open_port as _op
+    from ompi_tpu_torch.runtime import state as statemod
+
+    return _op(statemod.current())
 
 
 def publish_name(service: str, port: str) -> None:
-    _not_ported("publish_name", "A9: comm/dpm")
+    from ompi_tpu_torch.comm.dpm import publish_name as _pn
+    from ompi_tpu_torch.runtime import state as statemod
+
+    _pn(statemod.current(), service, port)
 
 
 def lookup_name(service: str) -> str:
-    _not_ported("lookup_name", "A9: comm/dpm")
+    from ompi_tpu_torch.comm.dpm import lookup_name as _ln
+    from ompi_tpu_torch.runtime import state as statemod
+
+    return _ln(statemod.current(), service)
 
 
 def initialized() -> bool:

@@ -641,7 +641,8 @@ def _tensors(value) -> List[torch.Tensor]:
     """The tensors of a deposit or an output: one tensor, a list of
     them, a fused batch's (signature, tensors) pair, a mesh segment's
     (operand, output) pair, or an integrity carrier (its datapath
-    deposit, its pristine source and its claim)."""
+    deposit, its pristine source and its claim).  Anything else holds
+    no tensor."""
     if isinstance(value, torch.Tensor):
         return [value]
     if isinstance(value, _ig._Checked):
@@ -649,6 +650,10 @@ def _tensors(value) -> List[torch.Tensor]:
     if isinstance(value, tuple) and len(value) == 2 \
             and isinstance(value[1], list):
         value = value[1]
+    elif not isinstance(value, (list, tuple)):
+        # a host deposit (coll/sm: a numpy array, None for a barrier)
+        # or a host output: nothing to fence
+        return []
     return [t for t in value if isinstance(t, torch.Tensor)]
 
 
@@ -841,8 +846,9 @@ def _enter(comm, value, body, abort_check, ck):
     if sv and sv.should_sever():
         _sever_hold(abort_check)
     if isinstance(comm.state.pml, MonitoringPml):
-        count_offload(comm, value.numel() * value.element_size()
-                      if isinstance(value, torch.Tensor) else 0)
+        # a tensor's or a numpy deposit's bytes (coll/sm), 0 for a
+        # barrier's None or a tuple, as the reference counts
+        count_offload(comm, int(getattr(value, "nbytes", 0) or 0))
     if ck is not None:
         value, body = _ig.gate(comm, value, body, ck)
     sj = _coll_sdc_injector(comm.state)
@@ -856,7 +862,8 @@ def meet(comm, value, body: Callable[[List[Any]], List[Any]],
     """The rendezvous entry point for the device collectives: deposit
     ``value`` (a contiguous tensor on the comm's shared device, a fused
     batch's (signature, tensors) pair, or a mesh segment's (operand,
-    output) pair); the last arriver runs ``body(values) -> one output
+    output) pair), or coll/sm's host deposit (a numpy array, None for
+    a barrier); the last arriver runs ``body(values) -> one output
     per rank`` and every rank gets its own.  On a CUDA device the
     stream fence of ``_fence`` orders the kernels after every deposit
     (the integrity gate's work included) and every rank's later work
@@ -869,7 +876,7 @@ def meet(comm, value, body: Callable[[List[Any]], List[Any]],
             comm.rank, _fenced(value), _fence(body), abort_check,
             progress=comm.state.progress))
     # the payload as the caller gave it (the gate may wrap it)
-    nbytes = value.nbytes if isinstance(value, torch.Tensor) else 0
+    nbytes = int(getattr(value, "nbytes", 0) or 0)
     value, body = _enter(comm, value, body, abort_check, ck)
     rv = _get_rendezvous(comm)
     # dispatch span: entry->rendezvous-release of the device fast path
@@ -916,8 +923,8 @@ def meet_begin(comm, value, body, abort_check, ck=None):
     each segment takes its own sampling decision."""
     track_state(comm.state)
     tr = comm.state.tracer
-    nbytes = value.nbytes if tr is not None \
-        and isinstance(value, torch.Tensor) else 0
+    nbytes = int(getattr(value, "nbytes", 0) or 0) if tr is not None \
+        else 0
     value, body = _enter(comm, value, body, abort_check, ck)
     rv = _get_rendezvous(comm)
     t0 = 0

@@ -9,8 +9,8 @@ collectives on the same communicator; module interface ref:
 coll.h:139-256).
 
 The merged vtable lives on ``comm.coll``.  Components register here;
-coll/basic, coll/base+tuned, coll/hbm and arr_host each fill the
-functions they implement, and the highest-priority provider of each
+coll/basic, coll/base+tuned, coll/sm, coll/seg, coll/hbm and arr_host
+each fill the functions they implement, and the highest-priority provider of each
 function wins — exactly how the reference lets coll/tuned own
 allreduce while coll/sm owns barrier on the same comm.
 """
@@ -131,6 +131,13 @@ def _instrumented(fname: str, fn):
 
 def comm_select(comm) -> None:
     """Stack modules on a communicator (coll_base_comm_select analog)."""
+    if getattr(comm, "is_inter", False):
+        # intercomms take the whole stack from coll/inter — two-group
+        # semantics are incompatible with every intracomm module
+        # (ref: the reference hard-requires coll/inter the same way)
+        from ompi_tpu_torch.coll.inter import InterCollModule
+        comm.coll = InterCollModule()
+        return
     merged = MergedColl()
     candidates = coll_framework.select_all(comm)  # sorted high→low
     for pri, component, module in reversed(candidates):  # low→high overlay

@@ -426,6 +426,43 @@ class Communicator:
             raise ValueError(
                 f"invalid tag {tag}: user tags must be >= 0 (MPI_ERR_TAG)")
 
+    # -- intercommunicators + dynamic process management ----------------
+    @property
+    def is_inter(self) -> bool:
+        return False
+
+    def create_intercomm(self, local_leader: int, peer_comm,
+                         remote_leader: int, tag: int = 0):
+        """MPI_Intercomm_create (ref: ompi/mpi/c/intercomm_create.c)."""
+        from .intercomm import intercomm_create
+        return intercomm_create(self, local_leader, peer_comm,
+                                remote_leader, tag)
+
+    def spawn(self, cmd: str, args=(), maxprocs: int = 1,
+              root: int = 0):
+        """MPI_Comm_spawn (ref: ompi/dpm/dpm.c)."""
+        from .dpm import comm_spawn
+        return comm_spawn(self, cmd, list(args), maxprocs, root)
+
+    def spawn_multiple(self, specs, root: int = 0):
+        """MPI_Comm_spawn_multiple: specs = [(cmd, args, n), ...]."""
+        from .dpm import comm_spawn_multiple
+        return comm_spawn_multiple(self, specs, root)
+
+    def disconnect(self) -> None:
+        """MPI_Comm_disconnect (ref: ompi/mpi/c/comm_disconnect.c):
+        barrier (pending communication must drain) then free."""
+        self.Barrier()
+        self.free()
+
+    def accept(self, port: str, root: int = 0):
+        from .dpm import comm_accept
+        return comm_accept(self, port, root)
+
+    def connect(self, port: str, root: int = 0):
+        from .dpm import comm_connect
+        return comm_connect(self, port, root)
+
     # -- p2p ------------------------------------------------------------
     def Send(self, spec, dest: int, tag: int = 0) -> None:
         self._check_tag(tag)

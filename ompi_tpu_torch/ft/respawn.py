@@ -156,6 +156,10 @@ def _epoch_rewire(state, epoch: int) -> None:
         rte.modex_put("device_id", device_index(state.device))
     rte.modex_put("node_id", getattr(rte, "node_id", 0))
     rte.modex_put("cores", os.cpu_count() or 1)
+    if getattr(state, "_seg_modex_done", False):
+        # coll/seg eligibility reads every member's (node, session)
+        # under the epoch namespace too
+        rte.modex_put("seg_session", rte.session_dir)
     _dbg(state, f"modex re-published; entering epoch {epoch} fence 1")
     rte.fence()
     from ompi_tpu_torch.btl import base as btl_base

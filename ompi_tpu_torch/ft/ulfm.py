@@ -603,6 +603,9 @@ def agree(comm, flag) -> bool:
 # set: the reference's keys that the port has, plus the port-only
 # per-group caches (the cart neighbour-source table)
 _COMM_CACHE_KEYS = (
+    # coll/seg: the eligibility verdict, the mapped segment (its
+    # generation counters belong to the old epoch) and the repeat plan
+    "_seg_eligible", "_coll_seg", "_seg_ar_plan",
     "_hbm_one_device", "_device_rv", "_device_abort_check",
     "_mesh_none", "_mesh", "_fusion_engine", "_dev_seq",
     # large-message tier (coll/pipeline + topo): routing thresholds,

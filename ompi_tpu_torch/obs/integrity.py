@@ -560,8 +560,24 @@ def flip_value(value):
 
 
 def _flip_inner(value):
+    if value is None:
+        return value  # a barrier's deposit carries no operand
+    if isinstance(value, np.ndarray):
+        return _flip_host(value)  # coll/sm's host deposit
     ts, rebuild = _parts(value)
     return rebuild([_flip_array(ts[0])] + ts[1:])
+
+
+def _flip_host(x: np.ndarray) -> np.ndarray:
+    """``_flip_array`` of a numpy deposit, byte for byte the
+    reference's: a corrupted copy, the depositor's array untouched."""
+    if x.size == 0:
+        return x
+    flat = np.ascontiguousarray(x).copy()
+    bv = flat.view(np.uint8).reshape(-1)
+    isz = max(1, x.dtype.itemsize)
+    bv[(x.size // 2) * isz + isz - 1] ^= 0x40
+    return flat.reshape(x.shape)
 
 
 def _flip_array(x: torch.Tensor) -> torch.Tensor:

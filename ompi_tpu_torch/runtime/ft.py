@@ -228,6 +228,10 @@ def recover(comm, exc: JobRecovery) -> None:
         rte.modex_put("device_id", device_index(state.device))
     rte.modex_put("node_id", getattr(rte, "node_id", 0))
     rte.modex_put("cores", os.cpu_count() or 1)
+    if getattr(state, "_seg_modex_done", False):
+        # coll/seg eligibility reads every member's (node, session)
+        # under the epoch namespace too
+        rte.modex_put("seg_session", rte.session_dir)
     _dbg(state, "modex re-published; entering epoch fence 1")
     rte.fence()
     _dbg(state, "epoch fence 1 passed")

@@ -220,6 +220,27 @@ def device_key(state: ProcState) -> tuple:
     return (dev.type, device_index(dev), state.device_slot)
 
 
+def extend_universe(state: ProcState, new_size: int) -> None:
+    """Make universe ranks [state.size, new_size) addressable: grow
+    the endpoint table and let each btl prepare for the new peers
+    (the dynamic-peer half of the reference's connect/accept
+    MCA_PML_CALL(add_procs) path, ref: ompi/dpm/dpm.c)."""
+    if new_size <= state.size:
+        return
+    old = state.size
+    state.size = new_size
+    for m in state.btls:
+        ext = getattr(m, "extend", None)
+        if ext is not None:
+            ext(new_size)
+    eps = list(state.pml.endpoints)
+    for peer in range(old, new_size):
+        reach = sorted((m for m in state.btls if m.reaches(peer)),
+                       key=lambda m: -m.exclusivity)
+        eps.append(btl_base.Endpoint(peer, reach) if reach else None)
+    state.pml.add_procs(eps)
+
+
 def mpi_finalize(state: ProcState) -> None:
     if state.finalized:
         return

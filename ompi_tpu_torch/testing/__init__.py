@@ -252,3 +252,24 @@ def mpirun_run(np_, prog, *args, devices=None, rpp=None, mca=(),
     full["PYTHONPATH"] = repo + os.pathsep + full.get("PYTHONPATH", "")
     return subprocess.run(cmd, capture_output=True, timeout=timeout,
                           env=full, cwd=cwd or repo)
+
+
+def collseg_digest(nranks: int, seed: int = 20261018) -> str:
+    """The ``SEGDIGEST`` every rank of ``examples/collseg_prog.py``
+    prints at ``nranks`` process ranks: sha256 over numpy's rank-order
+    reductions (SUM, MAX, BXOR) of the program's seeded int64 draws,
+    then its Bcast and Allgather results — the reference semantics,
+    byte for byte the p2p route's."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for k, red in enumerate((np.add, np.maximum, np.bitwise_xor)):
+        xs = [np.random.default_rng(seed + 31 * k + r).integers(
+            0, 1 << 40, 1 << 17) for r in range(nranks)]
+        h.update(red.reduce(np.stack(xs), axis=0).tobytes())
+    h.update(np.random.default_rng(seed + 7).integers(
+        0, 1 << 40, 4099).tobytes())
+    h.update(np.concatenate([np.random.default_rng(seed + 11 + r).integers(
+        0, 1 << 40, 33) for r in range(nranks)]).tobytes())
+    return h.hexdigest()

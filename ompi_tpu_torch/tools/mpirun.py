@@ -642,6 +642,7 @@ def run_local(opts, rpp: int, hybrid: bool, ckpt_env: dict) -> int:
     session = tempfile.mkdtemp(prefix="tpumpi-session-")
     server = KVServer(opts.np)
     _wire_abort(server, sm)
+    server.on_spawn = lambda: sm.activate("EV_SPAWN")
 
     pkg_root = _pkg_root()
     env_base = dict(os.environ)
@@ -750,8 +751,47 @@ def run_local(opts, rpp: int, hybrid: bool, ckpt_env: dict) -> int:
                 cmd = base_cmd
                 tag = f"{base}"
             spawn_proc(cmd, env, tag)
+        server.spawn_enabled = True  # dpm supported on the local path
         _write_proctable()
         sm.activate(smx.RUNNING)
+
+    def ev_spawn(sm, info):
+        """Launch dynamically spawned jobs (ompi/dpm analog): each
+        spawned rank is a process rank of its own world, at universe
+        rank base + i, with the job's devices choice."""
+        if d.get("drained") or sm.state in (smx.DRAINING,
+                                            smx.TERMINATED):
+            return  # never launch into a torn-down job
+        with server.cv:
+            reqs, server.spawn_requests = server.spawn_requests, []
+        for rq in reqs:
+            base, k = rq["base"], rq["maxprocs"]
+            seg_of = []  # (segment index, cmd) per local index
+            for si, seg in enumerate(rq["segments"]):
+                prog = seg["cmd"]
+                c = [sys.executable, prog] + list(seg["args"]) \
+                    if prog.endswith(".py") \
+                    else [prog] + list(seg["args"])
+                seg_of += [(si, c)] * int(seg["n"])
+            for i in range(k):
+                appnum, cmd0 = seg_of[i]
+                env = dict(env_base)
+                env.update({
+                    "TPUMPI_APPNUM": str(appnum),
+                    "TPUMPI_RANK": str(base + i),
+                    "TPUMPI_SIZE": str(k),
+                    "TPUMPI_WORLD_BASE": str(base),
+                    "TPUMPI_WORLD_SIZE": str(k),
+                    "TPUMPI_UNIVERSE": str(base + k),
+                    "TPUMPI_LOCAL_SIZE": str(k),
+                    "TPUMPI_JOBID": f"job-{os.getpid()}-s{base}",
+                    "TPUMPI_PARENT_ROOT": str(rq["parent_root"]),
+                    "TPUMPI_DEVICES": opts.devices,
+                })
+                env.pop("TPUMPI_RANK_BASE", None)
+                env.pop("TPUMPI_LOCAL_RANKS", None)
+                spawn_proc(cmd0, env, f"s{base + i}")
+        _write_proctable()
 
     def try_respawn(info) -> bool:
         """errmgr respawn policy (ompi_tpu_torch/ft/respawn): relaunch the
@@ -868,6 +908,7 @@ def run_local(opts, rpp: int, hybrid: bool, ckpt_env: dict) -> int:
         smx.ALLOCATE: lambda sm, info: sm.activate(smx.MAP),
         smx.MAP: lambda sm, info: sm.activate(smx.LAUNCH_APPS),
         smx.LAUNCH_APPS: on_launch_apps,
+        "EV_SPAWN": ev_spawn,
         "EV_PROC_EXIT": ev_proc_exit,
     })
     _errmgr_table(sm, drain)

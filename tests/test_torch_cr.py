@@ -363,13 +363,16 @@ def test_pml_capture_hooks():
     counters, ``cr_capture`` (the parked message's bytes; the
     barrier's internal-tag traffic is not snapshotted) and
     ``cr_capture_lenient`` (its (cid, src, seq)); ``ft_reset`` leaves no
-    matching or sequence state.  (The reference's thread world takes
-    coll/sm for its barrier, so its pml holds other traffic here: the
-    values are held to the hooks' contract, not to its run.)"""
+    matching or sequence state.  The thread world's barrier meets in
+    coll/sm and drives no pml progress, so rank 1 probes (without
+    receiving) until the message has arrived before it snapshots: the
+    values are held to the hooks' contract."""
     def fn(comm):
         if comm.rank == 0:
             comm.Send(np.arange(3.0), dest=1, tag=4)
         comm.Barrier()
+        if comm.rank == 1:
+            comm.Probe(source=0, tag=4)
         pml = comm.state.pml
         out = (dict(pml.cr_sent), dict(pml.cr_arrived),
                pml.cr_pending_sends(), pml.cr_capture(),

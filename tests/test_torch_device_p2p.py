@@ -232,6 +232,9 @@ def test_poll_obj_any_pops_a_buffered_object_message():
         comm.Barrier()
         if comm.rank == 0:
             return None
+        # the Barrier meets in coll/sm and drives no pml progress: a
+        # probe (no receive) drains both messages into the queue
+        comm.Probe(source=0, tag=7)
         pml = comm.state.pml
         assert pml.poll_obj_any(8) is None
         m = pml.poll_obj_any(7)

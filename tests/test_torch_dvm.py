@@ -330,12 +330,15 @@ def test_failing_session_isolated(pool):
 
 def test_proctable_published_and_pruned(pool):
     """Resident sessions publish {uri}.proctable.json entries mapping
-    rank -> pool pid + thread; detach prunes them."""
+    rank -> pool pid + thread; detach prunes them.  tools/attach's
+    ``load_proctable`` reads the same table."""
+    from ompi_tpu_torch.tools import attach
     srv, uri = pool
     c = DvmClient(uri)
     r = c.attach(3, timeout=T)
     with open(uri + ".proctable.json") as f:
         table = json.load(f)
+    assert attach.load_proctable(uri + ".proctable.json") == table
     tags = {e["tag"] for e in table}
     assert "pool" in tags
     assert {f"s{r['sid']}:r{i}" for i in range(3)} <= tags

@@ -249,14 +249,15 @@ def test_schedules_float_sum_byte_exact(alg, tier):
 
 def _gens(fn):
     """fn(comm) -> number of ops; returns (ops, rendezvous generations
-    those ops took) per rank."""
+    those ops took) per rank.  The closing Barrier is one generation of
+    the same rendezvous (a thread world's Barrier meets in coll/sm)."""
     def wrapped(comm):
         rv = device._get_rendezvous(comm)
         comm.Barrier()
         g0 = rv.gen
         ops = fn(comm)
         comm.Barrier()
-        return ops, rv.gen - g0
+        return ops, rv.gen - g0 - 1
     return port_run_ranks(4, wrapped, device_map=logical_devices("cpu"))
 
 

@@ -14,11 +14,11 @@ point-to-point traffic, and for the device collectives on the routes
 both packages take (the hbm route, every rank on one device, and the
 mesh route, one device a rank).  Tolerance: exact counts.
 
+A thread world's host collectives meet in coll/sm in both packages
+and count one offloaded message to every other member
+(``test_host_barrier_counts_one_offload_a_member``).
+
 Pinned divergences, each with the test named after it:
-  * the port's host collectives (``Barrier``) ride the pml, where the
-    reference's thread worlds meet in coll/sm (not ported, ROADMAP.md
-    A9c) and count one offloaded message to every member
-    (``test_divergence_host_barrier_counts_pml_messages``);
   * the finalize-time dump also writes the internal traffic's
     matrices (``{path}_filtered_*.mat``), where the reference writes
     the user traffic's only
@@ -284,21 +284,20 @@ def test_count_offload_costs_nothing_when_off():
     assert port == ["PmlOb1", "PmlOb1"]
 
 
-def test_divergence_host_barrier_counts_pml_messages(monitoring):
-    """Barrier on a 4-rank thread world: the port's is the pml's
-    (coll/tuned over ob1, internal tags), the reference's meets in
-    coll/sm and counts one 0-byte offload to every member."""
+def test_host_barrier_counts_one_offload_a_member(monitoring):
+    """Barrier on a 4-rank thread world meets in coll/sm in both
+    packages: one 0-byte offloaded message to every other member."""
     def fn(comm, put, op):
-        before = comm.state.pml.matrix_rows()["sent_filtered_msgs"]
+        before = comm.state.pml.matrix_rows()
         comm.Barrier()
-        after = comm.state.pml.matrix_rows()["sent_filtered_msgs"]
-        return [b - a for a, b in zip(before, after)]
+        after = comm.state.pml.matrix_rows()
+        return {k: [b - a for a, b in zip(before[k], after[k])]
+                for k in ("sent_filtered_msgs", "sent_filtered_bytes")}
 
     port, ref = both(4, fn, "hbm")
-    assert ref == [[0 if p == r else 1 for p in range(4)]
-                   for r in range(4)]
-    assert port == [[0, 1, 1, 0], [0, 0, 1, 1], [1, 0, 0, 1],
-                    [1, 1, 0, 0]]
+    assert port == ref == [
+        {"sent_filtered_msgs": [0 if p == r else 1 for p in range(4)],
+         "sent_filtered_bytes": [0] * 4} for r in range(4)]
 
 
 @pytest.mark.parametrize("which", ["bcast", "alltoall"])

@@ -279,12 +279,6 @@ def test_kv_proxy_upstream_ids_distinct():
 
 # ---- info ------------------------------------------------------------
 
-# components the port does not have yet (ROADMAP A9c: coll seg, sm and
-# inter; of these only coll sm and seg register as components in the
-# reference's inventory)
-UNPORTED = {("coll", "sm"), ("coll", "seg")}
-
-
 def _components(module):
     r = subprocess.run([sys.executable, "-m", module, "--parsable"],
                        capture_output=True, timeout=120, cwd=REPO,
@@ -298,12 +292,11 @@ def _components(module):
 
 def test_info_components_match_reference():
     """The port's ``info --parsable`` inventory is the reference's,
-    priorities included, less the components still unported."""
+    priorities included (coll sm and seg among them)."""
     port_lines, port = _components("ompi_tpu_torch.tools.info")
     _, ref = _components("ompi_tpu.tools.info")
-    assert set(ref) - set(port) == UNPORTED
-    assert set(port) <= set(ref)
-    assert all(port[k] == ref[k] for k in port)
+    assert port == ref
+    assert {("coll", "sm"), ("coll", "seg")} <= set(port)
     assert port_lines[0].startswith("version:")
     assert any(ln.startswith("installdirs:prefix:") for ln in port_lines)
 

@@ -152,14 +152,15 @@ def test_segmented_hbm_byte_identical():
 
 def _gens(fn):
     """fn(comm) -> number of ops; returns (ops, rendezvous generations
-    those ops took) per rank."""
+    those ops took) per rank.  The closing Barrier is one generation of
+    the same rendezvous (a thread world's Barrier meets in coll/sm)."""
     def wrapped(comm):
         rv = device._get_rendezvous(comm)
         comm.Barrier()
         g0 = rv.gen
         ops = fn(comm)
         comm.Barrier()
-        return ops, rv.gen - g0
+        return ops, rv.gen - g0 - 1
     return port_run_ranks(4, wrapped, device_map=lambda r: CPU)
 
 
@@ -364,7 +365,9 @@ def test_below_the_crossover_is_one_meeting_one_call(kind, monkeypatch):
         comm.Barrier()
         if rv is None:
             return _bytes(y), None
-        return _bytes(y), (rv.gen - g0, pipeline.pv_segments.read() - s0,
+        # the closing Barrier meets at the same rendezvous (coll/sm)
+        return _bytes(y), (rv.gen - g0 - 1,
+                           pipeline.pv_segments.read() - s0,
                            plan.pv_builds.read() - b0)
 
     with knobs(dict(PLAN_ON, coll_pipeline_min_bytes=4096)):

@@ -130,6 +130,10 @@ def test_port_imports_no_jax_and_no_reference():
             "ompi_tpu_torch.serve.controller, ompi_tpu_torch.obs.reqtrace, "
             "ompi_tpu_torch.pml.persistent, ompi_tpu_torch.pml.monitoring, "
             "ompi_tpu_torch.pml.vprotocol, ompi_tpu_torch.cr, "
+            "ompi_tpu_torch.comm.intercomm, ompi_tpu_torch.comm.dpm, "
+            "ompi_tpu_torch.coll.inter, ompi_tpu_torch.coll.sm, "
+            "ompi_tpu_torch.coll.seg, ompi_tpu_torch.tools.top, "
+            "ompi_tpu_torch.tools.attach, "
             + ", ".join(_example_imports()) + "\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "

@@ -461,7 +461,6 @@ def test_traced_world_structural_parity(tmp_path):
     phase spans, the same (cid, seq) keys, the same ob1 match ids; the
     triggering rank's dispatch/execute phases match as world totals.
     The results are the same bytes."""
-    ref_registry.set("coll_sm_priority", "10")
     ref = _world(ref_run_ranks, lambda a, c: jax.device_put(a, c.device),
                  ref_op, lambda r: jax.devices()[0], tmp_path / "ref")
     port = _world(run_ranks, lambda a, c: torch.from_numpy(a), port_op,

@@ -187,11 +187,9 @@ def test_replay_larger_than_shm_ring():
 
 def test_coordinated_checkpoint_gc_clears_log(pkg, tmp_path):
     """The coordinated checkpoint clears the log at its quiesce point:
-    every user message logged before it is gone.  What the log holds
-    after it is the checkpoint's own collectives past that point (its
-    sequence Bcast and Barriers) where they ride the pml: none in the
-    reference, whose thread worlds meet in coll/sm, internal-tag
-    entries in the port (coll/sm is not ported, ROADMAP.md A9c)."""
+    every user message logged before it is gone.  The checkpoint's own
+    collectives past that point (its sequence Bcast and Barriers) meet
+    in coll/sm in both packages' thread worlds, so the log is empty."""
     def fn(comm):
         v = pkg.find(comm.state.pml)
         x = np.full(4, comm.rank + 1.0)
@@ -206,9 +204,7 @@ def test_coordinated_checkpoint_gc_clears_log(pkg, tmp_path):
         assert v.log_bytes == sum(len(e[4]) for e in left) <= 8
         return len(left)
 
-    left = pkg.run_ranks(2, fn)
-    assert left == ([0, 0] if pkg.name == "ref" else left) and \
-        all(n <= 3 for n in left)
+    assert pkg.run_ranks(2, fn) == [0, 0]
 
 
 def test_receiver_ack_gc_log_plateaus(pkg, tmp_path):
