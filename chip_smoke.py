@@ -490,6 +490,32 @@ Phases, each fatal on failure (nothing is caught and carried on):
              8 MiB f64 host Allreduce between the 4 process ranks
              through seg and through the tuned p2p route that ``--mca
              coll ^seg`` selects, A B B A in one job.
+18. flat   — the flat MPI_* surface (ompi_tpu_torch.mpi, mpit,
+             attrs, errhandler, memchecker), through
+             ompi_tpu_torch.testing.flat's rank programs.  18a: 8
+             rank-threads on the card take the world from
+             MPI_COMM_WORLD(), attach an attribute whose keyval copies
+             (the copy function runs once a rank), MPI_Comm_dup, set
+             MPI_ERRORS_RETURN on the duplicate, with
+             pml_monitoring_enable on; 20 allreduce_arr 8 MiB f32 SUM on
+             it between MPI_T pvar sessions: K1 exactly 20, in the float
+             SUM band; coll_plan_builds 8 and coll_plan_hits 152 (read
+             between Barriers), and each rank's
+             pml_monitoring_filtered_count / _size 20 and 20 x 8 MiB to
+             each other rank (16a's counts); then MPI_Allreduce and
+             PMPI_Allreduce of 8 B and 8 MiB int64 host buffers through
+             coll/sm, byte for byte numpy's.  18b: opal_memchecker_enable
+             on, 2 rank-threads: an 8 MiB f32 card tensor by
+             send_arr / recv_arr keeps plain torch's digest; an 8 MiB
+             MPI_Isend changed before MPI_Wait raises the memchecker's
+             error naming the request; a posted MPI_Irecv reads 0xCB.
+             18c: a duplicate with a handler from
+             MPI_Comm_create_errhandler: an MPI_Bcast with its root out
+             of range calls it once a rank with MPI_ERR_OTHER (the
+             reference's class) and raises; the next allreduce_arr on
+             that comm launches K1 once, in the band; MPI_Comm_free runs
+             the attribute's delete function.  Phase 18's launches join
+             the kernels line.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Exits non-zero without a
@@ -8090,6 +8116,139 @@ def phase_inter(dev, devices: str = "auto") -> dict:
     return {k: la[k] + lb[k] for k in la}
 
 
+FLAT_N = 20            # 18a: allreduce_arr ops on the duplicate
+FLAT_MIB = 8           # 18a/18b/18c: the float32 card tensor a rank
+FLAT_HOST = (8, 8 * MIB)  # 18a: bytes of the host (P)MPI_Allreduce
+FLAT_CHECK_MIB = 8     # 18b: the host MPI_Isend / MPI_Irecv (rendezvous)
+
+
+def _flat_ref(n: int, dev):
+    """(sum x_r, sum |x_r|) in float64 over testing.flat's inputs."""
+    from ompi_tpu_torch.testing import flat
+    xs = [flat.values(r, n, dev).double() for r in range(NRANKS)]
+    return sum(xs), sum(x.abs() for x in xs)
+
+
+def phase_flat_headline(dev) -> dict:
+    """18a (see the module docstring).  Returns its launches."""
+    from ompi_tpu_torch.testing import flat
+    n = FLAT_MIB * MIB // 4
+    with _knobs(pml_monitoring_enable=1):
+        res, launches = _ft_launch_run(
+            flat.headline(dev, n, FLAT_N, FLAT_HOST), NRANKS,
+            lambda r: dev)
+    want = {**{k: 0 for k in launches}, "stacked_reduce": FLAT_N}
+    if launches != want:
+        raise AssertionError(f"18a launches {_ft_counted(launches)}, "
+                             f"expected K1 {FLAT_N}")
+    ref = _flat_ref(n, dev)
+    err = 0.0
+    for r, out in enumerate(res):
+        other = [0 if p == r else 1 for p in range(NRANKS)]
+        want_pv = {"pml_monitoring_filtered_count": [FLAT_N * o
+                                                     for o in other],
+                   "pml_monitoring_filtered_size": [FLAT_N * 4 * n * o
+                                                    for o in other],
+                   "coll_plan_builds": NRANKS,
+                   "coll_plan_hits": NRANKS * (FLAT_N - 1)}
+        if out["copies"] != [r] or out["attr"] != (True, r + 1) or \
+                not out["errhandler"]:
+            raise AssertionError(f"18a rank {r}: copy calls "
+                                 f"{out['copies']}, attribute "
+                                 f"{out['attr']}, errhandler "
+                                 f"{out['errhandler']}")
+        if out["pvars"] != want_pv:
+            raise AssertionError(f"18a rank {r}: MPI_T deltas "
+                                 f"{out['pvars']}, expected {want_pv}")
+        err = max(err, _in_band(out["y"], ref, NRANKS, f"18a rank {r}"))
+        if out["host_provider"] != "sm" or any(
+                a != flat.host_sum(NRANKS, nb) or b != a
+                for (a, b), nb in zip(out["host"], FLAT_HOST)):
+            raise AssertionError(f"18a rank {r}: host (P)MPI_Allreduce "
+                                 f"by {out['host_provider']} differs "
+                                 "from numpy's")
+    log(f"[flat] 18a 8 ranks on {dev} through MPI handles: "
+        f"MPI_COMM_WORLD(), a copying attribute (1 copy a rank), "
+        f"MPI_Comm_dup, MPI_ERRORS_RETURN, pml_monitoring_enable; "
+        f"allreduce_arr {FLAT_MIB} MiB f32 SUM x {FLAT_N}: launches "
+        f"{_ft_counted(launches)}, exact; MPI_T deltas a rank: "
+        f"coll_plan_builds {NRANKS}, coll_plan_hits "
+        f"{NRANKS * (FLAT_N - 1)}, filtered_count {FLAT_N} and "
+        f"filtered_size {FLAT_N * 4 * n} to each of the 7 others (16a's "
+        f"counts); max error {err:.3e} (in the float SUM band); "
+        f"MPI_Allreduce and PMPI_Allreduce of {FLAT_HOST[0]} B and "
+        f"{FLAT_HOST[1]} B i64 by sm, byte for byte numpy's")
+    return launches
+
+
+def phase_flat_memcheck(dev) -> dict:
+    """18b (see the module docstring).  Returns its launches."""
+    from ompi_tpu_torch.testing import flat
+    n = FLAT_MIB * MIB // 4
+    with _knobs(opal_memchecker_enable=1):
+        res, launches = _ft_launch_run(
+            flat.memcheck(dev, n, FLAT_CHECK_MIB * MIB), 2, lambda r: dev)
+    (err, sent), (kind, got, posted, done) = res
+    if kind != dev.type or got != sent or \
+            sent != flat.digest(flat.values(0, n, dev)):
+        raise AssertionError(f"18b send_arr: a {kind} tensor of digest "
+                             f"{got}, sent {sent}")
+    if not (err or "").startswith("memchecker: send buffer of rendezvous "
+                                  "send req "):
+        raise AssertionError(f"18b MPI_Isend's changed buffer: {err!r}")
+    if posted != b"\xcb" or done != b"\x00":
+        raise AssertionError(f"18b MPI_Irecv: posted {posted!r}, "
+                             f"received {done!r}")
+    log(f"[flat] 18b 2 ranks on {dev}, opal_memchecker_enable 1: "
+        f"send_arr {FLAT_MIB} MiB f32 card tensor, plain torch's digest; "
+        f"MPI_Isend {FLAT_CHECK_MIB} MiB changed before MPI_Wait: "
+        f"{err.split(' was ')[0]!r} raised; the posted MPI_Irecv read "
+        f"0xCB; launches {_ft_counted(launches)}")
+    return launches
+
+
+def phase_flat_errhandler(dev) -> dict:
+    """18c (see the module docstring).  Returns its launches."""
+    from ompi_tpu_torch import errhandler
+    from ompi_tpu_torch.testing import flat
+    n = FLAT_MIB * MIB // 4
+    res, launches = _ft_launch_run(flat.errhandlers(dev, n), NRANKS,
+                                   lambda r: dev)
+    want = {**{k: 0 for k in launches}, "stacked_reduce": 1}
+    if launches != want:
+        raise AssertionError(f"18c launches {_ft_counted(launches)}, "
+                             "expected K1 1")
+    ref = _flat_ref(n, dev)
+    err = 0.0
+    for r, (calls, raised, y, deleted) in enumerate(res):
+        if calls != [(True, errhandler.ERR_OTHER)] or raised is None \
+                or deleted != [100 + r]:
+            raise AssertionError(f"18c rank {r}: handler calls {calls}, "
+                                 f"raised {raised}, delete calls "
+                                 f"{deleted}")
+        err = max(err, _in_band(y, ref, NRANKS, f"18c rank {r}"))
+    log(f"[flat] 18c 8 ranks on {dev}: MPI_Bcast with root out of range "
+        f"on a duplicate with a user errhandler: 1 call a rank with "
+        f"MPI_ERR_OTHER ({errhandler.ERR_OTHER}), the error raised; the "
+        f"next allreduce_arr {FLAT_MIB} MiB f32 SUM: launches "
+        f"{_ft_counted(launches)}, exact, max error {err:.3e} (in the "
+        f"float SUM band); MPI_Comm_free ran the delete function once a "
+        f"rank")
+    return launches
+
+
+def phase_flat(dev) -> dict:
+    """Phase 18: 18a (phase_flat_headline), 18b (phase_flat_memcheck),
+    18c (phase_flat_errhandler).  Returns their launches (they join the
+    kernels line)."""
+    t0 = time.perf_counter()
+    la = phase_flat_headline(dev)
+    lb = phase_flat_memcheck(dev)
+    lc = phase_flat_errhandler(dev)
+    log(f"[flat] phase 18 {time.perf_counter() - t0:.1f} s")
+    return {k: la[k] + lb[k] + lc[k] for k in la}
+
+
 def main(argv) -> int:
     """``--cards``: build, then the one-rank-a-card branch alone (for a
     host with two or more cards); no argument: every phase.
@@ -8209,6 +8368,9 @@ def main(argv) -> int:
     i_launches = phase_inter(dev)
     for r in rows:  # and phase 17a/17b's, the interleaved steps'
         r["launches"] += i_launches.get(r["name"].split(":")[0], 0)
+    l_launches = phase_flat(dev)
+    for r in rows:  # and phase 18's, the flat surface's
+        r["launches"] += l_launches.get(r["name"].split(":")[0], 0)
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

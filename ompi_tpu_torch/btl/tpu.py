@@ -376,14 +376,15 @@ class TpuRndvEngine:
                     # the restore-grace GC dropped this transfer as
                     # unclaimed, but the receiver's re-pull was just
                     # slow: the data is gone — say so loudly so the
-                    # receiver's hang is diagnosable
-                    import sys
-                    sys.stderr.write(
-                        f"btl_tpu: pull for restored transfer "
+                    # receiver's hang is diagnosable (raise
+                    # btl_tpu_restore_grace_s)
+                    from ompi_tpu_torch.util import output
+                    output.get_stream("btl_tpu").output(
+                        f"pull for restored transfer "
                         f"{pull.xfer_id} arrived after the "
                         f"restore-grace GC discarded it; the "
                         f"receiver's recv_arr cannot complete "
-                        f"(raise btl_tpu_restore_grace_s)\n")
+                        f"(raise btl_tpu_restore_grace_s)")
                 continue  # duplicate/late pull
             flat, _, nchunks, per, ev = entry
             comm = self.state.comms.get(pull.cid)

@@ -112,10 +112,6 @@ class Communicator:
     # attributes — no dict.get() call
     _coll_seq = 0
     _dev_seq = 0
-    # the comm's error handler (None: dispatch resolves through the
-    # world communicator's, then ERRORS_RETURN); shrink and rejoin
-    # hand it on to the communicator they build
-    errhandler: Any = None
 
     def __init__(self, state, cid: int, group: Group, name: str = "") -> None:
         self.state = state
@@ -125,6 +121,13 @@ class Communicator:
         self.rank = group.rank_of(state.rank)
         self.size = group.size
         self.coll: Any = None       # collective module stack (coll framework)
+        # Python surface default is ERRORS_RETURN (raising IS the
+        # error return; install ERRORS_ARE_FATAL for C semantics —
+        # see ompi_tpu_torch/errhandler.py, ref: ompi/errhandler)
+        from ompi_tpu_torch import errhandler as _eh
+        self.errhandler = _eh.ERRORS_RETURN
+        self.attrs: Dict[int, Any] = {}
+        self.info = None  # MPI_Info hints (Set_info/Get_info)
         self.topo = None            # process topology (ompi_tpu_torch.topo)
         state.comms[cid] = self
         # stack collective modules (coll_base_comm_select analog);
@@ -189,11 +192,26 @@ class Communicator:
 
     # -- management operations ------------------------------------------
     def dup(self, name: str = "") -> "Communicator":
+        from ompi_tpu_torch import attrs as _attrs
         cid = self.next_cid()
         new = Communicator(self.state, cid, Group(self.group),
                            name or f"{self.name}-dup")
         new.topo = self.topo  # MPI_Comm_dup carries the topology over
+        new.errhandler = self.errhandler
+        if self.info is not None:
+            new.info = self.info.dup()
+        _attrs.copy_all(self, new)  # attribute copy callbacks
         return new
+
+    def idup(self, name: str = ""):
+        """MPI_Comm_idup (ref: ompi/mpi/c/comm_idup.c): returns
+        (newcomm, request).  The CID agreement runs eagerly — every
+        member is inside idup anyway (it is collective), so the
+        request is born complete; the value of the nonblocking form
+        is API fidelity, not overlap, at this altitude."""
+        from ompi_tpu_torch.pml.request import CompletedRequest
+        new = self.dup(name)
+        return new, CompletedRequest(self.state.progress)
 
     def create_group(self, group: Group, tag: int = 0
                      ) -> Optional["Communicator"]:
@@ -234,7 +252,9 @@ class Communicator:
             ok = 1 if agreed not in self.state.comms else 0
             all_ok = shim._allreduce_max_int(-ok, wire_tag)
             if all_ok == -1:
-                return Communicator(self.state, agreed, group)
+                new = Communicator(self.state, agreed, group)
+                new.errhandler = self.errhandler  # MPI: children inherit
+                return new
             self.state.comms.setdefault(agreed, None)
 
     def create(self, group: Group) -> Optional["Communicator"]:
@@ -244,7 +264,9 @@ class Communicator:
         if group.rank_of(self.state.rank) == UNDEFINED:
             self.state.comms.setdefault(cid, None)  # keep cid reserved
             return None
-        return Communicator(self.state, cid, group)
+        new = Communicator(self.state, cid, group)
+        new.errhandler = self.errhandler  # MPI: children inherit
+        return new
 
     def split(self, color: int, key: int = 0) -> Optional["Communicator"]:
         """MPI_Comm_split (ref: comm.c:406): gather (color,key) on
@@ -284,7 +306,9 @@ class Communicator:
         if not mine:
             self.state.comms.setdefault(cid, None)
             return None
-        return Communicator(self.state, cid, Group(mine))
+        new = Communicator(self.state, cid, Group(mine))
+        new.errhandler = self.errhandler  # MPI: children inherit
+        return new
 
     def split_type(self, split_type: int, key: int = 0
                    ) -> Optional["Communicator"]:
@@ -297,6 +321,8 @@ class Communicator:
         return self.split(UNDEFINED, key)
 
     def free(self) -> None:
+        from ompi_tpu_torch import attrs as _attrs
+        _attrs.delete_all(self)  # attribute delete callbacks
         self.state.comms.pop(self.cid, None)
         # keep the cid burned so in-flight traffic can't alias it
         self.state.comms.setdefault(self.cid, None)
@@ -395,11 +421,44 @@ class Communicator:
         from ompi_tpu_torch.ft import ulfm as _ulfm
         return _ulfm.shrink(self, name)
 
+    # -- error handlers (ref: ompi/errhandler) --------------------------
+    def Set_errhandler(self, handler) -> None:
+        self.errhandler = handler
+
+    def Get_errhandler(self):
+        return self.errhandler
+
+    def Call_errhandler(self, errorcode: int) -> None:
+        from ompi_tpu_torch import errhandler as _eh
+        _eh.dispatch(self, _eh.MPIException(errorcode))
+
+    # -- attributes (ref: ompi/attribute/attribute.c) -------------------
+    def Set_attr(self, keyval: int, value: Any) -> None:
+        from ompi_tpu_torch import attrs as _attrs
+        _attrs.set_attr(self, keyval, value)
+
+    def Get_attr(self, keyval: int):
+        from ompi_tpu_torch import attrs as _attrs
+        return _attrs.get_attr(self, keyval)
+
+    def Delete_attr(self, keyval: int) -> None:
+        from ompi_tpu_torch import attrs as _attrs
+        _attrs.delete_attr(self, keyval)
+
+    # -- info hints (ref: ompi/info/info.c) -----------------------------
+    def Set_info(self, info) -> None:
+        self.info = info
+
+    def Get_info(self):
+        from ompi_tpu_torch.info import Info
+        return self.info.dup() if self.info is not None else Info()
+
     # ------------------------------------------------------------------
     # Public MPI API (mpi4py-flavored buffer methods).  Buffer specs:
     # a numpy array (count/datatype inferred), or (buf, datatype), or
     # (buf, count, datatype).  Mirrors the C surface (ref:
-    # ompi/mpi/c/*.c) at Python altitude, as far as the port reaches.
+    # ompi/mpi/c/*.c) at Python altitude; the flat MPI_* names live in
+    # ompi_tpu_torch.mpi.
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -1047,3 +1106,42 @@ class Communicator:
     def __repr__(self) -> str:
         return (f"Communicator({self.name}, cid={self.cid}, "
                 f"rank={self.rank}/{self.size})")
+
+
+# ---------------------------------------------------------------------------
+# errhandler-guarded dispatch: every public operation routes raised
+# errors through the communicator's installed handler
+# (ref: OMPI_ERRHANDLER_INVOKE wrapping each ompi/mpi/c binding).
+# With the default ERRORS_RETURN this re-raises unchanged; with
+# ERRORS_ARE_FATAL the job aborts; user handlers run first.
+# ---------------------------------------------------------------------------
+
+def _guard(method):
+    import functools
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        try:
+            return method(self, *args, **kwargs)
+        except (SystemExit, KeyboardInterrupt):
+            raise
+        except BaseException as exc:  # noqa: BLE001
+            from ompi_tpu_torch import errhandler as _eh
+            _eh.dispatch(self, exc)
+
+    return wrapped
+
+
+_GUARDED = (
+    "Send", "Recv", "Isend", "Irecv", "Ssend", "Rsend", "Bsend",
+    "Sendrecv", "Probe", "Iprobe", "Mprobe", "Mrecv",
+    "Barrier", "Bcast", "Reduce", "Allreduce", "Allgather",
+    "Allgatherv", "Gather", "Gatherv", "Scatter", "Scatterv",
+    "Alltoall", "Alltoallv", "Reduce_scatter", "Reduce_scatter_block",
+    "Scan", "Exscan",
+)
+for _name in _GUARDED:
+    _m = getattr(Communicator, _name, None)
+    if _m is not None:
+        setattr(Communicator, _name, _guard(_m))
+del _name, _m

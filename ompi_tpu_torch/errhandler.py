@@ -1,4 +1,4 @@
-"""Error handlers + MPI error classes: the part the RMA windows use.
+"""Error handlers + MPI error classes.
 
 Port of the reference package's errhandler module (ref:
 ompi/errhandler/errhandler.h — per-object handler dispatch; error
@@ -74,9 +74,38 @@ _CLASS_NAMES = {
 }
 
 
+_user_classes: dict = {}
+_next_user_code = [ERR_LASTCODE + 1]
+
+
 def error_string(code: int) -> str:
     """MPI_Error_string analog (ref: ompi/errhandler/errcode.c)."""
+    if code in _user_classes:
+        return _user_classes[code]
     return f"MPI_{_CLASS_NAMES.get(code, 'ERR_UNKNOWN')}"
+
+
+def add_error_class() -> int:
+    """MPI_Add_error_class (ref: ompi/mpi/c/add_error_class.c)."""
+    code = _next_user_code[0]
+    _next_user_code[0] += 1
+    _user_classes[code] = f"user error class {code}"
+    return code
+
+
+def add_error_code(errorclass: int) -> int:
+    """MPI_Add_error_code: a new code within an existing class (codes
+    and classes share the registry here, like our identity
+    Error_class mapping)."""
+    code = _next_user_code[0]
+    _next_user_code[0] += 1
+    _user_classes[code] = _user_classes.get(
+        errorclass, f"user error class {errorclass}")
+    return code
+
+
+def add_error_string(code: int, text: str) -> None:
+    _user_classes[code] = text
 
 
 class MPIException(Exception):
@@ -134,6 +163,37 @@ ERRORS_ARE_FATAL = Errhandler(None, "MPI_ERRORS_ARE_FATAL")
 ERRORS_RETURN = Errhandler(None, "MPI_ERRORS_RETURN")
 ERRORS_ABORT = Errhandler(None, "MPI_ERRORS_ABORT")  # MPI-4 alias
 
+# The world communicator's default is wired EXPLICITLY at mpi_init
+# (never reached through the dispatch fallback): MPI's C default is
+# MPI_ERRORS_ARE_FATAL, but in this binding raising IS the error-return
+# mechanism (the mpi4py stance — mpi4py likewise installs ERRORS_RETURN
+# on the predefined communicators), so 'return' stays the default and
+# 'fatal'/'abort' restore the reference behavior per job.
+_world_default_var = None
+
+
+def _world_var():
+    global _world_default_var
+    if _world_default_var is None:
+        from ompi_tpu_torch.mca.params import registry
+        _world_default_var = registry.register(
+            "mpi", "errhandler", "world_default", "return", str,
+            help="Error handler installed on the predefined "
+                 "communicators (COMM_WORLD/COMM_SELF) at MPI_Init: "
+                 "'return' (raise MPIException, the mpi4py stance), "
+                 "'fatal' (the reference C default MPI_ERRORS_ARE_FATAL"
+                 " — abort the job via the rte), 'abort' (the MPI-4 "
+                 "MPI_ERRORS_ABORT alias)")
+    return _world_default_var
+
+
+def world_default() -> Errhandler:
+    """Resolve mpi_errhandler_world_default into the handler object
+    mpi_init installs on COMM_WORLD/COMM_SELF."""
+    return {"fatal": ERRORS_ARE_FATAL,
+            "abort": ERRORS_ABORT}.get(
+                _world_var().value.strip().lower(), ERRORS_RETURN)
+
 
 def attach_api(cls) -> None:
     """Install Set/Get/Call_errhandler methods on an MPI object class
@@ -160,13 +220,15 @@ def dispatch(obj, exc: BaseException, state=None):
     runs fn(obj, code) first, then the exception propagates.
 
     A handler-less object resolves through the world communicator's
-    installed handler when a state is reachable, else ERRORS_RETURN
-    (the port has no MCA choice of the job default yet)."""
+    installed handler when a state is reachable (the reference routes
+    object-less errors to MPI_COMM_WORLD's handler, ref:
+    ompi/errhandler/errhandler.h OMPI_ERRHANDLER_INVOKE(NULL,...));
+    only with no state at all does the wired job default apply."""
     handler = getattr(obj, "errhandler", None)
     if handler is None:
         st = state or getattr(obj, "state", None)
         cw = getattr(st, "comm_world", None) if st is not None else None
-        handler = getattr(cw, "errhandler", None) or ERRORS_RETURN
+        handler = getattr(cw, "errhandler", None) or world_default()
     code = classify(exc)
     if handler in (ERRORS_ARE_FATAL, ERRORS_ABORT):
         st = state or getattr(obj, "state", None)

@@ -1,10 +1,7 @@
 """MPI_Comm_join driver: the port's copy of the reference's
 ``tests/_join_prog.py``.  Rank 0 listens on a localhost socket, rank 1
 dials it; both join over the connected fd, sendrecv across the
-resulting 1-1 intercomm, and verify.  The reference spells the join
-``mpi.MPI_Comm_join(fd)``; the port has no flat MPI surface yet, so
-this copy calls ``dpm.comm_join(comm_self, fd)``, which that spelling
-wraps.
+resulting 1-1 intercomm, and verify.
 
     python -m ompi_tpu_torch.tools.mpirun -np 2 \\
         ompi_tpu_torch/examples/join_prog.py
@@ -14,7 +11,7 @@ import socket
 import numpy as np
 
 import ompi_tpu_torch
-from ompi_tpu_torch.comm import dpm
+from ompi_tpu_torch import mpi
 from ompi_tpu_torch.datatype import engine as dt
 
 comm = ompi_tpu_torch.init()
@@ -29,7 +26,7 @@ else:
     port = state.rte.modex_get(0, "join_port")
     conn = socket.create_connection(("127.0.0.1", int(port)))
 
-inter = dpm.comm_join(state.comm_self, conn.fileno())
+inter = mpi.MPI_Comm_join(conn.fileno())
 assert inter.size == 1 and inter.remote_size == 1
 pml = state.pml
 x = np.array([comm.rank], dtype=np.int64)

@@ -8,8 +8,8 @@ here with type/scope/level metadata.  Precedence (lowest to highest):
     defaults < param files < environment (TPUMPI_MCA_*) < CLI/API overrides
 
 Also hosts performance variables (pvars): monotonically increasing
-counters / watermarks for an MPI_T-style tool layer (the reference's
-tools.info and mpit; not ported yet).
+counters / watermarks for the MPI_T tool layer (tools.info and
+mpit).
 """
 
 from __future__ import annotations

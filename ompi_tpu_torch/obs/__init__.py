@@ -31,9 +31,6 @@ Registration is idempotent across looped worlds: ``register_pvars()``
 is guarded by a module flag, the recorder is a lazy process singleton,
 and ``attach(state)`` may run once per world without duplicating
 anything.
-
-Not ported yet (ROADMAP.md A9d): the MPI_T pvar snapshot that
-``local_metrics`` reads (mpit); it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -809,10 +806,12 @@ def local_metrics(events: int = 16, tracer=None,
                   prefix: Optional[str] = None) -> Dict[str, Any]:
     """Process-local metrics document: the full pvar registry, the
     latency histograms + derived percentiles, scoped-counter
-    attribution, and the flight-recorder tail.  ``prefix`` narrows the
-    pvar snapshot to one subsystem.  The pvar snapshot is the MPI_T
-    layer's (mpit), which the port does not have yet: this raises
-    NotImplementedError (ROADMAP.md A9)."""
+    attribution, and the flight-recorder tail.  Used by the tpud
+    ``metrics`` OOB op and as the building block of the pool's RPC.
+    ``prefix`` narrows the pvar snapshot to one subsystem (a fleet
+    scraper polling ``dvm_``/``ctrl_`` state does not ship the whole
+    registry per node per tick)."""
+    from ompi_tpu_torch import mpit
     if tracer is None:
         tracer = _trace.current_tracer()
     hists: Dict[str, List[int]] = {}
@@ -823,19 +822,13 @@ def local_metrics(events: int = 16, tracer=None,
             pcts[name] = hist_percentiles(h)
     return {
         "ts": time.time(),
-        "pvars": _pvar_snapshot(prefix),
+        "pvars": mpit.pvar_snapshot(prefix),
         "hists": hists,
         "percentiles": pcts,
         "scoped": scoped_snapshot(),
         "scoped_hists": scoped_hist_snapshot(),
         "events": recorder().snapshot(events),
     }
-
-
-def _pvar_snapshot(prefix: Optional[str]) -> Dict[str, Any]:
-    raise NotImplementedError(
-        "obs.local_metrics reads the MPI_T pvar snapshot (mpit), which "
-        "is not ported yet (ROADMAP.md A9)")
 
 
 def _prom_escape(s: str) -> str:

@@ -29,7 +29,7 @@ import itertools
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from ompi_tpu_torch import peruse
+from ompi_tpu_torch import memchecker, peruse
 from ompi_tpu_torch import trace as _trace
 from ompi_tpu_torch.datatype.convertor import Convertor, make_convertor
 from ompi_tpu_torch.mca.base import Component, frameworks
@@ -78,7 +78,8 @@ MSEG = "MG"        # segmented MATCH: vprotocol replay of payloads
 
 
 class SendRequest(Request):
-    __slots__ = ("conv", "req_id", "total", "dst", "cid", "acked", "tr")
+    __slots__ = ("conv", "req_id", "total", "dst", "cid", "acked",
+                 "mc_crc", "tr")
 
     def __init__(self, progress, conv, req_id, dst, cid=-1):
         super().__init__(progress)
@@ -254,6 +255,8 @@ class PmlOb1:
             ep.send((MATCH_SYNC, cid, src, tag, seq, gsrc,
                      req_id, payload))
         else:
+            if memchecker.enabled():
+                req.mc_crc = memchecker.send_checksum(conv)
             head = conv.pack_bytes(btl.eager_limit)
             self._send_reqs[req_id] = req
             ep.send((RNDV, cid, src, tag, seq, gsrc,
@@ -333,6 +336,8 @@ class PmlOb1:
             t0 = self._tracer.start_sampled(_CAT_P2P)
             if t0:
                 req.tr = [t0, 0, 0, 0, 0]
+        if memchecker.enabled() and buf is not None:
+            memchecker.poison_recv(conv)
         # match against buffered unexpected messages first
         msg = self._match_unexpected(req)
         if msg is not None:
@@ -680,6 +685,10 @@ class PmlOb1:
             # position-addressed: stripes across same-tier rails
             # (receiver coverage is interval-based, order-free)
             ep.send_striped((FRAG, rreq_id, pos, payload))
+        if memchecker.enabled():
+            memchecker.verify_send(
+                conv, getattr(req, "mc_crc", None),
+                f"rendezvous send req {sreq_id}")
         req._complete()
         if peruse.enabled:
             peruse.fire("req_complete", kind="send", bytes=req.total)

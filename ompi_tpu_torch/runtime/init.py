@@ -175,8 +175,17 @@ def mpi_init(state: ProcState, device=None) -> ProcState:
     state.comm_world = Communicator(state, band,
                                     Group(range(wbase, wbase + wsize)),
                                     name="MPI_COMM_WORLD")
+    from ompi_tpu_torch import attrs as _attrs
+    _attrs.init_world_attrs(state.comm_world)
     state.comm_self = Communicator(state, band + 1, Group([state.rank]),
                                    name="MPI_COMM_SELF")
+    # the predefined communicators' error handler is installed here
+    # and only here (mpi_errhandler_world_default); derived comms
+    # inherit from their parent, and the dispatch fallback for
+    # handler-less objects resolves through comm_world
+    from ompi_tpu_torch import errhandler as _eh
+    state.comm_world.errhandler = _eh.world_default()
+    state.comm_self.errhandler = state.comm_world.errhandler
     # 4. collective module stacks are installed by Communicator
     # construction itself (coll_base_comm_select analog)
     # 5. final fence before returning (sync #2, ref: :833-838)

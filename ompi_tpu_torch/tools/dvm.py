@@ -235,19 +235,6 @@ def _integrity_snapshot() -> list:
     return _integrity.convicted_snapshot()
 
 
-def _pvar_snapshot() -> Dict[str, Any]:
-    """Every pvar's current value keyed by full name, in registration
-    order (the metrics RPC's registry read; a getter error reads as
-    None rather than aborting the scrape)."""
-    out: Dict[str, Any] = {}
-    for p in registry.pvars_in_registration_order():
-        try:
-            out[p.full_name] = p.read()
-        except Exception:  # noqa: BLE001
-            out[p.full_name] = None
-    return out
-
-
 def _kernel_state():
     """({wrapper: launches}, [loaded kernel libraries]) of this process:
     the count every kernel wrapper of ``ompi_tpu_torch.kernels`` keeps
@@ -1310,6 +1297,7 @@ class DVMServer:
         Runs on the pool's client thread; everything it reads is either
         generation-stamped (scrape buffers), lock-free append-only
         (pvar values), or snapshotted under the recorder lock."""
+        from ompi_tpu_torch import mpit
         agg = [[0] * trace.N_BUCKETS for _ in trace.HIST_NAMES]
         scraped = 0
         sessions: Dict[str, dict] = {}
@@ -1380,7 +1368,7 @@ class DVMServer:
                 "want_capacity": self.ctrl.want_capacity,
             },
             "scraped_ranks": scraped,
-            "pvars": _pvar_snapshot(),
+            "pvars": mpit.pvar_snapshot(),
             "scoped": _obs.scoped_snapshot(),
             "scoped_hists": _obs.scoped_hist_snapshot(),
             "doctor_reports": len(self.doctor_reports),

@@ -9,7 +9,11 @@ full attention at the reference's tolerance (rtol 2e-4, atol 2e-5),
 and so is the reference's ring attention on the same Q, K, V (numpy
 draws from seed 0); the two outputs agree at that tolerance.  The
 other three run under the port's mpirun and print the reference
-programs' lines.
+programs' lines.  The two examples written against the flat MPI_*
+surface, ``ring_flat.py`` (on ``mpi.py``) and ``join_prog.py`` (on
+``MPI_Comm_join``), run under the port's mpirun and print the lines
+the reference's copies (examples/ring_flat.py, tests/_join_prog.py)
+print under its own.
 """
 
 import importlib.util
@@ -92,3 +96,22 @@ def test_halo_stencil_device_halo_on_rank_threads():
         assert (f"rank {k} coords [{k // 2}, {k % 2}] halo-mean 1.50 "
                 f"interior-mean {float(k):.2f}") in out, out
     assert out.count("halo-mean") == 4
+
+
+@pytest.mark.parametrize("prog,ref_prog,np_", [
+    ("ring_flat.py", os.path.join("examples", "ring_flat.py"), 4),
+    ("join_prog.py", os.path.join("tests", "_join_prog.py"), 2),
+])
+def test_flat_surface_example_matches_reference(prog, ref_prog, np_):
+    """The examples written against the flat MPI_* surface (the port's
+    ``mpi.py``; ``MPI_Comm_join``) print, under the port's mpirun, the
+    lines the reference's copies print under its own."""
+    from ompi_tpu.testing import mpirun_run as ref_mpirun_run
+    outs = []
+    for run, path in ((mpirun_run, os.path.join(EX, prog)),
+                      (ref_mpirun_run, ref_prog)):
+        r = run(np_, path, timeout=100, job_timeout=70)
+        assert r.returncode == 0, r.stderr.decode()[-2000:]
+        outs.append(sorted(r.stdout.decode().splitlines()))
+    assert outs[0] == outs[1]
+    assert outs[0], "the example printed nothing"

@@ -4,7 +4,9 @@ interrupt's suppression and deferral and its stale-fd repair
 (runtime/progress.py), the KV client's retry semantics
 (runtime/kvstore.py), shmem ``set_lock``'s ticket retirement on
 timeout (shmem/__init__.py), the rendezvous engine's epoch reset
-(``TpuRndvEngine.ft_reset``, btl/tpu.py), vprotocol's ack-watermark
+(``TpuRndvEngine.ft_reset``, btl/tpu.py) and its report of a pull
+that arrives after the restore-grace GC (on util.output's ``btl_tpu``
+stream, as the reference reports it), vprotocol's ack-watermark
 refresh (pml/vprotocol.py) and ``cr_arrived`` against transport
 duplicates (pml/ob1.py).
 
@@ -281,6 +283,35 @@ def test_rndv_engine_ft_reset_clears_tables(pkg):
     # xid would let a stale pull address a new transfer
     x3 = eng.begin_send(flat)
     assert x3 > max(x1, x2, 99)
+
+
+def test_rndv_engine_late_pull_reported_on_btl_tpu_stream(pkg):
+    """A pull that arrives after the restore-grace GC dropped its
+    transfer is reported through util.output's ``btl_tpu`` stream."""
+    import importlib
+    import io
+
+    output = importlib.import_module(
+        pkg.tpu.__name__.split(".")[0] + ".util.output")
+    pulls = [types.SimpleNamespace(payload=pkg.tpu._XferPull(99, 0, 1, 0,
+                                                             1))]
+    state = types.SimpleNamespace(
+        progress=types.SimpleNamespace(register=lambda *a, **k: None),
+        pml=types.SimpleNamespace(
+            poll_obj_any=lambda kind: pulls.pop() if pulls else None))
+    eng = pkg.tpu.TpuRndvEngine(state)
+    eng._gc_tombstones.add(99)
+    stream = output.get_stream("btl_tpu")
+    saved, stream.file = stream.file, io.StringIO()
+    try:
+        assert eng.progress() == 1
+        text = stream.file.getvalue()
+    finally:
+        stream.file = saved
+    assert text.startswith("[btl_tpu:")
+    assert "pull for restored transfer 99 arrived after the " \
+        "restore-grace GC discarded it" in text
+    assert eng.pending == {}
 
 
 # ---- vprotocol: periodic ack-watermark refresh ----------------------

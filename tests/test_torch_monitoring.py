@@ -7,7 +7,7 @@ with the reference beside it.
 The analogs of tests/test_mpit.py's monitoring tests that need no
 ``mpit`` (``counts_traffic``, ``dump``, ``disabled_no_wrap``,
 ``anytag_irecv_counts_as_user``); the ones that read the counters
-through ``mpit`` handles wait for that module (ROADMAP.md A9d).  Each
+through ``mpit`` handles are in tests/test_torch_mpit.py.  Each
 program runs through both packages on the same numpy inputs made from
 a seed, and the matrix rows are compared: byte for byte for
 point-to-point traffic, and for the device collectives on the routes

@@ -6,9 +6,11 @@ scraper, the percentile math and the Prometheus text.  The recorder's
 events come from the same injected silent-data-corruption run in both
 packages (the integrity plane and the ft_inject ``device_sdc``
 injector; the port's coll/hbm and mesh on the CPU with the kernels'
-plain versions).  The pool's metrics RPC, the watchdog knobs, the
-MPI_T snapshot is out of scope (it raises NotImplementedError in the
-port); the MPI-IO persist writes the plain persist's bytes.
+plain versions).  The local metrics document over the MPI_T pvar
+snapshot, and a node daemon's ``metrics`` request that answers with
+it; the memchecker hooks in ob1 (a posted receive poisoned, a send
+buffer changed in flight caught); the MPI-IO persist writes the plain
+persist's bytes.
 
 Tolerance: exact — counters, bands, buckets, percentiles, event fields
 and text; timestamps are compared only for their order.
@@ -23,11 +25,15 @@ import torch
 
 import ompi_tpu.ft_inject  # noqa: F401  (registers the injector knobs)
 import ompi_tpu.obs as ref_obs
+from ompi_tpu import memchecker as ref_memchecker
+from ompi_tpu.datatype import engine as ref_dtmod
 from ompi_tpu.mca.params import registry as ref_registry
 from ompi_tpu.obs import integrity as ref_ig
 from ompi_tpu.op import op as ref_op
 from ompi_tpu.testing import run_ranks as ref_run_ranks
+import ompi_tpu_torch.datatype.engine
 import ompi_tpu_torch.ft_inject  # noqa: F401
+import ompi_tpu_torch.memchecker
 from ompi_tpu_torch import convert
 from ompi_tpu_torch import obs
 from ompi_tpu_torch import trace as port_trace
@@ -255,8 +261,8 @@ def test_injected_sdc_events_match_reference(tier):
 def test_trace_dump_loads_in_traceview(tmp_path):
     """The ring's trace dump, persisted as a plain file, loads in the
     port's traceview as a flight document; persist(comm=...) writes
-    the same bytes through MPI-IO (rank 0 lays them down); local_metrics
-    raises (mpit is not ported)."""
+    the same bytes through MPI-IO (rank 0 lays them down); the local
+    metrics document carries the pvar snapshot, in both packages."""
     from ompi_tpu_torch.tools import traceview
     r = obs.FlightRecorder(16)
     r.record(obs.EV_SDC_MISMATCH, 4, 7, obs.intern("allreduce"), rank=2)
@@ -275,8 +281,12 @@ def test_trace_dump_loads_in_traceview(tmp_path):
         == [cpath, cpath]
     with open(cpath, "rb") as a, open(path, "rb") as b:
         assert a.read() == b.read()
-    with pytest.raises(NotImplementedError, match="A9"):
-        obs.local_metrics()
+    for mod, _ in PKGS:
+        m = mod.local_metrics(events=4)
+        assert set(m) >= {"ts", "pvars", "hists", "percentiles",
+                          "scoped", "events"}
+        assert isinstance(m["pvars"], dict) and m["pvars"]
+        assert "obs_events_recorded" in m["pvars"]
 
 
 # -- scrape, percentiles, Prometheus ------------------------------------------
@@ -368,3 +378,133 @@ def test_register_pvars_once():
     assert pv.read() == obs.recorder().recorded
     assert port_registry._pvars["obs_events_dropped"].read() == \
         obs.recorder().dropped
+
+
+# -- memchecker hooks in ob1 --------------------------------------------------
+
+def _memchecked(reg, run):
+    reg.set("opal_memchecker_enable", True)
+    try:
+        return run()
+    finally:
+        reg.set("opal_memchecker_enable", False)
+
+
+@pytest.mark.parametrize("which", ["port", "ref"])
+def test_memchecker_poisons_recv_buffer(which):
+    """A posted, unmatched receive buffer holds the poison pattern
+    until the message lands."""
+    mc = ompi_tpu_torch.memchecker if which == "port" else ref_memchecker
+    reg, run = ((port_registry, port_run_ranks) if which == "port"
+                else (ref_registry, ref_run_ranks))
+    payload = np.random.default_rng(11).integers(0, 256, 4, np.uint8)
+
+    def fn(comm):
+        if comm.rank == 0:
+            y = np.zeros(4, np.uint8)
+            rq = comm.Irecv(y, 1, tag=9)
+            poisoned = bytes(y)
+            comm.Send(np.zeros(1, np.uint8), 1, tag=8)  # release peer
+            rq.wait()
+            return poisoned, bytes(y)
+        comm.Recv(np.empty(1, np.uint8), 0, tag=8)
+        comm.Send(payload, 0, tag=9)
+        return None
+
+    res = _memchecked(reg, lambda: run(2, fn))
+    assert res[0] == (bytes([mc.POISON] * 4), payload.tobytes())
+
+
+@pytest.mark.parametrize("which", ["port", "ref"])
+def test_memchecker_catches_modified_send_buffer(which):
+    """A rendezvous send whose buffer changes while the request is in
+    flight raises at completion, naming the request."""
+    reg, run = ((port_registry, port_run_ranks) if which == "port"
+                else (ref_registry, ref_run_ranks))
+    dt = (ompi_tpu_torch.datatype.engine if which == "port"
+          else ref_dtmod)
+    big = 1024 * 1024  # above the inproc eager limit: rendezvous
+
+    def fn(comm):
+        if comm.rank == 0:
+            x = np.zeros(big, np.uint8)
+            rq = comm.state.pml.isend(x, big, dt.BYTE, 1, 11, comm)
+            x[0] = 99  # illegal: buffer owned by an active request
+            try:
+                while not rq.complete:
+                    comm.state.progress.progress()
+                return "not caught"
+            except RuntimeError as e:
+                return str(e).split(" was ")[0]
+        y = np.empty(big, np.uint8)
+        comm.Recv(y, 0, tag=11)
+        return int(y[0])
+
+    res = _memchecked(reg, lambda: run(2, fn))
+    assert res[0].startswith("memchecker: send buffer of rendezvous "
+                             "send req ")
+    assert res[1] in (0, 99)
+
+
+def test_memchecker_leaves_tensor_transfers_alone():
+    """With the checker on, a tensor's send_arr / recv_arr (btl/tpu,
+    not ob1's host convertor) carries its bytes unchanged."""
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        1 << 16).astype(np.float32))
+
+    def fn(comm):
+        if comm.rank == 0:
+            comm.send_arr(x, 1, tag=4)
+            return None
+        return comm.recv_arr(0, tag=4).numpy().tobytes()
+
+    res = _memchecked(port_registry, lambda: port_run_ranks(
+        2, fn, device_map=lambda r: CPU))
+    assert res[1] == x.numpy().tobytes()
+
+
+# -- a node daemon's metrics request -----------------------------------------
+
+def test_tpud_metrics_request_answers_with_pvars():
+    """tpud's ``metrics`` op (the HNP asking a node for its telemetry)
+    replies with the local metrics document, pvars included."""
+    import queue
+    import socket
+    import subprocess
+    import sys
+
+    from ompi_tpu_torch.runtime import oob
+
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    addr = f"127.0.0.1:{lst.getsockname()[1]}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpud", "--hnp", addr,
+         "--name", "n1", "--node", "1"], stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    got = queue.Queue()
+    try:
+        lst.settimeout(60)
+        sock, _ = lst.accept()
+        chan = oob.Channel(sock, got.put)
+        assert got.get(timeout=60)["op"] == "register"
+        chan.send({"op": "metrics", "events": 2, "prefix": "trace_hist_"})
+        msg = got.get(timeout=60)
+        while msg["op"] != "metrics":
+            msg = got.get(timeout=60)
+        m = msg["metrics"]
+        assert "error" not in m, m
+        assert (msg["node"], msg["name"]) == (1, "n1")
+        assert m["pvars"] and all(k.startswith("trace_hist_")
+                                  for k in m["pvars"])
+        assert m["pvars"]["trace_hist_bucket_bounds_us"] == \
+            port_registry._pvars["trace_hist_bucket_bounds_us"].read()
+        chan.send({"op": "exit"})
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()[-2000:]
+        chan.close()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        lst.close()

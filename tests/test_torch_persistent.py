@@ -5,8 +5,8 @@
 with the reference beside it.
 
 The analogs of tests/test_persistent.py's ten tests that need no flat
-``mpi.py`` surface; its three ``test_flat_mpi_*`` tests wait for that
-module (ROADMAP.md A9d).  Each test body runs once through each
+``mpi.py`` surface; its three ``test_flat_mpi_*`` tests are in
+tests/test_torch_mpi_surface.py.  Each test body runs once through each
 package (ids ``port`` and ``ref``) on the same numpy payloads made
 from a seed, and the two packages' results are compared where a test
 returns values.  Tolerance: bytes.

@@ -133,7 +133,10 @@ def test_port_imports_no_jax_and_no_reference():
             "ompi_tpu_torch.comm.intercomm, ompi_tpu_torch.comm.dpm, "
             "ompi_tpu_torch.coll.inter, ompi_tpu_torch.coll.sm, "
             "ompi_tpu_torch.coll.seg, ompi_tpu_torch.tools.top, "
-            "ompi_tpu_torch.tools.attach, "
+            "ompi_tpu_torch.tools.attach, ompi_tpu_torch.mpi, "
+            "ompi_tpu_torch.mpit, ompi_tpu_torch.attrs, "
+            "ompi_tpu_torch.memchecker, ompi_tpu_torch.util.output, "
+            "ompi_tpu_torch.runtime.dfs, ompi_tpu_torch.testing.flat, "
             + ", ".join(_example_imports()) + "\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "

@@ -16,9 +16,9 @@ recording hot path retains nothing; the wall clock is read once), the
 pvar and dump surfaces, the traceview CLI, the extended PERUSE events
 and the hot-path audit.
 
-Left out: the pml/monitoring dump and pstat pvar cases of
-tests/test_trace.py (its last three tests).  Monitoring and pstat are
-not ported yet; they come with ROADMAP.md A9.
+The pml/monitoring dump cases of tests/test_trace.py (two of its last
+three tests) are tests/test_torch_monitoring.py's; its pstat case is
+``test_pstat_pvars_idempotent_across_worlds`` here.
 """
 
 import gc
@@ -418,10 +418,8 @@ _TRIGGER_PHASES = ("ph_dispatch", "ph_execute")
 
 
 def _world(run, put, op, device_map, tmp_path):
-    """The traced 4-rank world.  The reference's thread worlds route
-    host-buffer collectives through coll/sm (a rendezvous), which the
-    port has not yet (ROADMAP.md A9); its priority drops under tuned's
-    here so that both packages take the same p2p algorithms."""
+    """The traced 4-rank world; both packages' thread worlds route
+    host-buffer collectives through coll/sm (a rendezvous)."""
     def fn(comm):
         _traffic(comm, op)
         x = put(np.arange(4099, dtype=np.float32) + comm.rank, comm)
@@ -657,3 +655,22 @@ def test_divergence_compile_span_is_kernel_load(monkeypatch):
 
     (got,) = run_ranks(1, fn)
     assert got == [("kernel_load", "compile", {"key": "stacked"})]
+
+
+# -- pstat pvar idempotency -------------------------------------------------
+
+def test_pstat_pvars_idempotent_across_worlds():
+    """Looped worlds register each rank's opal_pstat_ pvars once, in
+    both packages: the same names, never a duplicate."""
+    names = {}
+    for run, reg in ((run_ranks, registry), (ref_run_ranks, ref_registry)):
+        for _ in range(4):
+            run(2, lambda comm: comm.Barrier())
+            got = [p.full_name for p in reg.all_pvars()
+                   if p.full_name.startswith("opal_pstat_")]
+            assert len(set(got)) == len(got)
+            names.setdefault(reg, got)
+            assert got == names[reg]
+    for got in names.values():
+        assert {f"opal_pstat_{k}_r{r}" for k in ("rss_mb", "threads")
+                for r in (0, 1)} <= set(got)
