@@ -3942,8 +3942,9 @@ TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 TRACE_ON = {"trace_enable": 1, "trace_phase_enable": 1,
             "trace_sample_auto": 0, "trace_buffer_events": 1 << 16}
 TRACE_WARM = 3          # warm-up calls a rank before the timed ones
-LABELS = ("rendezvous", "pack", "dispatch", "execute", "unpack",
-          "compile")
+# the host's phases of a call; critpath's "execute" is the body's time on
+# the card (meet_device), reported beside the split, never inside it
+LABELS = ("rendezvous", "lock", "pack", "dispatch", "unpack", "compile")
 STRAGGLER = 3           # the rank the delay injector holds
 STRAGGLE = {"ft_inject_plan": "delay:1.0", "ft_inject_skip": 0,
             "ft_inject_delay_ms": 40}
@@ -4026,13 +4027,15 @@ def phase_split(dumps) -> dict:
     allreduce_arr call on every rank, correlated by its (cid, seq); the
     first TRACE_WARM ops are skipped.  For each op and label, the phase
     spans inside each rank's call window, clipped to it: the op's
-    value is the largest rank's (dispatch and execute run on one rank,
-    the meeting's trigger), and the label's share is its time summed
-    over ranks and ops over the calls' summed time — a decomposition
-    of the rank threads' time in the call, with the rest unattributed.
-    Returns the median call µs, the median op µs (first entry to last
-    exit), per label (median µs an op, share) and the unattributed
-    share."""
+    value is the largest rank's (dispatch runs on one rank, the
+    meeting's trigger), and the label's share is its time summed over
+    ranks and ops over the calls' summed time — a decomposition of the
+    rank threads' time in the call, with the rest unattributed.  The
+    body's time on the card (``meet_device``) is no host phase: its
+    median over the timed ops' bodies is ``card_us``.  Returns the
+    median call µs, the median op µs (first entry to last exit), per
+    label (median µs an op, share), the unattributed share and
+    ``card_us`` with the number of bodies."""
     from ompi_tpu_torch.tools import critpath, traceview
     events = traceview.corrected_events(
         dumps, traceview.embedded_offsets(dumps))
@@ -4059,6 +4062,8 @@ def phase_split(dumps) -> dict:
             got = {}
             for e in critpath.contained_phases(call, idx):
                 lab = critpath.PHASE_OF[e["name"]]
+                if lab not in summed:
+                    continue
                 got[lab] = got.get(lab, 0.0) + \
                     critpath._clipped_phase_us(call, [e])
             for lab, us in got.items():
@@ -4072,6 +4077,10 @@ def phase_split(dumps) -> dict:
     for lab in LABELS:
         out[lab] = (critpath._median(per[lab]), summed[lab] / total)
     out["unattributed"] = 1.0 - sum(summed.values()) / total
+    first = min(c["ts"] for c in timed[0])
+    card = [e["dur"] for e in events if e["ph"] == "X"
+            and e["name"] == "meet_device" and e["ts"] >= first]
+    out["card_us"] = (critpath._median(card), len(card))
     return out
 
 
@@ -4100,7 +4109,8 @@ def phase_gaps(dumps) -> dict:
         calls = sorted((e for e in lst if e["cat"] == "coll"
                         and e["name"] == "allreduce_arr"),
                        key=lambda e: e["ts"])[TRACE_WARM:]
-        phases = sorted((e for e in lst if e["name"] in critpath.PHASE_OF),
+        phases = sorted((e for e in lst if e["name"] in critpath.PHASE_OF
+                         and e["name"] != "meet_device"),
                         key=lambda e: e["ts"])
         outer = [e for e in lst if e["name"] in NESTED]
         for call in calls:
@@ -4147,7 +4157,9 @@ def _log_split(what: str, split: dict, doc: dict, gaps: dict) -> None:
         f"a call; median us an op (share of the calls' summed time): "
         + ", ".join(f"{lab} {split[lab][0]:.1f} ({split[lab][1] * 100:.1f}"
                     f"%)" for lab in LABELS) +
-        f"; unattributed {split['unattributed'] * 100:.1f}%")
+        f"; unattributed {split['unattributed'] * 100:.1f}%; the body on "
+        f"the card (meet_device) median {split['card_us'][0]:.1f} us over "
+        f"{split['card_us'][1]} bodies")
     log(f"[trace] {what}: critpath coverage {doc['coverage']:.4f} of "
         f"{doc['ops']} op spans, {doc['multi_rank_ops']} multi-rank ops, "
         f"arrival skew us {doc['skew_us']}, gating "
@@ -4930,11 +4942,13 @@ HOP = ("ph_hop_d2h", "ph_hop_host", "ph_hop_h2d")
 def hop_spans(tr, since: int = 0):
     """The leader hop's phase spans ``tr`` recorded after its event
     ``since``, oldest first: (name, nbytes, pinned (None for the host
-    step), seconds)."""
+    step), seconds).  The snapshot comes first: it moves the finished
+    ``meet_device`` pairs into the ring, past the cursor read before."""
+    evs = tr.snapshot()
     new = tr.cursor - since
     if new > tr.capacity:
         raise AssertionError("the trace ring wrapped under the leader hop")
-    evs = tr.snapshot()[-new:] if new > 0 else []
+    evs = evs[-new:] if new > 0 else []
     return [(e["name"], e["args"]["nbytes"], e["args"].get("pinned"),
              e["dur"]) for e in evs if e["name"] in HOP]
 

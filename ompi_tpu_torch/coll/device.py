@@ -33,9 +33,8 @@ after them; each member's stream waits on the done event of its own
 device before it touches its output.  A launch that reads a buffer
 another device wrote inside the same body (the mesh allreduce's
 stripes) waits on that device's stream first (``_cross_fence``).  That
-fence replaces the reference's ``_block_ready`` on the data path;
-``_block_ready`` waits for its events only to end a traced op's
-execute phase.
+fence replaces the reference's host fence on the data path: no host
+thread of the port waits for a meeting's body on the card.
 
 Large messages (at or above ``coll_pipeline_min_bytes``) take the
 tiers of coll/pipeline and coll/plan: an allreduce runs as one plan
@@ -66,14 +65,21 @@ samples in builds ONE phase ctx (tracer, cid, seq, nbytes) at the
 gate, against the depositing rank's tracer; the rendezvous waits
 record ``ph_rdv_wait`` on that tracer, and the body, on the last
 arriver's thread or the dispatcher's, records ``ph_dispatch`` (the
-launches) and ``ph_execute`` on the triggering rank's tracer; on a
-card the deposit's ready event (``_fenced``) is a ``ph_pack`` and the
-member's wait on the meeting's done event (``_collect``) a
-``ph_unpack`` of the depositing rank (steps the reference has not).  The
-execute phase ends when the done events ``_fence`` recorded complete
-(``_block_ready``: an event a card, never a device-wide synchronize,
-which would time the other rank threads' work too); a sampled-out op
-keeps its launches asynchronous.
+launches) on the triggering rank's tracer; on a card the deposit's
+ready event (``_fenced``) is a ``ph_pack`` and the member's wait on the
+meeting's done event (``_collect``) a ``ph_unpack`` of the depositing
+rank (steps the reference has not).  A traced ``meet`` that samples
+into cat ``meet`` (a phase-ctx op always) also records the meeting
+itself there, with the op's keys: each rank's ``meet_lock`` (taking the
+lock in ``begin`` and ``finish``) and ``meet_wait`` (each wait of an op
+outside the phase ctx, which writes it as ``ph_rdv_wait`` instead), the
+poster's zero-length ``meet_post``, and the trigger's ``meet_device``:
+the body's interval on the card, from a timing event recorded just
+before its first launch on the card (``stacked.launch_stream``) to its
+done event, put on the host clock through a per-card anchor and
+resolved by the tracer off the hot path.  Nothing waits for the card
+on a traced op: the reference fences its execute phase on the host,
+the port has no execute phase span.
 
 pml/monitoring: every deposit into ``meet`` / ``meet_begin`` counts,
 through ``count_offload``, the traffic the pml would have carried —
@@ -126,10 +132,13 @@ _NAME_SEG_MEET = _trace.NAME_SEG_MEET
 _CAT_PHASE = _trace.CAT_PHASE
 _NAME_PH_RDV = _trace.NAME_PH_RDV
 _NAME_PH_DISPATCH = _trace.NAME_PH_DISPATCH
-_NAME_PH_EXECUTE = _trace.NAME_PH_EXECUTE
 _NAME_PH_PACK = _trace.NAME_PH_PACK
 _NAME_PH_UNPACK = _trace.NAME_PH_UNPACK
 _HIST_RDV = _trace.HIST_RDV_WAIT
+_CAT_MEET = _trace.CAT_MEET
+_NAME_MEET_LOCK = _trace.NAME_MEET_LOCK
+_NAME_MEET_WAIT = _trace.NAME_MEET_WAIT
+_NAME_MEET_POST = _trace.NAME_MEET_POST
 
 _prio_tpu = registry.register(
     "coll", "tpu", "priority", 80, int,
@@ -339,14 +348,19 @@ def _finalize_state(state) -> None:
 # ONCE — only when tracer.phase is armed (the zero-cost-when-off gate
 # everywhere else is a single attribute check) AND the op samples in
 # through the phase category (Tracer.gate_sampled at the build site) —
-# and threads through the rendezvous so the waits, the dispatch and
-# the fenced device execute decompose the op span into named phases.
-# A non-None ctx means every sub-span records, so one op's
-# decomposition is always coherent.
+# and threads through the rendezvous so the waits and the dispatch
+# decompose the op span into named phases.  A non-None ctx means every
+# sub-span records, so one op's decomposition is always coherent.
+#
+# A "meet ctx" (``mk``) has the same shape and keys, and is built on
+# each op of ``meet`` that samples into CAT_MEET while tracing is on
+# (the ph ctx itself when the op sampled into the phase ctx; a segment
+# of ``meet_begin`` has one only then): the meeting's lock, waits, post
+# and device interval record against it under CAT_MEET.
 
 def _ph_rdv_start(ph):
-    """Open a rendezvous-wait phase span (0 when the ctx is absent —
-    a present ctx already sampled in at build time)."""
+    """Open a rendezvous-wait span (0 when the ctx is absent — a
+    present ctx records every wait)."""
     if ph is None:
         return 0
     return ph[0].start()
@@ -361,37 +375,160 @@ def _ph_rdv_end(ph, t0) -> None:
     tr.hist_add(_HIST_RDV, dur * 1e-9)
 
 
+def _meet_wait_end(mk, ph, t0) -> None:
+    """Close a wait of the meeting once, under one name: the phase
+    span ``ph_rdv_wait`` on an op inside the phase ctx, else
+    ``meet_wait``."""
+    if ph is not None:
+        _ph_rdv_end(ph, t0)
+        return
+    mk[0].end(t0, _NAME_MEET_WAIT, _CAT_MEET, mk[1], mk[2], mk[3])
+
+
+def _meet_lock(mk, cv) -> None:
+    """Take the meeting's lock, timed as ``meet_lock``."""
+    tr = mk[0]
+    t0 = tr.start()
+    cv.acquire()
+    tr.end(t0, _NAME_MEET_LOCK, _CAT_MEET, mk[1], mk[2], mk[3])
+
+
+def _meet_post(mk) -> None:
+    """The moment a generation's results are posted (``meet_post``)."""
+    mk[0].point(_NAME_MEET_POST, _CAT_MEET, mk[1], mk[2], mk[3])
+
+
+def _marked_body(body, values):
+    """Run a traced meeting's body with its launches marked: each
+    card's first launch records the timing event where ``meet_device``
+    starts (``stacked.launch_stream``)."""
+    m = stacked.arm_marks()
+    try:
+        return body(values)
+    finally:
+        m.on = False
+
+
+def _meet_device(mk, stream, dev):
+    """Record the body's done event on ``stream``, timed, and queue it
+    with the mark of the body's first launch on card ``dev`` as the
+    body's interval there for ``meet_device``: no wait for the card
+    here (the tracer resolves the pair later).  A card the body
+    launched nothing on gets a plain done event and no span.  Returns
+    the done event."""
+    e0 = stacked.marks.starts.get(dev)
+    if e0 is None:
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        return ev
+    e1 = torch.cuda.Event(enable_timing=True)
+    e1.record(stream)
+    anchor = _anchors.get(dev)
+    if anchor is None:
+        anchor = _make_anchor(dev)
+    mk[0].device_pair(e0, e1, anchor, mk[1], mk[2], dev.index or 0,
+                      stacked.marks.idle_ns.get(dev, 0))
+    return e1
+
+
+def _clock_reading(dev):
+    """An event recorded on ``dev``'s current stream and synchronized,
+    and ``perf_counter_ns`` read as it completes."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    ev.synchronize()
+    return ev, time.perf_counter_ns()
+
+
+class _Anchor:
+    """Where card ``dev``'s event clock meets the tracers' clock: a
+    clock reading at the card's first traced body, corrected by a line
+    fitted to probes (the two clocks differ by tens of µs at the reading
+    and drift apart by a few µs a second).  A probe is a body's start
+    event recorded on an idle stream, with the host ns then
+    (``stacked.launch_stream``): it costs no wait.  Its residual is its
+    host ns less the reading's conversion; the line runs through the
+    median residual of the earliest and of the latest third of the
+    probes, so a few late host reads move it little."""
+
+    __slots__ = ("dev", "ev", "ns", "ms", "res", "a", "b", "fitted",
+                 "lock")
+
+    def __init__(self, dev) -> None:
+        self.dev = dev
+        self.ev, self.ns = _clock_reading(dev)
+        self.ms: List[float] = []
+        self.res: List[float] = []
+        self.a = self.b = 0.0
+        self.fitted = True
+        self.lock = threading.Lock()
+
+    def host_ns(self, ev) -> int:
+        """When ``ev`` completed, on the tracers' clock."""
+        if not self.fitted:
+            self._fit()
+        m = self.ev.elapsed_time(ev)
+        return self.ns + int(round(m * 1e6 + self.a + self.b * m))
+
+    def probe(self, ev, ns: int) -> None:
+        """Take a completed probe (the tracers feed their finished
+        pairs' probes); past ``ANCHOR_PROBES`` every other is dropped,
+        which keeps the run's whole span."""
+        m = self.ev.elapsed_time(ev)
+        with self.lock:
+            if len(self.ms) >= ANCHOR_PROBES:
+                del self.ms[1::2], self.res[1::2]
+            self.ms.append(m)
+            self.res.append(ns - self.ns - m * 1e6)
+            self.fitted = False
+
+    def _fit(self) -> None:
+        with self.lock:
+            n = len(self.ms)
+            if n >= ANCHOR_MIN_PROBES:
+                order = np.argsort(self.ms)
+                ms = np.asarray(self.ms)[order]
+                res = np.asarray(self.res)[order]
+                k = n // 3
+                m1, r1 = np.median(ms[:k]), np.median(res[:k])
+                m3, r3 = np.median(ms[-k:]), np.median(res[-k:])
+                b = (r3 - r1) / (m3 - m1) \
+                    if m3 - m1 >= ANCHOR_BASE_MS else 0.0
+                self.a, self.b = float(np.median(res - b * ms)), float(b)
+            self.fitted = True
+
+
+ANCHOR_PROBES = 4096
+ANCHOR_MIN_PROBES = 16
+ANCHOR_BASE_MS = 10_000.0      # the least span of probes that fits a rate
+# card -> its _Anchor, made at the card's first traced body
+_anchors: Dict[Any, Any] = {}
+_anchor_lock = threading.Lock()
+
+
+def _make_anchor(dev):
+    """The card's anchor, made at its first traced body — the one wait
+    for the card that ``meet_device`` takes on a traced op, once a card
+    a process."""
+    with _anchor_lock:
+        anchor = _anchors.get(dev)
+        if anchor is None:
+            anchor = _anchors[dev] = _Anchor(dev)
+    return anchor
+
+
 def _phase_fn(fn, shards, ph):
-    """Run a meeting's body with dispatch/execute phases recorded
-    against the triggering rank's tracer.  The execute fence
-    (``_block_ready``) runs ONLY for a sampled-in op (ph non-None) —
-    a sampled-out op keeps its launches asynchronous."""
+    """Run a meeting's body with its dispatch phase (the launches)
+    recorded against the triggering rank's tracer.  The body's time on
+    the card is ``meet_device``, from events: nothing here waits for
+    the card, so a sampled-in op runs exactly as a sampled-out one."""
     if ph is None:
         return fn(shards)
     tr = ph[0]
     t0 = tr.start()
     res = fn(shards)
     tr.end(t0, _NAME_PH_DISPATCH, _CAT_PHASE, ph[1], ph[2], ph[3])
-    t1 = tr.start()
-    _block_ready(res)
-    tr.end(t1, _NAME_PH_EXECUTE, _CAT_PHASE, ph[1], ph[2], ph[3])
     return res
-
-
-def _block_ready(res) -> None:
-    """Fence a dispatched body to device completion (the execute phase
-    boundary): wait for the done events ``_fence`` recorded on the
-    body's streams, one a card (none on the CPU, where the body ran to
-    its end: a zero-length execute span).  Never a device-wide
-    synchronize: the rank threads share the card, and it would time
-    their work too.  Raises what the wait raises — a fence that fails
-    on the card is a device fault, not a zero-length span (the
-    reference's ``_block_ready`` swallows every exception)."""
-    last = None
-    for _, done in res:
-        if done is not None and done is not last:
-            done.synchronize()
-            last = done
 
 
 class Rendezvous:
@@ -490,7 +627,8 @@ class Rendezvous:
               abort_check: Optional[Callable[[], None]] = None,
               progress: Any = None,
               dispatch_async: Optional[bool] = None,
-              ph: Optional[tuple] = None) -> int:
+              ph: Optional[tuple] = None,
+              mk: Optional[tuple] = None) -> int:
         """Deposit ``value`` for the next generation; the last arriver
         triggers fn(slots) -> per-rank outputs.  Returns the generation
         token to collect with ``finish``.
@@ -501,19 +639,27 @@ class Rendezvous:
         so begin() returns while the device computes — the hook the
         segmented pipeline uses to pack segment k+1 while segment k
         launches.  Slots recycle as soon as the meeting is full, so
-        generation g+1 deposits may land while g still computes."""
+        generation g+1 deposits may land while g still computes.
+
+        ``ph``: the op's phase ctx; ``mk``: its meet ctx (non-None
+        whenever ``ph`` is), which times the lock, the wait and the
+        post."""
         if progress is not None:
             self._progs[rank] = progress
         if dispatch_async is None:
             dispatch_async = _dispatcher_var.value
-        with self.cv:
+        if mk is None:
+            self.cv.acquire()
+        else:
+            _meet_lock(mk, self.cv)
+        try:
             # wait until my slot from the previous generation is consumed
-            tw = _ph_rdv_start(ph)
+            tw = _ph_rdv_start(mk)
             self._wait_for(lambda: self.slots[rank] is self._SENTINEL,
                            "previous generation unconsumed",
                            abort_check, progress)
             if tw:
-                _ph_rdv_end(ph, tw)
+                _meet_wait_end(mk, ph, tw)
             gen = self.gen
             self.slots[rank] = value
             self.count += 1
@@ -523,8 +669,8 @@ class Rendezvous:
                 self.slots = [self._SENTINEL] * self.size
                 self.gen += 1
                 if dispatch_async:
-                    _dispatcher().submit(
-                        functools.partial(self._work, gen, fn, shards, ph))
+                    _dispatcher().submit(functools.partial(
+                        self._work, gen, fn, shards, ph, mk))
                 else:
                     try:
                         self.results[gen] = _phase_fn(fn, shards, ph)
@@ -532,13 +678,17 @@ class Rendezvous:
                         self.errors[gen] = e
                         self.results[gen] = [None] * self.size
                     self.readers[gen] = self.size
+                    if mk is not None:
+                        _meet_post(mk)
                     self.cv.notify_all()
                     for r, prog in self._progs.items():
                         if r != rank:
                             prog.wakeup()
+        finally:
+            self.cv.release()
         return gen
 
-    def _work(self, gen: int, fn, shards, ph=None) -> None:
+    def _work(self, gen: int, fn, shards, ph=None, mk=None) -> None:
         """The dispatcher thread's half of an async meeting: compute,
         publish the generation, wake every member."""
         try:
@@ -552,6 +702,8 @@ class Rendezvous:
                 self.errors[gen] = err
             self.results[gen] = res
             self.readers[gen] = self.size
+            if mk is not None:
+                _meet_post(mk)
             self.cv.notify_all()
             progs = list(self._progs.values())
         # wake members parked on their progress idle selector (outside
@@ -562,18 +714,23 @@ class Rendezvous:
     def finish(self, rank: int, gen: int,
                abort_check: Optional[Callable[[], None]] = None,
                progress: Any = None,
-               ph: Optional[tuple] = None) -> Any:
+               ph: Optional[tuple] = None,
+               mk: Optional[tuple] = None) -> Any:
         """Collect this rank's output of generation ``gen`` (a token
         from ``begin``).  Each member must finish every generation it
         begins, exactly once — results are refcounted away after the
         last reader."""
-        with self.cv:
-            tw = _ph_rdv_start(ph)
+        if mk is None:
+            self.cv.acquire()
+        else:
+            _meet_lock(mk, self.cv)
+        try:
+            tw = _ph_rdv_start(mk)
             self._wait_for(lambda: gen in self.results,
                            f"waiting for peers (gen {gen})",
                            abort_check, progress)
             if tw:
-                _ph_rdv_end(ph, tw)
+                _meet_wait_end(mk, ph, tw)
             err = self.errors.get(gen)
             out = self.results[gen][rank]
             self.readers[gen] -= 1
@@ -584,16 +741,20 @@ class Rendezvous:
                 raise RuntimeError(
                     f"device collective failed on a peer: {err}") from err
             return out
+        finally:
+            self.cv.release()
 
     def run(self, rank: int, value: Any,
             fn: Callable[[List[Any]], List[Any]],
             abort_check: Optional[Callable[[], None]] = None,
-            progress: Any = None, ph: Optional[tuple] = None) -> Any:
+            progress: Any = None, ph: Optional[tuple] = None,
+            mk: Optional[tuple] = None) -> Any:
         """Deposit ``value``; the last arriver runs fn(slots) ->
         outputs; block until this rank's output is ready (begin +
         finish)."""
-        gen = self.begin(rank, value, fn, abort_check, progress, ph=ph)
-        return self.finish(rank, gen, abort_check, progress, ph=ph)
+        gen = self.begin(rank, value, fn, abort_check, progress, ph=ph,
+                         mk=mk)
+        return self.finish(rank, gen, abort_check, progress, ph=ph, mk=mk)
 
     def snapshot(self) -> dict:
         """The hang doctor's view of the meeting: which ranks have
@@ -674,14 +835,16 @@ def _fenced(value, ph=None):
     return value, ev
 
 
-def _fence(body):
+def _fence(body, mk=None):
     """fn for the rendezvous around ``body(values) -> per-rank
     outputs``: on the cards, the body thread's current stream on every
     device a deposit lies on (one for coll/hbm, one per member's card
     for the mesh) waits on every deposit's event first — any launch
     may read any deposit — and records one done event after; each
     member's stream waits on the done event of its output's device
-    before it touches its output."""
+    before it touches its output.  With a meet ctx the body's launches
+    are marked (``_marked_body``), the done events time the body, and
+    each card's pair goes to the trigger's tracer as ``meet_device``."""
     def fn(slots):
         values = [v for v, _ in slots]
         if slots[0][1] is None:
@@ -698,11 +861,14 @@ def _fence(body):
             # even if its owner frees it right after the meeting
             for t in deposits:
                 t.record_stream(stream)
-        outs = body(values)
+        outs = body(values) if mk is None else _marked_body(body, values)
         done = {}
         for dev, stream in streams.items():
-            ev = done[dev] = torch.cuda.Event()
-            ev.record(stream)
+            if mk is None:
+                ev = done[dev] = torch.cuda.Event()
+                ev.record(stream)
+            else:
+                done[dev] = _meet_device(mk, stream, dev)
         return [(o, _done_for(o, done)) for o in outs]
     return fn
 
@@ -905,9 +1071,14 @@ def meet(comm, value, body: Callable[[List[Any]], List[Any]],
             tr._skipped[_CAT_PHASE] += 1
         elif tr.gate_sampled(_CAT_PHASE):
             ph = (tr, comm.cid, seq, nbytes)
-    out = _collect(rv.run(comm.rank, _fenced(value, ph), _fence(body),
+    # meet ctx: every traced op that samples into the meet category
+    # (the same keys as the meet span; a phase-ctx op always)
+    mk = ph
+    if mk is None and tr.gate_sampled(_CAT_MEET):
+        mk = (tr, comm.cid, seq, nbytes)
+    out = _collect(rv.run(comm.rank, _fenced(value, ph), _fence(body, mk),
                           abort_check, progress=comm.state.progress,
-                          ph=ph), ph)
+                          ph=ph, mk=mk), ph)
     if t0:
         tr.end(t0, _NAME_MEET, _CAT_DISP, comm.cid, seq, nbytes)
     return out
@@ -936,9 +1107,11 @@ def meet_begin(comm, value, body, abort_check, ck=None):
             # _dev_seq is close enough for critpath's containment-
             # based attribution (exact keys ride the seg_meet span)
             ph = (tr, comm.cid, comm._dev_seq, nbytes)
-    gen = rv.begin(comm.rank, _fenced(value, ph), _fence(body),
+    # a segment's meet ctx is its phase ctx: its seq is approximate
+    # (above), so only a sampled-in segment records the meeting's spans
+    gen = rv.begin(comm.rank, _fenced(value, ph), _fence(body, ph),
                    abort_check, progress=comm.state.progress,
-                   dispatch_async=True, ph=ph)
+                   dispatch_async=True, ph=ph, mk=ph)
     return (rv, gen, t0, nbytes, ph)
 
 
@@ -948,7 +1121,8 @@ def meet_finish(comm, handle, abort_check) -> Any:
     per-segment latency, unlike coll_dispatch's whole-op latency)."""
     rv, gen, t0, nbytes, ph = handle
     out = _collect(rv.finish(comm.rank, gen, abort_check,
-                             progress=comm.state.progress, ph=ph), ph)
+                             progress=comm.state.progress, ph=ph, mk=ph),
+                   ph)
     tr = comm.state.tracer
     if tr is not None:
         # the seq ticks on EVERY traced segment (sampled out or not)

@@ -40,7 +40,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from . import build
-from .stacked import _DTYPES, LaunchCount, _launch
+from .stacked import _DTYPES, LaunchCount, _launch, launch_stream
 
 F_INTSUM, F_FSUM, F_MAX, F_MIN = 1, 2, 3, 4
 
@@ -178,7 +178,7 @@ def digest(xs: Sequence[torch.Tensor], codes: Sequence[int]
     out = torch.empty(len(xs), dtype=torch.int64, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = launch_stream(dev)
         slot = _slot(dev, stream)
         for lo in range(0, len(xs), MAX_OPS):
             part = range(lo, min(lo + MAX_OPS, len(xs)))

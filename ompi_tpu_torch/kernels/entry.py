@@ -32,7 +32,7 @@ import torch
 
 from . import build
 from .stacked import (_DTYPES, MAX_PTRS, LaunchCount, _fold_parts, _launch,
-                      fold_plain)
+                      fold_plain, launch_stream)
 
 MAX_ROWS = MAX_PTRS  # K1's cap on the ranks it folds
 
@@ -90,7 +90,7 @@ def driver_step(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     vec = ((n // r) * x.element_size() % 16 == 0
            and all(t.data_ptr() % 16 == 0 for t in (x, out, rs)))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = launch_stream(x.device)
         _launch(_library().ompi_driver_step(
             x.data_ptr(), out.data_ptr(), rs.data_ptr(), _DTYPES[x.dtype],
             r, n, int(vec), stream), "driver_step")

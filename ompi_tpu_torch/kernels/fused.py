@@ -29,7 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .stacked import (_DTYPES, _OPS, LaunchCount, _launch,
+from .stacked import (_DTYPES, _OPS, LaunchCount, _launch, launch_stream,
                       reduce_supported, stacked_reduce_plain)
 
 MAX_PTRS = 1024   # FUSED_MAX_PTRS: 4 sessions x 32 slots x 8 ranks
@@ -146,7 +146,7 @@ def fused_batch(slots: Sequence[Slot], opname: str, split: bool = True
             for (xs, _), o, m in zip(slots, offs, sizes)]
     lib = _library()
     with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        stream = launch_stream(x0.device)
         for lo in range(0, len(slots), per):
             a = _FusedArgs()
             nblocks = 0

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import build
-from .stacked import LaunchCount, _launch
+from .stacked import LaunchCount, _launch, launch_stream
 
 WIDTHS = (1, 2, 4, 8, 16)
 MAX_RUNS = 64  # runs a table holds at most: SCATTER_RUNS in index.cu
@@ -190,7 +190,7 @@ def _run(call, a: torch.Tensor, out: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: buffers not aligned to their "
                          "element width")
     with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
+        stream = launch_stream(out.device)
         _launch(call(a.data_ptr(), out.data_ptr(), w, stream), what)
 
 

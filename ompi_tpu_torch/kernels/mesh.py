@@ -45,7 +45,8 @@ import torch
 
 from . import build
 from .stacked import (_DTYPES, _OPS, LaunchCount, _launch, fold_plain,
-                      groups, reduce_supported, require_peer, tree_plain)
+                      groups, launch_stream, reduce_supported, require_peer,
+                      tree_plain)
 
 MAX_PTRS = 128
 MAX_JOBS = 64     # destinations in one K6 table (FOLD_MAX_JOBS)
@@ -282,7 +283,7 @@ def mesh_fold_many(xs, jobs, opname: str, order="rank", split: bool = True
         for x in xs_all:
             require_peer(dev, x.device)
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+            stream = launch_stream(dev)
             _launch(lib.ompi_mesh_fold(ctypes.byref(a), _DTYPES[x0.dtype],
                                        _OPS[opname], stream), "mesh_fold")
             mesh_fold.launches.add()
@@ -486,7 +487,7 @@ def slot_pack(xs: Sequence[torch.Tensor],
                           zero)
     lib = _library()
     with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        stream = launch_stream(x0.device)
         for a, nblocks in tables:
             _launch(lib.ompi_slot_pack(ctypes.byref(a), nblocks, stream),
                     "slot_pack")

@@ -38,7 +38,7 @@ import torch
 
 from . import build
 from .stacked import (_DTYPES, _OPS, LaunchCount, _launch, fold_plain,
-                      reduce_supported, require_peer)
+                      launch_stream, reduce_supported, require_peer)
 
 #: the window wire dtypes (ompi_tpu/osc/window.py:62 _WIRE_DTYPES)
 WIRE_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.uint16,
@@ -153,7 +153,7 @@ def rma_copy(dst: torch.Tensor, dst_off: int, src: torch.Tensor,
     head, words, tail, shift = _copy_plan(d_addr, s_addr, n)
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = launch_stream(dev)
         _launch(lib.ompi_rma_copy(d_addr, s_addr, n, head, words, tail,
                                   shift, stream), "rma_copy")
         rma_copy.launches.add()
@@ -241,7 +241,7 @@ def rma_acc(w: torch.Tensor, start: int, s: torch.Tensor, opname: str,
                                               s.element_size())
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = launch_stream(dev)
         _launch(lib.ompi_rma_acc(
             w_addr, s_addr, o_addr, n, head, tail, wm, sm, om or 0,
             _DTYPES[s.dtype], ACC_OPS[opname], stream), "rma_acc")
@@ -315,7 +315,7 @@ def rma_cas(w: torch.Tensor, start: int, compare: torch.Tensor,
         require_peer(dev, t.device)
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = launch_stream(dev)
         _launch(lib.ompi_rma_cas(wb.data_ptr() + start, compare.data_ptr(),
                                  new.data_ptr(), old.data_ptr(),
                                  _DTYPES[old.dtype], stream), "rma_cas")

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -170,6 +171,56 @@ def _launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError_t {rc}")
 
 
+class _LaunchMarks(threading.local):
+    """A thread's launch marks: while a traced meeting's body runs on
+    the thread (``on``, coll/device.py ``_fence``), the timing event
+    recorded just before each card's first launch, by card, and where
+    the card's stream had nothing queued then, the host ns it was
+    recorded at (``idle_ns``)."""
+
+    def __init__(self) -> None:
+        self.on = False
+        self.starts: dict = {}
+        self.idle_ns: dict = {}
+
+
+marks = _LaunchMarks()
+#: a mark is a clock reading only when its query, record and clock reads
+#: took less than this: no other thread ran in between
+PROBE_NS = 50_000
+
+
+def arm_marks() -> _LaunchMarks:
+    """Mark the launches of the body about to run on this thread (its
+    marks cleared); the caller sets ``on`` back to False after it."""
+    m = marks
+    m.starts.clear()
+    m.idle_ns.clear()
+    m.on = True
+    return m
+
+
+def launch_stream(dev, _pcns=time.perf_counter_ns) -> int:
+    """The handle of ``dev``'s current stream for a launch.  Inside a
+    marked body the card's first launch records a timing event on the
+    stream first: where the body starts on the card, once the host has
+    built the launch.  On a stream with nothing queued the event
+    completes as it is recorded, so the host ns then reads the card's
+    clock (the anchor's rate, coll/device.py)."""
+    stream = torch.cuda.current_stream(dev)
+    m = marks
+    if m.on and dev not in m.starts:
+        t0 = _pcns()
+        idle = stream.query()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        t1 = _pcns()
+        m.starts[dev] = ev
+        if idle and t1 - t0 < PROBE_NS:
+            m.idle_ns[dev] = t1
+    return stream.cuda_stream
+
+
 _peer_lock = threading.Lock()
 _peer_ok: set = set()
 
@@ -240,7 +291,7 @@ def stacked_reduce(xs: Sequence[torch.Tensor], opname: str,
            and (not scatter or a.stripe % vec_elems == 0))
     lib = _library()
     with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        stream = launch_stream(x0.device)
         if a.n:
             _launch(lib.ompi_stacked_reduce(
                 ctypes.byref(a), _DTYPES[x0.dtype], _OPS[opname],
@@ -391,7 +442,7 @@ def _row_split(src: Optional[int], dst: int, cnt: int, k: int, tile: int
 def _copy_launch(c: _CopyArgs, dev: torch.device, what: str) -> None:
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = launch_stream(dev)
         _launch(lib.ompi_stacked_copy(ctypes.byref(c), COPY_STAGES, stream),
                 what)
 

@@ -16,8 +16,8 @@ and emits:
     and the verdict is ``rendezvous`` (an upstream straggler, e.g. an
     injected delay or a slow host, not a slow dispatch).
   * a **dispatch-tax report** — per (algorithm, pow2 size bucket),
-    the median microseconds each phase (rendezvous / pack / dispatch /
-    execute / unpack / compile) contributes, from the phase spans
+    the median microseconds each phase (rendezvous / lock / pack /
+    dispatch / execute / unpack / compile) contributes, from the phase spans
     time-contained in each whole-op dispatch span.
   * a **coverage figure** — the fraction of op wall time attributed
     to named phases (clipped per op so overlapping waits never count
@@ -56,18 +56,21 @@ PHASE_OF = {
     "ph_pack": "pack",
     "fused_pack": "pack",
     "ph_dispatch": "dispatch",
-    "ph_execute": "execute",
     "ph_unpack": "unpack",
     "xla_compile": "compile",
     "kernel_load": "compile",
+    "meet_lock": "lock",
+    "meet_wait": "rendezvous",
+    "meet_device": "execute",
 }
 
 #: categories whose spans are whole-op records correlated across ranks
 #: by the (cid, seq) key every member ticks in lockstep
 OP_CATS = ("coll", "coll_dispatch", "coll_segment")
 
-#: categories whose spans are sub-op phase records
-PHASE_CATS = ("phase", "compile")
+#: categories whose spans are sub-op phase records (``meet``: the
+#: meeting's lock, waits and the body's interval on the card)
+PHASE_CATS = ("phase", "compile", "meet")
 
 
 def _spans(events: List[dict]) -> List[dict]:

@@ -39,6 +39,9 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
         "Tracer.start",
         "Tracer.start_sampled",
         "Tracer.end",
+        "Tracer.point",
+        "Tracer._put",
+        "Tracer.device_pair",
         "Tracer.tick_ns",
         "Tracer.hist_add",
         "Tracer.req_mark",
@@ -52,11 +55,24 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     # / segment / dispatched op whenever trace_phase_enable is on, so
     # they obey the same no-allocation rules as the tracer itself —
     # the ph context tuple is built ONCE per op at the gate, never
-    # inside these
+    # inside these.  The meeting's record points (cat meet) run on every
+    # traced op: Rendezvous.begin / finish / _work and _fence call
+    # these and record nothing themselves
     "ompi_tpu_torch/coll/device.py": (
         "_ph_rdv_start",
         "_ph_rdv_end",
         "_phase_fn",
+        "_meet_wait_end",
+        "_meet_lock",
+        "_meet_post",
+        "_marked_body",
+        "_meet_device",
+    ),
+    # the launch marks of a traced meeting's body (coll/device.py
+    # _marked_body), on every launch of the port's kernels
+    "ompi_tpu_torch/kernels/stacked.py": (
+        "arm_marks",
+        "launch_stream",
     ),
     "ompi_tpu_torch/coll/pipeline.py": (
         "_pull_segment",

@@ -233,10 +233,13 @@ CAT_PHASE = intern_cat("phase")
 # one-sided ops (osc put/get/accumulate) — both the host AM component
 # and the device ppermute component stamp the same category
 CAT_RMA = intern_cat("rma")
+# the meeting's inside (coll/device.py Rendezvous): recorded on every
+# traced op, never gated by the phase ctx
+CAT_MEET = intern_cat("meet")
 
 # categories whose spans are sampled / drop-accounted (pvar surface)
 SPAN_CATS = ("p2p", "coll", "nbc", "coll_dispatch", "coll_segment",
-             "compile", "phase", "rma")
+             "compile", "phase", "rma", "meet")
 
 NAME_SEND = intern_name("send", ("cid", "src", "tag", "seq", "bytes"))
 NAME_RECV = intern_name("recv", ("cid", "src", "tag", "seq", "bytes"))
@@ -263,13 +266,24 @@ NAME_RMA_ACC = intern_name("rma_acc", ("cid", "target", "nbytes"))
 NAME_PH_RDV = intern_name("ph_rdv_wait", ("cid", "seq", "nbytes"))
 NAME_PH_PACK = intern_name("ph_pack", ("cid", "seq", "nbytes"))
 NAME_PH_DISPATCH = intern_name("ph_dispatch", ("cid", "seq", "nbytes"))
-NAME_PH_EXECUTE = intern_name("ph_execute", ("cid", "seq", "nbytes"))
 NAME_PH_UNPACK = intern_name("ph_unpack", ("cid", "seq", "nbytes"))
 
-# the port's compile span (after the reference's names, so the shared
-# names keep the reference's ids): a kernel library's first-use build
-# and load, where the reference records xla_compile
+# the port's compile span: a kernel library's first-use build and load,
+# where the reference records xla_compile
 NAME_KERNEL_LOAD = intern_name("kernel_load", ("key$",))
+
+# the meeting's spans (CAT_MEET), keyed like the op's ``meet`` span.
+# meet_lock: taking the meeting's lock in Rendezvous.begin / finish;
+# meet_wait: a wait of begin or finish on an op outside the phase ctx
+# (an op inside it writes that wait as ph_rdv_wait, never both);
+# meet_post: zero-length, where the trigger or the dispatcher posts a
+# generation's results; meet_device: the body's interval on the card,
+# from two CUDA events on the body's stream put on this clock through
+# a per-card anchor (arg ``card``: the device index)
+NAME_MEET_LOCK = intern_name("meet_lock", ("cid", "seq", "nbytes"))
+NAME_MEET_WAIT = intern_name("meet_wait", ("cid", "seq", "nbytes"))
+NAME_MEET_POST = intern_name("meet_post", ("cid", "seq", "nbytes"))
+NAME_MEET_DEVICE = intern_name("meet_device", ("cid", "seq", "card"))
 
 #: span name -> human phase label (tools/critpath.py keeps its own
 #: copy so it stays runnable against dump files alone)
@@ -278,10 +292,12 @@ PHASE_LABELS = {
     "ph_pack": "pack",
     "fused_pack": "pack",
     "ph_dispatch": "dispatch",
-    "ph_execute": "execute",
     "ph_unpack": "unpack",
     "xla_compile": "compile",
     "kernel_load": "compile",
+    "meet_lock": "lock",
+    "meet_wait": "rendezvous",
+    "meet_device": "execute",
 }
 
 _NO_ADAPT = 1 << 62  # _nxt sentinel when adaptation is disabled
@@ -289,6 +305,10 @@ _NO_ADAPT = 1 << 62  # _nxt sentinel when adaptation is disabled
 # per-job request-tag marks kept per tracer (DESIGN.md §23): one mark
 # per run start/end, so even a 256-deep ring covers hours of serving
 REQ_MARKS = 256
+
+# meet_device event pairs a tracer holds before it resolves them: full,
+# the completed ones are moved into the ring (``query()``, never a wait)
+DEVICE_PAIRS = 1024
 
 
 def _parse_sample_spec(spec: str) -> Dict[int, int]:
@@ -349,6 +369,8 @@ class Tracer:
         "_over", "_auto", "_max_period",
         "phase", "sync_offsets_us",
         "_req_tags", "_req_ts", "_req_n",
+        "_dv_e0", "_dv_e1", "_dv_anchor", "_dv_cid", "_dv_seq",
+        "_dv_card", "_dv_idle", "_dv_n",
     )
 
     def __init__(self, rank: int, capacity: int = 8192) -> None:
@@ -396,6 +418,16 @@ class Tracer:
         self._req_tags = array("q", [0]) * REQ_MARKS
         self._req_ts = array("q", [0]) * REQ_MARKS
         self._req_n = 0
+        # pending meet_device pairs (device_pair): the two events, the
+        # card's anchor and the span's args, in preallocated columns
+        self._dv_e0: List[Any] = [None] * DEVICE_PAIRS
+        self._dv_e1: List[Any] = [None] * DEVICE_PAIRS
+        self._dv_anchor: List[Any] = [None] * DEVICE_PAIRS
+        self._dv_cid = array("q", [0]) * DEVICE_PAIRS
+        self._dv_seq = array("q", [0]) * DEVICE_PAIRS
+        self._dv_card = array("q", [0]) * DEVICE_PAIRS
+        self._dv_idle = array("q", [0]) * DEVICE_PAIRS
+        self._dv_n = 0
         for cid, per in _parse_sample_spec(sample_spec_var.value).items():
             self._ensure_cat(cid)
             self._period[cid] = min(per, self._max_period)
@@ -523,6 +555,106 @@ class Tracer:
         self._nrec += 1
         self._cnt[cat_id] += 1
         return dur
+
+    def point(self, name_id: int, cat_id: int, a0: int = 0, a1: int = 0,
+              a2: int = 0, _pcns=time.perf_counter_ns) -> None:
+        """A zero-length span at this instant (one clock read, end's
+        column stores): a moment that integer-keyed readers line up
+        with spans, which ``instant``'s string args cannot."""
+        self._put(_pcns(), 0, name_id, cat_id, a0, a1, a2)
+
+    def _put(self, ts: int, dur: int, name_id: int, cat_id: int,
+             a0: int, a1: int, a2: int) -> None:
+        """A span of known start and length into the ring (end's
+        stores, no histogram): ``point`` and the resolved device
+        pairs."""
+        cur = self.cursor
+        cap = self.capacity
+        i = cur % cap
+        if cur >= cap:
+            self._over[self._cat[i]] += 1
+        self._ts[i] = ts
+        self._dur[i] = dur
+        self._name[i] = name_id
+        self._cat[i] = cat_id
+        self._ph[i] = 0
+        self._a0[i] = a0
+        self._a1[i] = a1
+        self._a2[i] = a2
+        self._a3[i] = 0
+        self._a4[i] = 0
+        self._argobj[i] = None
+        self.cursor = cur + 1
+        self._nrec += 1
+        self._cnt[cat_id] += 1
+
+    def device_pair(self, e0, e1, anchor, cid: int, seq: int,
+                    card: int, idle_ns: int = 0) -> None:
+        """Queue one body's interval on a card for ``meet_device``: the
+        timing events ``e0`` (start) and ``e1`` (end), recorded on the
+        body's stream, and the card's ``anchor`` (``host_ns(event)``:
+        when an event completed on this clock; ``probe(event, ns)``: a
+        reading of the card's clock).  ``idle_ns``: the host ns ``e0``
+        was recorded at on an idle stream (a probe), else 0.  Never
+        waits for the card: the pair is resolved later
+        (``resolve_device``); a pair that finds the list full of
+        unfinished ones is counted dropped."""
+        n = self._dv_n
+        if n == DEVICE_PAIRS:
+            n = self.resolve_device()
+            if n == DEVICE_PAIRS:
+                self._skipped[CAT_MEET] += 1
+                return
+        self._dv_e0[n] = e0
+        self._dv_e1[n] = e1
+        self._dv_anchor[n] = anchor
+        self._dv_cid[n] = cid
+        self._dv_seq[n] = seq
+        self._dv_card[n] = card
+        self._dv_idle[n] = idle_ns
+        self._dv_n = n + 1
+
+    def resolve_device(self, wait: bool = False) -> int:
+        """Move the pending pairs whose end event has completed into
+        the ring as ``meet_device`` spans on this tracer's clock
+        (``anchor.host_ns``), their probes first given to their
+        anchors.  ``query()`` only, unless ``wait`` (the finalize
+        dump): then each unfinished end event is synchronized.  Returns
+        the pairs left pending."""
+        for i in range(self._dv_n):
+            ns = self._dv_idle[i]
+            if ns:
+                e1 = self._dv_e1[i]
+                if wait:
+                    e1.synchronize()
+                elif not e1.query():
+                    continue
+                self._dv_anchor[i].probe(self._dv_e0[i], ns)
+                self._dv_idle[i] = 0
+        keep = 0
+        for i in range(self._dv_n):
+            e0, e1, anchor = self._dv_e0[i], self._dv_e1[i], \
+                self._dv_anchor[i]
+            if not e1.query():
+                if not wait:
+                    if keep != i:
+                        self._dv_e0[keep], self._dv_e1[keep] = e0, e1
+                        self._dv_anchor[keep] = anchor
+                        self._dv_cid[keep] = self._dv_cid[i]
+                        self._dv_seq[keep] = self._dv_seq[i]
+                        self._dv_card[keep] = self._dv_card[i]
+                        self._dv_idle[keep] = self._dv_idle[i]
+                    keep += 1
+                    continue
+                e1.synchronize()
+            t0 = anchor.host_ns(e0)
+            t1 = anchor.host_ns(e1)
+            self._put(t0, t1 - t0, NAME_MEET_DEVICE, CAT_MEET,
+                      self._dv_cid[i], self._dv_seq[i], self._dv_card[i])
+        for i in range(keep, self._dv_n):
+            self._dv_e0[i] = self._dv_e1[i] = self._dv_anchor[i] = None
+        self._dv_n = keep
+        return keep
 
     def _store_slot(self, ts: int, dur: int, name_id: int, cat_id: int,
                     ph: int, argobj: Optional[dict]) -> None:
@@ -668,7 +800,11 @@ class Tracer:
     def snapshot(self) -> List[dict]:
         """Events oldest-first, materialized as span dicts (the dump
         schema — id decode and string synthesis happen here, off the
-        hot path).  Timestamps become epoch seconds via the anchor."""
+        hot path).  Timestamps become epoch seconds via the anchor.
+        The completed device pairs are resolved first; a resolved
+        ``meet_device`` lands in the ring when it is resolved, so it
+        may follow later host spans."""
+        self.resolve_device()
         out = []
         for i in self._live_range():
             e = {"name": _names[self._name[i]],
@@ -683,7 +819,8 @@ class Tracer:
 
     def phase_totals(self) -> Dict[str, int]:
         """Total recorded microseconds per phase label (plus compile
-        spans, which ARE the compile phase) from the live ring — the
+        spans, which ARE the compile phase, and the meeting's lock,
+        waits and device time) from the live ring — the
         obs_critpath_phase_us gauge.  Cold path: pvar reads and the
         probe harness only."""
         compile_cid = _cat_ids.get("compile", -1)
@@ -692,7 +829,7 @@ class Tracer:
             if self._ph[i] != 0:
                 continue
             cid = self._cat[i]
-            if cid == CAT_PHASE or cid == compile_cid:
+            if cid == CAT_PHASE or cid == compile_cid or cid == CAT_MEET:
                 name = _names[self._name[i]]
                 label = PHASE_LABELS.get(name)
                 if label is not None:
@@ -716,7 +853,10 @@ class Tracer:
         input.  Timestamps are epoch seconds (floats); traceview
         converts to microseconds after clock correction.  The
         sampling/drop accounting rides along so a merged view can say
-        exactly what fraction of each category it is looking at."""
+        exactly what fraction of each category it is looking at.  The
+        pending device pairs are waited for first (finalize: off the
+        hot path)."""
+        self.resolve_device(wait=True)
         doc = {
             "rank": self.rank,
             "recorded": self.recorded,

@@ -6,14 +6,17 @@ Exact against the reference: phase-category sampling, the label merge
 of ``phase_totals``, the gating rule and clipped attribution on
 synthetic spans, and ``critpath.analyze`` / ``report`` / the stitched
 Chrome trace and traceview's merge of the same seeded synthetic dumps,
-which must give equal dicts and equal JSON.  Port only: a 4-rank
+which must give equal dicts and equal JSON — the port reading its own
+names where the reference's dumps carry ``ph_execute``: the port's
+execute phase is the body's interval on the card, ``meet_device`` (cat
+``meet``), from CUDA events, with no host fence.  Port only: a 4-rank
 segmented-ring world, phase-profiled at full fidelity, attributes at
-least 90 % of op wall time to named phases and, with an injected 40 ms
-straggler on one rank, names that rank and the rendezvous as gating;
-the execute-phase fence (``_block_ready``) raises where the
-reference's swallows; on a card the deposit's ready event and the
-output's collect are pack and unpack phases (steps the reference has
-not); and the rendezvous wait no longer loses a wake-up that lands
+least 90 % of op wall time to named phases (the meeting's lock among
+them) and, with an injected 40 ms straggler on one rank, names that
+rank and the rendezvous as gating; the meeting's lock and wait spans
+label as lock and rendezvous; on a card the deposit's ready event and
+the output's collect are pack and unpack phases (steps the reference
+has not); and the rendezvous wait no longer loses a wake-up that lands
 during its progress sweep (the reference's does).
 """
 
@@ -101,18 +104,24 @@ def test_phase_sampling_exact(period):
 
 def test_phase_totals_label_merge():
     """phase_totals folds span names into report labels (fused_pack
-    and ph_pack are both 'pack'), as the reference's does; the port's
-    kernel_load is the compile phase."""
+    and ph_pack are both 'pack'), as the reference's does, the port's
+    meet_device (cat meet) where the reference's ph_execute is the
+    execute phase; the port's kernel_load is the compile phase and its
+    meet_lock the lock."""
     def run(mod, names):
         tr = mod.Tracer(0, capacity=64)
         tr.phase = True
-        for name in names:
+        for name, cat in names:
             t0 = tr.start_sampled(mod.CAT_PHASE)
-            tr.end(t0, mod._name_ids[name], mod.CAT_PHASE, 1, 0, 0)
+            tr.end(t0, mod._name_ids[name], mod._cat_ids[cat], 1, 0, 0)
         return set(tr.phase_totals())
 
-    names = ("ph_pack", "fused_pack", "ph_execute")
-    assert run(trace, names) == run(ref_trace, names) == {"pack", "execute"}
+    pack = (("ph_pack", "phase"), ("fused_pack", "phase"))
+    assert run(trace, pack + (("meet_device", "meet"),)) == \
+        run(ref_trace, pack + (("ph_execute", "phase"),)) == \
+        {"pack", "execute"}
+    assert run(trace, (("meet_lock", "meet"), ("meet_wait", "meet"))) == \
+        {"lock", "rendezvous"}
     tr = trace.Tracer(0, capacity=8)
     t0 = tr.start()
     tr.end(t0, trace.NAME_KERNEL_LOAD, trace.CAT_COMPILE,
@@ -127,19 +136,27 @@ def _sp(rank, ts, dur, name, cat, **args):
             "cat": cat, "ph": "X", "args": args}
 
 
+# the execute phase's span as each package names it: the port's is the
+# body's interval on the card from CUDA events, the reference's its
+# host fence
+_EXECUTE = {critpath: ("meet_device", "meet"),
+            ref_critpath: ("ph_execute", "phase")}
+
+
 @pytest.mark.parametrize("mod", [critpath, ref_critpath],
                          ids=["port", "reference"])
 def test_gating_verdict_skew_vs_phase(mod):
     """A gate whose recorded phases are dwarfed by the arrival skew is
     arrival-gated ('rendezvous'); a gate with a contained phase at
     least as large as the skew is gated by THAT phase."""
+    ex, cat = _EXECUTE[mod]
     events = [
         _sp(0, 0.0, 5100.0, "meet", "coll_dispatch", cid=1, seq=0),
         _sp(1, 5000.0, 100.0, "meet", "coll_dispatch", cid=1, seq=0),
-        _sp(1, 5010.0, 40.0, "ph_execute", "phase", cid=1, seq=0),
+        _sp(1, 5010.0, 40.0, ex, cat, cid=1, seq=0),
         _sp(0, 9000.0, 100.0, "meet", "coll_dispatch", cid=1, seq=1),
         _sp(1, 9010.0, 90.0, "meet", "coll_dispatch", cid=1, seq=1),
-        _sp(1, 9012.0, 80.0, "ph_execute", "phase", cid=1, seq=1),
+        _sp(1, 9012.0, 80.0, ex, cat, cid=1, seq=1),
     ]
     idx = mod.phase_index(events)
     groups = mod.group_ops(events)
@@ -154,10 +171,11 @@ def test_gating_verdict_skew_vs_phase(mod):
 @pytest.mark.parametrize("mod", [critpath, ref_critpath],
                          ids=["port", "reference"])
 def test_clipped_attribution_never_exceeds_op(mod):
+    ex, cat = _EXECUTE[mod]
     op = _sp(0, 100.0, 50.0, "meet", "coll_dispatch", cid=1, seq=0)
     phases = [
         _sp(0, 90.0, 40.0, "ph_dispatch", "phase", cid=1, seq=0),
-        _sp(0, 120.0, 400.0, "ph_execute", "phase", cid=1, seq=0),
+        _sp(0, 120.0, 400.0, ex, cat, cid=1, seq=0),
     ]
     assert mod._clipped_phase_us(op, phases) <= op["dur"]
 
@@ -251,18 +269,33 @@ def _synthetic_dumps(seed: int, nranks: int = 4, nops: int = 24):
     return dumps
 
 
+def _port_dumps(dumps):
+    """The same dumps as the port writes them: each ``ph_execute`` (the
+    reference's host fence) is the port's ``meet_device``, cat meet."""
+    out = json.loads(json.dumps(dumps))
+    for d in out:
+        for e in d["events"]:
+            if e["name"] == "ph_execute":
+                e["name"], e["cat"] = _EXECUTE[critpath]
+    return out
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
 @pytest.mark.parametrize("min_skew", [0.0, 1000.0])
 def test_analyze_exact_on_synthetic_dumps(seed, min_skew):
-    """The same dumps give the reference's analysis document, report,
-    stitched Chrome trace and traceview summary."""
+    """The port's dumps give the reference's analysis document and
+    report of the reference's dumps (execute read from meet_device),
+    and the same dumps the same stitched Chrome trace and traceview
+    summary."""
     dumps = _synthetic_dumps(seed)
     offsets = traceview.embedded_offsets(dumps)
     assert offsets == ref_traceview.embedded_offsets(dumps)
-    got = critpath.analyze(dumps, offsets, min_skew_us=min_skew)
+    got = critpath.analyze(_port_dumps(dumps), offsets,
+                           min_skew_us=min_skew)
     want = ref_critpath.analyze(dumps, offsets, min_skew_us=min_skew)
     assert got == want
     assert got["coverage"] > 0 and got["multi_rank_ops"] > 0
+    assert "execute" in got["phase_wall_us"]
     assert critpath.report(got) == ref_critpath.report(want)
     assert json.dumps(critpath.stitched_chrome_trace(dumps, offsets)) == \
         json.dumps(ref_critpath.stitched_chrome_trace(dumps, offsets))
@@ -271,16 +304,25 @@ def test_analyze_exact_on_synthetic_dumps(seed, min_skew):
 
 
 def test_cli_exact_on_synthetic_dumps(tmp_path, capsys):
-    """The two CLIs print the same JSON and write the same stitched
-    trace from the same dump files."""
-    for d in _synthetic_dumps(7):
-        (tmp_path / f"trace-r{d['rank']}.json").write_text(json.dumps(d))
+    """The port's CLI prints, from the port's dump files, the JSON the
+    reference's prints from its own, and both write the same stitched
+    trace from the same files."""
+    dumps = _synthetic_dumps(7)
+    for name, ds in (("ref", dumps), ("port", _port_dumps(dumps))):
+        (tmp_path / name).mkdir()
+        for d in ds:
+            (tmp_path / name / f"trace-r{d['rank']}.json").write_text(
+                json.dumps(d))
     outs = []
     for mod, name in ((critpath, "port"), (ref_critpath, "ref")):
-        out = tmp_path / f"{name}.json"
-        assert mod.main([str(tmp_path / "trace-r*.json"), "-o", str(out),
+        assert mod.main([str(tmp_path / name / "trace-r*.json"),
                          "--json"]) == 0
-        outs.append((capsys.readouterr().out, out.read_text()))
+        text = capsys.readouterr().out
+        out = tmp_path / f"{name}.json"
+        assert mod.main([str(tmp_path / "ref" / "trace-r*.json"), "-o",
+                         str(out), "--json"]) == 0
+        capsys.readouterr()
+        outs.append((text, out.read_text()))
     assert outs[0] == outs[1]
 
 
@@ -345,8 +387,10 @@ def test_phase_coverage_on_clean_segring(tmp_path):
     assert doc["coverage"] >= 0.90, doc
     assert doc["multi_rank_ops"] > 0
     assert any("segring" in k for k in doc["tax"]), doc["tax"]
-    assert {"rendezvous", "pack", "dispatch", "execute", "unpack"} <= \
+    assert {"rendezvous", "lock", "pack", "dispatch", "unpack"} <= \
         set(doc["phase_wall_us"])
+    # on the CPU no body runs on a card: no meet_device, no execute
+    assert "execute" not in doc["phase_wall_us"]
 
 
 def test_injected_delay_names_gating_rank(tmp_path):
@@ -385,47 +429,55 @@ def test_hotpath_audit_declares_phase_helpers():
     assert hotpath_audit.audit() == []
 
 
-# -- the execute-phase fence: a pinned divergence ---------------------------
-
-class _Done:
-    """A done event stand-in: counts its waits, optionally fails."""
-
-    def __init__(self, fail: bool = False) -> None:
-        self.waits = 0
-        self.fail = fail
-
-    def synchronize(self) -> None:
-        self.waits += 1
-        if self.fail:
-            raise RuntimeError("device fault")
-
-
-def test_execute_fence_waits_once_a_card_and_only_when_sampled_in():
-    a, b = _Done(), _Done()
-    res = [("o0", a), ("o1", a), ("o2", b), ("o3", None)]
-    tr = trace.Tracer(0, capacity=16)
-    assert device._phase_fn(lambda s: res, [], None) is res
-    assert a.waits == b.waits == 0        # sampled out: no fence
-    assert device._phase_fn(lambda s: res, [], (tr, 1, 0, 64)) is res
-    assert a.waits == 1 and b.waits == 1  # one wait a card's event
-    assert [e["name"] for e in tr.snapshot()] == ["ph_dispatch",
-                                                  "ph_execute"]
+def _calls_with(fn_node, var: str):
+    """The names of the functions ``fn_node`` calls with ``var`` among
+    their arguments, and of every attribute it calls on ``var``'s
+    items (``mk[0].end``)."""
+    import ast
+    out = set()
+    for sub in ast.walk(fn_node):
+        if not isinstance(sub, ast.Call):
+            continue
+        f = sub.func
+        name = f.attr if isinstance(f, ast.Attribute) else \
+            getattr(f, "id", None)
+        if any(isinstance(a, ast.Name) and a.id == var for a in sub.args):
+            out.add(name)
+        if isinstance(f, ast.Attribute) and isinstance(
+                f.value, ast.Subscript) and getattr(
+                f.value.value, "id", None) == var:
+            out.add(f"{var}[].{name}")
+    return out
 
 
-def test_divergence_execute_fence_raises():
-    """A fence that fails on the card is a device fault: the port's
-    _block_ready raises it; the reference's swallows every exception
-    and records a zero-length execute span."""
-    tr = trace.Tracer(0, capacity=16)
-    with pytest.raises(RuntimeError, match="device fault"):
-        device._phase_fn(lambda s: [("o", _Done(fail=True))], [],
-                         (tr, 1, 0, 64))
-
-    class _Bad:
-        def block_until_ready(self):
-            raise RuntimeError("device fault")
-
-    ref_device._block_ready([_Bad()])     # swallowed
+@pytest.mark.parametrize("qual, helpers", [
+    ("Rendezvous.begin", {"_meet_lock", "_ph_rdv_start", "_meet_wait_end",
+                          "_meet_post", "partial"}),
+    ("Rendezvous.finish", {"_meet_lock", "_ph_rdv_start",
+                           "_meet_wait_end"}),
+    ("Rendezvous._work", {"_meet_post"}),
+    ("_fence", {"_meet_device", "_marked_body"}),
+])
+def test_meeting_records_only_through_audited_helpers(qual, helpers):
+    """The meeting's record sites in ``begin``, ``finish``, ``_work``
+    and ``_fence`` record nothing themselves: the meet ctx goes only to
+    helpers the audit holds to its rules (or through ``partial`` to
+    ``_work``), and ``_fence`` marks the body's launches through one."""
+    import ast
+    import inspect
+    from ompi_tpu_torch.tools import hotpath_audit
+    hot = set(hotpath_audit.HOT_FUNCTIONS["ompi_tpu_torch/coll/device.py"])
+    src = inspect.getsource(device)
+    nodes = dict(hotpath_audit._iter_functions(ast.parse(src)))
+    node = nodes[qual]
+    got = _calls_with(node, "mk")
+    if qual == "_fence":
+        got |= {n for n in _calls_with(node, "body")
+                if n == "_marked_body"}
+    assert got == helpers
+    assert got - {"partial"} <= hot
+    assert not any(n.startswith("mk[]") for n in got)
+    assert hotpath_audit.audit() == []
 
 
 # -- the lost wake-up: repaired in the port, pinned in the reference --------
@@ -551,3 +603,160 @@ def test_divergence_fence_and_collect_are_pack_and_unpack_phases(
     assert device._fenced(cpu, ph) == (cpu, None)
     assert device._collect((cpu, None), ph) is cpu
     assert len(tr.snapshot()) == 2
+
+
+# -- the meeting's spans: lock, waits, the body on the card -----------------
+
+class _TimedEvent:
+    """A CUDA event stand-in that keeps its timing flag and counts the
+    host's waits on it."""
+    made = []
+
+    def __init__(self, enable_timing: bool = False) -> None:
+        self.timing, self.waits, self.stream = enable_timing, 0, None
+        _TimedEvent.made.append(self)
+
+    def record(self, stream) -> None:
+        self.stream = stream
+        stream.order.append(self)
+
+    def synchronize(self) -> None:
+        self.waits += 1
+
+    def query(self) -> bool:
+        return True
+
+    def elapsed_time(self, other) -> float:
+        return 0.5
+
+
+class _OrderedStream(_Stream):
+    cuda_stream = 77
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.order = []
+        self.idle = False
+
+    def query(self) -> bool:
+        return self.idle
+
+    def wait_event(self, ev) -> None:
+        super().wait_event(ev)
+        self.order.append(("wait", ev))
+
+
+def test_fence_times_the_body_from_its_first_launch_without_a_wait(
+        monkeypatch):
+    """With a meet ctx the body's launches are marked: the card's first
+    launch records a timing event just before it (after the stream's
+    waits on the deposits and the body's host work), the done event
+    times the body's end, and the pair is queued on the trigger's
+    tracer, with the host ns of the start where the stream had nothing
+    queued (a probe of the card's clock).  The host waits for the card
+    once, for the card's anchor at its first traced body.  A later
+    launch marks nothing more; an untraced body's launches mark nothing;
+    a traced body that launched nothing on the card gets a plain done
+    event and no span."""
+    from ompi_tpu_torch.kernels import stacked
+    stream = _OrderedStream()
+    _TimedEvent.made = []
+    monkeypatch.setattr(torch.cuda, "Event", _TimedEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: stream)
+    monkeypatch.setattr(device, "_anchors", {})
+    xs = [torch.Tensor._make_subclass(_CardTensor, torch.zeros(4))
+          for _ in range(2)]
+    ready = [_TimedEvent(), _TimedEvent()]
+    slots = list(zip(xs, ready))
+    tr = trace.Tracer(0, capacity=16)
+
+    def body(values):
+        stream.order.append("host work")
+        for k in (1, 2):
+            assert stacked.launch_stream(values[0].device) == 77
+            stream.order.append(f"launch {k}")
+        return list(values)
+
+    for seq in (0, 1):
+        del stream.order[:]
+        stream.idle = seq == 0              # the first finds nothing queued
+        outs = device._fence(body, (tr, 3, seq, 16))(slots)
+        assert stream.order[:3] == [("wait", ready[0]), ("wait", ready[1]),
+                                    "host work"]
+        e0, done = stream.order[3], stream.order[6]
+        assert stream.order[4:6] == ["launch 1", "launch 2"]
+        assert e0.timing and done.timing and outs[0][1] is done
+        # the first body's stream also records the card's anchor
+        assert len(stream.order) == (8 if seq == 0 else 7)
+        assert not stacked.marks.on
+    (anchor,) = device._anchors.values()
+    assert anchor.ev.waits == 1              # the one wait: the anchor
+    assert sum(e.waits for e in _TimedEvent.made) == 1
+    assert tr._dv_n == 2 and tr._dv_anchor[1] is anchor
+    # the body that found its stream idle carries a probe of the clock
+    assert tr._dv_idle[0] > 0 and tr._dv_idle[1] == 0
+    spans = [e for e in tr.snapshot() if e["name"] == "meet_device"]
+    # card 0: the stand-in tensors' device has no index
+    assert [e["args"] for e in spans] == [
+        {"cid": 3, "seq": 0, "card": 0}, {"cid": 3, "seq": 1, "card": 0}]
+    # the anchor's host ns plus 0.5 ms each way (the stand-in's clock)
+    assert all(e["dur"] == 0 and e["ts"] == tr._wall(anchor.ns + 500_000)
+               for e in spans)
+    assert len(anchor.ms) == 1 and anchor.a == anchor.b == 0
+    n = len(_TimedEvent.made)
+    outs = device._fence(body)(slots)
+    assert len(_TimedEvent.made) == n + 1 and not outs[0][1].timing
+    outs = device._fence(lambda values: list(values), (tr, 3, 2, 16))(slots)
+    assert len(_TimedEvent.made) == n + 2 and not outs[0][1].timing
+    assert tr._dv_n == 0 and tr.cursor == 2
+
+
+def test_critpath_labels_the_meeting_spans():
+    """critpath reads the meeting's spans as phases: ``meet_lock`` is
+    the lock, ``meet_wait`` the rendezvous, ``meet_device`` the
+    execute phase; a gate whose largest phase is its lock wait is
+    gated by the lock, and ``meet_post`` is no phase."""
+    events = [
+        _sp(0, 0.0, 600.0, "meet", "coll_dispatch", cid=1, seq=0),
+        _sp(1, 100.0, 500.0, "meet", "coll_dispatch", cid=1, seq=0),
+        _sp(1, 100.0, 300.0, "meet_lock", "meet", cid=1, seq=0),
+        _sp(1, 400.0, 50.0, "meet_wait", "meet", cid=1, seq=0),
+        _sp(1, 450.0, 0.0, "meet_post", "meet", cid=1, seq=0),
+        _sp(1, 460.0, 120.0, "meet_device", "meet", cid=1, seq=0),
+    ]
+    idx = critpath.phase_index(events)
+    assert [critpath.PHASE_OF[e["name"]] for e in idx[1]] == [
+        "lock", "rendezvous", "execute"]
+    gate, skew = critpath._gate_of(
+        critpath.group_ops(events)[("coll_dispatch", "meet", 1, 0)])
+    assert gate["rank"] == 1 and skew == 100.0
+    assert critpath.gating_verdict(gate, skew, idx) == "lock"
+    assert trace.PHASE_LABELS["meet_lock"] == "lock"
+    assert {k: v for k, v in trace.PHASE_LABELS.items()
+            if k.startswith("meet_")} == {
+        k: v for k, v in critpath.PHASE_OF.items() if k.startswith("meet_")}
+
+
+def test_sampled_in_segments_record_the_meeting(tmp_path):
+    """A segment of the pipelined tier that samples into the phase ctx
+    records the meeting's spans against it: two locks a rank a segment,
+    its waits as ph_rdv_wait alone, and one post a segment over the
+    world (from the dispatcher thread); the critpath report carries
+    the lock."""
+    dumps, offsets = _segring_world(tmp_path)
+    posts = 0
+    for d in dumps:
+        evs = d["events"]
+        segs = sum(e["name"] == "seg_meet" for e in evs)
+        # every meet (the Barriers' coll/sm meetings) times its lock too
+        meets = sum(e["name"] == "meet" for e in evs)
+        assert segs > 0
+        assert sum(e["name"] == "meet_lock" for e in evs) == \
+            2 * (segs + meets)
+        assert sum(e["name"] == "meet_wait" for e in evs) == 0
+        posts += sum(e["name"] == "meet_post" for e in evs)
+    assert posts == sum(e["name"] in ("seg_meet", "meet")
+                        for e in dumps[0]["events"])
+    doc = critpath.analyze(dumps, offsets)
+    assert doc["phase_wall_us"]["lock"] > 0
+    assert "lock" in critpath.report(doc)

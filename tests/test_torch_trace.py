@@ -58,7 +58,8 @@ _PIPE_ON = {"coll_pipeline_enable": True, "coll_pipeline_min_bytes": 2048,
 # every knob a test here sets, in either registry
 _KNOBS = ("trace_enable", "trace_dump_path", "trace_buffer_events",
           "trace_sample_spec", "trace_sample_auto", "trace_sample_max",
-          "trace_phase_enable", "coll_sm_priority", *_PIPE_ON)
+          "trace_phase_enable", "trace_phase_sample", "coll_sm_priority",
+          *_PIPE_ON)
 
 
 def _both(knobs) -> None:
@@ -116,13 +117,18 @@ def test_bucket_tables_match_reference():
     assert trace.N_BUCKETS == ref_trace.N_BUCKETS
     assert trace.BUCKET_BOUNDS_US == ref_trace.BUCKET_BOUNDS_US
     assert trace.HIST_NAMES == ref_trace.HIST_NAMES
-    assert trace.SPAN_CATS == ref_trace.SPAN_CATS
+    # the port's meeting category comes after the reference's
+    assert trace.SPAN_CATS == ref_trace.SPAN_CATS + ("meet",)
     assert [trace.bucket_upper_us(b) for b in range(trace.N_BUCKETS)] == \
         [ref_trace.bucket_upper_us(b) for b in range(trace.N_BUCKETS)]
-    # the names interned at import keep the reference's ids; the
-    # port's own compile span comes after them
+    # the names interned at import are the reference's, in its order,
+    # less ph_execute (the port has no execute fence); the port's own
+    # compile span comes after them
     n = trace.NAME_KERNEL_LOAD
-    assert trace._names[:n] == ref_trace._names[:n]
+    assert trace._names[:n] == [x for x in ref_trace._names
+                                if x != "ph_execute"][:n]
+    assert "ph_execute" in ref_trace._name_ids
+    assert "ph_execute" not in trace._name_ids
     assert trace._cats[:len(ref_trace._cats)] == ref_trace._cats
 
 
@@ -145,6 +151,18 @@ def test_histograms_exact(seed, which):
 
 
 # -- exact against the reference: sampling ----------------------------------
+
+def _shared(got: dict) -> dict:
+    """The port's sampling document less its meeting category (the
+    reference has none), after checking that category is untouched:
+    full fidelity, nothing dropped."""
+    out = dict(got)
+    for k, idle in (("dropped_by_cat", 0), ("rates", 1)):
+        d = dict(out[k])
+        assert d.pop("meet") == idle
+        out[k] = d
+    return out
+
 
 def _sample(mod, cat_name: str, name: str, nspans: int) -> dict:
     tr = mod.Tracer(0, capacity=4096)
@@ -177,7 +195,7 @@ def test_sampled_counters_exact(cat, name, period):
     _both({"trace_sample_spec": f"{cat}:{period}",
            "trace_sample_auto": "0"})
     got = _sample(trace, cat, name, 100)
-    assert got == _sample(ref_trace, cat, name, 100)
+    assert _shared(got) == _sample(ref_trace, cat, name, 100)
     assert len(got["kept"]) == -(-100 // period)
     assert got["recorded"] == 100 == got["seen"]
     assert got["spans"] + got["dropped_by_cat"][cat] == got["seen"]
@@ -191,7 +209,7 @@ def test_adaptive_sampling_exact(auto, cap):
     categories never leave full fidelity."""
     _both({"trace_sample_auto": str(auto), "trace_sample_max": str(cap)})
     got = _sample(trace, "coll", "meet", 200)
-    assert got == _sample(ref_trace, "coll", "meet", 200)
+    assert _shared(got) == _sample(ref_trace, "coll", "meet", 200)
     assert got["rates"]["p2p"] == 1
     assert got["seen"] == 200
     assert got["spans"] + got["dropped_by_cat"]["coll"] == 200
@@ -239,6 +257,7 @@ def test_ring_wraparound_exact(capacity):
         return kept, tr.recorded, tr.dropped, tr.dropped_by_cat()
 
     got = run(trace)
+    assert got[3].pop("meet") == 0      # the port's meeting category
     assert got == run(ref_trace)
     kept, recorded, dropped, _ = got
     assert len(kept) == capacity
@@ -253,10 +272,12 @@ def test_span_args_decode_exact():
     constant (each must be in the port's table) and any name both
     tables have interned since — the reference interns a collective's
     name when it first traces one, so its table depends on which tests
-    ran before in the process."""
+    ran before in the process.  The reference's ph_execute alone is
+    not the port's: the port fences no execute phase."""
     static = {ref_trace._names[getattr(ref_trace, a)]
               for a in dir(ref_trace) if a.startswith("NAME_")}
-    assert static <= set(trace._name_ids)
+    assert static - {"ph_execute"} <= set(trace._name_ids)
+    assert "ph_execute" in static and "ph_execute" not in trace._name_ids
     shared = [n for n in ref_trace._names if n in trace._name_ids]
 
     def run(mod):
@@ -280,10 +301,23 @@ def test_span_args_decode_exact():
 
 # -- port only: the cost contract -------------------------------------------
 
-def test_trace_disabled_costs_nothing():
+def test_trace_disabled_costs_nothing(monkeypatch):
     """trace_enable off (default): every layer's cached tracer slot is
-    None — the single-attribute-check contract."""
+    None — the single-attribute-check contract.  The meeting's record
+    sites are never reached (its meet ctx is None), no body's launches
+    are marked and no card anchor is made."""
     assert not trace.enable_var.value
+    from ompi_tpu_torch.coll import device
+
+    def boom(*a, **k):
+        raise AssertionError("a meeting record site ran with tracing off")
+
+    from ompi_tpu_torch.kernels import stacked
+    for name in ("_meet_lock", "_meet_wait_end", "_meet_post",
+                 "_marked_body", "_meet_device", "_make_anchor"):
+        monkeypatch.setattr(device, name, boom)
+    monkeypatch.setattr(stacked, "arm_marks", boom)
+    anchors = dict(device._anchors)
 
     def fn(comm):
         assert comm.state.tracer is None
@@ -291,10 +325,12 @@ def test_trace_disabled_costs_nothing():
         assert comm.state.pml._tracer is None
         assert trace.current_tracer() is None
         _port_traffic(comm)
-        return comm.state.tracer is None
+        x = comm.allreduce_arr(torch.ones(16) * comm.rank, port_op.SUM)
+        return comm.state.tracer is None and float(x[0]) == 1.0
 
-    assert all(run_ranks(2, fn))
+    assert all(run_ranks(2, fn, device_map=lambda r: CPU))
     assert trace.global_tracer() is None
+    assert device._anchors == anchors
 
 
 def test_enabled_hot_path_retains_no_objects():
@@ -414,6 +450,7 @@ _STRUCT_CATS = ("p2p", "coll", "nbc", "phase", "coll_dispatch",
                 "coll_segment")
 # phases recorded on the triggering rank's tracer: which rank triggers
 # a meeting depends on arrival order, so they compare as world totals
+# (the reference's ph_execute fence has no counterpart in the port)
 _TRIGGER_PHASES = ("ph_dispatch", "ph_execute")
 
 
@@ -457,8 +494,10 @@ def test_traced_world_structural_parity(tmp_path):
     """Per rank, the port records the reference's spans: the same
     multiset of (cat, name) over p2p, coll, nbc, dispatch, segment and
     phase spans, the same (cid, seq) keys, the same ob1 match ids; the
-    triggering rank's dispatch/execute phases match as world totals.
-    The results are the same bytes."""
+    triggering rank's dispatch phases match as world totals.  Pinned
+    divergence: the port records no ph_execute (it waits for no body on
+    the card), where the reference fences one a dispatch.  The results
+    are the same bytes."""
     ref = _world(ref_run_ranks, lambda a, c: jax.device_put(a, c.device),
                  ref_op, lambda r: jax.devices()[0], tmp_path / "ref")
     port = _world(run_ranks, lambda a, c: torch.from_numpy(a), port_op,
@@ -476,8 +515,9 @@ def test_traced_world_structural_parity(tmp_path):
         # every rank logged the segmented allreduce and its phases
         assert per_p[("coll_dispatch", "pipeline_allreduce")] == 2
         assert per_p[("phase", "ph_rdv_wait")] > 0
-    assert trig_port == trig_ref
-    assert trig_port["ph_dispatch"] == trig_port["ph_execute"] > 0
+    assert trig_port["ph_dispatch"] == trig_ref["ph_dispatch"] > 0
+    assert trig_ref["ph_execute"] == trig_ref["ph_dispatch"]
+    assert trig_port["ph_execute"] == 0
     # collective correlation: every rank logged allreduce under the
     # same (cid, seq); every receiver's mid is some sender's
     ar = [next(e for e in evs if e["name"] == "allreduce")
@@ -491,6 +531,298 @@ def test_traced_world_structural_parity(tmp_path):
     # finalize dumped one file per rank
     assert sorted(os.listdir(tmp_path / "port")) == [
         f"trace-r{r}.json" for r in range(4)]
+
+
+# -- the meeting's spans (cat meet) ----------------------------------------
+
+_MEET = ("meet_lock", "meet_wait", "meet_post", "meet_device")
+
+
+def _meet_world(phase_sample: int = 0, nops: int = 6):
+    """A traced 4-rank thread world of small ``allreduce_arr`` calls
+    (one ``meet`` each on coll/hbm) and a Barrier (coll/sm's meeting);
+    ``phase_sample`` > 0 arms the phase ctx at that period.  Returns
+    each rank's snapshot."""
+    knobs = {"trace_enable": "1", "trace_sample_auto": "0",
+             "trace_buffer_events": "65536"}
+    if phase_sample:
+        knobs.update(trace_phase_enable="1",
+                     trace_phase_sample=str(phase_sample))
+    for k, v in knobs.items():
+        registry.set(k, v)
+
+    def fn(comm):
+        x = torch.arange(16, dtype=torch.float32) + comm.rank
+        for _ in range(nops):
+            x = comm.allreduce_arr(x, port_op.SUM) * 0.25
+        comm.Barrier()
+        return comm.state.tracer.snapshot()
+
+    return run_ranks(4, fn, device_map=lambda r: CPU, timeout=120)
+
+
+def _keyed(events, name):
+    return Counter((e["args"]["cid"], e["args"]["seq"]) for e in events
+                   if e["name"] == name and e["ph"] == "X")
+
+
+def test_meet_post_once_an_op():
+    """Every op's meeting posts its results once: one ``meet_post``
+    over the world a ``meet`` key, zero-length, in cat meet."""
+    snaps = _meet_world()
+    ops = _keyed(snaps[0], "meet")
+    assert len(ops) == 7                     # 6 allreduces, the Barrier
+    posts = Counter()
+    for evs in snaps:
+        assert _keyed(evs, "meet") == ops    # every rank met every op
+        posts += _keyed(evs, "meet_post")
+        assert all(e["dur"] == 0 and e["cat"] == "meet" for e in evs
+                   if e["name"] == "meet_post")
+    assert posts == ops
+
+
+def test_meet_lock_and_wait_carry_the_op_key():
+    """Each rank times the meeting's lock twice an op (``begin`` and
+    ``finish``) and each of its two waits, keyed by the op's (cid,
+    seq) as its ``meet`` span is; with the phase ctx off no wait is a
+    ``ph_rdv_wait``."""
+    for evs in _meet_world():
+        ops = _keyed(evs, "meet")
+        assert _keyed(evs, "meet_lock") == ops + ops
+        assert _keyed(evs, "meet_wait") == ops + ops
+        assert not _keyed(evs, "ph_rdv_wait")
+        for e in evs:
+            if e["name"] in ("meet_lock", "meet_wait"):
+                assert e["cat"] == "meet" and e["dur"] >= 0
+
+
+def test_sampled_in_op_waits_once_under_ph_rdv_wait():
+    """An op that sampled into the phase ctx writes its waits as
+    ``ph_rdv_wait`` and never also as ``meet_wait``; a sampled-out op
+    writes them as ``meet_wait``; the lock and the post are recorded
+    on both."""
+    for evs in _meet_world(phase_sample=2):
+        ops = _keyed(evs, "meet")
+        rdv, wait = _keyed(evs, "ph_rdv_wait"), _keyed(evs, "meet_wait")
+        assert rdv and wait
+        assert not set(rdv) & set(wait)
+        assert rdv + wait == ops + ops
+        assert _keyed(evs, "meet_lock") == ops + ops
+        assert sum(e["name"] == "ph_execute" for e in evs) == 0
+
+
+def test_meet_category_counted_in_sampling():
+    """The meet category is a span category: its spans count as seen
+    and kept, it runs at period 1, and its drops are exact (none)."""
+    registry.set("trace_enable", "1")
+    registry.set("trace_sample_auto", "0")
+
+    def fn(comm):
+        comm.allreduce_arr(torch.ones(8), port_op.SUM)
+        tr = comm.state.tracer
+        return (tr.sampling_rates()["meet"], tr.dropped_by_cat()["meet"],
+                tr.cat_seen("meet"), tr.span_count("meet"),
+                _pvar("trace_dropped_meet"))
+
+    for rate, dropped, seen, spans, pv in run_ranks(
+            2, fn, device_map=lambda r: CPU):
+        assert rate == 1 and dropped == 0 and pv == 0
+        assert seen == spans >= 4            # 2 locks, 2 waits
+
+
+def test_finalize_dump_carries_the_meeting(tmp_path):
+    """The finalize dump (``trace_dump_path``) holds each rank's
+    meeting spans with the op's keys and the category's accounting:
+    what a reader of a finished run works from."""
+    registry.set("trace_dump_path", str(tmp_path))
+    _meet_world(nops=2)
+    docs = [json.loads((tmp_path / f"trace-r{r}.json").read_text())
+            for r in range(4)]
+    posts = Counter()
+    for doc in docs:
+        evs = doc["events"]
+        ops = _keyed(evs, "meet")
+        # 2 allreduces, the Barrier, and finalize's own meetings
+        assert len(ops) >= 3 and ops == _keyed(docs[0]["events"], "meet")
+        assert _keyed(evs, "meet_lock") == ops + ops
+        posts += _keyed(evs, "meet_post")
+        assert doc["dropped_by_cat"]["meet"] == 0
+        assert doc["sampling"]["meet"] == 1
+        assert doc["anchor"]["perf_ns"] > 0
+    assert posts == ops
+
+
+def test_meet_category_samples_and_backs_off():
+    """The meet ctx is gated by its own category: ``meet:2`` records
+    the meeting of every other op (the rest counted sampled out), and
+    with adaptation on the category backs off like any other."""
+    registry.set("trace_sample_spec", "meet:2")
+    for evs in _meet_world(nops=7):
+        ops = _keyed(evs, "meet")
+        assert len(ops) == 8
+        locks = _keyed(evs, "meet_lock")
+        assert len(locks) == 4 and set(locks) < set(ops)
+        assert set(locks.values()) == {2}
+    registry.set("trace_sample_spec", "")
+    registry.set("trace_enable", "1")
+    registry.set("trace_sample_auto", "4")
+    registry.set("trace_sample_max", "8")
+
+    def fn(comm):
+        for _ in range(40):
+            comm.allreduce_arr(torch.ones(8), port_op.SUM)
+        tr = comm.state.tracer
+        return tr.sampling_rates()["meet"], tr.cat_seen("meet")
+
+    for rate, seen in run_ranks(2, fn, device_map=lambda r: CPU):
+        assert rate == 8 and seen > 0
+
+
+class _StubEvent:
+    """A CUDA event stand-in: done once ``done`` is set, ``ms`` past
+    the anchor's event on the card's clock."""
+
+    def __init__(self, ms: float, done: bool = True) -> None:
+        self.ms, self.done, self.waits = ms, done, 0
+
+    def query(self) -> bool:
+        return self.done
+
+    def synchronize(self) -> None:
+        self.waits += 1
+        self.done = True
+
+    def elapsed_time(self, other) -> float:
+        return other.ms - self.ms
+
+
+def _anchor(monkeypatch, ms: float, ns: int):
+    """The port's card anchor over a stand-in clock reading: its event
+    at ``ms`` on the card's clock is host ``ns``."""
+    from ompi_tpu_torch.coll import device
+    monkeypatch.setattr(device, "_clock_reading",
+                        lambda dev: (_StubEvent(ms), ns))
+    return device._Anchor("card")
+
+
+def test_meet_device_pair_resolves_onto_the_anchor(monkeypatch):
+    """A queued pair stays out of the ring until its end event reports
+    done (``query``, never a wait), then lands as ``meet_device`` at the
+    anchor's host ns plus the events' ms past the anchor's event."""
+    tr = trace.Tracer(0, capacity=16)
+    anchor = _anchor(monkeypatch, 1.0, 5_000_000_000)
+    e0, e1 = _StubEvent(3.5), _StubEvent(9.0, done=False)
+    tr.device_pair(e0, e1, anchor, 7, 42, 0)
+    assert tr.snapshot() == [] and tr._dv_n == 1
+    assert e0.waits == e1.waits == 0
+    e1.done = True
+    (e,) = tr.snapshot()
+    assert tr._dv_n == 0 and tr._dv_e1[0] is None
+    assert (tr._ts[0], tr._dur[0]) == (5_002_500_000, 5_500_000)
+    assert e["ts"] == tr._wall(5_002_500_000)
+    assert (e["name"], e["cat"], e["args"]) == (
+        "meet_device", "meet", {"cid": 7, "seq": 42, "card": 0})
+    assert e["dur"] == pytest.approx(5.5e-3)
+
+
+def test_anchor_fits_its_probes(monkeypatch):
+    """The card's anchor converts at its reading alone until it holds
+    ``ANCHOR_MIN_PROBES`` probes (start events recorded on an idle
+    stream, with the host ns then); then it adds the line through the
+    median residual of the earliest and the latest third of them (here
+    20 µs at the reading and a card clock 4 parts in a million slow),
+    which two wild probes do not move; probes spanning less than
+    ``ANCHOR_BASE_MS`` give the offset alone.  A tracer gives its
+    finished pairs' probes to their anchor before it converts them, and
+    never waits for a pair still running."""
+    from ompi_tpu_torch.coll import device
+    assert (device.ANCHOR_MIN_PROBES, device.ANCHOR_BASE_MS) == (16, 1e4)
+    base = 10**9
+    anchor = _anchor(monkeypatch, 0.0, base)
+    late = _StubEvent(30_000.0)
+    for k in range(1, 25):
+        ms = 1_000.0 * k
+        anchor.probe(_StubEvent(ms), base + int(ms * 1e6) + 20_000
+                     + int(4 * ms) + (300_000 if k in (3, 20) else 0))
+        if k == 15:
+            assert anchor.host_ns(late) == base + 30_000_000_000
+    assert anchor.host_ns(late) == base + 30_000_000_000 + 20_000 + 120_000
+    assert anchor.b == pytest.approx(4.0) and anchor.a == 20_000
+    near = _anchor(monkeypatch, 0.0, base)
+    for k in range(16):
+        near.probe(_StubEvent(100.0 * k), base + 10**8 * k + 7_000)
+    assert near.host_ns(late) == base + 30_000_007_000 and near.b == 0
+    tr = trace.Tracer(0, capacity=16)
+    e1 = _StubEvent(31_001.0, done=False)
+    tr.device_pair(_StubEvent(25_000.0), _StubEvent(25_000.5), anchor,
+                   1, 0, 0, base + 25_000_120_000)
+    tr.device_pair(_StubEvent(31_000.0), e1, anchor, 1, 1, 0,
+                   base + 31_000_144_000)
+    (e,) = tr.snapshot()
+    assert len(anchor.ms) == 25 and anchor.ms[-1] == 25_000.0
+    assert (tr._ts[0], tr._dur[0]) == (base + 25_000_120_000, 500_002)
+    assert e["args"] == {"cid": 1, "seq": 0, "card": 0}
+    assert e1.waits == 0 and tr._dv_n == 1
+    assert tr._dv_idle[0] == base + 31_000_144_000
+
+
+def test_meet_device_full_list_resolves_or_counts_the_drop(tmp_path,
+                                                           monkeypatch):
+    """A full list resolves its finished pairs in place; full of
+    unfinished ones, the new pair is counted dropped (never a wait on
+    the hot path).  The finalize dump waits for the rest."""
+    tr = trace.Tracer(0, capacity=4 * trace.DEVICE_PAIRS)
+    anchor = _anchor(monkeypatch, 0.0, 0)
+    ends = [_StubEvent(i + 1.0, done=False)
+            for i in range(trace.DEVICE_PAIRS)]
+    for i, e1 in enumerate(ends):
+        tr.device_pair(_StubEvent(float(i)), e1, anchor, 1, i, 0)
+    tr.device_pair(_StubEvent(0.0), _StubEvent(1.0), anchor, 1, -1, 0)
+    assert tr.dropped_by_cat()["meet"] == 1
+    assert tr._dv_n == trace.DEVICE_PAIRS and tr.cursor == 0
+    for e1 in ends[:10]:
+        e1.done = True
+    tr.device_pair(_StubEvent(0.0), _StubEvent(1.0), anchor, 1, 10**6, 0)
+    assert tr.span_count("meet") == 10
+    assert tr._dv_n == trace.DEVICE_PAIRS - 10 + 1
+    assert [tr._dv_seq[i] for i in range(3)] == [10, 11, 12]
+    assert sum(e.waits for e in ends) == 0
+    tr.dump(str(tmp_path / "t.json"))
+    assert tr._dv_n == 0 and sum(e.waits for e in ends) == \
+        trace.DEVICE_PAIRS - 10
+    doc = json.loads((tmp_path / "t.json").read_text())
+    assert sum(e["name"] == "meet_device" for e in doc["events"]) == \
+        trace.DEVICE_PAIRS + 1
+    assert doc["dropped_by_cat"]["meet"] == 1
+
+
+def test_meet_record_sites_retain_no_objects(monkeypatch):
+    """The meeting's record calls allocate nothing that survives them:
+    a zero-length ``point`` and a queued device pair (the stub events
+    reused), thousands of times, ring wraparound included."""
+    tr = trace.Tracer(0, capacity=256)
+    anchor = _anchor(monkeypatch, 0.0, 0)
+    e0, e1 = _StubEvent(1.0), _StubEvent(2.0)
+
+    def burst(n):
+        for i in range(n):
+            tr.point(trace.NAME_MEET_POST, trace.CAT_MEET, 1, i, 64)
+            tr.device_pair(e0, e1, anchor, 1, i, 0)
+
+    burst(2048)
+    gc.collect()
+    tracemalloc.start()
+    base = tracemalloc.get_traced_memory()[0]
+    burst(4000)
+    gc.collect()
+    grown = tracemalloc.get_traced_memory()[0] - base
+    tracemalloc.stop()
+    assert grown < 4096, f"record sites retained {grown} bytes"
+    assert tr.span_count("meet") == tr.capacity
+    assert tr.resolve_device() == 0
+    tr.point(trace.NAME_MEET_POST, trace.CAT_MEET, 1, 0, 64)
+    last = tr.snapshot()[-1]
+    assert (last["name"], last["dur"]) == ("meet_post", 0)
 
 
 # -- the cross-rank merge ---------------------------------------------------
